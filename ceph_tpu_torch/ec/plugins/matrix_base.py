@@ -1,0 +1,295 @@
+"""Shared implementation for linear matrix codes over GF(2^8).
+
+Covers both chunk layouts the reference's plugins produce:
+
+- **byte-stream codes** (jerasure ``reed_sol_van``/``reed_sol_r6_op``
+  with w=8, all ISA-L codes): chunk bytes are GF(2^8) symbols; encode is
+  ``parity = C @ data`` over the byte stream (reference
+  jerasure_matrix_encode / isa ec_encode_data).
+- **packet/bitmatrix codes** (jerasure ``cauchy_orig``/``cauchy_good``,
+  via jerasure_schedule_encode): each chunk is a sequence of
+  super-packets of ``w * packetsize`` bytes; bit-row b of a super-packet
+  occupies bytes [b*packetsize, (b+1)*packetsize).  The schedule XORs
+  whole packet rows — which is exactly a GF(2^8) matmul whose matrix is
+  the (m·w, k·w) 0/1 bit-matrix expansion of the Cauchy matrix (XOR of
+  byte rows == multiply-by-1-and-add in GF(2^8)).  So both layouts run
+  on the *same* device kernel (ceph_tpu_torch.ops.rs_kernels) with different
+  row reshaping, and both reproduce the reference's exact chunk bytes.
+
+Decode derives a per-erasure-signature matrix by Gauss-Jordan inversion
+of the surviving rows (host side) and caches it LRU-style, mirroring
+``ErasureCodeIsaTableCache`` (reference
+src/erasure-code/isa/ErasureCodeIsaTableCache.cc); for 0/1 matrices the
+inverse stays 0/1 (GF(2) is a subfield), so packet codes decode with
+packet-row XORs just like jerasure_schedule_decode_lazy.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+from typing import Iterable, Mapping
+
+import numpy as np
+
+import torch
+
+from ceph_tpu_torch.ec.interface import ECError, ErasureCode
+from ceph_tpu_torch.models.matrices import decode_matrix_for
+from ceph_tpu_torch.ops.gf256 import gf_matmul, gf_matrix_to_bitmatrix
+from ceph_tpu_torch.ops.rs_kernels import BitmatrixCodec, resolve_device
+
+#: Below this many payload bytes per encode/decode call, host numpy XOR
+#: beats device dispatch latency (SURVEY.md §7 hard part 3: the per-op
+#: path needs a host fallback below a batch-size threshold).
+DEVICE_MIN_BYTES = int(os.environ.get("CEPH_TPU_EC_DEVICE_MIN_BYTES", 1 << 20))
+
+#: Decode-matrix LRU capacity (tables are tiny; the reference caches
+#: per-signature decode tables the same way).
+DECODE_CACHE_SIZE = 256
+
+
+class MatrixErasureCode(ErasureCode):
+    """A systematic (k+m, k) linear code over GF(2^8) byte/packet rows.
+
+    Subclasses set ``k``, ``m`` and call :meth:`prepare` with the (m, k)
+    GF(2^8) coding matrix (byte-stream codes) or the (m·w, k·w) 0/1
+    expansion with ``rows_per_chunk=w`` (packet codes).  Payloads of at
+    least ``device_min_bytes`` run on ``device`` (the card unless the
+    caller asks for the CPU); smaller ones on the host.
+    """
+
+    #: True when ANY k chunks decode the object (MDS property) —
+    #: consumers like the fast_read path rely on it; locally-repairable
+    #: and shingled codes override to False
+    mds_any_k = True
+
+    def __init__(self, *, device=None) -> None:
+        super().__init__()
+        self.device = resolve_device(device)
+        self.k = 0
+        self.m = 0
+        self.w = 8
+        self.rows_per_chunk = 1
+        self.packetsize = 0
+        self.per_chunk_alignment = False
+        self._C: np.ndarray | None = None  # row-space coding part
+        # device bit-matrix LRU: erasure signatures rotate during
+        # multi-PG recovery, so one slot would thrash retraces
+        self._device_bits: collections.OrderedDict = collections.OrderedDict()
+        self.device_min_bytes = DEVICE_MIN_BYTES
+        self._decode_cache: collections.OrderedDict[
+            tuple[int, ...], np.ndarray
+        ] = collections.OrderedDict()
+
+    # -- construction --------------------------------------------------------
+
+    def prepare(self, coding_matrix: np.ndarray, rows_per_chunk: int = 1) -> None:
+        self._C = np.asarray(coding_matrix, dtype=np.uint8)
+        self.rows_per_chunk = rows_per_chunk
+        assert self._C.shape == (self.m * rows_per_chunk, self.k * rows_per_chunk)
+
+    @property
+    def coding_matrix(self) -> np.ndarray:
+        assert self._C is not None, "prepare() not called"
+        return self._C
+
+    # -- interface trivia ----------------------------------------------------
+
+    def get_chunk_count(self) -> int:
+        return self.k + self.m
+
+    def get_data_chunk_count(self) -> int:
+        return self.k
+
+    # -- row reshaping (packet layout) --------------------------------------
+
+    def _chunk_to_rows(self, chunk: np.ndarray) -> np.ndarray:
+        """(S,) -> (rows_per_chunk, S/rows_per_chunk)."""
+        r = self.rows_per_chunk
+        if r == 1:
+            return chunk[None, :]
+        p = self.packetsize
+        s = len(chunk)
+        assert p and s % (r * p) == 0, (s, r, p)
+        return (
+            chunk.reshape(s // (r * p), r, p).transpose(1, 0, 2).reshape(r, s // r)
+        )
+
+    def _rows_to_chunk(self, rows: np.ndarray) -> np.ndarray:
+        r = self.rows_per_chunk
+        if r == 1:
+            return rows[0]
+        p = self.packetsize
+        s = rows.shape[1] * r
+        return (
+            rows.reshape(r, s // (r * p), p).transpose(1, 0, 2).reshape(s)
+        )
+
+    # -- compute paths -------------------------------------------------------
+
+    def _apply_matrix(self, M: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        """out = M @ rows over GF(2^8); device for big payloads.  A
+        device failure propagates: there is no host fallback."""
+        if rows.size >= self.device_min_bytes:
+            return self._apply_device(M, rows)
+        return gf_matmul(M, rows)
+
+    def _apply_device(self, M: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        key = M.shape[0].to_bytes(2, "little") + M.tobytes()
+        bits = self._device_bits.get(key)
+        if bits is None:
+            bits = torch.as_tensor(gf_matrix_to_bitmatrix(M), device=self.device)
+            self._device_bits[key] = bits
+            if len(self._device_bits) > DECODE_CACHE_SIZE:
+                self._device_bits.popitem(last=False)
+        else:
+            self._device_bits.move_to_end(key)
+        # one upload and one by-design host exit (chunks persist to the
+        # store); .cpu() waits for the kernel
+        data = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
+        return BitmatrixCodec._apply(bits, data, None).cpu().numpy()
+
+    # -- encode --------------------------------------------------------------
+
+    def encode_chunks(self, want_to_encode: set[int], encoded: dict[int, np.ndarray]) -> None:
+        data_rows = np.concatenate(
+            [self._chunk_to_rows(encoded[self.chunk_index(i)]) for i in range(self.k)]
+        )
+        parity_rows = self._apply_matrix(self.coding_matrix, data_rows)
+        r = self.rows_per_chunk
+        for i in range(self.m):
+            out = self._rows_to_chunk(parity_rows[i * r : (i + 1) * r])
+            encoded[self.chunk_index(self.k + i)][...] = out
+
+    # -- decode --------------------------------------------------------------
+
+    def _decode_matrix(self, erasures: tuple[int, ...]) -> np.ndarray:
+        """Row-space decode matrix for a sorted erasure signature,
+        LRU-cached (ErasureCodeIsaTableCache semantics)."""
+        hit = self._decode_cache.get(erasures)
+        if hit is not None:
+            self._decode_cache.move_to_end(erasures)
+            return hit
+        r = self.rows_per_chunk
+        erased_rows = [c * r + j for c in erasures for j in range(r)]
+        D = decode_matrix_for(self.coding_matrix, erased_rows)
+        self._decode_cache[erasures] = D
+        if len(self._decode_cache) > DECODE_CACHE_SIZE:
+            self._decode_cache.popitem(last=False)
+        return D
+
+    def decode_matrix(self, erasures) -> np.ndarray:
+        """Public form of the per-erasure-signature cached decode matrix
+        (consumed by the recovery-decode aggregator, which batches
+        matmuls across objects sharing the signature)."""
+        return self._decode_matrix(tuple(sorted(erasures)))
+
+    def decode_plan(
+        self,
+        available: Mapping[int, np.ndarray],
+        want_chunks: Iterable[int],
+    ) -> tuple[tuple[int, ...], list[int], list[int], np.ndarray | None]:
+        """Survivor/erasure algebra shared by the sync decode path and
+        the encode farm's async twin (ecutil._decode_chunks_async):
+        (erasures, survivors, need_rec, decode matrix or None)."""
+        import errno as _errno
+
+        n = self.k + self.m
+        erasures = tuple(c for c in range(n) if self.chunk_index(c) not in available)
+        survivors = [c for c in range(n) if self.chunk_index(c) in available][: self.k]
+        if len(survivors) < self.k:
+            raise ECError(_errno.EIO, "not enough chunks to decode")
+        need_rec = [c for c in want_chunks if c in erasures]
+        D = self._decode_matrix(erasures) if need_rec else None
+        return erasures, survivors, need_rec, D
+
+    def decode_rows(
+        self, available: Mapping[int, np.ndarray], survivors: list[int]
+    ) -> np.ndarray:
+        """Stack survivor payloads into the matmul operand."""
+        return np.concatenate(
+            [
+                self._chunk_to_rows(
+                    np.ascontiguousarray(available[self.chunk_index(c)])
+                )
+                for c in survivors
+            ]
+        )
+
+    def decode_assemble(
+        self,
+        available: Mapping[int, np.ndarray],
+        want_chunks: Iterable[int],
+        erasures: tuple[int, ...],
+        need_rec: list[int],
+        rec_rows: np.ndarray | None,
+    ) -> dict[int, np.ndarray]:
+        """Map reconstructed rows + passthrough chunks to chunk ids."""
+        out: dict[int, np.ndarray] = {}
+        r = self.rows_per_chunk
+        for t, c in enumerate(erasures):
+            if c in need_rec:
+                out[c] = self._rows_to_chunk(rec_rows[t * r : (t + 1) * r])
+        for c in want_chunks:
+            if c not in out:
+                out[c] = np.asarray(available[self.chunk_index(c)])
+        return out
+
+    def decode_payloads(
+        self,
+        available: Mapping[int, np.ndarray],
+        want_chunks: Iterable[int],
+    ) -> dict[int, np.ndarray]:
+        """Reconstruct ``want_chunks`` (chunk ids) from available shard
+        payloads of any multiple of the superpacket size — one matmul
+        regardless of how many stripes the payloads span.  ``available``
+        is keyed by shard position; results are keyed by chunk id.
+
+        This is the single home of the survivor/erasure algebra; both
+        per-stripe decode_chunks and ECUtil's whole-payload batched
+        decode (reference ECUtil.cc:50-121) go through it, and the
+        encode-farm async twin reuses the same plan/rows/assemble
+        pieces with the matmul on the mesh.
+        """
+        want_chunks = list(want_chunks)
+        erasures, survivors, need_rec, D = self.decode_plan(available, want_chunks)
+        rec_rows = None
+        if need_rec:
+            rec_rows = self._apply_matrix(D, self.decode_rows(available, survivors))
+        return self.decode_assemble(available, want_chunks, erasures, need_rec, rec_rows)
+
+    def decode_chunks(
+        self,
+        want_to_read: set[int],
+        chunks: Mapping[int, np.ndarray],
+        decoded: dict[int, np.ndarray],
+    ) -> None:
+        # keys of chunks/decoded are shard positions; the matrix algebra
+        # runs over chunk ids (chunk c lives at shard chunk_index(c))
+        n = self.k + self.m
+        erased = [c for c in range(n) if self.chunk_index(c) not in chunks]
+        rec = self.decode_payloads(chunks, erased)
+        for c in erased:
+            decoded[self.chunk_index(c)][...] = rec[c]
+
+    # -- batched stripe API (device hot path used by the OSD EC backend) -----
+
+    def encode_stripes(self, data):
+        """torch (..., k, S) uint8 -> (..., m, S) parity.  Byte-stream
+        codes only (packet codes reshape host-side today)."""
+        assert self.rows_per_chunk == 1
+        codec = self._stripes_codec()
+        return codec.encode(data)
+
+    def decode_stripes(self, chunks, erasures: tuple[int, ...]):
+        """torch (..., k+m, S) with erased rows ignored -> reconstructed
+        (..., len(erasures), S)."""
+        assert self.rows_per_chunk == 1
+        codec = self._stripes_codec()
+        return codec.decode(chunks, erasures)
+
+    def _stripes_codec(self):
+        if not isinstance(getattr(self, "_stripes", None), BitmatrixCodec):
+            self._stripes = BitmatrixCodec(self.coding_matrix, device=self.device)
+        return self._stripes

@@ -1,0 +1,110 @@
+"""Native C++ host crc32c, loaded via ctypes.
+
+The reference keeps its data-plane checksums native (crc32c:
+src/common/crc32c.cc + sctp_crc32.c).  The port does the same: a small
+C++ library compiled on first use with g++ (no pip deps) into this
+directory, rebuilt when its source is newer than the library.  A
+pure-Python table loop computes the same values where no toolchain is
+present (it is slow: a few MB/s).
+
+Public API:
+  crc32c(data, seed=-1)          -- reference ceph_crc32c semantics
+  available()                    -- True when the .so is loaded
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SO = os.path.join(_HERE, "_libceph_tpu_torch_native.so")
+_SRCS = ["crc32c.cc"]
+
+_lib = None
+_lock = threading.Lock()
+_build_failed = False
+
+
+def _load():
+    global _lib, _build_failed
+    if _lib is not None or _build_failed:
+        return _lib
+    with _lock:
+        if _lib is not None or _build_failed:
+            return _lib
+        srcs = [os.path.join(_HERE, s) for s in _SRCS]
+        try:
+            if not os.path.exists(_SO) or any(
+                os.path.getmtime(s) > os.path.getmtime(_SO) for s in srcs
+            ):
+                tmp = _SO + f".tmp.{os.getpid()}"
+                subprocess.run(
+                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp]
+                    + srcs,
+                    check=True,
+                    capture_output=True,
+                )
+                os.replace(tmp, _SO)
+            lib = ctypes.CDLL(_SO)
+        except (OSError, subprocess.CalledProcessError):
+            _build_failed = True
+            return None
+        lib.ceph_tpu_torch_crc32c.restype = ctypes.c_uint32
+        lib.ceph_tpu_torch_crc32c.argtypes = [
+            ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t,
+        ]
+        _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+# -- pure-python table loop -------------------------------------------------
+
+_PY_TABLE: np.ndarray | None = None
+
+
+def _py_table() -> np.ndarray:
+    global _PY_TABLE
+    if _PY_TABLE is None:
+        t = np.zeros(256, dtype=np.uint32)
+        for i in range(256):
+            c = i
+            for _ in range(8):
+                c = (0x82F63B78 ^ (c >> 1)) if (c & 1) else (c >> 1)
+            t[i] = c
+        _PY_TABLE = t
+    return _PY_TABLE
+
+
+def _py_crc32c(data: bytes, seed: int) -> int:
+    t = _py_table()
+    crc = seed & 0xFFFFFFFF
+    for b in data:
+        crc = int(t[(crc ^ b) & 0xFF]) ^ (crc >> 8)
+    return crc
+
+
+# -- public API -------------------------------------------------------------
+
+def crc32c(data, seed: int = 0xFFFFFFFF) -> int:
+    """Reference ceph_crc32c(seed, data, len): reflected CRC32C table
+    update, no init/final inversion (sctp_crc32.c:update_crc32)."""
+    arr = np.ascontiguousarray(
+        np.frombuffer(data, dtype=np.uint8)
+        if isinstance(data, (bytes, bytearray, memoryview))
+        else np.asarray(data, dtype=np.uint8).reshape(-1)
+    )
+    lib = _load()
+    if lib is not None:
+        return lib.ceph_tpu_torch_crc32c(
+            seed & 0xFFFFFFFF, arr.ctypes.data, arr.nbytes
+        )
+    return _py_crc32c(arr.tobytes(), seed)

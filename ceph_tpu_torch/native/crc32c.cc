@@ -1,0 +1,57 @@
+// crc32c host kernel (Castagnoli, reflected poly 0x82F63B78).
+//
+// Behavioral twin of the reference's ceph_crc32c family
+// (reference src/common/sctp_crc32.c:update_crc32 — plain reflected
+// table update, caller passes the seed, no init/final inversion).
+// Slice-by-8 for throughput.
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+
+namespace {
+
+struct Tables {
+  uint32_t t[8][256];
+  Tables() {
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; k++) c = (c & 1) ? 0x82F63B78u ^ (c >> 1) : c >> 1;
+      t[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = t[0][i];
+      for (int s = 1; s < 8; s++) {
+        c = t[0][c & 0xff] ^ (c >> 8);
+        t[s][i] = c;
+      }
+    }
+  }
+};
+const Tables kT;
+
+}  // namespace
+
+extern "C" {
+
+// Matches ceph_crc32c(seed, data, len).
+uint32_t ceph_tpu_torch_crc32c(uint32_t crc, const uint8_t* data, size_t len) {
+  while (len && (reinterpret_cast<uintptr_t>(data) & 7)) {
+    crc = kT.t[0][(crc ^ *data++) & 0xff] ^ (crc >> 8);
+    len--;
+  }
+  while (len >= 8) {
+    uint64_t v;
+    std::memcpy(&v, data, 8);
+    v ^= crc;
+    crc = kT.t[7][v & 0xff] ^ kT.t[6][(v >> 8) & 0xff] ^
+          kT.t[5][(v >> 16) & 0xff] ^ kT.t[4][(v >> 24) & 0xff] ^
+          kT.t[3][(v >> 32) & 0xff] ^ kT.t[2][(v >> 40) & 0xff] ^
+          kT.t[1][(v >> 48) & 0xff] ^ kT.t[0][(v >> 56) & 0xff];
+    data += 8;
+    len -= 8;
+  }
+  while (len--) crc = kT.t[0][(crc ^ *data++) & 0xff] ^ (crc >> 8);
+  return crc;
+}
+
+}  // extern "C"

@@ -1,0 +1,154 @@
+"""GF(2^8) arithmetic core (numpy host side).
+
+The whole erasure-code subsystem works over GF(2^8) with the primitive
+polynomial x^8 + x^4 + x^3 + x^2 + 1 (0x11d) and generator alpha = 2 —
+the same field used by jerasure/gf-complete and Intel ISA-L, so matrix
+constructions that follow those libraries' algorithms produce the same
+coefficients (reference: src/erasure-code/jerasure/, src/erasure-code/isa/).
+
+This is the port's host oracle: decode matrices are derived here, and
+the device path (``ceph_tpu_torch.ops.rs_kernels``) consumes the
+bit-matrix representation produced by :func:`gf_matrix_to_bitmatrix`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+GF_POLY = 0x11D  # x^8+x^4+x^3+x^2+1, primitive over GF(2)
+GF_ORDER = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _tables() -> tuple[np.ndarray, np.ndarray]:
+    """(exp, log) tables.  exp has 512 entries so exp[log a + log b] needs
+    no modular reduction; log[0] is a sentinel (unused by callers that
+    special-case zero)."""
+    exp = np.zeros(512, dtype=np.uint8)
+    log = np.zeros(256, dtype=np.int32)
+    x = 1
+    for i in range(255):
+        exp[i] = x
+        log[x] = i
+        x <<= 1
+        if x & 0x100:
+            x ^= GF_POLY
+    for i in range(255, 512):
+        exp[i] = exp[i - 255]
+    log[0] = 0  # sentinel; products involving 0 are masked by callers
+    return exp, log
+
+
+def gf_exp_table() -> np.ndarray:
+    return _tables()[0]
+
+
+def gf_log_table() -> np.ndarray:
+    return _tables()[1]
+
+
+def gf_mul(a, b):
+    """Element-wise GF(2^8) multiply of arrays/scalars (uint8)."""
+    a = np.asarray(a, dtype=np.uint8)
+    b = np.asarray(b, dtype=np.uint8)
+    exp, log = _tables()
+    out = exp[log[a] + log[b]]
+    return np.where((a == 0) | (b == 0), np.uint8(0), out)
+
+
+def gf_div(a, b):
+    a = np.asarray(a, dtype=np.uint8)
+    b = np.asarray(b, dtype=np.uint8)
+    if np.any(b == 0):
+        raise ZeroDivisionError("GF(2^8) division by zero")
+    exp, log = _tables()
+    out = exp[log[a] + 255 - log[b]]
+    return np.where(a == 0, np.uint8(0), out)
+
+
+def gf_inv(a):
+    return gf_div(np.uint8(1), a)
+
+
+def gf_matmul(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """Matrix product over GF(2^8): (n,k) x (k,m) -> (n,m), XOR-accumulated."""
+    A = np.asarray(A, dtype=np.uint8)
+    B = np.asarray(B, dtype=np.uint8)
+    assert A.shape[-1] == B.shape[0]
+    # products[i, j, t] = A[i, t] * B[t, j]; XOR-reduce over t
+    prod = gf_mul(A[..., :, None, :], np.swapaxes(B, -1, -2)[None, :, :])
+    return np.bitwise_xor.reduce(prod, axis=-1)
+
+
+def gf_mat_inv(M: np.ndarray) -> np.ndarray:
+    """Invert a square matrix over GF(2^8) by Gauss-Jordan elimination.
+
+    Raises ``np.linalg.LinAlgError`` if singular.  This is the host-side
+    analogue of the decode-matrix inversion jerasure/ISA-L perform per
+    erasure signature (reference: src/erasure-code/isa/ErasureCodeIsa.cc
+    decode-table construction); results are cached by the plugin layer.
+    """
+    M = np.array(M, dtype=np.uint8)
+    n = M.shape[0]
+    assert M.shape == (n, n)
+    aug = np.concatenate([M, np.eye(n, dtype=np.uint8)], axis=1)
+    for col in range(n):
+        piv = col + int(np.argmax(aug[col:, col] != 0))
+        if aug[piv, col] == 0:
+            raise np.linalg.LinAlgError("singular matrix over GF(2^8)")
+        if piv != col:
+            aug[[col, piv]] = aug[[piv, col]]
+        aug[col] = gf_mul(aug[col], gf_inv(aug[col, col]))
+        mask = aug[:, col] != 0
+        mask[col] = False
+        if mask.any():
+            aug[mask] ^= gf_mul(aug[mask][:, col:col + 1], aug[col][None, :])
+    return aug[:, n:]
+
+
+# --- bit-matrix (GF(2)) representation ------------------------------------
+#
+# Multiplication by a constant c in GF(2^8) is GF(2)-linear on the 8 bits
+# of the operand: bits_out = M_c @ bits_in (mod 2) with M_c[:, j] = bits of
+# c * 2^j (LSB-first).  A full (m x k) GF(2^8) generator matrix therefore
+# expands to an (8m x 8k) 0/1 matrix, and erasure encode becomes a mod-2
+# product of that matrix with the bits of the chunk bytes — the
+# representation the CUDA kernels (ops/csrc/gf_bitmatmul.cu) consume.
+
+
+def gf_const_to_bitmatrix(c: int) -> np.ndarray:
+    """8x8 0/1 matrix M with: bits(c*x) = M @ bits(x) mod 2 (LSB-first)."""
+    cols = []
+    for j in range(8):
+        prod = int(gf_mul(np.uint8(c), np.uint8(1 << j)))
+        cols.append([(prod >> i) & 1 for i in range(8)])
+    return np.array(cols, dtype=np.uint8).T
+
+
+def gf_matrix_to_bitmatrix(M: np.ndarray) -> np.ndarray:
+    """(m,k) GF(2^8) matrix -> (8m, 8k) 0/1 matrix over GF(2)."""
+    M = np.asarray(M, dtype=np.uint8)
+    m, k = M.shape
+    out = np.zeros((8 * m, 8 * k), dtype=np.uint8)
+    for i in range(m):
+        for j in range(k):
+            out[8 * i:8 * i + 8, 8 * j:8 * j + 8] = gf_const_to_bitmatrix(int(M[i, j]))
+    return out
+
+
+def bytes_to_bits(a: np.ndarray) -> np.ndarray:
+    """uint8 array (..., n) -> 0/1 uint8 array (..., 8n), LSB-first per byte,
+    laid out so bit b of byte i lands at index 8*i+b — matching the
+    bit-matrix block layout above."""
+    a = np.asarray(a, dtype=np.uint8)
+    bits = np.unpackbits(a[..., None], axis=-1, bitorder="little")
+    return bits.reshape(*a.shape[:-1], a.shape[-1] * 8)
+
+
+def bits_to_bytes(bits: np.ndarray) -> np.ndarray:
+    bits = np.asarray(bits, dtype=np.uint8)
+    assert bits.shape[-1] % 8 == 0
+    b = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8)
+    return np.packbits(b, axis=-1, bitorder="little")[..., 0]

@@ -1,0 +1,384 @@
+"""Erasure-code kernels: GF(2^8) codes as GF(2) bit-matrix products.
+
+Counterpart of ``ceph_tpu/ops/rs_kernels.py``.  Multiplication by a
+constant in GF(2^8) is GF(2)-linear on the operand's bits, so an (m, k)
+byte generator expands into an (8m, 8k) 0/1 matrix
+(:func:`ceph_tpu_torch.ops.gf256.gf_matrix_to_bitmatrix`) and erasure
+encode becomes
+
+    parity_bits = (B @ data_bits) mod 2
+
+Decode is the same product with a per-erasure-signature matrix (inverted
+host-side and cached).
+
+Every entry point has two implementations of one function:
+
+- on a CUDA tensor, the hand-written kernel of ``csrc/gf_bitmatmul.cu``
+  (built with ``nvcc`` at first use, see :mod:`._build`); a launch that
+  fails raises;
+- on a CPU tensor, the plain PyTorch version :func:`gf_bitmatmul_plain`
+  (unpack -> matmul -> ``& 1`` -> pack).
+
+The entry points keep the JAX package's names and signatures, and each
+counts its kernel launches in a plain integer attribute ``launches``
+(:func:`launch_counts`), so a run shows which kernels it reached.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch.ops.gf256 import gf_matrix_to_bitmatrix
+
+#: columns per step of the plain version: bounds its float bit tensor
+#: at 8k x 2^22 x 4 bytes however wide S is
+_PLAIN_COLS = 1 << 22
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    asks for another; raises when that is CUDA and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the CPU path and the card's yardstick)
+# ---------------------------------------------------------------------------
+
+def unpack_bits(data: torch.Tensor) -> torch.Tensor:
+    """(..., k, S) uint8 -> (..., 8k, S) uint8 of 0/1; byte i bit b (LSB
+    first) lands at row 8i+b, matching gf_matrix_to_bitmatrix layout."""
+    *lead, k, s = data.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    bits = (data[..., :, None, :] >> shifts[:, None]) & 1
+    return bits.reshape(*lead, k * 8, s)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 8m, S) ints in {0,1} -> (..., m, S) uint8 (LSB-first)."""
+    *lead, m8, s = bits.shape
+    b = bits.reshape(*lead, m8 // 8, 8, s).to(torch.int32)
+    weights = (1 << torch.arange(8, dtype=torch.int32, device=bits.device))
+    # bit positions are disjoint, so the sum is the bitwise OR
+    return (b * weights[:, None]).sum(dim=-2).to(torch.uint8)
+
+
+def gf_bitmatmul_plain(bitmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """(8m, 8k) 0/1 matrix applied to (..., k, S) uint8 -> (..., m, S).
+
+    The product runs in float32: every term is 0 or 1 and a sum has at
+    most 8k <= 2040 of them, so it is exact (also under TF32, which keeps
+    0 and 1 exact and accumulates in float32)."""
+    *lead, k, s = data.shape
+    m = bitmat.shape[0] // 8
+    bm = bitmat.to(torch.float32)
+    out = torch.empty((*lead, m, s), dtype=torch.uint8, device=data.device)
+    for c0 in range(0, s, _PLAIN_COLS):
+        bits = unpack_bits(data[..., c0:c0 + _PLAIN_COLS]).to(torch.float32)
+        acc = torch.matmul(bm, bits).to(torch.int32) & 1
+        out[..., c0:c0 + _PLAIN_COLS] = pack_bits(acc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+# ---------------------------------------------------------------------------
+
+_fn = None
+
+
+def _kernel():
+    """ctypes handle of ``ceph_gf_bitmatmul``, built on first use."""
+    global _fn
+    if _fn is None:
+        from ceph_tpu_torch.ops import _build
+
+        fn = _build.library("gf_bitmatmul").ceph_gf_bitmatmul
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # bitmat, data, out
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong,       # k, m, s
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,  # batch, strides
+            ctypes.c_int, ctypes.c_int,                          # acc, seed
+            ctypes.c_void_p,                                     # stream
+        ]
+        _fn = fn
+    return _fn
+
+
+def _check(bitmat: torch.Tensor, data: torch.Tensor) -> tuple[int, int]:
+    """Validate operands; returns (k, m)."""
+    for name, t in (("bitmat", bitmat), ("data", data)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, not {type(t).__name__}")
+        if t.dtype != torch.uint8:
+            raise TypeError(f"{name} must be uint8, not {t.dtype}")
+    if bitmat.device != data.device:
+        raise ValueError(
+            f"bitmat on {bitmat.device} but data on {data.device}")
+    if bitmat.dim() != 2 or bitmat.shape[0] % 8 or bitmat.shape[1] % 8:
+        raise ValueError(f"bitmat must be (8m, 8k), got {tuple(bitmat.shape)}")
+    if data.dim() < 2:
+        raise ValueError(f"data must be (..., k, S), got {tuple(data.shape)}")
+    m, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
+    if data.shape[-2] != k:
+        raise ValueError(f"data has {data.shape[-2]} rows, bitmat wants {k}")
+    if not (1 <= k and 1 <= m and k + m <= 256):
+        raise ValueError(f"k={k}, m={m}: need k + m <= 256")
+    return k, m
+
+
+def _launch(bitmat, data, out, *, acc=False, seed=0) -> None:
+    """One kernel launch on the current stream; raises if it is refused."""
+    for name, t in (("bitmat", bitmat), ("data", data), ("out", out)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out.device != data.device:
+        raise ValueError(f"out on {out.device} but data on {data.device}")
+    k, s = data.shape[-2], data.shape[-1]
+    m = out.shape[-2]
+    batch = data.numel() // max(k * s, 1)
+    with torch.cuda.device(data.device):
+        err = _kernel()(
+            bitmat.data_ptr(), data.data_ptr(), out.data_ptr(),
+            k, m, s, batch, k * s, m * s, int(acc), int(seed) & 0xFF,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"gf_bitmatmul kernel launch failed: cudaError {err} "
+            f"(k={k}, m={m}, S={s}, batch={batch}, acc={acc})")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def gf_bitmatmul(bitmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Apply an (8m, 8k) GF(2) bit-matrix to (..., k, S) uint8 chunk data,
+    returning (..., m, S) uint8.  On the card: one launch with a batch
+    grid axis over the leading dimensions (replaces the jitted XLA
+    ``gf_bitmatmul`` of ceph_tpu/ops/rs_kernels.py:59-70)."""
+    k, m = _check(bitmat, data)
+    if _on_cpu(data):
+        return gf_bitmatmul_plain(bitmat, data)
+    out = torch.empty((*data.shape[:-2], m, data.shape[-1]),
+                      dtype=torch.uint8, device=data.device)
+    _launch(bitmat, data, out)
+    gf_bitmatmul.launches += 1
+    return out
+
+
+def _check_2d(data: torch.Tensor, multiple: int) -> None:
+    if data.dim() != 2:
+        raise ValueError(f"data must be (k, S), got {tuple(data.shape)}")
+    assert data.shape[1] % multiple == 0, (data.shape[1], multiple)
+
+
+def gf_bitmatmul_pallas(bitmat: torch.Tensor, data: torch.Tensor, *,
+                        tile_s: int) -> torch.Tensor:
+    """2-D (k, S) form with S a multiple of ``tile_s``; bit-exact with
+    :func:`gf_bitmatmul`.  Replaces ``gf_bitmatmul_pallas``
+    (ceph_tpu/ops/rs_kernels.py:257-286); the tile is a TPU block width
+    and only its divisibility is kept."""
+    k, m = _check(bitmat, data)
+    _check_2d(data, tile_s)
+    if _on_cpu(data):
+        return gf_bitmatmul_plain(bitmat, data)
+    out = torch.empty((m, data.shape[1]), dtype=torch.uint8, device=data.device)
+    _launch(bitmat, data, out)
+    gf_bitmatmul_pallas.launches += 1
+    return out
+
+
+def gf_bitmatmul_pallas_grouped(bitmat: torch.Tensor, data: torch.Tensor, *,
+                                tile_s: int, groups: int) -> torch.Tensor:
+    """Grouped column layout: group j of window w covers columns
+    [(w*g + j)*T, (w*g + j + 1)*T), S a multiple of ``groups * tile_s``.
+    Replaces ``gf_bitmatmul_pallas_grouped``
+    (ceph_tpu/ops/rs_kernels.py:204-240), which packed the groups as
+    blockdiag(C, ..., C) to fill the TPU's MXU.  The grouping changes no
+    output byte, so on the card it is the ungrouped launch; the layout's
+    divisibility is still asserted."""
+    k, m = _check(bitmat, data)
+    _check_2d(data, groups * tile_s)
+    if groups < 1 or groups & (groups - 1):
+        raise ValueError(f"groups must be a power of two, got {groups}")
+    if _on_cpu(data):
+        return gf_bitmatmul_plain(bitmat, data)
+    out = torch.empty((m, data.shape[1]), dtype=torch.uint8, device=data.device)
+    _launch(bitmat, data, out)
+    gf_bitmatmul_pallas_grouped.launches += 1
+    return out
+
+
+def gf_bitmatmul_pallas_acc(bitmat: torch.Tensor, data: torch.Tensor,
+                            carry: torch.Tensor, seed, *,
+                            tile_s: int) -> torch.Tensor:
+    """``carry ^= encode(data ^ (seed & 0xFF))``, in place; returns
+    ``carry``.  Replaces ``gf_bitmatmul_pallas_acc``
+    (ceph_tpu/ops/rs_kernels.py:289-342), whose carry is aliased to its
+    output (``input_output_aliases``): updating the tensor in place is
+    how the port keeps that aliasing.  ``seed`` is an int or a
+    one-element int tensor (the JAX ``int32[1]``); like the TPU kernel's
+    cast, only its low byte is used.  The loop body of the throughput
+    harness."""
+    k, m = _check(bitmat, data)
+    _check_2d(data, tile_s)
+    if not isinstance(carry, torch.Tensor) or carry.dtype != torch.uint8:
+        raise TypeError("carry must be a uint8 torch.Tensor")
+    if tuple(carry.shape) != (m, data.shape[1]) or carry.device != data.device:
+        raise ValueError(
+            f"carry must be ({m}, {data.shape[1]}) on {data.device}, got "
+            f"{tuple(carry.shape)} on {carry.device}")
+    if isinstance(seed, torch.Tensor):
+        seed = int(seed.reshape(-1)[0])
+    seed = int(seed) & 0xFF
+    if _on_cpu(data):
+        return carry.bitwise_xor_(gf_bitmatmul_plain(bitmat, data ^ seed))
+    _launch(bitmat, data, carry, acc=True, seed=seed)
+    gf_bitmatmul_pallas_acc.launches += 1
+    return carry
+
+
+KERNEL_ENTRY_POINTS = (
+    gf_bitmatmul,
+    gf_bitmatmul_pallas,
+    gf_bitmatmul_pallas_grouped,
+    gf_bitmatmul_pallas_acc,
+)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_ENTRY_POINTS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per entry point since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNEL_ENTRY_POINTS}
+
+
+reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# Tile / group selection (kept from the JAX package so the same shapes
+# reach the same entry points)
+# ---------------------------------------------------------------------------
+
+def _pick_groups(k: int, m: int, s: int, tile_s: int) -> int:
+    """Largest power-of-two g with full blocks: 8kg <= 128, 8mg <= 128,
+    g | s/tile_s (ceph_tpu/ops/rs_kernels.py:193-201)."""
+    g = max(1, min(128 // (8 * k), 128 // (8 * m)))
+    g = 1 << (g.bit_length() - 1)
+    while g > 1 and ((s // tile_s) % g != 0):
+        g //= 2
+    return g
+
+
+def _pick_tile(s: int, max_tile: int = 262144) -> int | None:
+    """Largest power-of-two tile <= max_tile dividing s, None if s has
+    no even tiling >= 512 (ceph_tpu/ops/rs_kernels.py:243-254)."""
+    t = max_tile
+    while t >= 512:
+        if s % t == 0:
+            return t
+        t //= 2
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Encoder/decoder objects (host-side matrix prep, cached)
+# ---------------------------------------------------------------------------
+
+class BitmatrixCodec:
+    """Precomputed bit-matrices for one (k, m, generator) code, on one
+    device.  Decode matrices are derived and cached per erasure
+    signature (the ISA plugin's decode-table cache, reference
+    ErasureCodeIsaTableCache.cc)."""
+
+    def __init__(self, coding_matrix: np.ndarray, *, device=None):
+        self.device = resolve_device(device)
+        self.C = np.asarray(coding_matrix, dtype=np.uint8)
+        self.m, self.k = self.C.shape
+        self.encode_bits = torch.as_tensor(
+            gf_matrix_to_bitmatrix(self.C), device=self.device)
+        self._decode_cache: dict[tuple[int, ...], tuple[list[int], torch.Tensor]] = {}
+
+    def decode_bits(self, erasures: tuple[int, ...]) -> tuple[list[int], torch.Tensor]:
+        """(survivor chunk ids, bit-matrix mapping survivors->erased)."""
+        key = tuple(sorted(erasures))
+        hit = self._decode_cache.get(key)
+        if hit is None:
+            from ceph_tpu_torch.models.matrices import decode_matrix_for
+
+            D = decode_matrix_for(self.C, list(key))
+            survivors = [
+                i for i in range(self.k + self.m) if i not in set(key)
+            ][: self.k]
+            hit = (survivors, torch.as_tensor(
+                gf_matrix_to_bitmatrix(D), device=self.device))
+            self._decode_cache[key] = hit
+        return hit
+
+    def encode(self, data: torch.Tensor, *, pallas: bool | None = None) -> torch.Tensor:
+        """(..., k, S) uint8 -> (..., m, S) parity.  ``pallas=None``
+        picks the 2-D kernels for 2-D data on the card."""
+        return self._apply(self.encode_bits, data, pallas)
+
+    def decode_batch(self, batch: torch.Tensor,
+                     erasures: tuple[int, ...]) -> torch.Tensor:
+        """(B, k, S) survivor lanes (survivors in codec order for this
+        signature) -> (B, e, S) reconstructed chunks, one launch."""
+        _survivors, dbits = self.decode_bits(erasures)
+        return gf_bitmatmul(dbits, batch)
+
+    def decode(self, chunks: torch.Tensor, erasures: tuple[int, ...], *,
+               pallas: bool | None = None) -> torch.Tensor:
+        """Reconstruct erased chunks from the full (..., k+m, S) tensor in
+        which erased rows are ignored.  Returns (..., len(erasures), S)
+        with rows in the order *requested*, not sorted order."""
+        survivors, dbits = self.decode_bits(erasures)
+        sub = chunks[..., survivors, :].contiguous()
+        rec = self._apply(dbits, sub, pallas)
+        key = tuple(sorted(set(erasures)))
+        if key != tuple(erasures):
+            order = [key.index(e) for e in erasures]
+            rec = rec[..., order, :]
+        return rec
+
+    @staticmethod
+    def _apply(bits_matrix: torch.Tensor, data: torch.Tensor,
+               pallas: bool | None) -> torch.Tensor:
+        if pallas is None:
+            pallas = data.dim() == 2 and data.device.type == "cuda"
+        if pallas and data.dim() == 2:
+            tile = _pick_tile(data.shape[-1])
+            if tile is not None:
+                m8, k8 = bits_matrix.shape
+                g = _pick_groups(k8 // 8, m8 // 8, data.shape[-1], tile)
+                if g > 1 and tile // g >= 512:
+                    return gf_bitmatmul_pallas_grouped(
+                        bits_matrix, data, tile_s=tile // g, groups=g)
+                return gf_bitmatmul_pallas(bits_matrix, data, tile_s=tile)
+        return gf_bitmatmul(bits_matrix, data)
+
+
+def codec_from_reference(C: np.ndarray, *, device) -> BitmatrixCodec:
+    """The port's codec for the (m, k) uint8 coding matrix that the JAX
+    package's ``BitmatrixCodec.C`` holds: its ``encode_bits`` and
+    ``decode_bits`` equal the JAX codec's."""
+    return BitmatrixCodec(np.asarray(C, dtype=np.uint8), device=device)

@@ -1,0 +1,369 @@
+"""EC <-> OSD glue: stripe math, batched stripe encode/decode, HashInfo.
+
+Behavioral twin of reference src/osd/ECUtil.{h,cc}:
+
+- :class:`StripeInfo`  = ``ECUtil::stripe_info_t`` (ECUtil.h:27-81);
+- :func:`encode`       = ``ECUtil::encode`` (ECUtil.cc:123-162);
+- :func:`decode_concat`= ``ECUtil::decode`` concat form (ECUtil.cc:12-48);
+- :func:`decode_shards`= ``ECUtil::decode`` per-target-shard form with
+  CLAY sub-chunk minimums honored (ECUtil.cc:50-121);
+- :class:`HashInfo`    = ``ECUtil::HashInfo`` cumulative per-shard
+  crc32c chains (ECUtil.cc:164-248).
+
+Device-first difference: where the reference loops ``encode``/``decode``
+per stripe_width slice, matrix codes here assemble the whole multi-
+stripe payload into one row-space operand and run ONE GF matmul (on
+device above the plugin's batch threshold).  Shard layouts are
+bit-identical to the reference's per-stripe loop because shard i's
+payload is simply the concatenation of stripe-chunk i over stripes.
+"""
+
+from __future__ import annotations
+
+import errno
+from typing import Mapping
+
+import numpy as np
+
+from ceph_tpu_torch.ec.interface import ECError, ErasureCodeInterface
+from ceph_tpu_torch.ec.plugins.matrix_base import MatrixErasureCode
+from ceph_tpu_torch.native import crc32c
+
+
+class StripeInfo:
+    """stripe_info_t (ECUtil.h:27-81): stripe_width = k * chunk_size."""
+
+    def __init__(self, stripe_size: int, stripe_width: int):
+        assert stripe_width % stripe_size == 0, (stripe_width, stripe_size)
+        self.stripe_width = stripe_width
+        self.chunk_size = stripe_width // stripe_size
+
+    def logical_offset_is_stripe_aligned(self, logical: int) -> bool:
+        return logical % self.stripe_width == 0
+
+    def logical_to_prev_chunk_offset(self, offset: int) -> int:
+        return (offset // self.stripe_width) * self.chunk_size
+
+    def logical_to_next_chunk_offset(self, offset: int) -> int:
+        return (
+            (offset + self.stripe_width - 1) // self.stripe_width
+        ) * self.chunk_size
+
+    def logical_to_prev_stripe_offset(self, offset: int) -> int:
+        return offset - (offset % self.stripe_width)
+
+    def logical_to_next_stripe_offset(self, offset: int) -> int:
+        rem = offset % self.stripe_width
+        return offset + self.stripe_width - rem if rem else offset
+
+    def aligned_logical_offset_to_chunk_offset(self, offset: int) -> int:
+        assert offset % self.stripe_width == 0
+        return (offset // self.stripe_width) * self.chunk_size
+
+    def aligned_chunk_offset_to_logical_offset(self, offset: int) -> int:
+        assert offset % self.chunk_size == 0
+        return (offset // self.chunk_size) * self.stripe_width
+
+    def aligned_offset_len_to_chunk(self, off: int, length: int) -> tuple[int, int]:
+        return (
+            self.aligned_logical_offset_to_chunk_offset(off),
+            self.aligned_logical_offset_to_chunk_offset(length),
+        )
+
+    def offset_len_to_stripe_bounds(self, off: int, length: int) -> tuple[int, int]:
+        start = self.logical_to_prev_stripe_offset(off)
+        return start, self.logical_to_next_stripe_offset((off - start) + length)
+
+
+def bucket_lanes(
+    nbytes: int, *, min_bucket: int, tile_cap: int
+) -> list[tuple[int, int, int]]:
+    """Stripe -> bucket shaping for the batched dispatch layers
+    (parallel/decode_batcher): split a shard
+    payload of ``nbytes`` into column lanes of ``(offset, width,
+    bucket)`` where every bucket is drawn from the CLOSED power-of-two
+    ladder [min_bucket .. tile_cap].  Payloads wider than ``tile_cap``
+    split into full tile_cap lanes (GF matmuls and crc folds are both
+    column-composable); narrower ones pad up to their pow2 bucket —
+    so a prewarmed ladder covers every payload size an OSD can see."""
+    if nbytes <= 0:
+        return []
+    if nbytes <= tile_cap:
+        b = max(nbytes, min_bucket, 1)
+        return [(0, nbytes, 1 << (b - 1).bit_length())]
+    lanes = []
+    for off in range(0, nbytes, tile_cap):
+        lanes.append((off, min(tile_cap, nbytes - off), tile_cap))
+    return lanes
+
+
+def encode(
+    sinfo: StripeInfo,
+    ec_impl: ErasureCodeInterface,
+    data: bytes | np.ndarray,
+    want: set[int] | None = None,
+) -> dict[int, np.ndarray]:
+    """ECUtil::encode (ECUtil.cc:123-162): stripe-aligned logical bytes
+    -> per-shard chunk payloads.  Matrix codes take the batched one-
+    matmul path; other plugins fall back to the per-stripe loop."""
+    arr = (
+        np.asarray(data, dtype=np.uint8).reshape(-1)
+        if isinstance(data, np.ndarray)
+        else np.frombuffer(bytes(data), dtype=np.uint8)
+    )
+    sw, cs = sinfo.stripe_width, sinfo.chunk_size
+    if arr.nbytes % sw:
+        raise ECError(errno.EINVAL, f"logical size {arr.nbytes} not stripe aligned")
+    n_chunks = ec_impl.get_chunk_count()
+    k = ec_impl.get_data_chunk_count()
+    if want is None:
+        want = set(range(n_chunks))
+    if arr.nbytes == 0:
+        return {}
+    ns = arr.nbytes // sw
+
+    if isinstance(ec_impl, MatrixErasureCode):
+        # shard i of the per-stripe loop == concat over stripes of
+        # stripe-chunk i: a transpose of (ns, k, cs).  encode_chunks
+        # operates on payloads of any superpacket multiple, so the
+        # whole multi-stripe batch is one matmul.
+        data_shards = np.ascontiguousarray(
+            arr.reshape(ns, k, cs).transpose(1, 0, 2).reshape(k, ns * cs)
+        )
+        encoded: dict[int, np.ndarray] = {}
+        for i in range(k):
+            encoded[ec_impl.chunk_index(i)] = data_shards[i]
+        for j in range(k, n_chunks):
+            encoded[ec_impl.chunk_index(j)] = np.zeros(ns * cs, dtype=np.uint8)
+        ec_impl.encode_chunks(set(range(n_chunks)), encoded)
+        return {s: c for s, c in encoded.items() if s in want}
+
+    out: dict[int, list] = {}
+    for s in range(ns):
+        encoded = ec_impl.encode(set(range(n_chunks)), arr[s * sw : (s + 1) * sw])
+        for shard, chunk in encoded.items():
+            assert len(chunk) == cs
+            out.setdefault(shard, []).append(chunk)
+    return {
+        s: np.concatenate(bufs) for s, bufs in out.items() if s in want
+    }
+
+
+# -- recovery: per-object decodes batched by the DecodeAggregator ------------
+
+
+async def decode_shards_async(
+    sinfo: StripeInfo,
+    ec_impl: ErasureCodeInterface,
+    to_decode: Mapping[int, np.ndarray],
+    need: set[int],
+    *,
+    packed_repair: bool = False,
+    aggregator=None,
+) -> dict[int, np.ndarray]:
+    """:func:`decode_shards` with batched reconstruction (recovery
+    path; falls back for sub-chunk/packed codes).
+
+    ``aggregator`` (a parallel.decode_batcher.DecodeAggregator): per-
+    object recovery decodes that share an erasure signature coalesce
+    into fixed-shape batched launches — the repair-pipelining
+    discipline — instead of one matmul per object.  Without one this
+    is the sync :func:`decode_shards`."""
+    if packed_repair or (
+        not isinstance(ec_impl, MatrixErasureCode)
+        or ec_impl.get_sub_chunk_count() != 1
+    ):
+        return decode_shards(sinfo, ec_impl, to_decode, need,
+                             packed_repair=packed_repair)
+    inv = {ec_impl.chunk_index(c): c for c in range(ec_impl.get_chunk_count())}
+    want_chunks = [inv[s] for s in need]
+    if aggregator is not None and aggregator.active() and to_decode:
+        rec = await _decode_chunks_batched(
+            ec_impl, to_decode, want_chunks, aggregator)
+        if rec is not None:
+            return {ec_impl.chunk_index(c): v for c, v in rec.items()}
+    return decode_shards(sinfo, ec_impl, to_decode, need,
+                         packed_repair=packed_repair)
+
+
+async def _decode_chunks_batched(
+    ec_impl, to_decode, want_chunks, aggregator
+) -> dict[int, np.ndarray] | None:
+    """decode_payloads with the matmul coalesced across concurrent
+    recovery decodes by the aggregator; None = take another path."""
+    want_chunks = list(want_chunks)
+    erasures, survivors, need_rec, D = ec_impl.decode_plan(
+        to_decode, want_chunks)
+    rec_rows = None
+    if need_rec:
+        rows = ec_impl.decode_rows(to_decode, survivors)
+        if rows.shape[1] == 0:
+            return None
+        rec_rows = await aggregator.apply(D, rows)
+    return ec_impl.decode_assemble(
+        to_decode, want_chunks, erasures, need_rec, rec_rows)
+
+
+def decode_concat(
+    sinfo: StripeInfo,
+    ec_impl: ErasureCodeInterface,
+    to_decode: Mapping[int, np.ndarray],
+) -> np.ndarray:
+    """ECUtil::decode concat form (ECUtil.cc:12-48): shard payloads ->
+    logical byte stream (all stripes' data chunks in order)."""
+    assert to_decode
+    cs, sw = sinfo.chunk_size, sinfo.stripe_width
+    sizes = {len(np.asarray(v).reshape(-1)) for v in to_decode.values()}
+    assert len(sizes) == 1, sizes
+    total = sizes.pop()
+    assert total % cs == 0
+    if total == 0:
+        return np.zeros(0, dtype=np.uint8)
+    ns = total // cs
+    k = ec_impl.get_data_chunk_count()
+
+    if isinstance(ec_impl, MatrixErasureCode):
+        chunks = ec_impl.decode_payloads(to_decode, range(k))
+        # stripe s's logical bytes = concat of chunk 0..k-1 at stripe s
+        stacked = np.stack([chunks[c].reshape(ns, cs) for c in range(k)], axis=1)
+        return np.ascontiguousarray(stacked.reshape(ns * sw))
+
+    outs = []
+    for s in range(ns):
+        sub = {
+            shard: np.asarray(v)[s * cs : (s + 1) * cs]
+            for shard, v in to_decode.items()
+        }
+        outs.append(ec_impl.decode_concat(sub))
+    return np.concatenate(outs)
+
+
+def decode_shards(
+    sinfo: StripeInfo,
+    ec_impl: ErasureCodeInterface,
+    to_decode: Mapping[int, np.ndarray],
+    need: set[int],
+    *,
+    packed_repair: bool = False,
+) -> dict[int, np.ndarray]:
+    """ECUtil::decode per-target-shard form (ECUtil.cc:50-121): rebuild
+    full shard payloads for ``need`` (shard ids).  This is the recovery
+    path.
+
+    ``packed_repair`` declares the payload layout: True means each
+    helper payload is the stripe-major concatenation of
+    minimum_to_decode's sub-chunk runs (the regenerating-repair ranged
+    read); False means full chunks.  The two layouts can be the same
+    length (e.g. 2 stripes x half-chunk runs == 1 full chunk), so the
+    caller must say which it read — guessing here silently corrupts
+    the rebuilt shard."""
+    assert to_decode
+    cs = sinfo.chunk_size
+    for v in to_decode.values():
+        if len(np.asarray(v).reshape(-1)) == 0:
+            return {s: np.zeros(0, dtype=np.uint8) for s in need}
+
+    if (
+        isinstance(ec_impl, MatrixErasureCode)
+        and ec_impl.get_sub_chunk_count() == 1
+    ):
+        inv = {ec_impl.chunk_index(c): c for c in range(ec_impl.get_chunk_count())}
+        chunks = ec_impl.decode_payloads(to_decode, [inv[s] for s in need])
+        return {ec_impl.chunk_index(c): v for c, v in chunks.items()}
+
+    first_len = len(np.asarray(next(iter(to_decode.values()))).reshape(-1))
+    if packed_repair:
+        avail = set(to_decode)
+        minimum = ec_impl.minimum_to_decode(need, avail)
+        sub_chunk = cs // ec_impl.get_sub_chunk_count()
+        first_min = next(iter(minimum))
+        per_chunk = sub_chunk * sum(c for _, c in minimum[first_min])
+    else:
+        per_chunk = cs
+    chunks_count = first_len // per_chunk
+
+    out: dict[int, list[np.ndarray]] = {s: [] for s in need}
+    for i in range(chunks_count):
+        piece = {
+            shard: np.asarray(v)[i * per_chunk : (i + 1) * per_chunk]
+            for shard, v in to_decode.items()
+        }
+        decoded = ec_impl.decode(need, piece, cs)
+        for s in need:
+            assert len(decoded[s]) == cs
+            out[s].append(decoded[s])
+    return {s: np.concatenate(bufs) for s, bufs in out.items()}
+
+
+class HashInfo:
+    """Cumulative per-shard crc32c chains stored as an object xattr
+    (reference ECUtil.cc:164-248, hinfo_key).  Seeds start at -1 and
+    each append chains the new chunk bytes onto the prior crc."""
+
+    def __init__(self, num_chunks: int = 0):
+        self.total_chunk_size = 0
+        self.cumulative_shard_hashes: list[int] = [0xFFFFFFFF] * num_chunks
+        self.projected_total_chunk_size = 0
+
+    def has_chunk_hash(self) -> bool:
+        return bool(self.cumulative_shard_hashes)
+
+    def append(self, old_size: int, to_append: Mapping[int, np.ndarray]) -> None:
+        assert old_size == self.total_chunk_size, (old_size, self.total_chunk_size)
+        if not to_append:
+            return
+        size = len(next(iter(to_append.values())))
+        if self.has_chunk_hash():
+            assert len(to_append) == len(self.cumulative_shard_hashes)
+            for shard, buf in to_append.items():
+                assert len(buf) == size
+                self.cumulative_shard_hashes[shard] = crc32c(
+                    buf, self.cumulative_shard_hashes[shard]
+                )
+        self.total_chunk_size += size
+
+    def clear(self) -> None:
+        self.total_chunk_size = 0
+        self.cumulative_shard_hashes = [0xFFFFFFFF] * len(
+            self.cumulative_shard_hashes
+        )
+
+    def get_chunk_hash(self, shard: int) -> int:
+        assert shard < len(self.cumulative_shard_hashes)
+        return self.cumulative_shard_hashes[shard]
+
+    def get_total_chunk_size(self) -> int:
+        return self.total_chunk_size
+
+    # projected size tracking for in-flight ops (ECUtil.h:105-140)
+    def get_projected_total_chunk_size(self) -> int:
+        return self.projected_total_chunk_size
+
+    def set_projected_total_logical_size(self, sinfo: StripeInfo, size: int) -> None:
+        self.projected_total_chunk_size = sinfo.logical_to_next_chunk_offset(size)
+
+    def set_total_chunk_size_clear_hash(self, size: int) -> None:
+        self.cumulative_shard_hashes = []
+        self.total_chunk_size = size
+
+    # -- xattr serialization (versioned, little-endian; our own denc) --
+    def to_bytes(self) -> bytes:
+        import struct
+
+        n = len(self.cumulative_shard_hashes)
+        return struct.pack(
+            f"<BQI{n}I", 1, self.total_chunk_size, n, *self.cumulative_shard_hashes
+        )
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "HashInfo":
+        import struct
+
+        ver, total, n = struct.unpack_from("<BQI", raw)
+        assert ver == 1
+        hi = cls(n)
+        hi.total_chunk_size = total
+        hi.cumulative_shard_hashes = list(
+            struct.unpack_from(f"<{n}I", raw, struct.calcsize("<BQI"))
+        )
+        return hi

@@ -1,0 +1,552 @@
+#!/usr/bin/env python3
+"""Drive ceph_tpu_torch's erasure-code data path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``ceph_tpu_torch/ops/csrc`` (first use), then
+runs one RS(8,3) pool through the port's entry points:
+
+1. kernels — every kernel entry point against its plain PyTorch version
+   on the card, and the plain version against the numpy GF(2^8) oracle,
+   at the main path's shapes plus a k=16 code, a k+m=256 code and a
+   ragged S; mismatched bytes must be 0;
+2. write — 256 objects of 4 MiB and 16 of 2 MiB through
+   ``registry.factory("cuda", ...)`` -> ``ecutil.encode`` + ``HashInfo``;
+3. recover — lose the OSD of shard 2, then also shard 9; rebuild every
+   object's lost shards with ``decode_shards_async`` through a prewarmed
+   ``DecodeAggregator``; each rebuilt shard's crc32c must equal HashInfo;
+4. degraded read — ``decode_concat`` with 1, 2 and 3 shards missing must
+   return the written bytes;
+5. throughput — the timed ``carry ^= encode(data ^ seed)`` loop of
+   bench.py on (8, 256 MiB), and a 1-erasure decode at the same S.
+
+Kernel launch counts are reset just before phases 2-5 and read just
+after; every kernel must have been launched there.  Then each kernel is
+timed at its main-path shape and held there against its plain version,
+and a torch.profiler pass over phases 2-4 gives the device's busy and
+idle share and the device time per kernel launch.  Each phase prints
+one JSON line; then a ``kernels`` line, the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero; with no CUDA device it exits 1 before doing anything.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch import native
+from ceph_tpu_torch.ec import registry
+from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
+from ceph_tpu_torch.ops import rs_kernels as rk
+from ceph_tpu_torch.ops.gf256 import gf_matmul
+from ceph_tpu_torch.osd import ecutil
+from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
+
+#: NVIDIA H100 SXM data sheet: HBM3 rate and dense int8 tensor-core rate
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT8_OPS_PER_S = 1979e12
+
+MiB = 1 << 20
+KERNEL_SOURCE = "ceph_tpu_torch/ops/csrc/gf_bitmatmul.cu"
+#: each entry point and the TPU kernel (or jitted XLA code) it replaces
+REPLACES = {
+    "gf_bitmatmul_pallas": "ceph_tpu/ops/rs_kernels.py:276",
+    "gf_bitmatmul_pallas_grouped": "ceph_tpu/ops/rs_kernels.py:230",
+    "gf_bitmatmul_pallas_acc": "ceph_tpu/ops/rs_kernels.py:327",
+    "gf_bitmatmul": "ceph_tpu/ops/rs_kernels.py:59",
+}
+
+
+@dataclasses.dataclass
+class Config:
+    """The smoke's pool.  RS(8,3) ISA Cauchy (the JAX plugin's default),
+    stripe unit 4096 B (osd/pgutil.py STRIPE_UNIT, Ceph's
+    osd_pool_erasure_code_stripe_unit default), 4 MiB objects (RBD's and
+    RGW's default object size).  Reduced: one PG's worth of 1 GiB (256
+    objects) instead of a PG's tens of GB."""
+    k: int = 8
+    m: int = 3
+    technique: str = "cauchy"
+    stripe_unit: int = 4096
+    object_bytes: int = 4 * MiB
+    objects: int = 256
+    small_object_bytes: int = 2 * MiB
+    small_objects: int = 16
+    lost: tuple = ((2,), (2, 9))
+    degraded: tuple = ((2,), (2, 9), (2, 5, 9))
+    kernel_cols: int = 1 * MiB
+    oracle_cols: int = 1 * MiB
+    batch_cols: int = 65536      # the aggregator's widest bucket
+    wide_cols: int = 65536
+    throughput_cols: int = 256 * MiB
+    fold_cols: int = 256 * 1024
+    iters: int = 32
+    repeats: int = 5
+    seed: int = 20261016
+
+    def profile(self) -> dict:
+        return {"k": str(self.k), "m": str(self.m), "technique": self.technique}
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _rand(shape, gen: torch.Generator, device) -> torch.Tensor:
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=device,
+                         generator=gen)
+
+
+def _errors(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+    """(mismatched bytes, largest absolute byte difference)."""
+    assert a.shape == b.shape, (a.shape, b.shape)
+    diff = (a.to(torch.int16) - b.to(torch.int16)).abs()
+    return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bound_ms(k: int, m: int, cols: int, *, carry: bool = False) -> tuple[float, str]:
+    """Least time for one product: (k + m) S bytes moved ((k + 2m) S for
+    the acc form, which also reads the carry) over the HBM rate, or
+    2 * 8m * 8k * S operations over the int8 tensor-core rate."""
+    nbytes = (k + (2 if carry else 1) * m) * cols
+    ops = 2 * (8 * m) * (8 * k) * cols
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def phase_kernels(cfg: Config, device) -> dict[str, int]:
+    """Returns the largest absolute byte error per entry point."""
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    worst = {name: 0 for name in REPLACES}
+    cases = []
+
+    def check(name: str, got: torch.Tensor, want: torch.Tensor, case: str) -> None:
+        bad, err = _errors(got, want)
+        if name in worst:
+            worst[name] = max(worst[name], err)
+        cases.append({"case": case, "entry": name, "mismatched_bytes": bad})
+        if bad:
+            raise AssertionError(f"{case}: {name} differs from its plain "
+                                 f"version in {bad} bytes")
+
+    def two_d(case: str, C: np.ndarray, bits: torch.Tensor, data: torch.Tensor) -> None:
+        s = data.shape[1]
+        want = rk.gf_bitmatmul_plain(bits, data)
+        # the plain version against the numpy oracle on a leading slice
+        # (narrower for wide codes: the oracle holds m*k*n products)
+        n = min(s, cfg.oracle_cols * 32 // C.size)
+        oracle = gf_matmul(C, data[:, :n].cpu().numpy())
+        bad = int((want[:, :n].cpu().numpy() != oracle).sum())
+        cases.append({"case": case, "entry": "plain_vs_numpy", "mismatched_bytes": bad})
+        if bad:
+            raise AssertionError(f"{case}: plain version differs from numpy in {bad} bytes")
+        tile = rk._pick_tile(s) or 1
+        check("gf_bitmatmul_pallas",
+              rk.gf_bitmatmul_pallas(bits, data, tile_s=tile), want, case)
+        for g in (2, 4, 8):
+            if tile // g >= 16 and s % tile == 0:
+                check("gf_bitmatmul_pallas_grouped",
+                      rk.gf_bitmatmul_pallas_grouped(bits, data, tile_s=tile // g, groups=g),
+                      want, f"{case} g={g}")
+        check("gf_bitmatmul", rk.gf_bitmatmul(bits, data[None])[0], want, case)
+        carry = _rand(want.shape, gen, device)
+        want_acc = carry ^ rk.gf_bitmatmul_plain(bits, data ^ 5)
+        check("gf_bitmatmul_pallas_acc",
+              rk.gf_bitmatmul_pallas_acc(bits, data, carry, 261, tile_s=tile),
+              want_acc, f"{case} seed=261")
+
+    k, m, s = cfg.k, cfg.m, cfg.kernel_cols
+    codec = rk.BitmatrixCodec(isa_cauchy_matrix(k, m), device=device)
+    data = _rand((k, s), gen, device)
+    two_d(f"encode RS({k},{m}) S={s}", codec.C, codec.encode_bits, data)
+    full = torch.cat([data, codec.encode(data)])
+    for erasures in cfg.degraded:
+        survivors, dbits = codec.decode_bits(erasures)
+        D = decode_matrix_for(codec.C, list(erasures))
+        sub = full[survivors].contiguous()
+        two_d(f"decode {len(erasures)}-erasure {erasures} S={s}", D, dbits, sub)
+        # erasures in unsorted order come back in the requested order
+        order = tuple(reversed(erasures))
+        check("codec.decode", codec.decode(full, order), full[list(order)],
+              f"decode {order} round trip")
+    # the aggregator's batched launch shape
+    for erasures in cfg.lost:
+        _, dbits = codec.decode_bits(erasures)
+        batch = _rand((8, k, cfg.batch_cols), gen, device)
+        check("gf_bitmatmul", rk.gf_bitmatmul(dbits, batch),
+              rk.gf_bitmatmul_plain(dbits, batch),
+              f"batched (8, {k}, {cfg.batch_cols}) {erasures}")
+    # a k=16 code, a k+m=256 code (131 KB of masks), and a ragged S
+    c16 = rk.BitmatrixCodec(isa_cauchy_matrix(16, 4), device=device)
+    two_d(f"encode RS(16,4) S={s}", c16.C, c16.encode_bits, _rand((16, s), gen, device))
+    cw = rk.BitmatrixCodec(isa_cauchy_matrix(128, 128), device=device)
+    two_d(f"encode RS(128,128) S={cfg.wide_cols}", cw.C, cw.encode_bits,
+          _rand((128, cfg.wide_cols), gen, device))
+    two_d(f"encode RS({k},{m}) ragged S={s + 13}", codec.C, codec.encode_bits,
+          _rand((k, s + 13), gen, device))
+    _sync(device)
+    emit({"phase": "kernels", "cases": len(cases),
+          "mismatched_bytes": sum(c["mismatched_bytes"] for c in cases),
+          "worst": worst})
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phases 2-4: write, recover, degraded read through the port's entry points
+# ---------------------------------------------------------------------------
+
+def make_pool(cfg: Config, device):
+    ec = registry.factory("cuda", cfg.profile(), device=device)
+    k = ec.get_data_chunk_count()
+    # OSDDaemon._sinfo: StripeInfo(k, k * get_chunk_size(stripe_unit * k))
+    sinfo = ecutil.StripeInfo(k, k * ec.get_chunk_size(cfg.stripe_unit * k))
+    return ec, sinfo
+
+
+def phase_write(cfg: Config, device, ec, sinfo):
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    sizes = [cfg.object_bytes] * cfg.objects + [cfg.small_object_bytes] * cfg.small_objects
+    objects = [_rand((n,), gen, device).cpu().numpy() for n in sizes]
+    n = ec.get_chunk_count()
+    written = []
+    t0 = time.perf_counter()
+    for obj in objects:
+        shards = ecutil.encode(sinfo, ec, obj)
+        hinfo = ecutil.HashInfo(n)
+        hinfo.append(0, shards)
+        written.append((shards, hinfo))
+    dt = time.perf_counter() - t0
+    total = sum(sizes)
+    emit({"phase": "write", "objects": len(objects), "logical_bytes": total,
+          "chunk_size": sinfo.chunk_size, "stripe_width": sinfo.stripe_width,
+          "seconds": dt, "logical_GB_per_s": total / dt / 1e9})
+    return objects, written
+
+
+def phase_recover(cfg: Config, device, ec, sinfo, written) -> dict:
+    agg = DecodeAggregator(device=device)
+    warmed = agg.prewarm(ec, erasure_counts=tuple(sorted({len(l) for l in cfg.lost})))
+    out = {"phase": "recover", "prewarmed_shapes": warmed, "rounds": []}
+    for lost in cfg.lost:
+        async def rebuild_all():
+            return await asyncio.gather(*(
+                ecutil.decode_shards_async(
+                    sinfo, ec, {s: c for s, c in shards.items() if s not in lost},
+                    set(lost), aggregator=agg)
+                for shards, _ in written))
+
+        launches0 = agg.stats["launches"]
+        t0 = time.perf_counter()
+        rebuilt = asyncio.run(rebuild_all())
+        dt = time.perf_counter() - t0
+        nbytes = 0
+        for (shards, hinfo), got in zip(written, rebuilt):
+            assert set(got) == set(lost), (set(got), lost)
+            for s in lost:
+                crc = native.crc32c(got[s])
+                if crc != hinfo.get_chunk_hash(s):
+                    raise AssertionError(f"shard {s}: rebuilt crc {crc:#x} != "
+                                         f"HashInfo {hinfo.get_chunk_hash(s):#x}")
+                nbytes += got[s].nbytes
+        out["rounds"].append({"lost": list(lost), "rebuilt_bytes": nbytes,
+                              "seconds": dt, "rebuilt_GB_per_s": nbytes / dt / 1e9,
+                              "launches": agg.stats["launches"] - launches0})
+    out["stats"] = dict(agg.stats)
+    if agg.stats["launches"] <= 0:
+        raise AssertionError("the aggregator launched nothing")
+    if agg.stats["cold_launches"] != 0:
+        raise AssertionError(f"cold launches after prewarm: {dict(agg.stats)}")
+    emit(out)
+    return out
+
+
+def phase_degraded_read(cfg: Config, ec, sinfo, objects, written) -> dict:
+    out = {"phase": "degraded_read", "rounds": []}
+    for missing in cfg.degraded:
+        t0 = time.perf_counter()
+        for obj, (shards, _) in zip(objects, written):
+            avail = {s: c for s, c in shards.items() if s not in missing}
+            got = ecutil.decode_concat(sinfo, ec, avail)
+            if not np.array_equal(got, obj):
+                raise AssertionError(f"degraded read with {missing} missing differs")
+        dt = time.perf_counter() - t0
+        total = sum(o.nbytes for o in objects)
+        out["rounds"].append({"missing": list(missing), "seconds": dt,
+                              "logical_GB_per_s": total / dt / 1e9})
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5 and the kernels line: timing on the card
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, n_calls: int, repeats: int) -> float:
+    """Median over ``repeats`` of (CUDA-event time of ``n_calls`` calls of
+    ``fn(i)``) / n_calls, after one warm-up call."""
+    fn(0)
+    samples = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n_calls):
+            fn(i)
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / n_calls)
+    return statistics.median(samples)
+
+
+def phase_throughput(cfg: Config, device) -> dict:
+    k, m = cfg.k, cfg.m
+    codec = rk.BitmatrixCodec(isa_cauchy_matrix(k, m), device=device)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+    data = _rand((k, cfg.throughput_cols), gen, device)
+    s = data.shape[1]
+    tile = rk._pick_tile(s)
+
+    # fold check on a small buffer, as bench.py does: two iterations
+    # give r0 ^ r1
+    small = data[:, :cfg.fold_cols].contiguous()
+    c = torch.zeros((m, small.shape[1]), dtype=torch.uint8, device=device)
+    for i in range(2):
+        rk.gf_bitmatmul_pallas_acc(codec.encode_bits, small, c, i,
+                                   tile_s=rk._pick_tile(small.shape[1]))
+    host = small.cpu().numpy()
+    want = gf_matmul(codec.C, host) ^ gf_matmul(codec.C, host ^ np.uint8(1))
+    if not np.array_equal(c.cpu().numpy(), want):
+        raise AssertionError("acc loop fold mismatch")
+
+    carry = torch.zeros((m, s), dtype=torch.uint8, device=device)
+    acc_ms = time_ms(lambda i: rk.gf_bitmatmul_pallas_acc(
+        codec.encode_bits, data, carry, i, tile_s=tile), cfg.iters, cfg.repeats)
+    _, dbits = codec.decode_bits((2,))
+    dec_ms = time_ms(lambda i: rk.BitmatrixCodec._apply(dbits, data, None),
+                     cfg.iters, cfg.repeats)
+    out = {
+        "phase": "throughput", "k": k, "m": m, "S": s, "iters": cfg.iters,
+        "repeats": cfg.repeats,
+        "encode_acc_ms_per_iter": acc_ms,
+        "encode_acc_GB_per_s": k * s / (acc_ms * 1e-3) / 1e9,
+        "encode_acc_bound_ms": bound_ms(k, m, s, carry=True)[0],
+        "decode_1_erasure_ms_per_iter": dec_ms,
+        "decode_1_erasure_GB_per_s": k * s / (dec_ms * 1e-3) / 1e9,
+        "decode_1_erasure_bound_ms": bound_ms(k, 1, s)[0],
+    }
+    emit(out)
+    return {"data": data, "carry": carry, "codec": codec, "acc_ms": acc_ms}
+
+
+def main_path_shapes(cfg: Config, device, codec) -> dict:
+    """For each entry point but acc: (kernel call, plain call, bound,
+    shape) at the main path's shape, with inputs rotated over more than
+    the 50 MB L2, as a caller uploading fresh objects finds them.  Call
+    i of the kernel and of the plain version take the same input."""
+    k, m = cfg.k, cfg.m
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 3)
+    s4 = cfg.object_bytes // k          # 4 MiB object -> grouped kernel
+    s2 = cfg.small_object_bytes // k    # 2 MiB object -> plain-layout kernel
+    _, d1 = codec.decode_bits((2,))
+    bufs4 = [_rand((k, s4), gen, device) for _ in range(24)]
+    bufs2 = [_rand((k, s2), gen, device) for _ in range(48)]
+    bufsb = [_rand((8, k, cfg.batch_cols), gen, device) for _ in range(24)]
+    t4, t2 = rk._pick_tile(s4), rk._pick_tile(s2)
+    g4 = rk._pick_groups(k, m, s4, t4)
+    bits = codec.encode_bits
+    return {
+        "gf_bitmatmul_pallas": (
+            lambda i: rk.gf_bitmatmul_pallas(bits, bufs2[i % 48], tile_s=t2),
+            lambda i: rk.gf_bitmatmul_plain(bits, bufs2[i % 48]),
+            bound_ms(k, m, s2), f"encode ({k}, {s2})"),
+        "gf_bitmatmul_pallas_grouped": (
+            lambda i: rk.gf_bitmatmul_pallas_grouped(bits, bufs4[i % 24],
+                                                     tile_s=t4 // g4, groups=g4),
+            lambda i: rk.gf_bitmatmul_plain(bits, bufs4[i % 24]),
+            bound_ms(k, m, s4), f"encode ({k}, {s4}) groups={g4}"),
+        "gf_bitmatmul": (
+            lambda i: rk.gf_bitmatmul(d1, bufsb[i % 24]),
+            lambda i: rk.gf_bitmatmul_plain(d1, bufsb[i % 24]),
+            bound_ms(k, 1, 8 * cfg.batch_cols), f"1-erasure decode (8, {k}, {cfg.batch_cols})"),
+    }
+
+
+def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict) -> list[dict]:
+    """One row per kernel entry point: its time at the main path's
+    shape, its plain version's time, its bound, and its error against
+    the plain version on the same input at that shape (raises unless 0)."""
+    k, m = cfg.k, cfg.m
+    bits = tp["codec"].encode_bits
+    shapes = main_path_shapes(cfg, device, tp["codec"])
+    rows = []
+    for name in REPLACES:
+        if name == "gf_bitmatmul_pallas_acc":
+            data, carry = tp["data"], tp["carry"]
+            s = data.shape[1]
+            seed = 7
+            got = rk.gf_bitmatmul_pallas_acc(bits, data, carry.clone(), seed,
+                                             tile_s=rk._pick_tile(s))
+            bad, err = _errors(got, carry ^ rk.gf_bitmatmul_plain(bits, data ^ seed))
+            del got
+            ms = tp["acc_ms"]
+            plain_ms = time_ms(lambda i: carry.bitwise_xor_(
+                rk.gf_bitmatmul_plain(bits, data ^ (i & 0xFF))), 1, 3)
+            bms, by = bound_ms(k, m, s, carry=True)
+            shape = f"acc ({k}, {s})"
+        else:
+            fn, plain, (bms, by), shape = shapes[name]
+            bad, err = _errors(fn(0), plain(0))
+            ms = time_ms(fn, 48, cfg.repeats)
+            plain_ms = time_ms(plain, 4, 3)
+        if bad:
+            raise AssertionError(f"{name} at {shape}: differs from its plain "
+                                 f"version in {bad} bytes")
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(worst[name], err), "mismatched_bytes": bad,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "shape": shape,
+        })
+    return rows
+
+
+def gpu_name_and_power_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def phase_profile(cfg: Config, device, codec) -> dict:
+    """Phases 2-4 again under torch.profiler, reporting
+    the device's busy and idle share of the phases' wall time and the
+    device time per kernel; then each small main-path launch shape, for
+    the kernel's own device time beside the CUDA-event time per call."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn) -> tuple[float, list[dict]]:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        return wall, [e for e in events if e.get("ph") == "X"
+                      and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def ours(e: dict) -> bool:
+        return "gf_bitmatmul_kernel" in e.get("name", "")
+
+    wall, dev = traced(lambda: run_main_path(cfg, device))
+    busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    by_cat: dict[str, float] = {}
+    for e in dev:
+        cat = "gf_bitmatmul_kernel" if ours(e) else e["cat"]
+        by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"]
+    out = {"phase": "profile", "main_path_wall_s": wall,
+           "device_busy_s": busy * 1e-6, "device_idle_share": 1 - busy * 1e-6 / wall,
+           "device_us_by_kind": by_cat, "device_events": len(dev), "per_launch": {}}
+    for name, (fn, _, _, shape) in main_path_shapes(cfg, device, codec).items():
+        fn(0)
+        calls = 48
+        wall_c, dev_c = traced(lambda: [fn(i) for i in range(calls)])
+        kern = [e["dur"] for e in dev_c if ours(e)]
+        out["per_launch"][name] = {
+            "shape": shape, "launches": len(kern),
+            "device_us_mean": sum(kern) / max(len(kern), 1),
+            "wall_us_per_call": wall_c / calls * 1e6}
+    emit(out)
+    return out
+
+
+def run_main_path(cfg: Config, device) -> dict:
+    """Phases 2-4 on ``device``; returns the pool and what was written."""
+    ec, sinfo = make_pool(cfg, device)
+    objects, written = phase_write(cfg, device, ec, sinfo)
+    phase_recover(cfg, device, ec, sinfo, written)
+    phase_degraded_read(cfg, ec, sinfo, objects, written)
+    return {"ec": ec, "sinfo": sinfo, "objects": objects, "written": written}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    if not native.available():
+        raise RuntimeError("the native crc32c library did not build (g++)")
+    device = torch.device("cuda")
+    cfg = Config()
+    from ceph_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": {n: [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+                    for n, log in _build.BUILD_LOG.items()}})
+    emit({"config": dataclasses.asdict(cfg), "plugin": "cuda",
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    worst = phase_kernels(cfg, device)
+
+    rk.reset_launch_counts()
+    run_main_path(cfg, device)
+    tp = phase_throughput(cfg, device)
+    torch.cuda.synchronize()
+    launches = rk.launch_counts()
+    emit({"phase": "main_path_launches", **launches})
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+    rows = kernel_rows(cfg, device, worst, launches, tp)
+    phase_profile(cfg, device, tp["codec"])
+    emit({"kernels": rows})
+    print(gpu_name_and_power_limit(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

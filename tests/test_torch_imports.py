@@ -1,0 +1,126 @@
+"""Import gate of the port.
+
+``ceph_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the
+JAX package ``ceph_tpu``: a subprocess blocks both in ``sys.modules``
+and imports every module; a static scan finds no such import in any
+port file; and with CUDA reported unavailable the default-device entry
+points raise instead of running elsewhere.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ceph_tpu_torch
+from ceph_tpu_torch.ec import registry
+from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
+from ceph_tpu_torch.ops import rs_kernels as rk
+from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "ceph_tpu_torch")
+
+
+def _modules() -> list[str]:
+    """Every Python module of the package (not the built .so files)."""
+    names = []
+    for dirpath, _, files in os.walk(PKG):
+        rel = os.path.relpath(dirpath, ROOT).replace(os.sep, ".")
+        for f in files:
+            if f.endswith(".py"):
+                names.append(rel if f == "__init__.py" else f"{rel}.{f[:-3]}")
+    return sorted(names)
+
+
+def _sources() -> list[str]:
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files
+                if f.endswith((".py", ".cu", ".cc"))]
+    return sorted(out)
+
+
+def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
+    mods = _modules()
+    assert "ceph_tpu_torch.ops.rs_kernels" in mods
+    assert "ceph_tpu_torch.ec.plugins.cuda" in mods
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceph_tpu'] = None\n"
+        f"for name in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'ceph_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+_JAX = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+_REF = re.compile(r"\bceph_tpu(\.|\s|$)", re.M)
+
+
+def test_static_scan_finds_no_forbidden_import():
+    offenders = []
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        if _JAX.search(text):
+            offenders.append((path, "jax"))
+        for line in text.splitlines():
+            stripped = line.strip()
+            if stripped.startswith(("import ", "from ")) and _REF.search(stripped):
+                offenders.append((path, stripped))
+    assert not offenders, offenders
+
+
+def test_static_scan_sees_a_planted_import():
+    """The scan's patterns catch what they are meant to catch."""
+    assert _JAX.search("import jax.numpy as jnp\n")
+    assert _JAX.search("    from jax import lax\n")
+    assert not _JAX.search("import jaxlib_like\n")
+    assert _REF.search("from ceph_tpu.ops import gf256")
+    assert _REF.search("import ceph_tpu")
+    assert not _REF.search("from ceph_tpu_torch.ops import gf256")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_constructors_raise(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rk.BitmatrixCodec(isa_cauchy_matrix(8, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rk.codec_from_reference(isa_cauchy_matrix(8, 3), device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.factory("cuda", {"k": "8", "m": "3"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeAggregator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rk.resolve_device("cuda:0")
+
+
+def test_cpu_is_only_by_request(no_cuda):
+    assert rk.BitmatrixCodec(isa_cauchy_matrix(4, 2), device="cpu").device.type == "cpu"
+    assert DecodeAggregator(device="cpu").device.type == "cpu"
+    assert registry.factory("cuda", {}, device="cpu").device.type == "cpu"
+
+
+def test_version():
+    assert ceph_tpu_torch.__version__ == "0.1.0"
+    # the plugin handshake checks its version against the package's
+    from ceph_tpu_torch.ec.plugins import cuda
+
+    assert cuda.__erasure_code_version__ == ceph_tpu_torch.__version__

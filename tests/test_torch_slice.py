@@ -1,0 +1,121 @@
+"""The whole slice — write, recover, degraded read — against ceph_tpu.
+
+8 objects of 64 KiB and 2 of 96 KiB under RS(8,3) cauchy with a 4 KiB
+stripe unit and ``device-min-bytes=0`` (so every matmul takes the device
+seam), through the port on the CPU and through the JAX package: every
+shard, crc and read-back byte must be equal (tolerance 0).  Then the
+phases of chip_smoke.py run on the CPU at a tiny size, so its control
+flow is exercised here before it meets the card.
+"""
+
+import asyncio
+
+import numpy as np
+
+import chip_smoke
+from ceph_tpu.ec import registry as ref_registry
+from ceph_tpu.osd import ecutil as ref_ecutil
+from ceph_tpu.parallel.decode_batcher import DecodeAggregator as RefAggregator
+from ceph_tpu_torch.ec import registry
+from ceph_tpu_torch.ops import rs_kernels as rk
+from ceph_tpu_torch.osd import ecutil
+from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
+
+PROFILE = {"k": "8", "m": "3", "technique": "cauchy", "device-min-bytes": "0"}
+STRIPE_UNIT = 4096
+LOSSES = [(2,), (2, 9)]
+DEGRADED = [(2,), (2, 9), (0, 5, 10)]
+
+
+def _flow(ecutil_mod, ec, aggregator, objects):
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    sinfo = ecutil_mod.StripeInfo(k, k * ec.get_chunk_size(STRIPE_UNIT * k))
+    written = []
+    for obj in objects:
+        shards = ecutil_mod.encode(sinfo, ec, obj)
+        hinfo = ecutil_mod.HashInfo(n)
+        hinfo.append(0, shards)
+        written.append((shards, hinfo))
+
+    rebuilt = {}
+    for lost in LOSSES:
+        async def go():
+            return await asyncio.gather(*(
+                ecutil_mod.decode_shards_async(
+                    sinfo, ec, {s: c for s, c in sh.items() if s not in lost},
+                    set(lost), aggregator=aggregator)
+                for sh, _ in written))
+
+        rebuilt[lost] = asyncio.run(go())
+
+    reads = {
+        missing: [
+            ecutil_mod.decode_concat(
+                sinfo, ec, {s: c for s, c in sh.items() if s not in missing})
+            for sh, _ in written
+        ]
+        for missing in DEGRADED
+    }
+    return sinfo, written, rebuilt, reads
+
+
+def test_slice_matches_reference():
+    rng = np.random.default_rng(2026)
+    objects = ([rng.integers(0, 256, 64 * 1024, dtype=np.uint8) for _ in range(8)]
+               + [rng.integers(0, 256, 96 * 1024, dtype=np.uint8) for _ in range(2)])
+    ec = registry.factory("cuda", dict(PROFILE), device="cpu")
+    agg = DecodeAggregator(device="cpu", window_s=0.005)
+    agg.prewarm(ec, erasure_counts=(1, 2))
+    rk.reset_launch_counts()
+    sinfo, written, rebuilt, reads = _flow(ecutil, ec, agg, objects)
+    ref = ref_registry.factory("jax", dict(PROFILE))
+    _, ref_written, ref_rebuilt, ref_reads = _flow(
+        ref_ecutil, ref, RefAggregator(window_s=0.005), objects)
+
+    assert sinfo.chunk_size == 4096 and sinfo.stripe_width == 32768
+    for (sh, hi), (rsh, rhi) in zip(written, ref_written):
+        assert set(sh) == set(rsh) == set(range(11))
+        for s in sh:
+            assert np.array_equal(sh[s], rsh[s])
+        assert hi.to_bytes() == rhi.to_bytes()
+    for lost in LOSSES:
+        for (sh, hi), got, want in zip(written, rebuilt[lost], ref_rebuilt[lost]):
+            assert set(got) == set(want) == set(lost)
+            for s in lost:
+                assert np.array_equal(got[s], want[s])
+                assert np.array_equal(got[s], sh[s])
+                assert chip_smoke.native.crc32c(got[s]) == hi.get_chunk_hash(s)
+    for missing in DEGRADED:
+        for obj, got, want in zip(objects, reads[missing], ref_reads[missing]):
+            assert np.array_equal(got, want)
+            assert np.array_equal(got, obj)
+    # recovery went through the aggregator's batched launches, warm
+    assert agg.stats["launches"] >= 2
+    assert agg.stats["batched_requests"] == 10 * len(LOSSES)
+    assert agg.stats["cold_launches"] == 0
+    # on the CPU the entry points take the plain version: nothing launched
+    assert set(rk.launch_counts().values()) == {0}
+
+
+def test_chip_smoke_phases_on_cpu():
+    """chip_smoke's phases 1-4 at a tiny size on the CPU."""
+    cfg = chip_smoke.Config(
+        object_bytes=64 * 1024, objects=4, small_object_bytes=32 * 1024,
+        small_objects=2, kernel_cols=4096, oracle_cols=4096, batch_cols=512,
+        wide_cols=512)
+    worst = chip_smoke.phase_kernels(cfg, "cpu")
+    assert worst == {name: 0 for name in chip_smoke.REPLACES}
+    run = chip_smoke.run_main_path(cfg, "cpu")
+    assert len(run["written"]) == 6
+    assert chip_smoke.bound_ms(8, 3, 256 << 20, carry=True)[1] == "bytes"
+
+
+def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    assert chip_smoke.main() == 1
+    assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_busy_union():
+    assert chip_smoke._busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
+    assert chip_smoke._busy_us([]) == 0
