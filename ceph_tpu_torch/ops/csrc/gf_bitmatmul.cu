@@ -14,36 +14,66 @@
 // gf_bitmatmul_pallas_grouped (_grouped_kernel) and
 // gf_bitmatmul_pallas_acc (its inner `kern`), plus the batched XLA path
 // gf_bitmatmul.  On the TPU the product runs on the MXU as an int8
-// matmul over unpacked bits; here no bit tensor is formed at all.
+// matmul over unpacked bits; here no bit tensor is formed at all.  The
+// grouped TPU kernel packs column groups into blockdiag(C, ..., C) to
+// fill the MXU; the function, and so every output byte, is the same as
+// the ungrouped kernel's, so on the card a grouped call is an ungrouped
+// launch.
 //
-// Design.  Each block turns B into byte masks M[r][i] = the bits b with
-// B[r, 8i+b] = 1 and keeps them in shared memory (8m x k bytes, at most
-// 131 KB for k + m <= 256), packed four input rows to a 32-bit word.
-// Each thread owns 16 adjacent columns (one uint4 per input row, loaded
-// coalesced), holds up to 8 input rows of them in registers, and for each
-// output bit row r XORs
-// (word_i & M[r][i] * 0x01010101) over i, folds each byte's parity
-// (x ^= x>>4; x ^= x>>2; x ^= x>>1; & 0x01010101) and places it as bit c
-// of output byte u.  Codes with k > 8 take several 8-row chunks; parity is
-// linear, so the chunks' results XOR together.  Columns past S (a ragged
-// tail) are read as zero and never written.
+// Arithmetic.  Row r = 8u + c of B, restricted to input row i, is a byte
+// mask; the host builds it once per bit-matrix, copied into all four
+// bytes of a 32-bit word (mask * 0x01010101), so that the inner loop
+// needs no byte shuffle.  A thread holds W words (4W adjacent columns) of
+// each input row.  Bit row r of output byte u is the word
+// a_r = XOR_i (x_i & mask[r][i]) (one LOP3 per input word), whose byte
+// parities are the output bits.  The eight a_r of a byte are folded as a
+// tree: rows (c, c+4) with nibble folds and one select (fold_pair), then
+// (c, c+2) with 2-bit folds, then (c, c+1) with 1-bit folds (2 shifts, 2
+// XORs and one select a pair).  That is 35 operations for the eight rows,
+// against about 72 for a parity fold per row, and it leaves bit c of each
+// byte at its place.  RS(8,3) costs 8m.k + 35m = 297 integer operations
+// per 4 columns.  Rows (c, c+4) are formed together and merged at once,
+// so that few words stay live.  Codes with k > 8 take 8-row chunks;
+// parity is linear, so the chunks' a_r simply XOR together.
 //
-// What bounds it.  An RS(8,3) encode moves (k + m) S bytes: 0.88 ms at
-// S = 256 MiB over 3.35 TB/s; the acc form also reads the carry,
-// (k + 2m) S bytes.  This mask-and-parity form spends about 100 int32
-// operations per column for RS(8,3) (an AND and an XOR per input word and
-// output bit row, plus the parity folds), so it is likely held by the
-// integer ALUs rather than by bytes.  Reaching the byte bound (int8
-// mma/wgmma on bit planes, or a wider SWAR fold, with cp.async/TMA
-// staging) is later work.
+// Masks.  The host keeps them on the device per bit-matrix: replicated
+// ([u][chunk][c][i], at most kReplicatedBytes), or for wide codes (k + m
+// up to 256) packed four input rows to a word and spread with
+// __byte_perm.  Each block copies them to shared memory with one
+// coalesced load per thread, issued after its first item's data loads so
+// that the two are in flight together; the inner loop reads four masks
+// with one broadcast 16-byte load.  (Masks in the launch's
+// __grid_constant__ parameter block are slower: indexed by loop
+// counters, each becomes an LDC per use.)
 //
-// Column groups.  The grouped TPU kernel packs g column groups into
-// blockdiag(C, ..., C) to fill the MXU; the function, and so every output
-// byte, is the same as the ungrouped kernel's.  On the card a grouped call
-// is an ungrouped launch.
+// What bounds it (H100 SXM: 132 SMs, 64 int32 lanes each, about 16.7 T
+// int32 op/s at 1.98 GHz; 3.35 TB/s).  An RS(8,3) encode moves (k + m) S
+// bytes: 1.72 us at S = 512 Ki and 0.88 ms at S = 256 Mi (the acc form
+// also reads the carry: 1.12 ms).  At 297 / 4 operations a column the
+// integer ALUs need about 2.4 us and 1.2 ms for the same shapes: the
+// encode is ALU-bound at every size (the acc loop runs at about two
+// thirds of that rate).  A 1-erasure decode (m = 1) needs 99 / 4
+// operations a column and is held by its bytes.  Every instruction of the
+// inner loop is an ALU one, so a full 8-row chunk (k = 8) runs without
+// per-row checks.  At object sizes a launch's fixed latency (about
+// 3.5 us) is as large as its work; there the host's launch plan gives a
+// thread 8 columns (W = 2), one thread per item, and 16 (W = 4) only at
+// large S, where the grid is capped at 8 blocks per SM and each thread
+// strides over items (4 columns a thread were slower at every shape
+// measured).  The batch axis is folded into the flat item index, so a
+// batch of short rows spreads like one long row.
+//
+// Tensor cores are not used.  The int8 mma/wgmma form needs each data bit
+// expanded to a byte (about 48 integer operations a column) and 24
+// parities packed back (about 36): more ALU work than the whole tree
+// fold, so the cheap product buys nothing.  Hopper has no binary (.b1)
+// tensor-core type at full rate.  Nor is cp.async or TMA used: each byte
+// is loaded once, into registers, and the loads of the object-sized
+// launches are all issued at the start.
 //
 // Plain C interface (ctypes); the launch goes on the caller's stream and
-// the function returns cudaGetLastError() after it.
+// the function returns cudaGetLastError() after it.  It makes no query
+// call: the host computes the plan from the SM count it has cached.
 
 #include <cuda_runtime.h>
 
@@ -52,153 +82,296 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 8;         // input rows held in registers per chunk
-constexpr int kBlocksPerSm = 8;  // grid-stride loop: at most this many blocks per SM
+constexpr int kReplicatedBytes = 48 * 1024;  // replicated masks up to this size
+constexpr int kMaxSmemBytes = 232448;        // a block's shared memory on sm_90
 
-__device__ __forceinline__ uint32_t byte_parity(uint32_t x) {
-  x ^= x >> 4;
-  x ^= x >> 2;
-  x ^= x >> 1;
-  return x & 0x01010101u;
-}
+// Blocks of kThreads each SM must hold at once (the register budget: 64
+// registers a thread for 8 columns, 80 for 16).
+template <int W>
+constexpr int kBlocksPerSm = W == 4 ? 3 : 4;
 
-// 16 bytes of one row from column col; bytes at or past s read as zero.
-__device__ __forceinline__ uint4 load16(const uint8_t* row, long long col,
-                                        long long s, bool vec) {
-  if (vec && col + 16 <= s) return *reinterpret_cast<const uint4*>(row + col);
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
+struct Params {
+  const uint8_t* data;
+  uint8_t* out;
+  const uint32_t* masks;   // device: [u][chunk][c][i] replicated, or packed
+  long long s;
+  unsigned items_per_row;  // ceil(s / 4W)
+  unsigned items;          // batch * items_per_row
+  int k, m, nch;           // nch: 8-row chunks of the input
+  uint32_t seed_rep;       // acc seed in all four bytes
+  int vec;                 // rows aligned for W-word vector access
+  int packed;              // masks four input rows to a word
+};
+
+// The 4W bytes at q, of which the first rem lie inside S (the rest read
+// as zero and are not written): the ragged or unaligned path.
+template <int W>
+__device__ __forceinline__ void load_bytes(uint32_t (&w)[W], const uint8_t* q,
+                                           long long rem) {
 #pragma unroll
-  for (int b = 0; b < 16; ++b)
-    if (col + b < s) w[b >> 2] |= uint32_t(row[col + b]) << (8 * (b & 3));
-  return make_uint4(w[0], w[1], w[2], w[3]);
+  for (int j = 0; j < W; ++j) w[j] = 0u;
+#pragma unroll
+  for (int b = 0; b < 4 * W; ++b)
+    if (b < rem) w[b >> 2] |= uint32_t(q[b]) << (8 * (b & 3));
 }
 
-__device__ __forceinline__ void store16(uint8_t* row, long long col,
-                                        long long s, bool vec, uint4 v) {
-  if (vec && col + 16 <= s) {
-    *reinterpret_cast<uint4*>(row + col) = v;
-    return;
+template <int W>
+__device__ __forceinline__ void store_bytes(uint8_t* q, long long rem,
+                                            const uint32_t (&w)[W]) {
+#pragma unroll
+  for (int b = 0; b < 4 * W; ++b)
+    if (b < rem) q[b] = uint8_t(w[b >> 2] >> (8 * (b & 3)));
+}
+
+// W aligned words at q.  NC: through the read-only cache (not for the
+// carry, which this kernel writes).
+template <int W, bool NC>
+__device__ __forceinline__ void load_vec(uint32_t (&w)[W], const uint8_t* q) {
+  if constexpr (W == 4) {
+    const auto* v4 = reinterpret_cast<const uint4*>(q);
+    const uint4 v = NC ? __ldg(v4) : *v4;
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+    static_assert(W == 2, "8 or 16 columns a thread");
+    const auto* v2 = reinterpret_cast<const uint2*>(q);
+    const uint2 v = NC ? __ldg(v2) : *v2;
+    w[0] = v.x; w[1] = v.y;
   }
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int b = 0; b < 16; ++b)
-    if (col + b < s) row[col + b] = uint8_t(w[b >> 2] >> (8 * (b & 3)));
 }
 
-__device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) {
-  return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+template <int W>
+__device__ __forceinline__ void store_vec(uint8_t* q, const uint32_t (&w)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<uint4*>(q) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(q) = make_uint2(w[0], w[1]);
+}
+
+// bits of a where keep is set, bits of b elsewhere (one LOP3)
+__device__ __forceinline__ uint32_t pick(uint32_t keep, uint32_t a, uint32_t b) {
+  return (a & keep) | (b & ~keep);
+}
+
+// Stage 1 of the tree fold: bit rows c (lo) and c + 4 (hi) merged, the
+// nibble fold of row c in the low nibble of each byte, of row c + 4 in
+// the high nibble.
+__device__ __forceinline__ uint32_t fold_pair(uint32_t lo, uint32_t hi) {
+  return pick(0x0F0F0F0Fu, lo ^ (lo >> 4), hi ^ (hi << 4));
+}
+
+// Stage 2: the merged pairs of rows (c, c + 4) and (c + 2, c + 6), folded
+// to two bits per row: bits 0-1 of each byte row c, 2-3 row c + 2, 4-5
+// row c + 4, 6-7 row c + 6.
+__device__ __forceinline__ uint32_t fold_stage2(uint32_t b0, uint32_t b2) {
+  return pick(0x33333333u, b0 ^ (b0 >> 2), b2 ^ (b2 << 2));
+}
+
+// Stage 3: the stage-2 words of c = 0 and c = 1, folded to the parity of
+// bit row c at bit c of each byte.
+__device__ __forceinline__ uint32_t fold_stage3(uint32_t d0, uint32_t d1) {
+  return pick(0x55555555u, d0 ^ (d0 >> 1), d1 ^ (d1 << 1));
+}
+
+// Masks of output row 8u + c against input rows 8 * chunk + 4q .. + 3,
+// base = u * nch + chunk, from the block's shared copy: one broadcast
+// 16-byte load (replicated), or one word spread by __byte_perm (packed:
+// byte t of word q is input row 4q + t).
+template <bool PACKED>
+__device__ __forceinline__ void mask_quad(const uint32_t* sm, int base, int c,
+                                          int q, uint32_t (&mk)[4]) {
+  if constexpr (PACKED) {
+    const uint32_t w = sm[(base * 8 + c) * 2 + q];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) mk[t] = __byte_perm(w, 0u, 0x1111u * t);
+  } else {
+    const uint4 v = reinterpret_cast<const uint4*>(sm)[(base * 8 + c) * 2 + q];
+    mk[0] = v.x; mk[1] = v.y; mk[2] = v.z; mk[3] = v.w;
+  }
+}
+
+// One item: 4W columns of one batch row.  d and o point at its first
+// column in input row 0 and output row 0; rem = S - that column; fast:
+// the item lies inside S and the rows are aligned for W-word vectors.
+struct Item {
+  const uint8_t* d;
+  uint8_t* o;
+  long long rem;
+  bool fast;
+};
+
+template <int W>
+__device__ __forceinline__ Item locate(const Params& p, unsigned t) {
+  const unsigned bi = t / p.items_per_row;
+  const long long col = (long long)(t - bi * p.items_per_row) * (4 * W);
+  Item it;
+  it.d = p.data + (long long)bi * p.k * p.s + col;
+  it.o = p.out + (long long)bi * p.m * p.s + col;
+  it.rem = p.s - col;
+  it.fast = p.vec && it.rem >= 4 * W;
+  return it;
+}
+
+// Input rows 8 * ch .. 8 * ch + 7 of the item (rows past k are not read).
+template <bool ACC, int W>
+__device__ __forceinline__ void load_chunk(const Params& p, const Item& it,
+                                           int ch, uint32_t (&x)[8][W]) {
+  const int nrow = min(8, p.k - 8 * ch);
+  const uint8_t* q = it.d + (long long)(8 * ch) * p.s;
+  if (it.fast) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < nrow) load_vec<W, true>(x[i], q + i * p.s);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < nrow) load_bytes<W>(x[i], q + i * p.s, it.rem);
+  }
+  if (ACC) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < W; ++j) x[i][j] ^= p.seed_rep;
+  }
+}
+
+// lo ^= x_i & ml_i and hi ^= x_i & mh_i over input rows i = 4q .. 4q + 3
+// below nrow (FULL: all of them).
+template <int W, bool FULL>
+__device__ __forceinline__ void and_xor(const uint32_t (&x)[8][W], int q,
+                                        int nrow, const uint32_t (&ml)[4],
+                                        const uint32_t (&mh)[4],
+                                        uint32_t (&lo)[W], uint32_t (&hi)[W]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (FULL || 4 * q + i < nrow) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        lo[j] ^= x[4 * q + i][j] & ml[i];
+        hi[j] ^= x[4 * q + i][j] & mh[i];
+      }
+    }
+  }
+}
+
+// Bit rows c and c + 4 of output byte u over the item (XOR over input
+// rows i of x_i & mask), formed together and merged by fold_pair into
+// out.  x holds input chunk 0 when loaded (k <= 8: it is never
+// reloaded); other chunks are loaded here.  Masks come four at a time.
+template <bool ACC, int W, bool PACKED>
+__device__ __forceinline__ void pair(const Params& p, const uint32_t* sm,
+                                     const Item& it, uint32_t (&x)[8][W],
+                                     bool loaded, int u, int c,
+                                     uint32_t (&out)[W]) {
+  uint32_t lo[W], hi[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) lo[j] = hi[j] = 0u;
+  for (int ch = 0; ch < p.nch; ++ch) {
+    if (!loaded || p.nch > 1) load_chunk<ACC, W>(p, it, ch, x);
+    const int nrow = min(8, p.k - 8 * ch);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      uint32_t ml[4], mh[4];
+      mask_quad<PACKED>(sm, u * p.nch + ch, c, q, ml);
+      mask_quad<PACKED>(sm, u * p.nch + ch, c + 4, q, mh);
+      // a full chunk (k = 8, the common case) runs with no row checks
+      if (nrow == 8)
+        and_xor<W, true>(x, q, 8, ml, mh, lo, hi);
+      else
+        and_xor<W, false>(x, q, nrow, ml, mh, lo, hi);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < W; ++j) out[j] = fold_pair(lo[j], hi[j]);
+}
+
+// Every output byte of one item.  The bit rows of output byte u are
+// taken in pairs (c, c + 4) and merged as soon as they are formed: pairs
+// 0 and 2 by fold_pair and stage 2 into d[0], then pairs 1 and 3 into
+// d[1], so that few words per column word are live at once.
+template <bool ACC, int W, bool PACKED>
+__device__ __forceinline__ void item(const Params& p, const uint32_t* sm,
+                                     const Item& it, uint32_t (&x)[8][W],
+                                     bool loaded) {
+  for (int u = 0; u < p.m; ++u) {
+    uint32_t d[2][W];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t b0[W], b2[W];
+      pair<ACC, W, PACKED>(p, sm, it, x, loaded || u + h > 0, u, h, b0);
+      pair<ACC, W, PACKED>(p, sm, it, x, true, u, h + 2, b2);
+#pragma unroll
+      for (int j = 0; j < W; ++j) d[h][j] = fold_stage2(b0[j], b2[j]);
+    }
+    uint32_t res[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) res[j] = fold_stage3(d[0][j], d[1][j]);
+    uint8_t* orow = it.o + (long long)u * p.s;
+    if (ACC) {
+      uint32_t prev[W];
+      if (it.fast)
+        load_vec<W, false>(prev, orow);
+      else
+        load_bytes<W>(prev, orow, it.rem);
+#pragma unroll
+      for (int j = 0; j < W; ++j) res[j] ^= prev[j];
+    }
+    if (it.fast)
+      store_vec<W>(orow, res);
+    else
+      store_bytes<W>(orow, it.rem, res);
+  }
+}
+
+template <bool ACC, int W, bool PACKED>
+__device__ __forceinline__ void run(const Params& p, uint32_t* sm) {
+  const unsigned t0 = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned stride = gridDim.x * kThreads;
+  // the first item's rows are in flight while the masks are copied
+  uint32_t x[8][W];
+  const bool pre = p.nch == 1 && t0 < p.items;
+  if (pre) load_chunk<ACC, W>(p, locate<W>(p, t0), 0, x);
+  const int n = p.m * p.nch * (PACKED ? 16 : 64);
+  for (int j = threadIdx.x; j < n; j += kThreads) sm[j] = __ldg(p.masks + j);
+  __syncthreads();
+  for (unsigned t = t0; t < p.items; t += stride)
+    item<ACC, W, PACKED>(p, sm, locate<W>(p, t), x, pre && t == t0);
 }
 
 // ACC: out = out ^ f(data ^ seed) in place (out is the carry).
-template <bool ACC>
-__global__ void __launch_bounds__(kThreads)
-gf_bitmatmul_kernel(const uint8_t* __restrict__ bitmat,
-                    const uint8_t* __restrict__ data, uint8_t* out, int k,
-                    int m, long long s, int batch, long long data_bstride,
-                    long long out_bstride, uint32_t seed_rep, bool vec) {
-  extern __shared__ uint32_t masks[];  // [8m][kq]; byte t of word q: row 4q+t
-  const int kq = (k + 3) >> 2;
-  const int nr = 8 * m;
-  for (int idx = threadIdx.x; idx < nr * kq; idx += blockDim.x) {
-    const int r = idx / kq, q = idx - r * kq;
-    uint32_t word = 0;
-    for (int t = 0; t < 4; ++t) {
-      const int i = 4 * q + t;
-      if (i < k) {
-        const uint8_t* src = bitmat + (long long)r * 8 * k + 8 * i;
-        uint32_t mb = 0;
-        for (int b = 0; b < 8; ++b) mb |= uint32_t(src[b] & 1u) << b;
-        word |= mb << (8 * t);
-      }
-    }
-    masks[idx] = word;
-  }
-  __syncthreads();
+template <bool ACC, int W>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm<W>)
+gf_bitmatmul_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  if (p.packed)
+    run<ACC, W, true>(p, smem);
+  else
+    run<ACC, W, false>(p, smem);
+}
 
-  const long long items = (s + 15) >> 4;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const uint4 seed4 = make_uint4(seed_rep, seed_rep, seed_rep, seed_rep);
-  for (int bi = blockIdx.y; bi < batch; bi += gridDim.y) {
-    const uint8_t* d = data + bi * data_bstride;
-    uint8_t* o = out + bi * out_bstride;
-    for (long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         it < items; it += stride) {
-      const long long col = it << 4;
-      uint4 x[kRows];
-      for (int u = 0; u < m; ++u) {
-        uint4 res = make_uint4(0u, 0u, 0u, 0u);
-        for (int i0 = 0; i0 < k; i0 += kRows) {
-          const int nrow = min(kRows, k - i0);
-          // k <= 8: the rows stay in registers across all output rows
-          if (u == 0 || k > kRows) {
-#pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              if (i < nrow) {
-                x[i] = load16(d + (long long)(i0 + i) * s, col, s, vec);
-                if (ACC) x[i] = xor4(x[i], seed4);
-              } else {
-                x[i] = make_uint4(0u, 0u, 0u, 0u);
-              }
-            }
-          }
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const uint32_t* mrow = masks + (8 * u + c) * kq + (i0 >> 2);
-            uint4 acc = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-            for (int qq = 0; qq < kRows / 4; ++qq) {
-              if (4 * qq < nrow) {
-                const uint32_t mq = mrow[qq];
-#pragma unroll
-                for (int t = 0; t < 4; ++t) {
-                  // byte t of mq copied into all four bytes
-                  const uint32_t mm = __byte_perm(mq, 0u, 0x1111u * t);
-                  const uint4 v = x[4 * qq + t];
-                  acc.x ^= v.x & mm;
-                  acc.y ^= v.y & mm;
-                  acc.z ^= v.z & mm;
-                  acc.w ^= v.w & mm;
-                }
-              }
-            }
-            res.x ^= byte_parity(acc.x) << c;
-            res.y ^= byte_parity(acc.y) << c;
-            res.z ^= byte_parity(acc.z) << c;
-            res.w ^= byte_parity(acc.w) << c;
-          }
-        }
-        uint8_t* orow = o + (long long)u * s;
-        if (ACC) res = xor4(res, load16(orow, col, s, vec));
-        store16(orow, col, s, vec, res);
-      }
-    }
+size_t smem_bytes(int m, int nch, bool packed) {
+  return size_t(m) * nch * (packed ? 16 : 64) * sizeof(uint32_t);
+}
+
+template <bool ACC, int W>
+int launch(const Params& p, int blocks, cudaStream_t stream) {
+  const size_t smem = smem_bytes(p.m, p.nch, p.packed != 0);
+  if (smem > 48 * 1024) {  // wide codes only: opt in above the default
+    const cudaError_t err = cudaFuncSetAttribute(
+        gf_bitmatmul_kernel<ACC, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
   }
+  gf_bitmatmul_kernel<ACC, W><<<blocks, kThreads, smem, stream>>>(p);
+  return int(cudaGetLastError());
 }
 
 template <bool ACC>
-int launch(const uint8_t* bitmat, const uint8_t* data, uint8_t* out, int k,
-           int m, long long s, int batch, long long data_bstride,
-           long long out_bstride, uint32_t seed_rep, bool vec,
-           cudaStream_t stream) {
-  const size_t smem = size_t(8) * m * ((k + 3) / 4) * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      gf_bitmatmul_kernel<ACC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return int(err);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return int(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return int(err);
-  const long long items = (s + 15) >> 4;
-  long long blocks = (items + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
-  dim3 grid(unsigned(blocks), unsigned(batch < 65535 ? batch : 65535));
-  gf_bitmatmul_kernel<ACC><<<grid, kThreads, smem, stream>>>(
-      bitmat, data, out, k, m, s, batch, data_bstride, out_bstride, seed_rep,
-      vec);
-  return int(cudaGetLastError());
+int launch_w(const Params& p, int words, int blocks, cudaStream_t stream) {
+  switch (words) {
+    case 2: return launch<ACC, 2>(p, blocks, stream);
+    case 4: return launch<ACC, 4>(p, blocks, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -206,30 +379,45 @@ int launch(const uint8_t* bitmat, const uint8_t* data, uint8_t* out, int k,
 extern "C" {
 
 // out[b] = f(data[b]) for b < batch, or out[b] ^= f(data[b] ^ seed) when
-// acc != 0.  bitmat: (8m, 8k) uint8 0/1, row-major.  data: (k, s) per
-// batch entry, out: (m, s).  Returns a cudaError_t value (0 on success).
-int ceph_gf_bitmatmul(const void* bitmat, const void* data, void* out, int k,
-                      int m, long long s, int batch, long long data_bstride,
-                      long long out_bstride, int acc, int seed, void* stream) {
-  if (k < 1 || m < 1 || k + m > 256 || s < 0 || batch < 0)
+// acc != 0.  data: (batch, k, s) and out: (batch, m, s), contiguous.
+// masks: device array of m * nch * 64 replicated words, or with
+// packed != 0 of m * nch * 16 packed words (nch = ceil(k / 8)).  words
+// (2 or 4) and blocks are the host's launch plan.  Returns a
+// cudaError_t value (0 on success).
+int ceph_gf_bitmatmul(const void* data, void* out, const void* masks,
+                      int packed, int k, int m, long long s, int batch,
+                      int acc, int seed, int words, int blocks, void* stream) {
+  if (k < 1 || m < 1 || k + m > 256 || s < 0 || batch < 0 || blocks < 1 ||
+      (words != 2 && words != 4))
     return int(cudaErrorInvalidValue);
   if (s == 0 || batch == 0) return 0;
-  const auto aligned = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  const int nch = (k + 7) / 8;
+  const long long per_row = (s + 4 * words - 1) / (4 * words);
+  const long long items = per_row * batch;
+  if (items >= (1ll << 31)) return int(cudaErrorInvalidValue);
+  if (smem_bytes(m, nch, packed != 0) >
+      size_t(packed ? kMaxSmemBytes : kReplicatedBytes))
+    return int(cudaErrorInvalidValue);
+  const auto aligned = [words](const void* ptr) {
+    return (reinterpret_cast<uintptr_t>(ptr) & uintptr_t(4 * words - 1)) == 0;
   };
-  // 16-byte vector access needs every row start aligned
-  const bool vec = s % 16 == 0 && aligned(data) && aligned(out) &&
-                   data_bstride % 16 == 0 && out_bstride % 16 == 0;
-  const uint32_t seed_rep = (uint32_t(seed) & 0xFFu) * 0x01010101u;
-  const auto* bm = static_cast<const uint8_t*>(bitmat);
-  const auto* d = static_cast<const uint8_t*>(data);
-  auto* o = static_cast<uint8_t*>(out);
+  Params p;
+  p.data = static_cast<const uint8_t*>(data);
+  p.out = static_cast<uint8_t*>(out);
+  p.masks = static_cast<const uint32_t*>(masks);
+  p.s = s;
+  p.items_per_row = unsigned(per_row);
+  p.items = unsigned(items);
+  p.k = k;
+  p.m = m;
+  p.nch = nch;
+  p.seed_rep = acc ? (uint32_t(seed) & 0xFFu) * 0x01010101u : 0u;
+  // every row starts aligned when s is a multiple of the vector width
+  p.vec = s % (4 * words) == 0 && aligned(data) && aligned(out);
+  p.packed = packed != 0;
   auto st = static_cast<cudaStream_t>(stream);
-  if (acc)
-    return launch<true>(bm, d, o, k, m, s, batch, data_bstride, out_bstride,
-                        seed_rep, vec, st);
-  return launch<false>(bm, d, o, k, m, s, batch, data_bstride, out_bstride,
-                       0u, vec, st);
+  return acc ? launch_w<true>(p, words, blocks, st)
+             : launch_w<false>(p, words, blocks, st);
 }
 
 }  // extern "C"

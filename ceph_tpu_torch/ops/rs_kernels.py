@@ -27,6 +27,8 @@ counts its kernel launches in a plain integer attribute ``launches``
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 
 import numpy as np
 import torch
@@ -88,8 +90,17 @@ def gf_bitmatmul_plain(bitmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel
+# The CUDA kernel: masks, launch plan, launch
 # ---------------------------------------------------------------------------
+
+#: threads per block of the kernel (``kThreads`` in the source)
+THREADS = 256
+#: largest replicated mask block, bytes (``kReplicatedBytes`` in the
+#: source); wider codes take the packed form
+REPLICATED_BYTES = 48 * 1024
+#: grid cap in blocks per SM (2-3 waves of resident blocks); past it
+#: each thread strides over items
+MAX_BLOCKS_PER_SM = 8
 
 _fn = None
 
@@ -103,14 +114,134 @@ def _kernel():
         fn = _build.library("gf_bitmatmul").ceph_gf_bitmatmul
         fn.restype = ctypes.c_int
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # bitmat, data, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong,       # k, m, s
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,  # batch, strides
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # data, out, masks
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,            # packed, k, m
+            ctypes.c_longlong, ctypes.c_int,                     # s, batch
             ctypes.c_int, ctypes.c_int,                          # acc, seed
+            ctypes.c_int, ctypes.c_int,                          # words, blocks
             ctypes.c_void_p,                                     # stream
         ]
         _fn = fn
     return _fn
+
+
+def replicated_masks(bitmat: np.ndarray) -> np.ndarray:
+    """(8m, 8k) 0/1 bit-matrix -> (8m, k) uint32: word (r, i) is the byte
+    whose bit b is ``bitmat[r, 8i + b]``, copied into all four bytes."""
+    b = np.asarray(bitmat, dtype=np.uint8)
+    m8, k8 = b.shape
+    bytes_ = ((b.reshape(m8, k8 // 8, 8) & 1).astype(np.uint32)
+              << np.arange(8, dtype=np.uint32)).sum(axis=-1, dtype=np.uint32)
+    return bytes_ * np.uint32(0x01010101)
+
+
+def kernel_masks(bitmat: np.ndarray, *, packed: bool) -> np.ndarray:
+    """The masks in the kernel's order, flat uint32: [u][chunk][c][i] for
+    output row 8u + c and input row 8 * chunk + i, i padded with zero
+    masks to 8 a chunk.  ``packed``: four input rows to a word, byte t of
+    word q being input row 4q + t ([u][chunk][c][q])."""
+    words = replicated_masks(bitmat)
+    m8, k = words.shape
+    nch = -(-k // 8)
+    byte = np.zeros((m8, 8 * nch), dtype=np.uint8)
+    byte[:, :k] = words & 0xFF
+    blocked = byte.reshape(m8 // 8, 8, nch, 8).transpose(0, 2, 1, 3)
+    if packed:
+        return np.ascontiguousarray(blocked).reshape(-1).view("<u4").copy()
+    return blocked.reshape(-1).astype(np.uint32) * np.uint32(0x01010101)
+
+
+def replicated_fits(k: int, m: int) -> bool:
+    """Whether a (k, m) code's masks go to the kernel replicated (else
+    packed four input rows to a word, for codes up to k + m = 256)."""
+    return m * -(-k // 8) * 64 * 4 <= REPLICATED_BYTES
+
+
+#: id(bit-matrix) -> (weak reference to it, its _version, packed,
+#: device tensor of its masks, that tensor's address)
+_mask_cache: dict[int, tuple] = {}
+
+
+def _masks(bitmat: torch.Tensor) -> tuple[int, int]:
+    """(packed, device address) of the kernel's masks for ``bitmat``,
+    built once per bit-matrix tensor, kept while it lives, and rebuilt if
+    it is changed in place."""
+    key = id(bitmat)
+    hit = _mask_cache.get(key)
+    if hit is not None and hit[0]() is bitmat and hit[1] == bitmat._version:
+        return hit[2], hit[4]
+    m, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
+    packed = int(not replicated_fits(k, m))
+    words = kernel_masks(bitmat.cpu().numpy(), packed=bool(packed))
+    held = torch.from_numpy(words.view(np.int32)).to(bitmat.device)
+
+    def drop(ref, key=key):
+        if _mask_cache.get(key, (None,))[0] is ref:
+            del _mask_cache[key]
+
+    _mask_cache[key] = (weakref.ref(bitmat, drop), bitmat._version, packed,
+                        held, held.data_ptr())
+    return packed, held.data_ptr()
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(s: int, batch: int, sm_count: int,
+                 words: int | None = None) -> tuple[int, int]:
+    """(words per thread, blocks) for a launch over ``batch`` rows of
+    ``s`` columns.  A thread takes 4W columns of one batch row (item
+    t -> row t // ceil(s / 4W)): W = 4 (16 columns) where there are
+    items enough for the capped grid, else W = 2 (8 columns), unless
+    ``words`` fixes it.  The grid is one thread per item, capped at
+    ``MAX_BLOCKS_PER_SM`` blocks per SM, past which each thread strides
+    over items."""
+    cap = sm_count * MAX_BLOCKS_PER_SM
+    if words is None:
+        words = 4 if batch * -(-s // 16) >= cap * THREADS else 2
+    items = batch * -(-s // (4 * words))
+    return words, max(min(-(-items // THREADS), cap), 1)
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def _sm_count(index: int) -> int:
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def _launch(bitmat, data, out, *, acc=False, seed=0, words=None) -> None:
+    """One kernel launch on the current stream; raises if it is refused.
+    ``words`` overrides the launch plan's columns per thread (4 * words).
+    Checks only what the kernel needs (the entry points check the rest):
+    all three on one CUDA device, data and out contiguous."""
+    if not (bitmat.is_cuda and data.is_cuda and out.is_cuda):
+        name, t = next((n, t) for n, t in
+                       (("bitmat", bitmat), ("data", data), ("out", out)) if not t.is_cuda)
+        raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
+    if not (data.is_contiguous() and out.is_contiguous()):
+        raise ValueError("data and out must be contiguous")
+    index = data.get_device()
+    if out.get_device() != index or bitmat.get_device() != index:
+        raise ValueError(f"out on {out.device}, bitmat on {bitmat.device}, "
+                         f"data on {data.device}")
+    *_, k, s = data.shape
+    m = out.shape[-2]
+    batch = data.numel() // (k * s) if s else 0
+    packed, masks = _masks(bitmat)
+    words, blocks = _launch_plan(s, batch, _sm_count(index), words)
+    args = (data.data_ptr(), out.data_ptr(), masks, packed, k, m, s, batch,
+            int(acc), seed & 0xFF, words, blocks)
+    if index == torch.cuda.current_device():
+        err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(
+            f"gf_bitmatmul kernel launch failed: cudaError {err} "
+            f"(k={k}, m={m}, S={s}, batch={batch}, acc={acc}, words={words})")
 
 
 def _check(bitmat: torch.Tensor, data: torch.Tensor) -> tuple[int, int]:
@@ -120,56 +251,34 @@ def _check(bitmat: torch.Tensor, data: torch.Tensor) -> tuple[int, int]:
             raise TypeError(f"{name} must be a torch.Tensor, not {type(t).__name__}")
         if t.dtype != torch.uint8:
             raise TypeError(f"{name} must be uint8, not {t.dtype}")
-    if bitmat.device != data.device:
+    if bitmat.is_cuda != data.is_cuda or bitmat.get_device() != data.get_device():
         raise ValueError(
             f"bitmat on {bitmat.device} but data on {data.device}")
-    if bitmat.dim() != 2 or bitmat.shape[0] % 8 or bitmat.shape[1] % 8:
-        raise ValueError(f"bitmat must be (8m, 8k), got {tuple(bitmat.shape)}")
-    if data.dim() < 2:
-        raise ValueError(f"data must be (..., k, S), got {tuple(data.shape)}")
-    m, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
-    if data.shape[-2] != k:
-        raise ValueError(f"data has {data.shape[-2]} rows, bitmat wants {k}")
+    bshape, dshape = bitmat.shape, data.shape
+    if len(bshape) != 2 or bshape[0] % 8 or bshape[1] % 8:
+        raise ValueError(f"bitmat must be (8m, 8k), got {tuple(bshape)}")
+    if len(dshape) < 2:
+        raise ValueError(f"data must be (..., k, S), got {tuple(dshape)}")
+    m, k = bshape[0] // 8, bshape[1] // 8
+    if dshape[-2] != k:
+        raise ValueError(f"data has {dshape[-2]} rows, bitmat wants {k}")
     if not (1 <= k and 1 <= m and k + m <= 256):
         raise ValueError(f"k={k}, m={m}: need k + m <= 256")
     return k, m
 
 
-def _launch(bitmat, data, out, *, acc=False, seed=0) -> None:
-    """One kernel launch on the current stream; raises if it is refused."""
-    for name, t in (("bitmat", bitmat), ("data", data), ("out", out)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if out.device != data.device:
-        raise ValueError(f"out on {out.device} but data on {data.device}")
-    k, s = data.shape[-2], data.shape[-1]
-    m = out.shape[-2]
-    batch = data.numel() // max(k * s, 1)
-    with torch.cuda.device(data.device):
-        err = _kernel()(
-            bitmat.data_ptr(), data.data_ptr(), out.data_ptr(),
-            k, m, s, batch, k * s, m * s, int(acc), int(seed) & 0xFF,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"gf_bitmatmul kernel launch failed: cudaError {err} "
-            f"(k={k}, m={m}, S={s}, batch={batch}, acc={acc})")
-
-
 def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return False
+    if t.is_cpu:
+        return True
     raise ValueError(f"unsupported device {t.device}")
 
 
 def gf_bitmatmul(bitmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """Apply an (8m, 8k) GF(2) bit-matrix to (..., k, S) uint8 chunk data,
-    returning (..., m, S) uint8.  On the card: one launch with a batch
-    grid axis over the leading dimensions (replaces the jitted XLA
+    returning (..., m, S) uint8.  On the card: one launch, the leading
+    dimensions folded into its flat item index (replaces the jitted XLA
     ``gf_bitmatmul`` of ceph_tpu/ops/rs_kernels.py:59-70)."""
     k, m = _check(bitmat, data)
     if _on_cpu(data):

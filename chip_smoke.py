@@ -9,7 +9,9 @@ runs one RS(8,3) pool through the port's entry points:
 1. kernels — every kernel entry point against its plain PyTorch version
    on the card, and the plain version against the numpy GF(2^8) oracle,
    at the main path's shapes plus a k=16 code, a k+m=256 code and a
-   ragged S; mismatched bytes must be 0;
+   ragged S, and at every form of the kernel's launch plan (S where it
+   changes columns per thread or starts to stride, batches of 1 and 8,
+   m = 1, each instantiation forced); mismatched bytes must be 0;
 2. write — 256 objects of 4 MiB and 16 of 2 MiB through
    ``registry.factory("cuda", ...)`` -> ``ecutil.encode`` + ``HashInfo``;
 3. recover — lose the OSD of shard 2, then also shard 9; rebuild every
@@ -21,12 +23,13 @@ runs one RS(8,3) pool through the port's entry points:
    bench.py on (8, 256 MiB), and a 1-erasure decode at the same S.
 
 Kernel launch counts are reset just before phases 2-5 and read just
-after; every kernel must have been launched there.  Then each kernel is
-timed at its main-path shape and held there against its plain version,
-and a torch.profiler pass over phases 2-4 gives the device's busy and
-idle share and the device time per kernel launch.  Each phase prints
-one JSON line; then a ``kernels`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+after; every kernel must have been launched there.  Then a
+torch.profiler pass over phases 2-4 gives the device's busy and idle
+share, and the device time per launch at each kernel's main-path shape
+(and at each forced width of the launch plan); each kernel is timed
+there by CUDA events and held there against its plain version.  Each
+phase prints one JSON line; then a ``kernels`` line, the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; with no CUDA device it exits 1 before doing anything.
 """
 
@@ -89,6 +92,11 @@ class Config:
     wide_cols: int = 65536
     throughput_cols: int = 256 * MiB
     fold_cols: int = 256 * 1024
+    #: S where the launch plan changes form (columns per thread, grid
+    #: cap), one ragged; and the batched widths at batch 1 and 8
+    plan_cols: tuple = (16, 4096, 65536, 262144, 524288, 262144 + 13,
+                        3 << 19, 8 << 20)
+    plan_batch_cols: tuple = (4096, 65536)
     iters: int = 32
     repeats: int = 5
     seed: int = 20261016
@@ -202,11 +210,56 @@ def phase_kernels(cfg: Config, device) -> dict[str, int]:
           _rand((128, cfg.wide_cols), gen, device))
     two_d(f"encode RS({k},{m}) ragged S={s + 13}", codec.C, codec.encode_bits,
           _rand((k, s + 13), gen, device))
+    plans = phase_kernel_plans(cfg, device, gen, codec, check)
     _sync(device)
     emit({"phase": "kernels", "cases": len(cases),
           "mismatched_bytes": sum(c["mismatched_bytes"] for c in cases),
-          "worst": worst})
+          "worst": worst, "plans": plans})
     return worst
+
+
+def phase_kernel_plans(cfg: Config, device, gen, codec, check) -> list:
+    """The kernel at every form of its launch plan: an encode (m = 3), a
+    1-erasure decode (m = 1) and an acc step at each S of
+    ``cfg.plan_cols``, batches of 1 and 8 of the decode; on the card
+    also every (acc, columns per thread) instantiation, forced, at an
+    aligned and a ragged S.  Returns the (S, batch, words, blocks) seen."""
+    k = cfg.k
+    _, d1 = codec.decode_bits((2,))
+    cuda = torch.device(device).type == "cuda"
+    sms = rk._sm_count(torch.cuda.current_device()) if cuda else 132
+    plans = set()
+    for s in cfg.plan_cols:
+        plans.add((s, 1, *rk._launch_plan(s, 1, sms)))
+        x = _rand((k, s), gen, device)
+        for what, bits in (("encode", codec.encode_bits), ("1-erasure decode", d1)):
+            check("gf_bitmatmul", rk.gf_bitmatmul(bits, x[None])[0],
+                  rk.gf_bitmatmul_plain(bits, x), f"plan {what} S={s}")
+        carry = _rand((cfg.m, s), gen, device)
+        want = carry ^ rk.gf_bitmatmul_plain(codec.encode_bits, x ^ 9)
+        check("gf_bitmatmul_pallas_acc",
+              rk.gf_bitmatmul_pallas_acc(codec.encode_bits, x, carry, 9, tile_s=1),
+              want, f"plan acc S={s}")
+    for width in cfg.plan_batch_cols:
+        for batch in (1, 8):
+            plans.add((width, batch, *rk._launch_plan(width, batch, sms)))
+            x = _rand((batch, k, width), gen, device)
+            check("gf_bitmatmul", rk.gf_bitmatmul(d1, x), rk.gf_bitmatmul_plain(d1, x),
+                  f"plan batched ({batch}, {k}, {width})")
+    if cuda:
+        for s in (12288, 4096 + 5):
+            x = _rand((k, s), gen, device)
+            want = rk.gf_bitmatmul_plain(codec.encode_bits, x)
+            carry = _rand(want.shape, gen, device)
+            want_acc = carry ^ rk.gf_bitmatmul_plain(codec.encode_bits, x ^ 3)
+            for words in (2, 4):
+                out = torch.empty_like(want)
+                rk._launch(codec.encode_bits, x, out, words=words)
+                check("forced", out, want, f"forced words={words} S={s}")
+                c = carry.clone()
+                rk._launch(codec.encode_bits, x, c, acc=True, seed=3, words=words)
+                check("forced", c, want_acc, f"forced acc words={words} S={s}")
+    return sorted(plans)
 
 
 # ---------------------------------------------------------------------------
@@ -358,9 +411,10 @@ def phase_throughput(cfg: Config, device) -> dict:
 
 def main_path_shapes(cfg: Config, device, codec) -> dict:
     """For each entry point but acc: (kernel call, plain call, bound,
-    shape) at the main path's shape, with inputs rotated over more than
-    the 50 MB L2, as a caller uploading fresh objects finds them.  Call
-    i of the kernel and of the plain version take the same input."""
+    shape, (bit-matrix, one input)) at the main path's shape, with
+    inputs rotated over more than the 50 MB L2, as a caller uploading
+    fresh objects finds them.  Call i of the kernel and of the plain
+    version take the same input."""
     k, m = cfg.k, cfg.m
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 3)
     s4 = cfg.object_bytes // k          # 4 MiB object -> grouped kernel
@@ -376,23 +430,27 @@ def main_path_shapes(cfg: Config, device, codec) -> dict:
         "gf_bitmatmul_pallas": (
             lambda i: rk.gf_bitmatmul_pallas(bits, bufs2[i % 48], tile_s=t2),
             lambda i: rk.gf_bitmatmul_plain(bits, bufs2[i % 48]),
-            bound_ms(k, m, s2), f"encode ({k}, {s2})"),
+            bound_ms(k, m, s2), f"encode ({k}, {s2})", (bits, bufs2[0])),
         "gf_bitmatmul_pallas_grouped": (
             lambda i: rk.gf_bitmatmul_pallas_grouped(bits, bufs4[i % 24],
                                                      tile_s=t4 // g4, groups=g4),
             lambda i: rk.gf_bitmatmul_plain(bits, bufs4[i % 24]),
-            bound_ms(k, m, s4), f"encode ({k}, {s4}) groups={g4}"),
+            bound_ms(k, m, s4), f"encode ({k}, {s4}) groups={g4}", (bits, bufs4[0])),
         "gf_bitmatmul": (
             lambda i: rk.gf_bitmatmul(d1, bufsb[i % 24]),
             lambda i: rk.gf_bitmatmul_plain(d1, bufsb[i % 24]),
-            bound_ms(k, 1, 8 * cfg.batch_cols), f"1-erasure decode (8, {k}, {cfg.batch_cols})"),
+            bound_ms(k, 1, 8 * cfg.batch_cols), f"1-erasure decode (8, {k}, {cfg.batch_cols})",
+            (d1, bufsb[0])),
     }
 
 
-def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict) -> list[dict]:
+def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict,
+                per_launch: dict) -> list[dict]:
     """One row per kernel entry point: its time at the main path's
-    shape, its plain version's time, its bound, and its error against
-    the plain version on the same input at that shape (raises unless 0)."""
+    shape (CUDA events per call, and device time per launch from the
+    profile pass), its plain version's time, its bound and the bound's
+    share of the time, and its error against the plain version on the
+    same input at that shape (raises unless 0)."""
     k, m = cfg.k, cfg.m
     bits = tp["codec"].encode_bits
     shapes = main_path_shapes(cfg, device, tp["codec"])
@@ -412,7 +470,7 @@ def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict) -> l
             bms, by = bound_ms(k, m, s, carry=True)
             shape = f"acc ({k}, {s})"
         else:
-            fn, plain, (bms, by), shape = shapes[name]
+            fn, plain, (bms, by), shape, _ = shapes[name]
             bad, err = _errors(fn(0), plain(0))
             ms = time_ms(fn, 48, cfg.repeats)
             plain_ms = time_ms(plain, 4, 3)
@@ -424,7 +482,8 @@ def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict) -> l
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(worst[name], err), "mismatched_bytes": bad,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "shape": shape,
+            "bound_share": bms / ms, "library_ms": None, "shape": shape,
+            "device_us": per_launch[name]["device_us_mean"],
         })
     return rows
 
@@ -446,11 +505,13 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def phase_profile(cfg: Config, device, codec) -> dict:
+def phase_profile(cfg: Config, device, tp: dict) -> dict:
     """Phases 2-4 again under torch.profiler, reporting
     the device's busy and idle share of the phases' wall time and the
-    device time per kernel; then each small main-path launch shape, for
-    the kernel's own device time beside the CUDA-event time per call."""
+    device time per kernel; then each main-path launch shape, for the
+    kernel's own device time beside the CUDA-event time per call, and
+    each shape again at each forced width of the launch plan (8 and 16
+    columns per thread)."""
     import os
     import tempfile
 
@@ -485,15 +546,41 @@ def phase_profile(cfg: Config, device, codec) -> dict:
     out = {"phase": "profile", "main_path_wall_s": wall,
            "device_busy_s": busy * 1e-6, "device_idle_share": 1 - busy * 1e-6 / wall,
            "device_us_by_kind": by_cat, "device_events": len(dev), "per_launch": {}}
-    for name, (fn, _, _, shape) in main_path_shapes(cfg, device, codec).items():
+
+    def per_launch(fn, calls: int, shape: str) -> dict:
         fn(0)
-        calls = 48
         wall_c, dev_c = traced(lambda: [fn(i) for i in range(calls)])
         kern = [e["dur"] for e in dev_c if ours(e)]
-        out["per_launch"][name] = {
-            "shape": shape, "launches": len(kern),
-            "device_us_mean": sum(kern) / max(len(kern), 1),
-            "wall_us_per_call": wall_c / calls * 1e6}
+        return {"shape": shape, "launches": len(kern),
+                "device_us_mean": sum(kern) / max(len(kern), 1),
+                "wall_us_per_call": wall_c / calls * 1e6}
+
+    shapes = main_path_shapes(cfg, device, tp["codec"])
+    for name, (fn, _, _, shape, _x) in shapes.items():
+        out["per_launch"][name] = per_launch(fn, 48, shape)
+    bits, data, carry = tp["codec"].encode_bits, tp["data"], tp["carry"]
+    out["per_launch"]["gf_bitmatmul_pallas_acc"] = per_launch(
+        lambda i: rk.gf_bitmatmul_pallas_acc(bits, data, carry, i,
+                                             tile_s=rk._pick_tile(data.shape[1])),
+        4, f"acc ({cfg.k}, {data.shape[1]})")
+    out["by_words"] = {}
+    for name, (_, _, _, shape, (b, x)) in shapes.items():
+        for words in (2, 4):
+            def launch(i, b=b, x=x, words=words):
+                o = torch.empty((*x.shape[:-2], b.shape[0] // 8, x.shape[-1]),
+                                dtype=torch.uint8, device=device)
+                rk._launch(b, x, o, words=words)
+            out["by_words"][f"{shape} words={words}"] = per_launch(launch, 48, shape)
+    _, d1 = tp["codec"].decode_bits((2,))
+    rec = torch.empty((1, data.shape[1]), dtype=torch.uint8, device=device)
+    for words in (2, 4):
+        out["by_words"][f"acc ({cfg.k}, {data.shape[1]}) words={words}"] = per_launch(
+            lambda i, words=words: rk._launch(bits, data, carry, acc=True, seed=i,
+                                              words=words),
+            4, f"acc ({cfg.k}, {data.shape[1]})")
+        out["by_words"][f"1-erasure decode ({cfg.k}, {data.shape[1]}) words={words}"] = (
+            per_launch(lambda i, words=words: rk._launch(d1, data, rec, words=words),
+                       4, f"1-erasure decode ({cfg.k}, {data.shape[1]})"))
     emit(out)
     return out
 
@@ -538,8 +625,8 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
-    rows = kernel_rows(cfg, device, worst, launches, tp)
-    phase_profile(cfg, device, tp["codec"])
+    prof = phase_profile(cfg, device, tp)
+    rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

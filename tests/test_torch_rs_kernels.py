@@ -233,3 +233,193 @@ def test_no_launch_counted_on_cpu(rng):
     _, port = _codecs(8, 3)
     port.encode(_t(rng.integers(0, 256, (8, 1024), dtype=np.uint8)), pallas=True)
     assert rk.launch_counts() == {fn.__name__: 0 for fn in rk.KERNEL_ENTRY_POINTS}
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's host-side pieces: masks, word arithmetic, launch plan
+# ---------------------------------------------------------------------------
+
+MASK_CODES = [(8, 3), (4, 2), (6, 1), (10, 4), (16, 4), (128, 128)]
+
+
+def _bitmat(k, m):
+    return np.asarray(ref_rk.BitmatrixCodec(ref_mx.isa_cauchy_matrix(k, m)).encode_bits)
+
+
+@pytest.mark.parametrize("k,m", MASK_CODES)
+def test_replicated_masks_match_bitmatrix(k, m):
+    """Word (r, i) is bits(bitmat[r, 8i:8i+8]) * 0x01010101; the kernel's
+    blocked layouts hold the same bytes, replicated or packed four to a
+    word, with zero masks padding k to a multiple of 8."""
+    bm = _bitmat(k, m)
+    words = rk.replicated_masks(bm)
+    assert words.shape == (8 * m, k) and words.dtype == np.uint32
+    byte = (bm.reshape(8 * m, k, 8).astype(np.uint32) << np.arange(8, dtype=np.uint32)).sum(-1)
+    assert np.array_equal(words, byte * 0x01010101)
+    for r, i in [(0, 0), (8 * m - 1, k - 1), (5 % (8 * m), k // 2)]:
+        want = sum(int(bm[r, 8 * i + b]) << b for b in range(8))
+        assert int(words[r, i]) == want * 0x01010101
+    nch = -(-k // 8)
+    padded = np.zeros((8 * m, 8 * nch), dtype=np.uint32)
+    padded[:, :k] = byte
+    want_blocked = padded.reshape(m, 8, nch, 8).transpose(0, 2, 1, 3)
+    rep = rk.kernel_masks(bm, packed=False).reshape(m, nch, 8, 8)
+    assert np.array_equal(rep, want_blocked * np.uint32(0x01010101))
+    packed = rk.kernel_masks(bm, packed=True).reshape(m, nch, 8, 2)
+    spread = (packed[..., None] >> (8 * np.arange(4, dtype=np.uint32))) & 0xFF
+    assert np.array_equal(spread.reshape(m, nch, 8, 8), want_blocked)
+    assert rk.replicated_fits(k, m) == (rep.nbytes <= rk.REPLICATED_BYTES)
+    if (k, m) == (128, 128):
+        # RS(128,128) takes the packed form: 128 KB of shared memory
+        assert not rk.replicated_fits(k, m) and packed.nbytes == 128 * 1024
+
+
+def test_constants_match_kernel_source():
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(rk.__file__), "csrc", "gf_bitmatmul.cu")
+    with open(src) as f:
+        text = f.read()
+    assert re.search(r"kReplicatedBytes = 48 \* 1024;", text)
+    assert rk.REPLICATED_BYTES == 48 * 1024
+    assert int(re.search(r"kThreads = (\d+);", text).group(1)) == rk.THREADS
+    assert rk.replicated_fits(8, 3) and rk.replicated_fits(16, 4)
+
+
+def _fold8(a):
+    """The kernel's tree fold (fold_pair, fold_stage2, fold_stage3) on uint32 arrays
+    a[0..7], the parity words of bit rows 0..7."""
+    def pick(keep, x, y):
+        keep = np.uint32(keep)
+        return (x & keep) | (y & ~keep)
+
+    n1, n2, n4 = np.uint32(1), np.uint32(2), np.uint32(4)
+    b = [pick(0x0F0F0F0F, a[c] ^ (a[c] >> n4), a[c + 4] ^ (a[c + 4] << n4)) for c in range(4)]
+    d = [pick(0x33333333, b[c] ^ (b[c] >> n2), b[c + 2] ^ (b[c + 2] << n2)) for c in range(2)]
+    return pick(0x55555555, d[0] ^ (d[0] >> n1), d[1] ^ (d[1] << n1))
+
+
+def _kernel_model(bitmat: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """numpy model of gf_bitmatmul.cu's word arithmetic: 4 columns to a
+    uint32 word, the blocked replicated masks, AND-XOR per output bit row
+    over 8-row chunks, then the three-stage tree fold."""
+    m, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
+    nch = -(-k // 8)
+    masks = rk.kernel_masks(bitmat, packed=False).reshape(m, nch, 8, 8)
+    s = data.shape[1]
+    rows = np.zeros((8 * nch, -(-s // 4) * 4), dtype=np.uint8)
+    rows[:k, :s] = data
+    x = rows.view("<u4")
+    out = np.zeros((m, x.shape[1]), dtype="<u4")
+    for u in range(m):
+        a = [np.zeros(x.shape[1], dtype=np.uint32) for _ in range(8)]
+        for ch in range(nch):
+            for i in range(8):
+                for c in range(8):
+                    a[c] ^= x[8 * ch + i] & masks[u, ch, c, i]
+        out[u] = _fold8(a)
+    return out.view(np.uint8)[:, :s]
+
+
+def _model_cases():
+    cases = [("encode", k, m, ()) for k, m in [(8, 3), (4, 2), (16, 4), (10, 4)]]
+    return cases + [("decode", 8, 3, e) for e in [(2,), (2, 9), (0, 5, 10), (8, 9, 10)]]
+
+
+@pytest.mark.parametrize("kind,k,m,erasures", _model_cases())
+def test_kernel_word_model_vs_interpret(rng, kind, k, m, erasures):
+    """The kernel's replicated-mask AND-XOR and tree fold, modelled in
+    numpy, against the JAX Pallas kernel in interpret mode (byte-exact):
+    pins the fold's bit order before the card runs it."""
+    ref, _ = _codecs(k, m)
+    D = rng.integers(0, 256, (k, 1024), dtype=np.uint8)
+    if kind == "encode":
+        bits, src = np.asarray(ref.encode_bits), D
+    else:
+        full = np.concatenate([D, ref_gf.gf_matmul(ref.C, D)])
+        survivors, dbits = ref.decode_bits(erasures)
+        bits, src = np.asarray(dbits), full[survivors]
+    want = np.asarray(ref_rk.gf_bitmatmul_pallas(
+        jnp.asarray(bits), jnp.asarray(src), tile_s=512, interpret=True))
+    assert np.array_equal(_kernel_model(bits, src), want)
+    if kind == "decode":
+        assert np.array_equal(want, full[list(erasures)])
+
+
+def test_kernel_word_model_ragged_tail(rng):
+    """Columns past S read as zero and are never written."""
+    bits = _bitmat(8, 3)
+    D = rng.integers(0, 256, (8, 301), dtype=np.uint8)
+    want = np.asarray(ref_rk.gf_bitmatmul(jnp.asarray(bits), jnp.asarray(D)))
+    assert np.array_equal(_kernel_model(bits, D), want)
+
+
+def _covered(s, batch, words, blocks):
+    """How often the kernel's loop (gf_bitmatmul.cu ``run``) touches each
+    column of each batch row: thread g takes items g, g + stride, ...;
+    item t is columns [4W (t mod ipr), +4W) of row t // ipr."""
+    ipr = -(-s // (4 * words))
+    items = batch * ipr
+    stride = blocks * rk.THREADS
+    g = np.arange(stride)
+    t = np.concatenate([g + j * stride for j in range(-(-items // stride))])
+    t = t[t < items]
+    b, it = t // ipr, t % ipr
+    cols = it[:, None] * 4 * words + np.arange(4 * words)
+    flat = (b[:, None] * ipr * 4 * words + cols).reshape(-1)
+    hits = np.bincount(flat, minlength=batch * ipr * 4 * words)
+    # past s the kernel reads zeros and writes nothing
+    return hits.reshape(batch, ipr * 4 * words)[:, :s]
+
+
+@pytest.mark.parametrize("s", [16, 4096 + 13, 65536 + 3, 262144 + 13])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_launch_plan_covers_every_column_once(s, batch):
+    words, blocks = rk._launch_plan(s, batch, 132)
+    assert words in (2, 4) and 1 <= blocks <= 132 * rk.MAX_BLOCKS_PER_SM
+    assert np.all(_covered(s, batch, words, blocks) == 1)
+    for w in (2, 4):  # a forced width covers as well
+        assert np.all(_covered(s, batch, *rk._launch_plan(s, batch, 132, w)) == 1)
+
+
+@pytest.mark.parametrize("s,batch", [(524288, 1), (262144, 1), (65536, 8)])
+def test_launch_plan_fills_the_card_at_main_path_shapes(s, batch):
+    """The grouped encode (8, 524288), the plain-layout encode (8, 262144)
+    and the batched decode (8, 8, 65536): at least 4 blocks of 256 threads
+    per SM (528), or one thread for every item where there are fewer."""
+    words, blocks = rk._launch_plan(s, batch, 132)
+    items = batch * -(-s // (4 * words))
+    assert blocks >= 528 or blocks * rk.THREADS >= items
+    assert words == 2
+
+
+def test_launch_plan_strides_at_large_s():
+    """The acc loop's (8, 256 MiB): 16 columns a thread, the grid capped
+    at 8 blocks per SM, each thread striding over many items."""
+    words, blocks = rk._launch_plan(256 << 20, 1, 132)
+    assert (words, blocks) == (4, 132 * 8)
+    assert np.all(_covered(1 << 16, 1, 4, 3) == 1)  # stride loop, small
+
+
+def test_mask_cache_is_by_identity_and_version():
+    bits = torch.tensor(_bitmat(8, 3))
+    packed, ptr = rk._masks(bits)
+    assert packed == 0 and rk._masks(bits) == (0, ptr)
+
+    def held(t):
+        return rk._mask_cache[id(t)][3].numpy().view("<u4")
+
+    assert np.array_equal(held(bits), rk.kernel_masks(bits.numpy(), packed=False))
+    twin = bits.clone()  # equal contents, another tensor: its own entry
+    assert rk._masks(twin)[1] != ptr
+    bits[0, 0] ^= 1  # changed in place: rebuilt
+    assert rk._masks(bits)[1] != ptr
+    assert rk._mask_cache[id(bits)][1] == bits._version
+    assert np.array_equal(held(bits), rk.kernel_masks(bits.numpy(), packed=False))
+    n = len(rk._mask_cache)
+    del twin  # a freed bit-matrix drops its entry
+    assert len(rk._mask_cache) == n - 1
+    wide = torch.tensor(_bitmat(128, 128))
+    assert rk._masks(wide)[0] == 1
+    assert np.array_equal(held(wide), rk.kernel_masks(wide.numpy(), packed=True))

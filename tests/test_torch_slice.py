@@ -102,7 +102,7 @@ def test_chip_smoke_phases_on_cpu():
     cfg = chip_smoke.Config(
         object_bytes=64 * 1024, objects=4, small_object_bytes=32 * 1024,
         small_objects=2, kernel_cols=4096, oracle_cols=4096, batch_cols=512,
-        wide_cols=512)
+        wide_cols=512, plan_cols=(16, 4096 + 13), plan_batch_cols=(512,))
     worst = chip_smoke.phase_kernels(cfg, "cpu")
     assert worst == {name: 0 for name in chip_smoke.REPLACES}
     run = chip_smoke.run_main_path(cfg, "cpu")
