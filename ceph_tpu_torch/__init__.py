@@ -1,18 +1,20 @@
 """ceph_tpu_torch — the erasure-code data plane on PyTorch and CUDA.
 
 The PyTorch/CUDA port of ``ceph_tpu``'s RS(k, m) write / recover /
-degraded-read path, for one NVIDIA Hopper card (sm_90a).  Module paths
-and names follow the JAX package so each module's counterpart is easy
-to find:
+degraded-read / deep-scrub path, for one NVIDIA Hopper card (sm_90a).
+Module paths and names follow the JAX package so each module's
+counterpart is easy to find:
 
-- ``ops``      — GF(2^8) host math (numpy) and the GF(2) bit-matrix
-                 kernels: hand-written CUDA (``ops/csrc/``) on the card,
-                 a plain PyTorch version of the same function on the CPU.
+- ``ops``      — GF(2^8) host math (numpy), the GF(2) bit-matrix
+                 kernels and the batched crc32c: hand-written CUDA
+                 (``ops/csrc/``) on the card, a plain PyTorch version of
+                 the same function on the CPU.
 - ``models``   — generator-matrix constructions over GF(2^8).
 - ``ec``       — erasure-code interface, plugin registry and the
                  ``cuda`` plugin.
 - ``osd``      — ECUtil: stripe math, batched encode/decode, HashInfo.
-- ``parallel`` — the batched recovery-decode aggregator.
+- ``parallel`` — the batched recovery-decode aggregator and deep-scrub
+                 verifier.
 - ``common``   — perf counters and launch spans.
 - ``native``   — host crc32c built with g++.
 

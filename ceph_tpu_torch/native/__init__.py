@@ -9,6 +9,7 @@ present (it is slow: a few MB/s).
 
 Public API:
   crc32c(data, seed=-1)          -- reference ceph_crc32c semantics
+  crc32c_zeros(length, seed=-1)  -- crc32c of ``length`` zero bytes
   available()                    -- True when the .so is loaded
 """
 
@@ -108,3 +109,18 @@ def crc32c(data, seed: int = 0xFFFFFFFF) -> int:
             seed & 0xFFFFFFFF, arr.ctypes.data, arr.nbytes
         )
     return _py_crc32c(arr.tobytes(), seed)
+
+
+def crc32c_zeros(length: int, seed: int = 0xFFFFFFFF) -> int:
+    """crc32c of ``length`` zero bytes (reference ceph_crc32c with a null
+    buffer, crc32c.cc:39): the register advanced through the zeros."""
+    lib = _load()
+    if lib is not None:
+        return lib.ceph_tpu_torch_crc32c(seed & 0xFFFFFFFF, None, length)
+    t = _py_table()
+    crc = seed & 0xFFFFFFFF
+    for _ in range(length):
+        if crc == 0:
+            break
+        crc = int(t[crc & 0xFF]) ^ (crc >> 8)
+    return crc

@@ -3,7 +3,10 @@
 // Behavioral twin of the reference's ceph_crc32c family
 // (reference src/common/sctp_crc32.c:update_crc32 — plain reflected
 // table update, caller passes the seed, no init/final inversion).
-// Slice-by-8 for throughput.
+// Slice-by-8 for throughput.  A null data pointer means len zero bytes
+// (reference crc32c.cc:39, ceph_crc32c_zeros): advancing the register
+// through n zero bytes multiplies it by x^(8n) modulo the polynomial, so
+// the zeros path takes O(log n) steps instead of n table lookups.
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -29,12 +32,46 @@ struct Tables {
 };
 const Tables kT;
 
+constexpr uint32_t kPoly = 0x82F63B78u;
+
+// a * b modulo the polynomial, reflected (bit 31 is x^0)
+uint32_t multmodp(uint32_t a, uint32_t b) {
+  uint32_t p = 0;
+  for (uint32_t m = 1u << 31; m; m >>= 1) {
+    if (a & m) p ^= b;
+    b = (b & 1) ? (b >> 1) ^ kPoly : b >> 1;
+  }
+  return p;
+}
+
+// x2n[i] = x^(2^i) modulo the polynomial
+struct PowerTable {
+  uint32_t x2n[67];  // i up to 3 + 63
+  PowerTable() {
+    uint32_t p = 1u << 30;  // x^1
+    for (int i = 0; i < 67; i++) {
+      x2n[i] = p;
+      p = multmodp(p, p);
+    }
+  }
+};
+const PowerTable kX;
+
+// x^(8n) modulo the polynomial: the advance through n zero bytes
+uint32_t zeros_op(uint64_t n) {
+  uint32_t p = 1u << 31;  // x^0
+  for (int i = 3; n; n >>= 1, i++)
+    if (n & 1) p = multmodp(kX.x2n[i], p);
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Matches ceph_crc32c(seed, data, len).
+// Matches ceph_crc32c(seed, data, len); data may be null (= len zeros).
 uint32_t ceph_tpu_torch_crc32c(uint32_t crc, const uint8_t* data, size_t len) {
+  if (data == nullptr) return len ? multmodp(zeros_op(len), crc) : crc;
   while (len && (reinterpret_cast<uintptr_t>(data) & 7)) {
     crc = kT.t[0][(crc ^ *data++) & 0xff] ^ (crc >> 8);
     len--;

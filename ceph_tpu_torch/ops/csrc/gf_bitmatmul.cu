@@ -7,14 +7,19 @@
 // i.e. the (m, k) GF(2^8) matrix whose bit expansion is B, applied to the
 // bytes of every column s (erasure encode with the generator, decode with
 // a per-erasure-signature matrix).  Optionally batched over a leading
-// axis, and optionally in the "acc" form  out = out ^ f(data ^ seed).
+// axis, and in one of three modes (the template's MODE): store
+// out = f(data); "acc"  out = out ^ f(data ^ seed); or "compare", which
+// loads the stored parity where the store would write and sets
+// flags[b, u] when f(data[b]) differs from parity[b] anywhere in row u.
 //
 // Replaces the three Pallas TPU kernels of the JAX package's
 // ceph_tpu/ops/rs_kernels.py: gf_bitmatmul_pallas (_bitmatmul_kernel),
 // gf_bitmatmul_pallas_grouped (_grouped_kernel) and
-// gf_bitmatmul_pallas_acc (its inner `kern`), plus the batched XLA path
-// gf_bitmatmul.  On the TPU the product runs on the MXU as an int8
-// matmul over unpacked bits; here no bit tensor is formed at all.  The
+// gf_bitmatmul_pallas_acc (its inner `kern`), plus the batched XLA paths
+// gf_bitmatmul and gf_encode_compare (deep scrub's re-encode-compare,
+// whose expected parity never reaches memory here).  On the TPU the
+// product runs on the MXU as an int8 matmul over unpacked bits; here no
+// bit tensor is formed at all.  The
 // grouped TPU kernel packs column groups into blockdiag(C, ..., C) to
 // fill the MXU; the function, and so every output byte, is the same as
 // the ungrouped kernel's, so on the card a grouped call is an ungrouped
@@ -71,6 +76,17 @@
 // is loaded once, into registers, and the loads of the object-sized
 // launches are all issued at the start.
 //
+// The compare epilogue.  Where the store writes the output words, the
+// compare mode loads the stored parity's words (zeros past S, where the
+// re-encode of zero columns is zero too), ORs their XOR with the result,
+// and on a difference sets the item's (b, u) flag, which the C entry
+// zeroes before the launch, with an atomicOr.  A
+// warp first asks __any_sync whether any of its items differ, so a clean
+// row costs one vote; each thread still sets only its own item's flag,
+// since with a ragged S one warp may span two batch entries.  The vote's
+// mask is the warp's lanes that have an item in this pass of the loop (a
+// prefix: the grid stride is a multiple of 32).
+//
 // Plain C interface (ctypes); the launch goes on the caller's stream and
 // the function returns cudaGetLastError() after it.  It makes no query
 // call: the host computes the plan from the SM count it has cached.
@@ -85,6 +101,13 @@ constexpr int kThreads = 256;
 constexpr int kReplicatedBytes = 48 * 1024;  // replicated masks up to this size
 constexpr int kMaxSmemBytes = 232448;        // a block's shared memory on sm_90
 
+// What the kernel does with each output word.
+enum Mode : int {
+  kStore = 0,    // out = f(data)
+  kAcc = 1,      // out ^= f(data ^ seed), in place
+  kCompare = 2,  // flags[b, u] |= f(data[b]) row u != parity[b] row u
+};
+
 // Blocks of kThreads each SM must hold at once (the register budget: 64
 // registers a thread for 8 columns, 80 for 16).
 template <int W>
@@ -92,7 +115,8 @@ constexpr int kBlocksPerSm = W == 4 ? 3 : 4;
 
 struct Params {
   const uint8_t* data;
-  uint8_t* out;
+  uint8_t* out;            // kCompare: the (batch, m) int32 flags
+  const uint8_t* parity;   // kCompare: the stored (batch, m, s) parity
   const uint32_t* masks;   // device: [u][chunk][c][i] replicated, or packed
   long long s;
   unsigned items_per_row;  // ceil(s / 4W)
@@ -190,29 +214,41 @@ __device__ __forceinline__ void mask_quad(const uint32_t* sm, int base, int c,
 }
 
 // One item: 4W columns of one batch row.  d and o point at its first
-// column in input row 0 and output row 0; rem = S - that column; fast:
-// the item lies inside S and the rows are aligned for W-word vectors.
+// column in input row 0 and output row 0 (kCompare: o is the stored
+// parity's, flag the batch row's m flags); rem = S - that column; fast:
+// the item lies inside S and the rows are aligned for W-word vectors;
+// lanes: the warp's lanes with an item in this pass (kCompare's vote).
 struct Item {
   const uint8_t* d;
   uint8_t* o;
+  int* flag;
   long long rem;
   bool fast;
+  unsigned lanes;
 };
 
-template <int W>
+template <int MODE, int W>
 __device__ __forceinline__ Item locate(const Params& p, unsigned t) {
   const unsigned bi = t / p.items_per_row;
   const long long col = (long long)(t - bi * p.items_per_row) * (4 * W);
   Item it;
   it.d = p.data + (long long)bi * p.k * p.s + col;
-  it.o = p.out + (long long)bi * p.m * p.s + col;
+  if (MODE == kCompare) {
+    it.o = const_cast<uint8_t*>(p.parity) + (long long)bi * p.m * p.s + col;
+    it.flag = reinterpret_cast<int*>(p.out) + (long long)bi * p.m;
+    const unsigned first = t - (threadIdx.x & 31u);  // the warp's lane 0
+    const unsigned n = p.items - first;
+    it.lanes = n >= 32u ? 0xffffffffu : (1u << n) - 1u;
+  } else {
+    it.o = p.out + (long long)bi * p.m * p.s + col;
+  }
   it.rem = p.s - col;
   it.fast = p.vec && it.rem >= 4 * W;
   return it;
 }
 
 // Input rows 8 * ch .. 8 * ch + 7 of the item (rows past k are not read).
-template <bool ACC, int W>
+template <int MODE, int W>
 __device__ __forceinline__ void load_chunk(const Params& p, const Item& it,
                                            int ch, uint32_t (&x)[8][W]) {
   const int nrow = min(8, p.k - 8 * ch);
@@ -226,7 +262,7 @@ __device__ __forceinline__ void load_chunk(const Params& p, const Item& it,
     for (int i = 0; i < 8; ++i)
       if (i < nrow) load_bytes<W>(x[i], q + i * p.s, it.rem);
   }
-  if (ACC) {
+  if (MODE == kAcc) {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -257,7 +293,7 @@ __device__ __forceinline__ void and_xor(const uint32_t (&x)[8][W], int q,
 // rows i of x_i & mask), formed together and merged by fold_pair into
 // out.  x holds input chunk 0 when loaded (k <= 8: it is never
 // reloaded); other chunks are loaded here.  Masks come four at a time.
-template <bool ACC, int W, bool PACKED>
+template <int MODE, int W, bool PACKED>
 __device__ __forceinline__ void pair(const Params& p, const uint32_t* sm,
                                      const Item& it, uint32_t (&x)[8][W],
                                      bool loaded, int u, int c,
@@ -266,7 +302,7 @@ __device__ __forceinline__ void pair(const Params& p, const uint32_t* sm,
 #pragma unroll
   for (int j = 0; j < W; ++j) lo[j] = hi[j] = 0u;
   for (int ch = 0; ch < p.nch; ++ch) {
-    if (!loaded || p.nch > 1) load_chunk<ACC, W>(p, it, ch, x);
+    if (!loaded || p.nch > 1) load_chunk<MODE, W>(p, it, ch, x);
     const int nrow = min(8, p.k - 8 * ch);
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -287,8 +323,9 @@ __device__ __forceinline__ void pair(const Params& p, const uint32_t* sm,
 // Every output byte of one item.  The bit rows of output byte u are
 // taken in pairs (c, c + 4) and merged as soon as they are formed: pairs
 // 0 and 2 by fold_pair and stage 2 into d[0], then pairs 1 and 3 into
-// d[1], so that few words per column word are live at once.
-template <bool ACC, int W, bool PACKED>
+// d[1], so that few words per column word are live at once.  Then the
+// mode's epilogue: store, XOR into the carry, or compare.
+template <int MODE, int W, bool PACKED>
 __device__ __forceinline__ void item(const Params& p, const uint32_t* sm,
                                      const Item& it, uint32_t (&x)[8][W],
                                      bool loaded) {
@@ -297,8 +334,8 @@ __device__ __forceinline__ void item(const Params& p, const uint32_t* sm,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t b0[W], b2[W];
-      pair<ACC, W, PACKED>(p, sm, it, x, loaded || u + h > 0, u, h, b0);
-      pair<ACC, W, PACKED>(p, sm, it, x, true, u, h + 2, b2);
+      pair<MODE, W, PACKED>(p, sm, it, x, loaded || u + h > 0, u, h, b0);
+      pair<MODE, W, PACKED>(p, sm, it, x, true, u, h + 2, b2);
 #pragma unroll
       for (int j = 0; j < W; ++j) d[h][j] = fold_stage2(b0[j], b2[j]);
     }
@@ -306,7 +343,19 @@ __device__ __forceinline__ void item(const Params& p, const uint32_t* sm,
 #pragma unroll
     for (int j = 0; j < W; ++j) res[j] = fold_stage3(d[0][j], d[1][j]);
     uint8_t* orow = it.o + (long long)u * p.s;
-    if (ACC) {
+    if (MODE == kCompare) {
+      uint32_t stored[W];
+      if (it.fast)
+        load_vec<W, true>(stored, orow);
+      else
+        load_bytes<W>(stored, orow, it.rem);
+      uint32_t diff = 0u;
+#pragma unroll
+      for (int j = 0; j < W; ++j) diff |= res[j] ^ stored[j];
+      if (__any_sync(it.lanes, diff != 0u) && diff != 0u) atomicOr(it.flag + u, 1);
+      continue;
+    }
+    if (MODE == kAcc) {
       uint32_t prev[W];
       if (it.fast)
         load_vec<W, false>(prev, orow);
@@ -322,54 +371,53 @@ __device__ __forceinline__ void item(const Params& p, const uint32_t* sm,
   }
 }
 
-template <bool ACC, int W, bool PACKED>
+template <int MODE, int W, bool PACKED>
 __device__ __forceinline__ void run(const Params& p, uint32_t* sm) {
   const unsigned t0 = blockIdx.x * kThreads + threadIdx.x;
   const unsigned stride = gridDim.x * kThreads;
   // the first item's rows are in flight while the masks are copied
   uint32_t x[8][W];
   const bool pre = p.nch == 1 && t0 < p.items;
-  if (pre) load_chunk<ACC, W>(p, locate<W>(p, t0), 0, x);
+  if (pre) load_chunk<MODE, W>(p, locate<MODE, W>(p, t0), 0, x);
   const int n = p.m * p.nch * (PACKED ? 16 : 64);
   for (int j = threadIdx.x; j < n; j += kThreads) sm[j] = __ldg(p.masks + j);
   __syncthreads();
   for (unsigned t = t0; t < p.items; t += stride)
-    item<ACC, W, PACKED>(p, sm, locate<W>(p, t), x, pre && t == t0);
+    item<MODE, W, PACKED>(p, sm, locate<MODE, W>(p, t), x, pre && t == t0);
 }
 
-// ACC: out = out ^ f(data ^ seed) in place (out is the carry).
-template <bool ACC, int W>
+template <int MODE, int W>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm<W>)
 gf_bitmatmul_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) uint32_t smem[];
   if (p.packed)
-    run<ACC, W, true>(p, smem);
+    run<MODE, W, true>(p, smem);
   else
-    run<ACC, W, false>(p, smem);
+    run<MODE, W, false>(p, smem);
 }
 
 size_t smem_bytes(int m, int nch, bool packed) {
   return size_t(m) * nch * (packed ? 16 : 64) * sizeof(uint32_t);
 }
 
-template <bool ACC, int W>
+template <int MODE, int W>
 int launch(const Params& p, int blocks, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.m, p.nch, p.packed != 0);
   if (smem > 48 * 1024) {  // wide codes only: opt in above the default
     const cudaError_t err = cudaFuncSetAttribute(
-        gf_bitmatmul_kernel<ACC, W>,
+        gf_bitmatmul_kernel<MODE, W>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
   }
-  gf_bitmatmul_kernel<ACC, W><<<blocks, kThreads, smem, stream>>>(p);
+  gf_bitmatmul_kernel<MODE, W><<<blocks, kThreads, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
 
-template <bool ACC>
+template <int MODE>
 int launch_w(const Params& p, int words, int blocks, cudaStream_t stream) {
   switch (words) {
-    case 2: return launch<ACC, 2>(p, blocks, stream);
-    case 4: return launch<ACC, 4>(p, blocks, stream);
+    case 2: return launch<MODE, 2>(p, blocks, stream);
+    case 4: return launch<MODE, 4>(p, blocks, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -378,18 +426,28 @@ int launch_w(const Params& p, int words, int blocks, cudaStream_t stream) {
 
 extern "C" {
 
-// out[b] = f(data[b]) for b < batch, or out[b] ^= f(data[b] ^ seed) when
-// acc != 0.  data: (batch, k, s) and out: (batch, m, s), contiguous.
-// masks: device array of m * nch * 64 replicated words, or with
-// packed != 0 of m * nch * 16 packed words (nch = ceil(k / 8)).  words
-// (2 or 4) and blocks are the host's launch plan.  Returns a
-// cudaError_t value (0 on success).
-int ceph_gf_bitmatmul(const void* data, void* out, const void* masks,
-                      int packed, int k, int m, long long s, int batch,
-                      int acc, int seed, int words, int blocks, void* stream) {
+// For b < batch: mode 0, out[b] = f(data[b]); mode 1, out[b] ^=
+// f(data[b] ^ seed); mode 2, out[b, u] = 1 where f(data[b]) row u
+// differs from parity[b] row u, else 0 (out: (batch, m) int32, zeroed
+// here first).  data: (batch, k, s), out (modes 0, 1) and parity (mode 2):
+// (batch, m, s), contiguous.  masks: device array of m * nch * 64
+// replicated words, or with packed != 0 of m * nch * 16 packed words
+// (nch = ceil(k / 8)).  words (2 or 4) and blocks are the host's launch
+// plan.  Returns a cudaError_t value (0 on success).
+int ceph_gf_bitmatmul(const void* data, const void* parity, void* out,
+                      const void* masks, int packed, int k, int m,
+                      long long s, int batch, int mode, int seed, int words,
+                      int blocks, void* stream) {
   if (k < 1 || m < 1 || k + m > 256 || s < 0 || batch < 0 || blocks < 1 ||
-      (words != 2 && words != 4))
+      (words != 2 && words != 4) || mode < kStore || mode > kCompare ||
+      (mode == kCompare && parity == nullptr))
     return int(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (mode == kCompare && batch > 0) {
+    const cudaError_t err =
+        cudaMemsetAsync(out, 0, size_t(batch) * m * sizeof(int), st);
+    if (err != cudaSuccess) return int(err);
+  }
   if (s == 0 || batch == 0) return 0;
   const int nch = (k + 7) / 8;
   const long long per_row = (s + 4 * words - 1) / (4 * words);
@@ -404,6 +462,7 @@ int ceph_gf_bitmatmul(const void* data, void* out, const void* masks,
   Params p;
   p.data = static_cast<const uint8_t*>(data);
   p.out = static_cast<uint8_t*>(out);
+  p.parity = static_cast<const uint8_t*>(parity);
   p.masks = static_cast<const uint32_t*>(masks);
   p.s = s;
   p.items_per_row = unsigned(per_row);
@@ -411,13 +470,16 @@ int ceph_gf_bitmatmul(const void* data, void* out, const void* masks,
   p.k = k;
   p.m = m;
   p.nch = nch;
-  p.seed_rep = acc ? (uint32_t(seed) & 0xFFu) * 0x01010101u : 0u;
+  p.seed_rep = mode == kAcc ? (uint32_t(seed) & 0xFFu) * 0x01010101u : 0u;
   // every row starts aligned when s is a multiple of the vector width
-  p.vec = s % (4 * words) == 0 && aligned(data) && aligned(out);
+  p.vec = s % (4 * words) == 0 && aligned(data) &&
+          aligned(mode == kCompare ? parity : out);
   p.packed = packed != 0;
-  auto st = static_cast<cudaStream_t>(stream);
-  return acc ? launch_w<true>(p, words, blocks, st)
-             : launch_w<false>(p, words, blocks, st);
+  switch (mode) {
+    case kAcc: return launch_w<kAcc>(p, words, blocks, st);
+    case kCompare: return launch_w<kCompare>(p, words, blocks, st);
+    default: return launch_w<kStore>(p, words, blocks, st);
+  }
 }
 
 }  // extern "C"

@@ -1,0 +1,312 @@
+"""crc32c as a GF(2) product, and its batched kernel for deep scrub.
+
+Counterpart of the crc part of ``ceph_tpu/ops/hashing.py`` (:284-392);
+the CRUSH hashes of that file come with the CRUSH slice.
+
+crc32c is GF(2)-linear in (state, message), so over a width-W message
+
+    crc(d, seed) = S_W @ bits(seed)  XOR  M_W @ bits(d)
+
+with S_W the 32x32 "advance through W zero bytes" operator and M_W a
+(32, 8W) matrix, byte i bit j at column 8i+j (:func:`crc32c_matrix`,
+built host-side by doubling and cached per width).  Deep scrub pads
+each shard lane with zeros into its power-of-two bucket;
+crc(d || 0^p, s) is the injective advance of crc(d, s) through p zeros,
+so the true crc comes back exactly with :func:`crc32c_unadvance`.
+
+:func:`batched_crc32c_device` maps (B, W) uint8 lanes to their (B,)
+seed-0 crc words.  On a CUDA tensor it launches the hand-written kernel
+of ``csrc/crc32c_lanes.cu`` (built with ``nvcc`` at first use); on a
+CPU tensor it runs the plain PyTorch version
+:func:`batched_crc32c_plain`, the literal product ``M_W @ bits(lane)``.
+The JAX entry point took ``M_W`` as an argument; every caller passed
+``crc32c_matrix(W)``, and the kernel computes crc32c itself, so the port
+takes the lanes alone.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch import native
+from ceph_tpu_torch.ops.rs_kernels import _on_cpu, count_launch
+
+# ---------------------------------------------------------------------------
+# Host-side GF(2) operators (numpy)
+# ---------------------------------------------------------------------------
+
+
+def _crc_bits(v: int, n: int = 32) -> np.ndarray:
+    return np.array([(v >> i) & 1 for i in range(n)], dtype=np.uint8)
+
+
+def _gf2_mm(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return ((a.astype(np.uint32) @ b.astype(np.uint32)) & 1).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=1)
+def _crc_base() -> tuple[np.ndarray, np.ndarray]:
+    """(M_1 (32,8), S_1 (32,32)): single-byte crc data/state operators."""
+    m1 = np.zeros((32, 8), dtype=np.uint8)
+    for b in range(8):
+        m1[:, b] = _crc_bits(native.crc32c(bytes([1 << b]), 0))
+    s1 = np.zeros((32, 32), dtype=np.uint8)
+    for i in range(32):
+        s1[:, i] = _crc_bits(native.crc32c_zeros(1, 1 << i))
+    return m1, s1
+
+
+@functools.lru_cache(maxsize=32)
+def _crc_ops(width: int) -> tuple[np.ndarray, np.ndarray]:
+    """(M_W (32, 8W), S_W (32, 32)) for a power-of-two ``width``."""
+    assert width >= 1 and (width & (width - 1)) == 0, width
+    if width == 1:
+        return _crc_base()
+    m_half, s_half = _crc_ops(width // 2)
+    return (
+        np.concatenate([_gf2_mm(s_half, m_half), m_half], axis=1),
+        _gf2_mm(s_half, s_half),
+    )
+
+
+def crc32c_matrix(width: int) -> np.ndarray:
+    """The (32, 8*width) GF(2) matrix M_W: crc contribution of a
+    width-byte message at seed 0, bit j of byte i at column 8i+j."""
+    return _crc_ops(width)[0]
+
+
+@functools.lru_cache(maxsize=64)
+def _crc_unadvance_op(n: int) -> np.ndarray:
+    """32x32 inverse of the advance-by-n-zero-bytes operator S_n."""
+    if n == 0:
+        return np.eye(32, dtype=np.uint8)
+    # S_1^{-1} by GF(2) Gaussian elimination (S is invertible: the crc
+    # register update is a bijection), then binary decomposition
+    if n == 1:
+        s1 = _crc_base()[1]
+        aug = np.concatenate([s1.copy(), np.eye(32, dtype=np.uint8)], axis=1)
+        for col in range(32):
+            piv = next(r for r in range(col, 32) if aug[r, col])
+            aug[[col, piv]] = aug[[piv, col]]
+            for r in range(32):
+                if r != col and aug[r, col]:
+                    aug[r] ^= aug[col]
+        return np.ascontiguousarray(aug[:, 32:])
+    if n & (n - 1) == 0:
+        h = _crc_unadvance_op(n // 2)
+        return _gf2_mm(h, h)
+    lsb = n & -n
+    return _gf2_mm(_crc_unadvance_op(n - lsb), _crc_unadvance_op(lsb))
+
+
+def crc32c_unadvance(crc: int, n: int) -> int:
+    """Invert ``crc32c_zeros(n, x) == crc``: the crc BEFORE advancing
+    through ``n`` zero bytes (exact; the advance is injective)."""
+    if n == 0:
+        return crc
+    out = _gf2_mm(_crc_unadvance_op(n), _crc_bits(crc).reshape(32, 1))
+    return int(sum(int(b) << i for i, b in enumerate(out.reshape(32))))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the CPU path and the card's yardstick)
+# ---------------------------------------------------------------------------
+
+#: lane bytes per step of the plain version: a step's sums stay below
+#: 8 * 2^16 = 2^19 terms, exact in float32 (2^24), and its bit tensor
+#: at B x 2^19 x 4 bytes
+_PLAIN_BYTES = 1 << 16
+
+#: (device, width) -> float32 M_W on that device
+_plain_mats: dict[tuple, torch.Tensor] = {}
+
+
+def _plain_matrix(width: int, device: torch.device) -> torch.Tensor:
+    key = (str(device), width)
+    mat = _plain_mats.get(key)
+    if mat is None:
+        if len(_plain_mats) >= 16:
+            _plain_mats.clear()
+        mat = _plain_mats[key] = torch.as_tensor(
+            crc32c_matrix(width), device=device).to(torch.float32)
+    return mat
+
+
+def _check_lanes(data: torch.Tensor) -> tuple[int, int]:
+    if not isinstance(data, torch.Tensor):
+        raise TypeError(f"data must be a torch.Tensor, not {type(data).__name__}")
+    if data.dtype != torch.uint8:
+        raise TypeError(f"data must be uint8, not {data.dtype}")
+    if data.dim() != 2:
+        raise ValueError(f"data must be (B, W), got {tuple(data.shape)}")
+    b, w = data.shape
+    if w < 1 or w & (w - 1):
+        raise ValueError(f"lane width must be a power of two, got {w}")
+    return b, w
+
+
+def batched_crc32c_plain(data: torch.Tensor) -> torch.Tensor:
+    """(B, W) uint8 lanes -> (B,) uint32 seed-0 crc32c words, as the
+    literal GF(2) product ``crc32c_matrix(W) @ bits(lane)``, packed
+    LSB-first.  Exact: each float32 partial sum counts at most 2^19
+    terms; partial parities of the column steps XOR together."""
+    b, w = _check_lanes(data)
+    mat = _plain_matrix(w, data.device)
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    parity = torch.zeros((b, 32), dtype=torch.int64, device=data.device)
+    for c0 in range(0, w, _PLAIN_BYTES):
+        part = data[:, c0:c0 + _PLAIN_BYTES]
+        # byte i bit j (LSB first) -> column 8i+j, matching crc32c_matrix
+        bits = ((part[:, :, None] >> shifts) & 1).reshape(b, 8 * part.shape[1]).to(torch.float32)
+        sums = bits @ mat[:, 8 * c0:8 * (c0 + part.shape[1])].T
+        parity ^= sums.to(torch.int64) & 1
+    weights = 1 << torch.arange(32, dtype=torch.int64, device=data.device)
+    words = (parity * weights).sum(dim=1)
+    # the same 32 bits as an int32, then viewed as uint32
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).view(torch.uint32)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel: tables, advance operators, launch
+# ---------------------------------------------------------------------------
+
+#: threads per block, lane bytes per thread, lane bytes per block
+#: (``kThreads``, ``kSeg``, ``kBlockBytes`` in the source)
+THREADS = 256
+SEG = 16
+BLOCK_BYTES = THREADS * SEG
+POLY = 0x82F63B78
+
+
+def slice8_tables() -> np.ndarray:
+    """(8, 256) uint32 slice-by-8 tables, as ``native/crc32c.cc`` builds
+    them: table s maps a byte to the register after it and s zeros,
+    from register 0."""
+    t = np.zeros((8, 256), dtype=np.uint32)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (POLY ^ (c >> 1)) if c & 1 else c >> 1
+        t[0, i] = c
+    for s in range(1, 8):
+        prev = t[s - 1]
+        t[s] = t[0][prev & 0xFF] ^ (prev >> 8)
+    return t
+
+
+def advance_op(n: int) -> int:
+    """x^(8n) modulo the crc32c polynomial, reflected: the register is
+    advanced through n zero bytes by multiplying it by this word (the
+    operator S_n, whose column 31 it is)."""
+    return native.crc32c_zeros(n, 1 << 31)
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_operators(width: int) -> np.ndarray:
+    """The kernel's operand block for lanes of ``width`` bytes, flat
+    uint32: the slice-by-8 tables (2048 words); for each thread t the
+    advance from the end of its segment to the end of its block,
+    ``advance_op(BLOCK_BYTES - SEG (t + 1))`` (THREADS words); for each
+    block j of a lane the advance from its end to the lane's,
+    ``advance_op(span - BLOCK_BYTES (j + 1))`` (span / BLOCK_BYTES
+    words).  ``span`` is the lane's width rounded up to whole blocks:
+    the lane reads as left-padded with zeros, which leaves a seed-0 crc
+    unchanged."""
+    span = -(-width // BLOCK_BYTES) * BLOCK_BYTES
+    per_thread = [advance_op(BLOCK_BYTES - SEG * (t + 1)) for t in range(THREADS)]
+    per_block = [advance_op(span - BLOCK_BYTES * (j + 1))
+                 for j in range(span // BLOCK_BYTES)]
+    return np.concatenate([slice8_tables().reshape(-1),
+                           np.array(per_thread + per_block, dtype=np.uint32)])
+
+
+#: (device index, width) -> the operand block on that device
+_operators: dict[tuple[int, int], torch.Tensor] = {}
+_fn = None
+
+
+def _kernel():
+    """ctypes handle of ``ceph_crc32c_lanes``, built on first use."""
+    global _fn
+    if _fn is None:
+        from ceph_tpu_torch.ops import _build
+
+        fn = _build.library("crc32c_lanes").ceph_crc32c_lanes
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # data, out, ops
+            ctypes.c_longlong, ctypes.c_int,                     # width, batch
+            ctypes.c_void_p,                                     # stream
+        ]
+        _fn = fn
+    return _fn
+
+
+def _device_operators(width: int, index: int) -> torch.Tensor:
+    key = (index, width)
+    ops = _operators.get(key)
+    if ops is None:
+        ops = _operators[key] = torch.from_numpy(
+            kernel_operators(width).view(np.int32)).to(torch.device("cuda", index))
+    return ops
+
+
+def _launch(data: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch on the current stream (the C entry zeroes ``out``
+    first); raises if it is refused."""
+    if not (data.is_cuda and out.is_cuda):
+        raise ValueError(f"data on {data.device}, out on {out.device}: "
+                         "the kernel needs CUDA")
+    if not (data.is_contiguous() and out.is_contiguous()):
+        raise ValueError("data and out must be contiguous")
+    index = data.get_device()
+    if out.get_device() != index:
+        raise ValueError(f"out on {out.device}, data on {data.device}")
+    b, w = data.shape
+    ops = _device_operators(w, index)
+    args = (data.data_ptr(), out.data_ptr(), ops.data_ptr(), w, b)
+    if index == torch.cuda.current_device():
+        err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"crc32c_lanes kernel launch failed: cudaError "
+                           f"{err} (B={b}, W={w})")
+
+
+def batched_crc32c_device(data: torch.Tensor) -> torch.Tensor:
+    """(B, W) uint8 payload lanes, W a power of two -> (B,) uint32 seed-0
+    crc32c words, ``M_W @ bits(lane)``; callers fold seeds and padding
+    host-side with ``native.crc32c_zeros`` / :func:`crc32c_unadvance`.
+    On the card: one launch (replaces the jitted XLA kernel of
+    ceph_tpu/ops/hashing.py:361-392)."""
+    b, w = _check_lanes(data)
+    if _on_cpu(data):
+        return batched_crc32c_plain(data)
+    out = torch.empty((b,), dtype=torch.int32, device=data.device)
+    if b:
+        _launch(data, out)
+        count_launch(batched_crc32c_device)
+    return out.view(torch.uint32)
+
+
+KERNEL_ENTRY_POINTS = (batched_crc32c_device,)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_ENTRY_POINTS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per entry point since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNEL_ENTRY_POINTS}
+
+
+reset_launch_counts()

@@ -11,13 +11,18 @@ encode becomes
 Decode is the same product with a per-erasure-signature matrix (inverted
 host-side and cached).
 
+Deep scrub's re-encode-compare (:func:`gf_encode_compare`) is the same
+product with a compare in place of the store: it returns a (B, m)
+mismatch mask against the stored parity, which it never writes out.
+
 Every entry point has two implementations of one function:
 
 - on a CUDA tensor, the hand-written kernel of ``csrc/gf_bitmatmul.cu``
   (built with ``nvcc`` at first use, see :mod:`._build`); a launch that
   fails raises;
 - on a CPU tensor, the plain PyTorch version :func:`gf_bitmatmul_plain`
-  (unpack -> matmul -> ``& 1`` -> pack).
+  (unpack -> matmul -> ``& 1`` -> pack), or
+  :func:`gf_encode_compare_plain`.
 
 The entry points keep the JAX package's names and signatures, and each
 counts its kernel launches in a plain integer attribute ``launches``
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import weakref
 
 import numpy as np
@@ -114,10 +120,11 @@ def _kernel():
         fn = _build.library("gf_bitmatmul").ceph_gf_bitmatmul
         fn.restype = ctypes.c_int
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # data, out, masks
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # data, parity, out
+            ctypes.c_void_p,                                     # masks
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # packed, k, m
             ctypes.c_longlong, ctypes.c_int,                     # s, batch
-            ctypes.c_int, ctypes.c_int,                          # acc, seed
+            ctypes.c_int, ctypes.c_int,                          # mode, seed
             ctypes.c_int, ctypes.c_int,                          # words, blocks
             ctypes.c_void_p,                                     # stream
         ]
@@ -211,28 +218,39 @@ def _sm_count(index: int) -> int:
     return n
 
 
-def _launch(bitmat, data, out, *, acc=False, seed=0, words=None) -> None:
+#: the kernel's modes (``Mode`` in the source)
+MODE_STORE, MODE_ACC, MODE_COMPARE = 0, 1, 2
+
+
+def _launch(bitmat, data, out, *, acc=False, seed=0, words=None,
+            parity=None) -> None:
     """One kernel launch on the current stream; raises if it is refused.
     ``words`` overrides the launch plan's columns per thread (4 * words).
-    Checks only what the kernel needs (the entry points check the rest):
-    all three on one CUDA device, data and out contiguous."""
-    if not (bitmat.is_cuda and data.is_cuda and out.is_cuda):
-        name, t = next((n, t) for n, t in
-                       (("bitmat", bitmat), ("data", data), ("out", out)) if not t.is_cuda)
-        raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
-    if not (data.is_contiguous() and out.is_contiguous()):
-        raise ValueError("data and out must be contiguous")
+    With ``parity`` the launch compares: ``out`` is the int32 (..., m)
+    flags, which the C entry zeroes first.  Checks only what the kernel needs (the entry points
+    check the rest): all on one CUDA device, data, parity and out
+    contiguous."""
+    ts = (("bitmat", bitmat), ("data", data), ("out", out))
+    if parity is not None:
+        ts += (("parity", parity),)
+    for name, t in ts:
+        if not t.is_cuda:
+            raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
+    if not all(t.is_contiguous() for name, t in ts if name != "bitmat"):
+        raise ValueError("data, parity and out must be contiguous")
     index = data.get_device()
-    if out.get_device() != index or bitmat.get_device() != index:
-        raise ValueError(f"out on {out.device}, bitmat on {bitmat.device}, "
-                         f"data on {data.device}")
+    if any(t.get_device() != index for _, t in ts):
+        raise ValueError("operands on different devices: " + ", ".join(
+            f"{name} on {t.device}" for name, t in ts))
     *_, k, s = data.shape
-    m = out.shape[-2]
+    m = bitmat.shape[0] // 8
     batch = data.numel() // (k * s) if s else 0
     packed, masks = _masks(bitmat)
     words, blocks = _launch_plan(s, batch, _sm_count(index), words)
-    args = (data.data_ptr(), out.data_ptr(), masks, packed, k, m, s, batch,
-            int(acc), seed & 0xFF, words, blocks)
+    mode = MODE_COMPARE if parity is not None else MODE_ACC if acc else MODE_STORE
+    args = (data.data_ptr(), parity.data_ptr() if parity is not None else None,
+            out.data_ptr(), masks, packed, k, m, s, batch, mode, seed & 0xFF,
+            words, blocks)
     if index == torch.cuda.current_device():
         err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
@@ -241,7 +259,7 @@ def _launch(bitmat, data, out, *, acc=False, seed=0, words=None) -> None:
     if err != 0:
         raise RuntimeError(
             f"gf_bitmatmul kernel launch failed: cudaError {err} "
-            f"(k={k}, m={m}, S={s}, batch={batch}, acc={acc}, words={words})")
+            f"(k={k}, m={m}, S={s}, batch={batch}, mode={mode}, words={words})")
 
 
 def _check(bitmat: torch.Tensor, data: torch.Tensor) -> tuple[int, int]:
@@ -267,6 +285,16 @@ def _check(bitmat: torch.Tensor, data: torch.Tensor) -> tuple[int, int]:
     return k, m
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to entry point ``fn``'s launch count (launches come from
+    worker threads too, so under a lock)."""
+    with _count_lock:
+        fn.launches += 1
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.is_cuda:
         return False
@@ -286,7 +314,7 @@ def gf_bitmatmul(bitmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     out = torch.empty((*data.shape[:-2], m, data.shape[-1]),
                       dtype=torch.uint8, device=data.device)
     _launch(bitmat, data, out)
-    gf_bitmatmul.launches += 1
+    count_launch(gf_bitmatmul)
     return out
 
 
@@ -308,7 +336,7 @@ def gf_bitmatmul_pallas(bitmat: torch.Tensor, data: torch.Tensor, *,
         return gf_bitmatmul_plain(bitmat, data)
     out = torch.empty((m, data.shape[1]), dtype=torch.uint8, device=data.device)
     _launch(bitmat, data, out)
-    gf_bitmatmul_pallas.launches += 1
+    count_launch(gf_bitmatmul_pallas)
     return out
 
 
@@ -329,7 +357,7 @@ def gf_bitmatmul_pallas_grouped(bitmat: torch.Tensor, data: torch.Tensor, *,
         return gf_bitmatmul_plain(bitmat, data)
     out = torch.empty((m, data.shape[1]), dtype=torch.uint8, device=data.device)
     _launch(bitmat, data, out)
-    gf_bitmatmul_pallas_grouped.launches += 1
+    count_launch(gf_bitmatmul_pallas_grouped)
     return out
 
 
@@ -358,8 +386,39 @@ def gf_bitmatmul_pallas_acc(bitmat: torch.Tensor, data: torch.Tensor,
     if _on_cpu(data):
         return carry.bitwise_xor_(gf_bitmatmul_plain(bitmat, data ^ seed))
     _launch(bitmat, data, carry, acc=True, seed=seed)
-    gf_bitmatmul_pallas_acc.launches += 1
+    count_launch(gf_bitmatmul_pallas_acc)
     return carry
+
+
+def gf_encode_compare_plain(bitmat: torch.Tensor, data: torch.Tensor,
+                            parity: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gf_encode_compare`: the expected parity,
+    then ``!=`` and ``any`` over the columns."""
+    return (gf_bitmatmul_plain(bitmat, data) != parity).any(dim=-1)
+
+
+def gf_encode_compare(bitmat: torch.Tensor, data: torch.Tensor,
+                      parity: torch.Tensor) -> torch.Tensor:
+    """Deep scrub's batched re-encode-and-compare: apply the (8m, 8k)
+    encode bit-matrix to (..., k, S) data-shard lanes and compare with
+    the stored (..., m, S) parity lanes, returning a (..., m) bool
+    mismatch mask.  Zero-padded columns are exact (the encode of zeros
+    is zeros).  On the card: one launch of the kernel's compare mode,
+    whose expected parity never reaches memory (replaces the jitted XLA
+    ``gf_encode_compare`` of ceph_tpu/ops/rs_kernels.py:73-83)."""
+    k, m = _check(bitmat, data)
+    if not isinstance(parity, torch.Tensor) or parity.dtype != torch.uint8:
+        raise TypeError("parity must be a uint8 torch.Tensor")
+    want = (*data.shape[:-2], m, data.shape[-1])
+    if tuple(parity.shape) != want or parity.device != data.device:
+        raise ValueError(f"parity must be {want} on {data.device}, got "
+                         f"{tuple(parity.shape)} on {parity.device}")
+    if _on_cpu(data):
+        return gf_encode_compare_plain(bitmat, data, parity)
+    flags = torch.empty(want[:-1], dtype=torch.int32, device=data.device)
+    _launch(bitmat, data, flags, parity=parity)
+    count_launch(gf_encode_compare)
+    return flags != 0
 
 
 KERNEL_ENTRY_POINTS = (
@@ -367,6 +426,7 @@ KERNEL_ENTRY_POINTS = (
     gf_bitmatmul_pallas,
     gf_bitmatmul_pallas_grouped,
     gf_bitmatmul_pallas_acc,
+    gf_encode_compare,
 )
 
 

@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``ceph_tpu_torch/ops/csrc`` (first use), then
-runs one RS(8,3) pool through the port's entry points:
+Builds the CUDA kernels from ``ceph_tpu_torch/ops/csrc`` (first use, one
+``nvcc`` per source, all started together), then runs one RS(8,3) pool
+through the port's entry points:
 
 1. kernels — every kernel entry point against its plain PyTorch version
-   on the card, and the plain version against the numpy GF(2^8) oracle,
-   at the main path's shapes plus a k=16 code, a k+m=256 code and a
-   ragged S, and at every form of the kernel's launch plan (S where it
-   changes columns per thread or starts to stride, batches of 1 and 8,
-   m = 1, each instantiation forced); mismatched bytes must be 0;
+   on the card, and the plain version against the numpy GF(2^8) oracle
+   or the native crc32c, at the main path's shapes plus a k=16 code, a
+   k+m=256 code and a ragged S, and at every form of the bit-matrix
+   kernel's launch plan (S where it changes columns per thread or starts
+   to stride, batches of 1 and 8, m = 1, each instantiation forced);
+   the batched crc32c at every bucket width, 1 and 32 lanes, some
+   zero-padded; the re-encode compare clean, with one flipped byte and
+   with every byte wrong; mismatched values must be 0;
 2. write — 256 objects of 4 MiB and 16 of 2 MiB through
    ``registry.factory("cuda", ...)`` -> ``ecutil.encode`` + ``HashInfo``;
 3. recover — lose the OSD of shard 2, then also shard 9; rebuild every
@@ -19,18 +23,26 @@ runs one RS(8,3) pool through the port's entry points:
    ``DecodeAggregator``; each rebuilt shard's crc32c must equal HashInfo;
 4. degraded read — ``decode_concat`` with 1, 2 and 3 shards missing must
    return the written bytes;
-5. throughput — the timed ``carry ^= encode(data ^ seed)`` loop of
+5. scrub — deep-scrub every object, with the shards the last recover
+   round rebuilt in place of the written ones, through a prewarmed
+   ``ScrubVerifier`` in chunks of 25 objects verified concurrently
+   (``osd_scrub_chunk_max``): every shard's crc32c must equal HashInfo
+   and no parity may be flagged; then on copies of a few objects one
+   flipped byte in a data shard and one in a parity shard must be
+   flagged exactly as a host re-encode (``gf_matmul``) flags them;
+6. throughput — the timed ``carry ^= encode(data ^ seed)`` loop of
    bench.py on (8, 256 MiB), and a 1-erasure decode at the same S.
 
-Kernel launch counts are reset just before phases 2-5 and read just
+Kernel launch counts are reset just before phases 2-6 and read just
 after; every kernel must have been launched there.  Then a
-torch.profiler pass over phases 2-4 gives the device's busy and idle
+torch.profiler pass over phases 2-5 gives the device's busy and idle
 share, and the device time per launch at each kernel's main-path shape
 (and at each forced width of the launch plan); each kernel is timed
 there by CUDA events and held there against its plain version.  Each
-phase prints one JSON line; then a ``kernels`` line, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero; with no CUDA device it exits 1 before doing anything.
+phase prints one JSON line; then a ``kernels`` line, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.  Any
+failure raises and exits non-zero; with no CUDA device it exits 1
+before doing anything.
 """
 
 from __future__ import annotations
@@ -49,24 +61,36 @@ import torch
 from ceph_tpu_torch import native
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
+from ceph_tpu_torch.ops import hashing
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.ops.gf256 import gf_matmul
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
+from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
 
 #: NVIDIA H100 SXM data sheet: HBM3 rate and dense int8 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
 
 MiB = 1 << 20
-KERNEL_SOURCE = "ceph_tpu_torch/ops/csrc/gf_bitmatmul.cu"
+GF_SOURCE = "ceph_tpu_torch/ops/csrc/gf_bitmatmul.cu"
+CRC_SOURCE = "ceph_tpu_torch/ops/csrc/crc32c_lanes.cu"
 #: each entry point and the TPU kernel (or jitted XLA code) it replaces
 REPLACES = {
     "gf_bitmatmul_pallas": "ceph_tpu/ops/rs_kernels.py:276",
     "gf_bitmatmul_pallas_grouped": "ceph_tpu/ops/rs_kernels.py:230",
     "gf_bitmatmul_pallas_acc": "ceph_tpu/ops/rs_kernels.py:327",
     "gf_bitmatmul": "ceph_tpu/ops/rs_kernels.py:59",
+    "gf_encode_compare": "ceph_tpu/ops/rs_kernels.py:73",
+    "batched_crc32c_device": "ceph_tpu/ops/hashing.py:376",
 }
+#: each entry point's kernel source and the kernel's name in a trace
+KERNELS = {name: (GF_SOURCE, "gf_bitmatmul_kernel") for name in REPLACES}
+KERNELS["batched_crc32c_device"] = (CRC_SOURCE, "crc32c_lanes_kernel")
+#: why no PyTorch call is timed beside each kernel
+NO_LIBRARY = {name: "no PyTorch call computes a GF(2^8) bit-matrix product"
+              for name in REPLACES}
+NO_LIBRARY["batched_crc32c_device"] = "no PyTorch call computes crc32c"
 
 
 @dataclasses.dataclass
@@ -97,6 +121,14 @@ class Config:
     plan_cols: tuple = (16, 4096, 65536, 262144, 524288, 262144 + 13,
                         3 << 19, 8 << 20)
     plan_batch_cols: tuple = (4096, 65536)
+    #: the scrub verifier's bucket widths, for the crc and compare cases
+    crc_cols: tuple = (4096, 8192, 16384, 32768, 65536)
+    compare_cols: tuple = (4096, 65536)
+    #: objects verified concurrently (osd_scrub_chunk_max), and objects
+    #: corrupted on copies
+    scrub_chunk: int = 25
+    scrub_corrupt: int = 3
+    crc_lanes: int = 32
     iters: int = 32
     repeats: int = 5
     seed: int = 20261016
@@ -114,10 +146,17 @@ def _rand(shape, gen: torch.Generator, device) -> torch.Tensor:
                          generator=gen)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """int64 copy of a uint8, bool or uint32 tensor, values unchanged."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return t.to(torch.int64)
+
+
 def _errors(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
-    """(mismatched bytes, largest absolute byte difference)."""
+    """(mismatched values, largest absolute difference)."""
     assert a.shape == b.shape, (a.shape, b.shape)
-    diff = (a.to(torch.int16) - b.to(torch.int16)).abs()
+    diff = (_wide(a) - _wide(b)).abs()
     return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
@@ -126,14 +165,24 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def bound_ms(k: int, m: int, cols: int, *, carry: bool = False) -> tuple[float, str]:
-    """Least time for one product: (k + m) S bytes moved ((k + 2m) S for
-    the acc form, which also reads the carry) over the HBM rate, or
-    2 * 8m * 8k * S operations over the int8 tensor-core rate."""
-    nbytes = (k + (2 if carry else 1) * m) * cols
-    ops = 2 * (8 * m) * (8 * k) * cols
+def _bound(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_ms(k: int, m: int, cols: int, *, carry: bool = False) -> tuple[float, str]:
+    """Least time for one product: (k + m) S bytes moved ((k + 2m) S for
+    the acc form, which also reads the carry; the compare reads the same
+    bytes and writes a flag a row) over the HBM rate, or
+    2 * 8m * 8k * S operations over the int8 tensor-core rate."""
+    return _bound((k + (2 if carry else 1) * m) * cols, 2 * (8 * m) * (8 * k) * cols)
+
+
+def crc_bound_ms(lanes: int, width: int) -> tuple[float, str]:
+    """Least time for one batched crc32c: the lanes read and a word each
+    written, or the (32, 8W) GF(2) product per lane at the int8
+    tensor-core rate (2 * 32 * 8W operations a lane)."""
+    return _bound(lanes * (width + 4), 2 * 32 * 8 * width * lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -211,11 +260,56 @@ def phase_kernels(cfg: Config, device) -> dict[str, int]:
     two_d(f"encode RS({k},{m}) ragged S={s + 13}", codec.C, codec.encode_bits,
           _rand((k, s + 13), gen, device))
     plans = phase_kernel_plans(cfg, device, gen, codec, check)
+    phase_kernel_scrub(cfg, device, gen, check)
     _sync(device)
     emit({"phase": "kernels", "cases": len(cases),
           "mismatched_bytes": sum(c["mismatched_bytes"] for c in cases),
           "worst": worst, "plans": plans})
     return worst
+
+
+def phase_kernel_scrub(cfg: Config, device, gen, check) -> None:
+    """The scrub kernels.  The batched crc32c at each bucket width with 1
+    and ``crc_lanes`` lanes, every other lane's tail zero-padded as the
+    verifier pads short lanes, against its plain version and the native
+    crc32c.  The re-encode compare for m = 3 and m = 1 at batches 1 and 8
+    of each width of ``compare_cols`` and at a ragged S (a warp spans two
+    batch entries): clean, one parity byte flipped, one data byte
+    flipped, every parity byte wrong (every thread sets a flag), against
+    its plain version, and the plain version against the flags expected."""
+    for w in cfg.crc_cols:
+        for b in (1, cfg.crc_lanes):
+            x = _rand((b, w), gen, device)
+            for j in range(0, b, 2):
+                x[j, w - (j * 4099 + 13) % w:] = 0
+            case = f"crc ({b}, {w})"
+            plain = hashing.batched_crc32c_plain(x)
+            check("batched_crc32c_device", hashing.batched_crc32c_device(x), plain, case)
+            host = torch.tensor([native.crc32c(row, 0) for row in x.cpu().numpy()],
+                                dtype=torch.int64)
+            check("plain_vs_native", _wide(plain).cpu(), host, case)
+    k = cfg.k
+    for m in (cfg.m, 1):
+        bits = rk.BitmatrixCodec(isa_cauchy_matrix(k, m), device=device).encode_bits
+        shapes = [(b, s) for b in (1, 8) for s in cfg.compare_cols]
+        for b, s in shapes + [(8, cfg.compare_cols[0] + 13)]:
+            data = _rand((b, k, s), gen, device)
+            parity = rk.gf_bitmatmul_plain(bits, data)
+            pflip, dflip = parity.clone(), data.clone()
+            pflip[b - 1, m - 1, s // 2] ^= 1
+            dflip[0, k - 1, s - 1] ^= 0x80
+            none = torch.zeros((b, m), dtype=torch.bool, device=device)
+            want_p, want_d = none.clone(), none.clone()
+            want_p[b - 1, m - 1] = True
+            want_d[0] = True  # Cauchy: every parity row reads every data byte
+            for what, d, p, flags in (("clean", data, parity, none),
+                                      ("parity flip", data, pflip, want_p),
+                                      ("data flip", dflip, parity, want_d),
+                                      ("all wrong", data, parity ^ 0xFF, ~none)):
+                case = f"compare {what} ({b}, {k}, {s}) m={m}"
+                plain = rk.gf_encode_compare_plain(bits, d, p)
+                check("gf_encode_compare", rk.gf_encode_compare(bits, d, p), plain, case)
+                check("plain_vs_expected", plain, flags, case)
 
 
 def phase_kernel_plans(cfg: Config, device, gen, codec, check) -> list:
@@ -294,7 +388,8 @@ def phase_write(cfg: Config, device, ec, sinfo):
     return objects, written
 
 
-def phase_recover(cfg: Config, device, ec, sinfo, written) -> dict:
+def phase_recover(cfg: Config, device, ec, sinfo, written) -> list[dict]:
+    """Returns the shards the last round rebuilt, per object."""
     agg = DecodeAggregator(device=device)
     warmed = agg.prewarm(ec, erasure_counts=tuple(sorted({len(l) for l in cfg.lost})))
     out = {"phase": "recover", "prewarmed_shapes": warmed, "rounds": []}
@@ -328,7 +423,7 @@ def phase_recover(cfg: Config, device, ec, sinfo, written) -> dict:
     if agg.stats["cold_launches"] != 0:
         raise AssertionError(f"cold launches after prewarm: {dict(agg.stats)}")
     emit(out)
-    return out
+    return rebuilt
 
 
 def phase_degraded_read(cfg: Config, ec, sinfo, objects, written) -> dict:
@@ -348,8 +443,95 @@ def phase_degraded_read(cfg: Config, ec, sinfo, objects, written) -> dict:
     return out
 
 
+def host_parity_bad(ec, shards: dict) -> set[int]:
+    """The scrub oracle: parity shards that differ from a host re-encode
+    (``gf_matmul``) of the data shards."""
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    data = np.stack([shards[ec.chunk_index(c)] for c in range(k)])
+    expect = gf_matmul(ec.coding_matrix, data)
+    return {ec.chunk_index(k + j) for j in range(n - k)
+            if not np.array_equal(expect[j], shards[ec.chunk_index(k + j)])}
+
+
+def phase_scrub(cfg: Config, device, ec, written, rebuilt) -> dict:
+    """Deep scrub of every object as stored after recovery (the last
+    round's rebuilt shards in place of the written ones), then a
+    corruption round on copies of ``scrub_corrupt`` objects."""
+    ver = ScrubVerifier(device=device, crc_lanes=cfg.crc_lanes)  # 2 ms window
+    warmed = ver.prewarm(ec)
+    stored = [{**shards, **got} for (shards, _), got in zip(written, rebuilt)]
+
+    def scrub(objs: list[dict]) -> list:
+        async def chunks():
+            out = []
+            for at in range(0, len(objs), cfg.scrub_chunk):
+                out += await asyncio.gather(*(
+                    ver.verify_object(ec, o) for o in objs[at:at + cfg.scrub_chunk]))
+            return out
+
+        return asyncio.run(chunks())
+
+    before = dict(ver.stats), ver.metrics.dump()
+    t0 = time.perf_counter()
+    checks = scrub(stored)
+    dt = time.perf_counter() - t0
+    nbytes = 0
+    for i, (obj, (_, hinfo), ch) in enumerate(zip(stored, written, checks)):
+        for s, payload in obj.items():
+            if ch.crcs[s] != hinfo.get_chunk_hash(s):
+                raise AssertionError(f"object {i} shard {s}: scrub crc {ch.crcs[s]:#x} "
+                                     f"!= HashInfo {hinfo.get_chunk_hash(s):#x}")
+            nbytes += payload.nbytes
+        if ch.parity_bad != frozenset():
+            raise AssertionError(f"object {i}: clean parity flagged {ch.parity_bad}")
+    stats, metrics = dict(ver.stats), ver.metrics.dump()
+    if stats["cold_launches"] != 0:
+        raise AssertionError(f"cold launches after prewarm: {stats}")
+
+    def delta(key: str) -> float:
+        return metrics.get(key, 0.0) - before[1].get(key, 0.0)
+
+    out = {"phase": "scrub", "prewarmed_shapes": warmed, "objects": len(stored),
+           "shard_bytes": nbytes, "seconds": dt, "shard_GB_per_s": nbytes / dt / 1e9,
+           "rebuilt_shards": sorted({s for got in rebuilt for s in got}),
+           "crc_launches": stats["crc_launches"] - before[0]["crc_launches"],
+           "enc_launches": stats["enc_launches"] - before[0]["enc_launches"],
+           "lane_occupancy": delta("occupied_lanes") / delta("padded_lanes"),
+           "byte_occupancy": delta("occupied_bytes") / delta("padded_bytes"),
+           "cold_launches": stats["cold_launches"]}
+
+    # the corruption round: one flipped byte in a data shard, then in a
+    # parity shard, on copies of objects spread over the pool
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    cases = []
+    for i in range(cfg.scrub_corrupt):
+        at = i * (len(stored) // cfg.scrub_corrupt)
+        obj, hinfo = stored[at], written[at][1]
+        size = len(obj[0])
+        for victim in (ec.chunk_index(i % k), ec.chunk_index(k + i % (n - k))):
+            bad = dict(obj)
+            bad[victim] = obj[victim].copy()
+            bad[victim][(i * 104729 + 7) % size] ^= 0x5A
+            cases.append((at, victim, bad, hinfo))
+    got = scrub([bad for _, _, bad, _ in cases])
+    for (at, victim, bad, hinfo), ch in zip(cases, got):
+        wrong = {s for s in bad if ch.crcs[s] != hinfo.get_chunk_hash(s)}
+        want = host_parity_bad(ec, bad)
+        if wrong != {victim} or ch.parity_bad != want or not want or (
+                victim >= k and want != {victim}):
+            raise AssertionError(
+                f"object {at}, byte flipped in shard {victim}: crc differs in "
+                f"{sorted(wrong)}, parity_bad {sorted(ch.parity_bad)}, host "
+                f"re-encode {sorted(want)}")
+    out["corruption"] = [{"object": at, "shard": victim, "parity_bad": sorted(ch.parity_bad)}
+                         for (at, victim, _, _), ch in zip(cases, got)]
+    out["stats"] = dict(ver.stats)
+    emit(out)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Phase 5 and the kernels line: timing on the card
+# Phase 6 and the kernels line: timing on the card
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, n_calls: int, repeats: int) -> float:
@@ -411,10 +593,12 @@ def phase_throughput(cfg: Config, device) -> dict:
 
 def main_path_shapes(cfg: Config, device, codec) -> dict:
     """For each entry point but acc: (kernel call, plain call, bound,
-    shape, (bit-matrix, one input)) at the main path's shape, with
-    inputs rotated over more than the 50 MB L2, as a caller uploading
-    fresh objects finds them.  Call i of the kernel and of the plain
-    version take the same input."""
+    shape, (bit-matrix, one input) of a bit-matrix product or None) at
+    the main path's shape, with inputs rotated over more than the 50 MB
+    L2, as a caller uploading fresh objects finds them.  Call i of the
+    kernel and of the plain version take the same input.  The compare
+    gets clean parity and the crc full lanes, as deep scrub of sound
+    shards does."""
     k, m = cfg.k, cfg.m
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 3)
     s4 = cfg.object_bytes // k          # 4 MiB object -> grouped kernel
@@ -423,6 +607,9 @@ def main_path_shapes(cfg: Config, device, codec) -> dict:
     bufs4 = [_rand((k, s4), gen, device) for _ in range(24)]
     bufs2 = [_rand((k, s2), gen, device) for _ in range(48)]
     bufsb = [_rand((8, k, cfg.batch_cols), gen, device) for _ in range(24)]
+    bufsp = [rk.gf_bitmatmul_plain(codec.encode_bits, x) for x in bufsb]
+    lanes = cfg.crc_lanes
+    bufsc = [_rand((lanes, cfg.batch_cols), gen, device) for _ in range(32)]
     t4, t2 = rk._pick_tile(s4), rk._pick_tile(s2)
     g4 = rk._pick_groups(k, m, s4, t4)
     bits = codec.encode_bits
@@ -441,6 +628,15 @@ def main_path_shapes(cfg: Config, device, codec) -> dict:
             lambda i: rk.gf_bitmatmul_plain(d1, bufsb[i % 24]),
             bound_ms(k, 1, 8 * cfg.batch_cols), f"1-erasure decode (8, {k}, {cfg.batch_cols})",
             (d1, bufsb[0])),
+        "gf_encode_compare": (
+            lambda i: rk.gf_encode_compare(bits, bufsb[i % 24], bufsp[i % 24]),
+            lambda i: rk.gf_encode_compare_plain(bits, bufsb[i % 24], bufsp[i % 24]),
+            bound_ms(k, m, 8 * cfg.batch_cols),
+            f"compare (8, {k}, {cfg.batch_cols}) with (8, {m}, {cfg.batch_cols})", None),
+        "batched_crc32c_device": (
+            lambda i: hashing.batched_crc32c_device(bufsc[i % 32]),
+            lambda i: hashing.batched_crc32c_plain(bufsc[i % 32]),
+            crc_bound_ms(lanes, cfg.batch_cols), f"crc ({lanes}, {cfg.batch_cols})", None),
     }
 
 
@@ -478,11 +674,12 @@ def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict,
             raise AssertionError(f"{name} at {shape}: differs from its plain "
                                  f"version in {bad} bytes")
         rows.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(worst[name], err), "mismatched_bytes": bad,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "bound_share": bms / ms, "library_ms": None, "shape": shape,
+            "bound_share": bms / ms, "library_ms": None,
+            "library_note": NO_LIBRARY[name], "shape": shape,
             "device_us": per_launch[name]["device_us_mean"],
         })
     return rows
@@ -534,37 +731,40 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
         return wall, [e for e in events if e.get("ph") == "X"
                       and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
-    def ours(e: dict) -> bool:
-        return "gf_bitmatmul_kernel" in e.get("name", "")
+    def ours(e: dict, kernel: str) -> bool:
+        return kernel in e.get("name", "")
 
     wall, dev = traced(lambda: run_main_path(cfg, device))
     busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     by_cat: dict[str, float] = {}
     for e in dev:
-        cat = "gf_bitmatmul_kernel" if ours(e) else e["cat"]
+        cat = next((kn for _, kn in KERNELS.values() if ours(e, kn)), e["cat"])
         by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"]
     out = {"phase": "profile", "main_path_wall_s": wall,
            "device_busy_s": busy * 1e-6, "device_idle_share": 1 - busy * 1e-6 / wall,
            "device_us_by_kind": by_cat, "device_events": len(dev), "per_launch": {}}
 
-    def per_launch(fn, calls: int, shape: str) -> dict:
+    def per_launch(fn, calls: int, shape: str, kernel: str = "gf_bitmatmul_kernel") -> dict:
         fn(0)
         wall_c, dev_c = traced(lambda: [fn(i) for i in range(calls)])
-        kern = [e["dur"] for e in dev_c if ours(e)]
+        kern = [e["dur"] for e in dev_c if ours(e, kernel)]
         return {"shape": shape, "launches": len(kern),
                 "device_us_mean": sum(kern) / max(len(kern), 1),
                 "wall_us_per_call": wall_c / calls * 1e6}
 
     shapes = main_path_shapes(cfg, device, tp["codec"])
     for name, (fn, _, _, shape, _x) in shapes.items():
-        out["per_launch"][name] = per_launch(fn, 48, shape)
+        out["per_launch"][name] = per_launch(fn, 48, shape, KERNELS[name][1])
     bits, data, carry = tp["codec"].encode_bits, tp["data"], tp["carry"]
     out["per_launch"]["gf_bitmatmul_pallas_acc"] = per_launch(
         lambda i: rk.gf_bitmatmul_pallas_acc(bits, data, carry, i,
                                              tile_s=rk._pick_tile(data.shape[1])),
         4, f"acc ({cfg.k}, {data.shape[1]})")
     out["by_words"] = {}
-    for name, (_, _, _, shape, (b, x)) in shapes.items():
+    for name, (_, _, _, shape, plan_input) in shapes.items():
+        if plan_input is None:
+            continue
+        b, x = plan_input
         for words in (2, 4):
             def launch(i, b=b, x=x, words=words):
                 o = torch.empty((*x.shape[:-2], b.shape[0] // 8, x.shape[-1]),
@@ -586,12 +786,15 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
 
 
 def run_main_path(cfg: Config, device) -> dict:
-    """Phases 2-4 on ``device``; returns the pool and what was written."""
+    """Phases 2-5 on ``device``; returns the pool, what was written and
+    the scrub phase's line."""
     ec, sinfo = make_pool(cfg, device)
     objects, written = phase_write(cfg, device, ec, sinfo)
-    phase_recover(cfg, device, ec, sinfo, written)
+    rebuilt = phase_recover(cfg, device, ec, sinfo, written)
     phase_degraded_read(cfg, ec, sinfo, objects, written)
-    return {"ec": ec, "sinfo": sinfo, "objects": objects, "written": written}
+    scrub = phase_scrub(cfg, device, ec, written, rebuilt)
+    return {"ec": ec, "sinfo": sinfo, "objects": objects, "written": written,
+            "scrub": scrub}
 
 
 def main() -> int:
@@ -616,10 +819,11 @@ def main() -> int:
     worst = phase_kernels(cfg, device)
 
     rk.reset_launch_counts()
+    hashing.reset_launch_counts()
     run_main_path(cfg, device)
     tp = phase_throughput(cfg, device)
     torch.cuda.synchronize()
-    launches = rk.launch_counts()
+    launches = {**rk.launch_counts(), **hashing.launch_counts()}
     emit({"phase": "main_path_launches", **launches})
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:

@@ -20,6 +20,7 @@ from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
+from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ceph_tpu_torch")
@@ -48,6 +49,8 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
     mods = _modules()
     assert "ceph_tpu_torch.ops.rs_kernels" in mods
     assert "ceph_tpu_torch.ec.plugins.cuda" in mods
+    assert "ceph_tpu_torch.parallel.scrub_batcher" in mods
+    assert "ceph_tpu_torch.ops.hashing" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -109,12 +112,15 @@ def test_default_device_constructors_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         DecodeAggregator()
     with pytest.raises(RuntimeError, match="CUDA"):
+        ScrubVerifier()
+    with pytest.raises(RuntimeError, match="CUDA"):
         rk.resolve_device("cuda:0")
 
 
 def test_cpu_is_only_by_request(no_cuda):
     assert rk.BitmatrixCodec(isa_cauchy_matrix(4, 2), device="cpu").device.type == "cpu"
     assert DecodeAggregator(device="cpu").device.type == "cpu"
+    assert ScrubVerifier(device="cpu").device.type == "cpu"
     assert registry.factory("cuda", {}, device="cpu").device.type == "cpu"
 
 

@@ -216,7 +216,7 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(rk, "_fn", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         rk._kernel()
-    assert _build.sources() == ["gf_bitmatmul"]
+    assert _build.sources() == ["crc32c_lanes", "gf_bitmatmul"]
 
 
 def test_launch_refuses_cpu_tensors():
@@ -423,3 +423,104 @@ def test_mask_cache_is_by_identity_and_version():
     wide = torch.tensor(_bitmat(128, 128))
     assert rk._masks(wide)[0] == 1
     assert np.array_equal(held(wide), rk.kernel_masks(wide.numpy(), packed=True))
+
+
+# ---------------------------------------------------------------------------
+# Deep scrub's re-encode-compare
+# ---------------------------------------------------------------------------
+
+def _compare_inputs(rng, k, m, batch, s, case):
+    """(bit-matrix, data, parity) with ``case``: clean parity, one data
+    byte flipped, one parity byte flipped, or zero-padded lanes (the
+    scrub batcher's bucket padding)."""
+    ref, _ = _codecs(k, m)
+    data = rng.integers(0, 256, (batch, k, s), dtype=np.uint8)
+    if case == "padded":
+        data[:, :, s // 3:] = 0
+    parity = np.stack([ref_gf.gf_matmul(ref.C, d) for d in data])
+    b = batch - 1
+    if case == "data_flip":
+        data[b, k - 1, s // 2] ^= 0x40
+    elif case == "parity_flip":
+        parity[b, m - 1, s - 1] ^= 0x01
+    return np.asarray(ref.encode_bits), data, parity
+
+
+@pytest.mark.parametrize("k,m", [(8, 3), (4, 2), (3, 2)])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("case", ["clean", "data_flip", "parity_flip", "padded"])
+def test_encode_compare_plain_vs_jax(rng, k, m, batch, case):
+    bits, data, parity = _compare_inputs(rng, k, m, batch, 1024, case)
+    want = np.asarray(ref_rk.gf_encode_compare(
+        jnp.asarray(bits), jnp.asarray(data), jnp.asarray(parity)))
+    got = rk.gf_encode_compare_plain(_t(bits), _t(data), _t(parity))
+    assert got.dtype == torch.bool and got.shape == (batch, m)
+    assert np.array_equal(got.numpy(), want)
+    # the entry point on CPU tensors is the plain version
+    assert np.array_equal(rk.gf_encode_compare(_t(bits), _t(data), _t(parity)).numpy(), want)
+    flagged = want.sum()
+    if case in ("clean", "padded"):
+        assert flagged == 0
+    elif case == "parity_flip":
+        assert flagged == 1 and want[batch - 1, m - 1]
+    else:  # a Cauchy code: every parity row depends on every data byte
+        assert flagged == m and want[batch - 1].all()
+
+
+def test_encode_compare_all_mismatch(rng):
+    bits, data, parity = _compare_inputs(rng, 8, 3, 8, 512, "clean")
+    got = rk.gf_encode_compare(_t(bits), _t(data), _t(parity ^ 0xFF))
+    assert got.all()
+
+
+def test_encode_compare_rejects_bad_parity():
+    bits = torch.tensor(_bitmat(8, 3))
+    data = torch.zeros((2, 8, 64), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="parity"):
+        rk.gf_encode_compare(bits, data, torch.zeros((2, 2, 64), dtype=torch.uint8))
+    with pytest.raises(TypeError, match="parity"):
+        rk.gf_encode_compare(bits, data, torch.zeros((2, 3, 64), dtype=torch.int32))
+    assert "gf_encode_compare" in rk.launch_counts()
+
+
+def _compare_model(bitmat, data, parity, words, blocks):
+    """numpy model of the kernel's compare epilogue over its launch plan:
+    thread g takes items g, g + stride, ...; in each pass a warp votes
+    over its lanes that hold an item (a prefix), and each thread that
+    differs sets only its own item's (b, u) flag."""
+    batch, k, s = data.shape
+    m = parity.shape[1]
+    diff = np.stack([_kernel_model(bitmat, d) for d in data]) != parity  # (B, m, S)
+    ipr = -(-s // (4 * words))
+    pad = np.zeros((batch, m, ipr * 4 * words), dtype=bool)
+    pad[:, :, :s] = diff
+    item_bad = pad.reshape(batch, m, ipr, 4 * words).any(-1)  # (B, m, ipr)
+    items, stride = batch * ipr, blocks * rk.THREADS
+    flags = np.zeros((batch, m), dtype=np.int32)
+    for base in range(0, stride, 32):  # each warp
+        t = base
+        while t < items:
+            lanes = min(32, items - t)
+            ts = t + np.arange(lanes)
+            for u in range(m):
+                bad = item_bad[ts // ipr, u, ts % ipr]
+                if bad.any():  # __any_sync over the active lanes
+                    for ti in ts[bad]:
+                        flags[ti // ipr, u] |= 1
+            t += stride
+    return flags != 0
+
+
+@pytest.mark.parametrize("s,batch", [(4096 + 13, 8), (301, 3), (64, 8)])
+@pytest.mark.parametrize("words", [2, 4])
+def test_compare_epilogue_model(rng, s, batch, words):
+    """Ragged S puts two batch entries in one warp: their flags stay
+    apart; a flip in one entry flags only it."""
+    bits, data, parity = _compare_inputs(rng, 8, 3, batch, s, "clean")
+    parity[0, 1, s - 1] ^= 0x80                  # entry 0, row 1, last column
+    data[batch - 1, 0, 0] ^= 0x01                # the last entry, every row
+    want = rk.gf_encode_compare_plain(_t(bits), _t(data), _t(parity)).numpy()
+    blocks = rk._launch_plan(s, batch, 132, words)[1]
+    assert np.array_equal(_compare_model(bits, data, parity, words, blocks), want)
+    assert want[0].tolist() == [False, True, False] or batch == 1
+    assert want[batch - 1].all()

@@ -98,16 +98,29 @@ def test_slice_matches_reference():
 
 
 def test_chip_smoke_phases_on_cpu():
-    """chip_smoke's phases 1-4 at a tiny size on the CPU."""
+    """chip_smoke's phases 1-5 at a tiny size on the CPU: the scrub phase
+    verifies 6 objects in chunks of 4 (crc == HashInfo, the rebuilt
+    shards included, no parity flagged, no cold launch) and flags two
+    planted corruptions exactly as the host re-encode does."""
     cfg = chip_smoke.Config(
         object_bytes=64 * 1024, objects=4, small_object_bytes=32 * 1024,
         small_objects=2, kernel_cols=4096, oracle_cols=4096, batch_cols=512,
-        wide_cols=512, plan_cols=(16, 4096 + 13), plan_batch_cols=(512,))
+        wide_cols=512, plan_cols=(16, 4096 + 13), plan_batch_cols=(512,),
+        crc_cols=(4096,), compare_cols=(512,), crc_lanes=8, scrub_chunk=4,
+        scrub_corrupt=1)
     worst = chip_smoke.phase_kernels(cfg, "cpu")
     assert worst == {name: 0 for name in chip_smoke.REPLACES}
     run = chip_smoke.run_main_path(cfg, "cpu")
     assert len(run["written"]) == 6
+    scrub = run["scrub"]
+    assert scrub["objects"] == 6 and scrub["cold_launches"] == 0
+    assert scrub["rebuilt_shards"] == [2, 9]
+    assert scrub["shard_bytes"] == 11 * (4 * 8192 + 2 * 4096)
+    # 6 objects of 11 shards: 66 crc lanes in two chunks (4 + 2 objects)
+    assert scrub["crc_launches"] == 6 + 3 and scrub["enc_launches"] == 1 + 1
+    assert [c["parity_bad"] for c in scrub["corruption"]] == [[8, 9, 10], [8]]
     assert chip_smoke.bound_ms(8, 3, 256 << 20, carry=True)[1] == "bytes"
+    assert chip_smoke.crc_bound_ms(32, 65536)[1] == "bytes"
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
