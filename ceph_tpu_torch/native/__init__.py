@@ -1,15 +1,20 @@
-"""Native C++ host crc32c, loaded via ctypes.
+"""Native C++ host helpers, loaded via ctypes: crc32c and the scalar
+CRUSH straw2 choose.
 
 The reference keeps its data-plane checksums native (crc32c:
 src/common/crc32c.cc + sctp_crc32.c).  The port does the same: a small
 C++ library compiled on first use with g++ (no pip deps) into this
-directory, rebuilt when its source is newer than the library.  A
-pure-Python table loop computes the same values where no toolchain is
-present (it is slow: a few MB/s).
+directory, rebuilt when a source is newer than the library.  A
+pure-Python table loop computes the same crc values where no toolchain
+is present (it is slow: a few MB/s).  ``crush_hash.cc`` holds the
+rjenkins1 hashes and a whole straw2 bucket choose for the scalar CRUSH
+interpreter (``crush/mapper.py``); the crush_ln tables are injected
+from ``crush/_ln_tables.py`` at load.
 
 Public API:
   crc32c(data, seed=-1)          -- reference ceph_crc32c semantics
   crc32c_zeros(length, seed=-1)  -- crc32c of ``length`` zero bytes
+  straw2_lib()                   -- the library for the scalar mapper, or None
   available()                    -- True when the .so is loaded
 """
 
@@ -24,7 +29,7 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_HERE, "_libceph_tpu_torch_native.so")
-_SRCS = ["crc32c.cc"]
+_SRCS = ["crc32c.cc", "crush_hash.cc"]
 
 _lib = None
 _lock = threading.Lock()
@@ -59,6 +64,22 @@ def _load():
         lib.ceph_tpu_torch_crc32c.argtypes = [
             ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t,
         ]
+        u32 = ctypes.c_uint32
+        lib.ceph_tpu_torch_straw2_choose.restype = ctypes.c_int32
+        lib.ceph_tpu_torch_straw2_choose.argtypes = [
+            u32, u32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+        ]
+        lib.ceph_tpu_torch_set_ln_tables.restype = None
+        lib.ceph_tpu_torch_set_ln_tables.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        # the crush_ln tables: one table of truth, the generated module
+        from ceph_tpu_torch.crush._ln_tables import LL_TBL, RH_LH_TBL
+
+        rh = np.ascontiguousarray(RH_LH_TBL, dtype=np.int64)
+        ll = np.ascontiguousarray(LL_TBL, dtype=np.int64)
+        assert rh.size == 258 and ll.size == 256
+        lib.ceph_tpu_torch_set_ln_tables(rh.ctypes.data, ll.ctypes.data)
         _lib = lib
     return _lib
 
@@ -124,3 +145,13 @@ def crc32c_zeros(length: int, seed: int = 0xFFFFFFFF) -> int:
             break
         crc = int(t[crc & 0xFF]) ^ (crc >> 8)
     return crc
+
+
+def straw2_lib():
+    """The loaded library if its straw2 choose is usable (ln tables
+    injected), else None.  The scalar mapper binds the per-bucket call
+    itself to keep its hot path free of indirection."""
+    lib = _load()
+    if lib is not None and lib.ceph_tpu_torch_ln_tables_ready():
+        return lib
+    return None

@@ -1,7 +1,15 @@
-"""crc32c as a GF(2) product, and its batched kernel for deep scrub.
+"""CRUSH's rjenkins1 hashes, and crc32c with its batched kernel for deep
+scrub.
 
-Counterpart of the crc part of ``ceph_tpu/ops/hashing.py`` (:284-392);
-the CRUSH hashes of that file come with the CRUSH slice.
+Counterpart of ``ceph_tpu/ops/hashing.py``.
+
+The CRUSH hashes (:21-260) are Robert Jenkins' 96-bit mix with seed
+1315423911 and the fixed padding words x=231232, y=1232
+(src/crush/hash.c:12-90): ``crush_hash32`` .. ``crush_hash32_5`` on
+numpy uint32 (with a plain-int fast path for the scalar mapper), and
+``crush_hash32_2_torch`` / ``crush_hash32_3_torch`` on int32 tensors for
+the plain version of the batched CRUSH mapper.  Placement is a pure
+function of them, so they match the reference bit for bit.
 
 crc32c is GF(2)-linear in (state, message), so over a width-W message
 
@@ -34,6 +42,248 @@ import torch
 
 from ceph_tpu_torch import native
 from ceph_tpu_torch.ops.rs_kernels import _on_cpu, count_launch
+
+# ---------------------------------------------------------------------------
+# CRUSH rjenkins1 hashes (numpy uint32, plain ints, int32 tensors)
+# ---------------------------------------------------------------------------
+
+HASH_SEED = np.uint32(1315423911)
+_X = 231232
+_Y = 1232
+_M32 = 0xFFFFFFFF
+_SEED_INT = 1315423911
+
+
+def _mix_int(a: int, b: int, c: int) -> tuple[int, int, int]:
+    """One Jenkins mix round on plain Python ints, kept masked to 32 bits
+    so >> is a logical shift (the scalar mapper's fast path: a numpy
+    scalar pays about a microsecond of dispatch per operation)."""
+    a = (a - b - c) & _M32; a ^= c >> 13
+    b = (b - c - a) & _M32; b ^= (a << 8) & _M32
+    c = (c - a - b) & _M32; c ^= b >> 13
+    a = (a - b - c) & _M32; a ^= c >> 12
+    b = (b - c - a) & _M32; b ^= (a << 16) & _M32
+    c = (c - a - b) & _M32; c ^= b >> 5
+    a = (a - b - c) & _M32; a ^= c >> 3
+    b = (b - c - a) & _M32; b ^= (a << 10) & _M32
+    c = (c - a - b) & _M32; c ^= b >> 15
+    return a, b, c
+
+
+def _mix_np(a, b, c):
+    """One Jenkins mix round on uint32 numpy arrays."""
+    a = a - b; a = a - c; a = a ^ (c >> np.uint32(13))
+    b = b - c; b = b - a; b = b ^ (a << np.uint32(8))
+    c = c - a; c = c - b; c = c ^ (b >> np.uint32(13))
+    a = a - b; a = a - c; a = a ^ (c >> np.uint32(12))
+    b = b - c; b = b - a; b = b ^ (a << np.uint32(16))
+    c = c - a; c = c - b; c = c ^ (b >> np.uint32(5))
+    a = a - b; a = a - c; a = a ^ (c >> np.uint32(3))
+    b = b - c; b = b - a; b = b ^ (a << np.uint32(10))
+    c = c - a; c = c - b; c = c ^ (b >> np.uint32(15))
+    return a, b, c
+
+
+def _wrapping(fn):
+    """uint32 wraparound is the point: silence numpy's overflow warnings
+    inside the hash only.  The all-plain-int path skips the errstate
+    context, which costs more than the whole int hash."""
+    @functools.wraps(fn)
+    def inner(*a):
+        for v in a:
+            if type(v) is not int:
+                with np.errstate(over="ignore"):
+                    return fn(*a)
+        return fn(*a)
+    return inner
+
+
+def _u32(x):
+    return np.asarray(x).astype(np.uint32)
+
+
+@_wrapping
+def crush_hash32(a):
+    if type(a) is int:
+        a &= _M32
+        h = (_SEED_INT ^ a) & _M32
+        b, x, y = a, _X, _Y
+        b, x, h = _mix_int(b, x, h)
+        y, a, h = _mix_int(y, a, h)
+        return h
+    a = _u32(a)
+    h = HASH_SEED ^ a
+    b = a
+    x = np.uint32(_X)
+    y = np.uint32(_Y)
+    b, x, h = _mix_np(b, x, h)
+    y, a, h = _mix_np(y, a, h)
+    return h
+
+
+@_wrapping
+def crush_hash32_2(a, b):
+    if type(a) is int and type(b) is int:
+        a &= _M32; b &= _M32
+        h = (_SEED_INT ^ a ^ b) & _M32
+        x, y = _X, _Y
+        a, b, h = _mix_int(a, b, h)
+        x, a, h = _mix_int(x, a, h)
+        b, y, h = _mix_int(b, y, h)
+        return h
+    a, b = _u32(a), _u32(b)
+    h = HASH_SEED ^ a ^ b
+    x = np.uint32(_X)
+    y = np.uint32(_Y)
+    a, b, h = _mix_np(a, b, h)
+    x, a, h = _mix_np(x, a, h)
+    b, y, h = _mix_np(b, y, h)
+    return h
+
+
+@_wrapping
+def crush_hash32_3(a, b, c):
+    if type(a) is int and type(b) is int and type(c) is int:
+        a &= _M32; b &= _M32; c &= _M32
+        h = (_SEED_INT ^ a ^ b ^ c) & _M32
+        x, y = _X, _Y
+        a, b, h = _mix_int(a, b, h)
+        c, x, h = _mix_int(c, x, h)
+        y, a, h = _mix_int(y, a, h)
+        b, x, h = _mix_int(b, x, h)
+        y, c, h = _mix_int(y, c, h)
+        return h
+    a, b, c = _u32(a), _u32(b), _u32(c)
+    h = HASH_SEED ^ a ^ b ^ c
+    x = np.uint32(_X)
+    y = np.uint32(_Y)
+    a, b, h = _mix_np(a, b, h)
+    c, x, h = _mix_np(c, x, h)
+    y, a, h = _mix_np(y, a, h)
+    b, x, h = _mix_np(b, x, h)
+    y, c, h = _mix_np(y, c, h)
+    return h
+
+
+@_wrapping
+def crush_hash32_4(a, b, c, d):
+    if (type(a) is int and type(b) is int and type(c) is int
+            and type(d) is int):
+        a &= _M32; b &= _M32; c &= _M32; d &= _M32
+        h = (_SEED_INT ^ a ^ b ^ c ^ d) & _M32
+        x, y = _X, _Y
+        a, b, h = _mix_int(a, b, h)
+        c, d, h = _mix_int(c, d, h)
+        a, x, h = _mix_int(a, x, h)
+        y, b, h = _mix_int(y, b, h)
+        c, x, h = _mix_int(c, x, h)
+        y, d, h = _mix_int(y, d, h)
+        return h
+    a, b, c, d = _u32(a), _u32(b), _u32(c), _u32(d)
+    h = HASH_SEED ^ a ^ b ^ c ^ d
+    x = np.uint32(_X)
+    y = np.uint32(_Y)
+    a, b, h = _mix_np(a, b, h)
+    c, d, h = _mix_np(c, d, h)
+    a, x, h = _mix_np(a, x, h)
+    y, b, h = _mix_np(y, b, h)
+    c, x, h = _mix_np(c, x, h)
+    y, d, h = _mix_np(y, d, h)
+    return h
+
+
+@_wrapping
+def crush_hash32_5(a, b, c, d, e):
+    if (type(a) is int and type(b) is int and type(c) is int
+            and type(d) is int and type(e) is int):
+        a &= _M32; b &= _M32; c &= _M32; d &= _M32; e &= _M32
+        h = (_SEED_INT ^ a ^ b ^ c ^ d ^ e) & _M32
+        x, y = _X, _Y
+        a, b, h = _mix_int(a, b, h)
+        c, d, h = _mix_int(c, d, h)
+        e, x, h = _mix_int(e, x, h)
+        y, a, h = _mix_int(y, a, h)
+        b, x, h = _mix_int(b, x, h)
+        y, c, h = _mix_int(y, c, h)
+        d, x, h = _mix_int(d, x, h)
+        y, e, h = _mix_int(y, e, h)
+        return h
+    a, b, c, d, e = _u32(a), _u32(b), _u32(c), _u32(d), _u32(e)
+    h = HASH_SEED ^ a ^ b ^ c ^ d ^ e
+    x = np.uint32(_X)
+    y = np.uint32(_Y)
+    a, b, h = _mix_np(a, b, h)
+    c, d, h = _mix_np(c, d, h)
+    e, x, h = _mix_np(e, x, h)
+    y, a, h = _mix_np(y, a, h)
+    b, x, h = _mix_np(b, x, h)
+    y, c, h = _mix_np(y, c, h)
+    d, x, h = _mix_np(d, x, h)
+    y, e, h = _mix_np(y, e, h)
+    return h
+
+
+# int32 tensors wrap like uint32 for +, -, ^ and <<; >> must be a
+# logical shift, so the sign bits it drags in are masked off
+
+def _rs(v: torch.Tensor, n: int) -> torch.Tensor:
+    return (v >> n) & ((1 << (32 - n)) - 1)
+
+
+def _mix_torch(a, b, c):
+    a = a - b; a = a - c; a = a ^ _rs(c, 13)
+    b = b - c; b = b - a; b = b ^ (a << 8)
+    c = c - a; c = c - b; c = c ^ _rs(b, 13)
+    a = a - b; a = a - c; a = a ^ _rs(c, 12)
+    b = b - c; b = b - a; b = b ^ (a << 16)
+    c = c - a; c = c - b; c = c ^ _rs(b, 5)
+    a = a - b; a = a - c; a = a ^ _rs(c, 3)
+    b = b - c; b = b - a; b = b ^ (a << 10)
+    c = c - a; c = c - b; c = c ^ _rs(b, 15)
+    return a, b, c
+
+
+#: the hash seed as an int32 (the same 32 bits)
+_SEED_I32 = int(np.uint32(HASH_SEED).astype(np.int32))
+
+
+def _as_i32(v, like: torch.Tensor | None = None) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        if v.dtype != torch.int32:
+            raise TypeError(f"CRUSH hash operands are int32 tensors, not {v.dtype}")
+        return v
+    return torch.tensor(int(np.uint32(v & _M32).astype(np.int32)), dtype=torch.int32,
+                        device=None if like is None else like.device)
+
+
+def crush_hash32_3_torch(a, b, c) -> torch.Tensor:
+    """crush_hash32_3 on int32 tensors (the uint32 bits as int32),
+    broadcasting; the counterpart of ``crush_hash32_3_jax``."""
+    like = next(v for v in (a, b, c) if isinstance(v, torch.Tensor))
+    a, b, c = (_as_i32(v, like) for v in (a, b, c))
+    h = _SEED_I32 ^ a ^ b ^ c
+    x = torch.full_like(h, _X)
+    y = torch.full_like(h, _Y)
+    a, b, h = _mix_torch(a, b, h)
+    c, x, h = _mix_torch(c, x, h)
+    y, a, h = _mix_torch(y, a, h)
+    b, x, h = _mix_torch(b, x, h)
+    y, c, h = _mix_torch(y, c, h)
+    return h
+
+
+def crush_hash32_2_torch(a, b) -> torch.Tensor:
+    """crush_hash32_2 on int32 tensors; the counterpart of
+    ``crush_hash32_2_jax``."""
+    like = next(v for v in (a, b) if isinstance(v, torch.Tensor))
+    a, b = (_as_i32(v, like) for v in (a, b))
+    h = _SEED_I32 ^ a ^ b
+    x = torch.full_like(h, _X)
+    y = torch.full_like(h, _Y)
+    a, b, h = _mix_torch(a, b, h)
+    x, a, h = _mix_torch(x, a, h)
+    b, y, h = _mix_torch(b, y, h)
+    return h
 
 # ---------------------------------------------------------------------------
 # Host-side GF(2) operators (numpy)

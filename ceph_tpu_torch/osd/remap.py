@@ -1,0 +1,396 @@
+"""Whole-cluster batched PG remap — the ParallelPGMapper twin on the card.
+
+Counterpart of ``ceph_tpu/osd/remap.py``.  The reference computes every
+PG's (up, acting) by sharding pools over a host ThreadPool
+(ParallelPGMapper, src/osd/OSDMapMapping.h:18-114; consumers: mon,
+balancer, osdmaptool --test-map-pgs).  Here each pool's CRUSH placements
+are one kernel launch (``BatchedRuleMapper``, crush/cudamapper.py) over
+all its PGs' seeds, and the rest of the reference pipeline
+(src/osd/OSDMap.cc:2646-2971) — nonexistent-OSD filtering, upmap
+exception tables, down filtering with EC positional holes, hashed
+primary affinity, pg_temp overrides — runs as vectorized numpy over the
+result arrays, with the sparse exception tables applied through the
+scalar OSDMap methods so semantics stay bit-identical.  Placements
+leave the device once per pool.
+
+Pools whose map or rule is outside the batched engine's surface by
+design (legacy bucket algorithms, local fallback tries:
+``UnsupportedMap``) take the scalar pipeline, as in the reference.
+Unlike the reference (``ceph_tpu/osd/remap.py:177-189``), nothing else
+does: a kernel that fails to build or launch raises out of
+:meth:`BatchedClusterMapper.map_pool`.
+
+Counters (:func:`counters`): ``batched_pools`` and ``scalar_pools`` count
+pools mapped each way, ``map_uploads`` the compiled maps put on a
+device; a CRUSH-content fingerprint keeps the compiled map (and its
+device copy) across epochs that change only OSD state, weights, upmap
+or pg_temp.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+
+from ceph_tpu_torch.crush import cudamapper
+from ceph_tpu_torch.crush.cudamapper import (
+    BatchedRuleMapper,
+    UnsupportedMap,
+    compile_map,
+)
+from ceph_tpu_torch.crush.mapper import crush_do_rule
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+from ceph_tpu_torch.ops.hashing import crush_hash32_2
+from ceph_tpu_torch.ops.rs_kernels import resolve_device
+from ceph_tpu_torch.osd.osdmap import CEPH_OSD_EXISTS, CEPH_OSD_UP, OSDMap
+from ceph_tpu_torch.osd.types import (
+    CEPH_OSD_DEFAULT_PRIMARY_AFFINITY,
+    CEPH_OSD_MAX_PRIMARY_AFFINITY,
+    FLAG_HASHPSPOOL,
+    PgPool,
+    pg_t,
+)
+
+_NONE = np.int32(CRUSH_ITEM_NONE)
+
+
+class PoolMapping(NamedTuple):
+    """All PGs of one pool.  Rows are CRUSH_ITEM_NONE-padded; the valid
+    prefix length is in the *_cnt vectors (EC rows keep positional NONE
+    holes inside the prefix)."""
+
+    up: np.ndarray             # [pg_num, width] int32
+    up_cnt: np.ndarray         # [pg_num] int32
+    up_primary: np.ndarray     # [pg_num] int32 (-1 if none)
+    acting: np.ndarray         # [pg_num, width] int32
+    acting_cnt: np.ndarray     # [pg_num] int32
+    acting_primary: np.ndarray # [pg_num] int32
+
+    def rows(self, i: int) -> tuple[list[int], int, list[int], int]:
+        """(up, up_primary, acting, acting_primary) as the scalar
+        pipeline would return them."""
+        return (
+            [int(v) for v in self.up[i, : self.up_cnt[i]]],
+            int(self.up_primary[i]),
+            [int(v) for v in self.acting[i, : self.acting_cnt[i]]],
+            int(self.acting_primary[i]),
+        )
+
+
+def _stable_mod_vec(x: np.ndarray, b: int, bmask: int) -> np.ndarray:
+    """ceph_stable_mod over a vector (src/include/rados.h:96)."""
+    return np.where((x & bmask) < b, x & bmask, x & (bmask >> 1))
+
+
+def _crush_fingerprint(crush, choose_args) -> int:
+    """Content hash over exactly the inputs compile_map consumes: maps
+    with identical CRUSH content (across epochs!) share one compiled map
+    and its device copy.  Weights/upmap/pg_temp/osd-state changes are
+    runtime inputs, not part of it — the common case (osd down, osd out,
+    reweight, upmap) therefore uploads nothing; only pool/rule/bucket
+    topology changes compile and upload again."""
+    parts = [repr(crush.tunables), repr(crush.max_devices)]
+    for bid in sorted(crush.buckets):
+        b = crush.buckets[bid]
+        parts.append(repr((
+            bid, int(b.alg), b.hash, b.type, tuple(b.items),
+            tuple(b.item_weights),
+        )))
+    for rid in sorted(crush.rules):
+        r = crush.rules[rid]
+        parts.append(repr((
+            rid, r.rule_type, r.device_class,
+            tuple((s.op, s.arg1, s.arg2) for s in r.steps),
+        )))
+    parts.append(repr(sorted(crush.device_classes.items())))
+    if choose_args:
+        parts.append(repr(sorted(
+            (k, tuple(tuple(p) for p in (a.weight_set or ())),
+             tuple(a.ids or ()))
+            for k, a in choose_args.items()
+        )))
+    return hash("\n".join(parts))
+
+
+# fingerprint -> (CompiledCrush | None, shared mapper dict); one slot —
+# the control plane holds one live topology at a time
+_PROGRAM_CACHE: dict[int, tuple] = {}
+
+#: pools mapped by the batched engine / by the scalar pipeline
+stats = {"batched_pools": 0, "scalar_pools": 0}
+
+
+def counters() -> dict[str, int]:
+    """``batched_pools``, ``scalar_pools`` and ``map_uploads`` since the
+    last :func:`reset_counters`."""
+    return {**stats, "map_uploads": cudamapper.stats["map_uploads"]}
+
+
+def reset_counters() -> None:
+    """Zero the counters and drop the cached compiled map, so the next
+    mapper compiles and uploads afresh."""
+    stats["batched_pools"] = stats["scalar_pools"] = 0
+    cudamapper.stats["map_uploads"] = 0
+    _PROGRAM_CACHE.clear()
+
+
+class BatchedClusterMapper:
+    """Caches compiled per-pool rule mappers — the OSDMapMapping
+    analogue — on one device (the card unless ``device`` says
+    otherwise).  Compiled maps persist across OSDMap epochs via a
+    CRUSH-content fingerprint (see _crush_fingerprint)."""
+
+    def __init__(self, osdmap: OSDMap, device=None):
+        self.osdmap = osdmap
+        self.device = resolve_device(device)
+        #: pool -> host seconds of the last map_pool: pps hashing, the
+        #: CRUSH call (seeds up, launch, placements down), the kernel
+        #: alone (CUDA events; None on the CPU), the numpy pipeline
+        self.timings: dict[int, dict] = {}
+        fp = _crush_fingerprint(osdmap.crush, osdmap.choose_args)
+        if fp in _PROGRAM_CACHE:
+            self.cc, self._mappers = _PROGRAM_CACHE[fp]
+            return
+        try:
+            self.cc = compile_map(
+                osdmap.crush, choose_args=osdmap.choose_args
+            )
+        except UnsupportedMap:
+            self.cc = None
+        self._mappers: dict[tuple, BatchedRuleMapper | None] = {}
+        _PROGRAM_CACHE.clear()  # one live topology; drop the old
+        _PROGRAM_CACHE[fp] = (self.cc, self._mappers)
+
+    def _rule_mapper(self, ruleno: int, size: int) -> BatchedRuleMapper | None:
+        """The batched mapper of (rule, size) here, or None where the map
+        or rule is outside the engine's surface (UnsupportedMap)."""
+        if self.cc is None:
+            return None
+        key = (ruleno, size, self.device)
+        if key not in self._mappers:
+            try:
+                self._mappers[key] = BatchedRuleMapper(
+                    self.cc, ruleno, size, device=self.device)
+            except UnsupportedMap:
+                self._mappers[key] = None
+        return self._mappers[key]
+
+    # -- the batched pipeline -----------------------------------------
+
+    def map_pool(self, poolid: int) -> PoolMapping:
+        om = self.osdmap
+        pool = om.get_pg_pool(poolid)
+        if pool is None:
+            raise KeyError(f"no pool {poolid}")
+        b = pool.pg_num
+        # rows must hold the widest legal result: CRUSH output is
+        # pool.size wide, but explicit pg_upmap vectors and pg_temp
+        # acting sets may legally be longer (the scalar pipeline returns
+        # them whole)
+        width = pool.size
+        for pg, vec in om.pg_upmap.items():
+            if pg.pool == poolid:
+                width = max(width, len(vec))
+        for pg, vec in om.pg_temp.items():
+            if pg.pool == poolid:
+                width = max(width, len(vec))
+
+        t0 = time.perf_counter()
+        ps = np.arange(b, dtype=np.uint32)
+        pgp = _stable_mod_vec(ps, pool.pgp_num, pool.pgp_num_mask)
+        if pool.flags & FLAG_HASHPSPOOL:
+            pps = crush_hash32_2(pgp, np.uint32(poolid)).astype(np.uint32)
+        else:
+            pps = (pgp + np.uint32(poolid)).astype(np.uint32)
+
+        t1 = time.perf_counter()
+        kernel_s = None
+        mapper = (
+            self._rule_mapper(pool.crush_rule, pool.size)
+            if pool.crush_rule in om.crush.rules
+            else None
+        )
+        raw = np.full((b, width), _NONE, np.int32)
+        if mapper is not None:
+            # no except here: a failed build or launch raises
+            raw0, cnt = mapper(pps, om.osd_weight)
+            kernel_s = mapper.last_kernel_s
+            cnt = cnt.astype(np.int32).copy()
+            raw[:, : raw0.shape[1]] = raw0
+            stats["batched_pools"] += 1
+        elif pool.crush_rule in om.crush.rules:
+            # the scalar pipeline: a map the batched engine declines
+            cnt = np.zeros(b, np.int32)
+            for i in range(b):
+                r = crush_do_rule(
+                    om.crush, pool.crush_rule, int(pps[i]), pool.size,
+                    om.osd_weight, om.choose_args,
+                )
+                cnt[i] = min(len(r), width)
+                raw[i, : cnt[i]] = r[: cnt[i]]
+            stats["scalar_pools"] += 1
+        else:
+            cnt = np.zeros(b, np.int32)
+
+        t2 = time.perf_counter()
+        max_osd = om.max_osd
+        state = np.asarray(om.osd_state + [0], np.int64)  # +pad for max_osd==0
+        if max_osd:
+            exists = (state[:-1] & CEPH_OSD_EXISTS).astype(bool)
+            up_ok = (state[:-1] & CEPH_OSD_UP).astype(bool) & exists
+        else:
+            exists = up_ok = np.zeros(0, bool)
+
+        in_prefix = np.arange(width)[None, :] < cnt[:, None]
+        valid = in_prefix & (raw != _NONE)
+
+        def _alive(mask_per_osd: np.ndarray) -> np.ndarray:
+            idx = np.clip(raw, 0, max(max_osd - 1, 0))
+            ok = (raw >= 0) & (raw < max_osd)
+            if max_osd:
+                ok &= mask_per_osd[idx]
+            else:
+                ok[:] = False
+            return ok
+
+        # 1. _remove_nonexistent_osds (OSDMap.cc:2646-2668): shiftable
+        # pools drop every non-existent entry INCLUDING holes (the
+        # scalar keeps only exists(o)); EC pools hole them out in place
+        keep = _alive(exists)
+        if pool.can_shift_osds():
+            raw, cnt = self._compact(raw, cnt, keep, in_prefix)
+        else:
+            raw = np.where(valid & ~keep, _NONE, raw)
+
+        # 2. _apply_upmap — sparse exception tables (OSDMap.cc:2699-2765)
+        affected = set()
+        for table in (om.pg_upmap, om.pg_upmap_items, om.pg_upmap_primaries):
+            for pg in table:
+                if pg.pool == poolid and pg.ps < b:
+                    affected.add(pg.ps)
+        for psv in affected:
+            row = [int(v) for v in raw[psv, : cnt[psv]]]
+            om._apply_upmap(pool, pg_t(poolid, psv), row)
+            assert len(row) <= width, (len(row), width)
+            raw[psv, :] = _NONE
+            raw[psv, : len(row)] = row
+            cnt[psv] = len(row)
+
+        # 3. _raw_to_up_osds (OSDMap.cc:2767-2791)
+        in_prefix = np.arange(width)[None, :] < cnt[:, None]
+        valid = in_prefix & (raw != _NONE)
+        alive = _alive(up_ok)
+        if pool.can_shift_osds():
+            up, up_cnt = self._compact(raw, cnt, alive, in_prefix)
+        else:
+            up = np.where(in_prefix & ~alive, _NONE, raw)
+            up_cnt = cnt.copy()
+
+        # 4. primary + 5. _apply_primary_affinity (OSDMap.cc:2793-2846)
+        up_primary = self._pick_primary(up, up_cnt)
+        up, up_primary = self._apply_affinity(pool, pps, up, up_cnt, up_primary)
+
+        # 6. pg_temp / primary_temp (OSDMap.cc:2848-2881) — sparse
+        acting = up.copy()
+        acting_cnt = up_cnt.copy()
+        acting_primary = up_primary.copy()
+        temp_ps = {
+            pg.ps for pg in om.pg_temp if pg.pool == poolid and pg.ps < b
+        } | {
+            pg.ps for pg in om.primary_temp if pg.pool == poolid and pg.ps < b
+        }
+        for psv in temp_ps:
+            temp_pg, temp_primary = om._get_temp_osds(pool, pg_t(poolid, psv))
+            if temp_pg:
+                n = len(temp_pg)
+                assert n <= width, (n, width)
+                acting[psv, :] = _NONE
+                acting[psv, :n] = temp_pg
+                acting_cnt[psv] = n
+                acting_primary[psv] = temp_primary
+            elif temp_primary != -1:
+                acting_primary[psv] = temp_primary
+
+        self.timings[poolid] = {"pps_s": t1 - t0, "crush_s": t2 - t1, "kernel_s": kernel_s,
+                                "pipeline_s": time.perf_counter() - t2}
+        return PoolMapping(up, up_cnt, up_primary, acting, acting_cnt, acting_primary)
+
+    def map_cluster(self) -> dict[int, PoolMapping]:
+        """Map every pool — the whole-cluster remap."""
+        return {pid: self.map_pool(pid) for pid in self.osdmap.pools}
+
+    # -- vectorized pieces --------------------------------------------
+
+    @staticmethod
+    def _compact(
+        raw: np.ndarray, cnt: np.ndarray, keep: np.ndarray, in_prefix: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Drop masked-out entries, left-shifting survivors (replicated
+        pools compact over holes)."""
+        drop = in_prefix & ~keep
+        order = np.argsort(drop, axis=1, kind="stable")
+        out = np.take_along_axis(raw, order, axis=1)
+        new_cnt = (in_prefix & keep).sum(axis=1).astype(np.int32)
+        out = np.where(np.arange(raw.shape[1])[None, :] < new_cnt[:, None], out, _NONE)
+        return out, new_cnt
+
+    @staticmethod
+    def _pick_primary(rows: np.ndarray, cnt: np.ndarray) -> np.ndarray:
+        """First non-hole in the prefix (OSDMap.cc:2690-2697)."""
+        width = rows.shape[1]
+        valid = (np.arange(width)[None, :] < cnt[:, None]) & (rows != _NONE)
+        anyv = valid.any(axis=1)
+        first = valid.argmax(axis=1)
+        prim = np.where(anyv, rows[np.arange(rows.shape[0]), first], -1)
+        return prim.astype(np.int32)
+
+    def _apply_affinity(
+        self,
+        pool: PgPool,
+        pps: np.ndarray,
+        rows: np.ndarray,
+        cnt: np.ndarray,
+        primary: np.ndarray,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Vectorized _apply_primary_affinity: hashed proportional
+        rejection; first accepted slot wins, else first valid slot."""
+        om = self.osdmap
+        aff_l = om.osd_primary_affinity
+        if aff_l is None:
+            return rows, primary
+        nb, width = rows.shape
+        max_osd = max(om.max_osd, 1)
+        aff = np.zeros(max_osd, np.int64)
+        aff[: len(aff_l)] = aff_l
+        valid = (np.arange(width)[None, :] < cnt[:, None]) & (rows != _NONE)
+        a = aff[np.clip(rows, 0, max_osd - 1)]
+        a = np.where(valid, a, CEPH_OSD_MAX_PRIMARY_AFFINITY)
+        nondefault = valid & (a != CEPH_OSD_DEFAULT_PRIMARY_AFFINITY)
+        rowmask = nondefault.any(axis=1)
+        if not rowmask.any():
+            return rows, primary
+        h = crush_hash32_2(pps[:, None], rows.astype(np.uint32)).astype(np.int64)
+        accept = valid & (
+            (a >= CEPH_OSD_MAX_PRIMARY_AFFINITY) | ((h >> 16) < a)
+        )
+        any_acc = accept.any(axis=1)
+        first_acc = accept.argmax(axis=1)
+        any_valid = valid.any(axis=1)
+        first_valid = valid.argmax(axis=1)
+        pos = np.where(any_acc, first_acc, np.where(any_valid, first_valid, -1))
+        apply = rowmask & (pos >= 0)
+        ar = np.arange(nb)
+        new_primary = np.where(
+            apply, rows[ar, np.clip(pos, 0, width - 1)], primary
+        ).astype(np.int32)
+        if pool.can_shift_osds():
+            idx = np.tile(np.arange(width)[None, :], (nb, 1))
+            p = pos[:, None]
+            newidx = np.where(idx == 0, np.clip(p, 0, width - 1),
+                              np.where(idx <= p, idx - 1, idx))
+            rot = np.take_along_axis(rows, newidx, axis=1)
+            doit = (apply & (pos > 0))[:, None]
+            rows = np.where(doit, rot, rows)
+        return rows, new_primary

@@ -30,12 +30,27 @@ through the port's entry points:
    and no parity may be flagged; then on copies of a few objects one
    flipped byte in a data shard and one in a parity shard must be
    flagged exactly as a host re-encode (``gf_matmul``) flags them;
-6. throughput — the timed ``carry ^= encode(data ^ seed)`` loop of
+6. remap — the whole-cluster PG remap (``BatchedClusterMapper``) of a
+   1024-OSD map (128 hosts of 8, straw2) with three pools: replicated
+   size 3 over 8192 PGs, EC 8+3 MSR over 2048 PGs, and EC 8+3 over
+   2048 PGs on the indep rule the smoke's profile creates
+   (``create_rule``); a first epoch, then epochs that each mark an OSD
+   down and one out, reweight one, add upmap entries, a pg_temp, a
+   primary_temp and primary affinities.  Every row of every pool must
+   equal the scalar ``pg_to_up_acting_osds`` in the first and the last
+   epoch (a sample in between), with one map upload and no pool on the
+   scalar pipeline; then an ``UpmapBalancer`` pass;
+7. throughput — the timed ``carry ^= encode(data ^ seed)`` loop of
    bench.py on (8, 256 MiB), and a 1-erasure decode at the same S.
 
-Kernel launch counts are reset just before phases 2-6 and read just
+Phase 1 also holds the CRUSH kernel against its plain version and the
+scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
+whole pool, all in and with zero and partial reweights; a device-class
+rule, a choose_args weight set and legacy tunables.
+
+Kernel launch counts are reset just before phases 2-7 and read just
 after; every kernel must have been launched there.  Then a
-torch.profiler pass over phases 2-5 gives the device's busy and idle
+torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, and the device time per launch at each kernel's main-path shape
 (and at each forced width of the launch plan); each kernel is timed
 there by CUDA events and held there against its plain version.  Each
@@ -59,22 +74,45 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import native
+from ceph_tpu_torch.crush import builder as crush_builder
+from ceph_tpu_torch.crush import cudamapper as cm
+from ceph_tpu_torch.crush import mapper as crush_mapper
+from ceph_tpu_torch.crush.types import (
+    CRUSH_ITEM_NONE,
+    ChooseArg,
+    CrushMap,
+    Tunables,
+)
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
 from ceph_tpu_torch.ops import hashing
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.ops.gf256 import gf_matmul
-from ceph_tpu_torch.osd import ecutil
+from ceph_tpu_torch.osd import ecutil, remap
+from ceph_tpu_torch.osd.balancer import UpmapBalancer
+from ceph_tpu_torch.osd.osdmap import OSDMap
+from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL, PgPool, PoolType, pg_t
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
 from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
 
 #: NVIDIA H100 SXM data sheet: HBM3 rate and dense int8 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
+#: H100 SXM: 132 SMs of 64 INT32 lanes at the 1.98 GHz boost clock
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: integer instructions per straw2 draw, counted from crush_rule.cu: the
+#: hash (5 mixes of 27 ops plus 4), crush_ln (about 15), the emulated
+#: 64-bit division (about 60) and the weight and id loads, compare and
+#: select (about 6)
+OPS_PER_DRAW = 220
 
 MiB = 1 << 20
 GF_SOURCE = "ceph_tpu_torch/ops/csrc/gf_bitmatmul.cu"
 CRC_SOURCE = "ceph_tpu_torch/ops/csrc/crc32c_lanes.cu"
+CRUSH_SOURCE = "ceph_tpu_torch/ops/csrc/crush_rule.cu"
+#: the CRUSH entry points, by rule kind
+CRUSH_ENTRIES = {"firstn": "crush_rule_firstn", "indep": "crush_rule_indep",
+                 "msr": "crush_rule_msr"}
 #: each entry point and the TPU kernel (or jitted XLA code) it replaces
 REPLACES = {
     "gf_bitmatmul_pallas": "ceph_tpu/ops/rs_kernels.py:276",
@@ -83,14 +121,18 @@ REPLACES = {
     "gf_bitmatmul": "ceph_tpu/ops/rs_kernels.py:59",
     "gf_encode_compare": "ceph_tpu/ops/rs_kernels.py:73",
     "batched_crc32c_device": "ceph_tpu/ops/hashing.py:376",
+    **{name: "ceph_tpu/crush/jaxmapper.py:1015" for name in CRUSH_ENTRIES.values()},
 }
 #: each entry point's kernel source and the kernel's name in a trace
 KERNELS = {name: (GF_SOURCE, "gf_bitmatmul_kernel") for name in REPLACES}
 KERNELS["batched_crc32c_device"] = (CRC_SOURCE, "crc32c_lanes_kernel")
+KERNELS.update({name: (CRUSH_SOURCE, f"{name}_kernel") for name in CRUSH_ENTRIES.values()})
 #: why no PyTorch call is timed beside each kernel
 NO_LIBRARY = {name: "no PyTorch call computes a GF(2^8) bit-matrix product"
               for name in REPLACES}
 NO_LIBRARY["batched_crc32c_device"] = "no PyTorch call computes crc32c"
+NO_LIBRARY.update({name: "no PyTorch call computes CRUSH placement"
+                   for name in CRUSH_ENTRIES.values()})
 
 
 @dataclasses.dataclass
@@ -129,6 +171,19 @@ class Config:
     scrub_chunk: int = 25
     scrub_corrupt: int = 3
     crc_lanes: int = 32
+    #: the remap map: tools/bench_all.py:_big_map (BASELINE.md's "10k PGs
+    #: x 1024-OSD map") plus a pool on the profile's create_rule rule
+    remap_hosts: int = 128
+    remap_osds_per_host: int = 8
+    remap_rep_pgs: int = 8192
+    remap_ec_pgs: int = 2048
+    #: epochs after the first, each with OSD, weight and table changes;
+    #: PGs a pool checked against the scalar pipeline in the middle ones
+    remap_epochs: int = 3
+    remap_sample: int = 256
+    #: seeds of the phase-1 CRUSH cases besides the whole pool
+    crush_seeds: tuple = (1, 1000)
+    balancer_swaps: int = 64
     iters: int = 32
     repeats: int = 5
     seed: int = 20261016
@@ -176,6 +231,14 @@ def bound_ms(k: int, m: int, cols: int, *, carry: bool = False) -> tuple[float, 
     bytes and writes a flag a row) over the HBM rate, or
     2 * 8m * 8k * S operations over the int8 tensor-core rate."""
     return _bound((k + (2 if carry else 1) * m) * cols, 2 * (8 * m) * (8 * k) * cols)
+
+
+def crush_bound_ms(draws: int) -> tuple[float, str]:
+    """Least time for a batch of placements: the straw2 draws its seeds
+    need (counted by the scalar mapper) at ``OPS_PER_DRAW`` integer
+    instructions each over the card's INT32 rate.  The bytes (a 0.3 MB
+    map, 4 B a seed in, 4 B a result out) are far below."""
+    return draws * OPS_PER_DRAW / PEAK_INT32_OPS_PER_S * 1e3, "operations"
 
 
 def crc_bound_ms(lanes: int, width: int) -> tuple[float, str]:
@@ -261,6 +324,7 @@ def phase_kernels(cfg: Config, device) -> dict[str, int]:
           _rand((k, s + 13), gen, device))
     plans = phase_kernel_plans(cfg, device, gen, codec, check)
     phase_kernel_scrub(cfg, device, gen, check)
+    phase_kernel_crush(cfg, device, check)
     _sync(device)
     emit({"phase": "kernels", "cases": len(cases),
           "mismatched_bytes": sum(c["mismatched_bytes"] for c in cases),
@@ -310,6 +374,122 @@ def phase_kernel_scrub(cfg: Config, device, gen, check) -> None:
                 plain = rk.gf_encode_compare_plain(bits, d, p)
                 check("gf_encode_compare", rk.gf_encode_compare(bits, d, p), plain, case)
                 check("plain_vs_expected", plain, flags, case)
+
+
+def remap_map(cfg: Config, device) -> OSDMap:
+    """The remap phase's cluster: ``remap_hosts`` hosts of
+    ``remap_osds_per_host`` OSDs (straw2, rjenkins1, all up and in) under
+    one root; pool 1 replicated size 3 on ``chooseleaf firstn host``,
+    pool 2 EC k+m on the MSR rule of k+m hosts x 1 OSD, pool 3 EC k+m
+    (min_size k+1, Ceph's default) on the indep rule that the smoke's
+    ``cuda`` profile creates with ``crush-failure-domain=host``."""
+    crush = CrushMap()
+    crush_builder.build_hierarchy(crush, osds_per_host=cfg.remap_osds_per_host,
+                                  n_hosts=cfg.remap_hosts)
+    om = OSDMap(crush=crush)
+    for osd in range(cfg.remap_hosts * cfg.remap_osds_per_host):
+        om.new_osd(osd, weight=0x10000, up=True)
+    root, fd = crush.bucket_names["default"], crush.type_id("host")
+    n = cfg.k + cfg.m
+    rep = crush_builder.add_simple_rule(crush, root, fd, mode="firstn")
+    msr = crush_builder.add_osd_multi_per_domain_rule(crush, root, fd, num_per_domain=1,
+                                                      num_domains=n)
+    ec = registry.factory("cuda", {**cfg.profile(), "crush-failure-domain": "host"},
+                          device=device)
+    ec_rule = ec.create_rule("ecpool", crush)
+    om.pools[1] = PgPool(id=1, type=PoolType.REPLICATED, size=3, min_size=2, crush_rule=rep,
+                         pg_num=cfg.remap_rep_pgs, pgp_num=cfg.remap_rep_pgs)
+    om.pools[2] = PgPool(id=2, type=PoolType.ERASURE, size=n, min_size=cfg.k, crush_rule=msr,
+                         pg_num=cfg.remap_ec_pgs, pgp_num=cfg.remap_ec_pgs)
+    om.pools[3] = PgPool(id=3, type=PoolType.ERASURE, size=n, min_size=cfg.k + 1,
+                         crush_rule=ec_rule, pg_num=cfg.remap_ec_pgs, pgp_num=cfg.remap_ec_pgs,
+                         erasure_code_profile="ecpool")
+    om.pool_names.update({1: "rbd", 2: "ec-msr", 3: "ecpool"})
+    return om
+
+
+def pool_seeds(pool: PgPool) -> np.ndarray:
+    """Every PG's placement seed (pps) of a pool, as the remap hashes them."""
+    return np.array([pool.raw_pg_to_pps(pg_t(pool.id, ps)) for ps in range(pool.pg_num)],
+                    dtype=np.uint32)
+
+
+def _crush_rows(vals: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """(B, result_max + 1): the placements and the count, one tensor."""
+    return torch.cat([vals, counts[:, None]], dim=1)
+
+
+def _scalar_rows(crush, ruleno: int, xs: np.ndarray, rm: int, weights,
+                 choose_args=None) -> torch.Tensor:
+    """crush_do_rule per seed, laid out as _crush_rows lays out a batch."""
+    out = np.full((len(xs), rm + 1), CRUSH_ITEM_NONE, np.int64)
+    for i, x in enumerate(xs):
+        r = crush_mapper.crush_do_rule(crush, ruleno, int(x), rm, weights, choose_args)
+        out[i, :len(r)] = r
+        out[i, rm] = len(r)
+    return torch.from_numpy(out)
+
+
+def phase_kernel_crush(cfg: Config, device, check) -> None:
+    """The CRUSH kernel on the remap map: each pool's rule at each seed
+    count of ``crush_seeds`` and at the whole pool, all in and with zero
+    and partial reweights; then a device-class rule, a choose_args weight
+    set on the root and legacy tunables at the largest seed count.  Each
+    launch against the plain version on the same inputs, and against the
+    scalar crush_do_rule up to the largest seed count."""
+    om = remap_map(cfg, "cpu")
+    crush = om.crush
+    n_osd = crush.max_devices
+    rng = np.random.default_rng(cfg.seed)
+    degraded = np.full(n_osd, 0x10000, np.int64)
+    degraded[rng.choice(n_osd, n_osd // 64 + 1, replace=False)] = 0
+    part = rng.choice(n_osd, n_osd // 64 + 1, replace=False)
+    degraded[part] = rng.integers(1, 0x10000, len(part))
+    degraded = [int(w) for w in degraded]
+    most = max(cfg.crush_seeds)
+
+    def case(cc, ruleno, rm, xs, weights, what, crush_=crush, choose_args=None):
+        mapper = cm.BatchedRuleMapper(cc, ruleno, rm, device=device)
+        x = torch.from_numpy(xs.astype(np.int32)).to(device)
+        rew = torch.from_numpy(mapper.reweights(weights)).to(device)
+        got = _crush_rows(*mapper.map_tensors(x, rew))
+        want = _crush_rows(*cm.batched_rule_plain(mapper, x, mapper.class_masked(rew)))
+        name = CRUSH_ENTRIES[mapper.kind]
+        label = f"crush {what} rule {ruleno} ({len(xs)}, {rm})"
+        check(name, got, want, label)
+        if len(xs) <= most:
+            check("plain_vs_scalar", want.cpu(),
+                  _scalar_rows(crush_, ruleno, xs, rm, weights, choose_args), label)
+
+    cc = cm.compile_map(crush)
+    for pool in om.pools.values():
+        seeds = pool_seeds(pool)
+        for weights, what in ((None, "all in"), (degraded, "reweighted")):
+            for n in (*cfg.crush_seeds, len(seeds)):
+                case(cc, pool.crush_rule, pool.size, seeds[:n], weights,
+                     f"pool {pool.id} {what}")
+    xs = pool_seeds(om.pools[1])[:most]
+    root = crush.bucket_names["default"]
+    fd = crush.type_id("host")
+    # device classes: every fourth OSD an ssd, the rule takes the hdds
+    classed = crush.copy()
+    for osd in range(n_osd):
+        crush_builder.set_device_class(classed, osd, "ssd" if osd % 4 == 0 else "hdd")
+    rid = crush_builder.add_simple_rule(classed, root, fd, mode="firstn")
+    classed.rules[rid].device_class = "hdd"
+    case(cm.compile_map(classed), rid, 3, xs, degraded, "device class", classed)
+    # a two-position weight set on the root (the balancer's choose_args)
+    hosts = len(crush.buckets[root].items)
+    ca = {root: ChooseArg(root, weight_set=[
+        [int(w) for w in rng.integers(0x8000, 0x30000, hosts)] for _ in range(2)])}
+    case(cm.compile_map(crush, choose_args=ca), 0, 3, xs, None, "choose_args", crush, ca)
+    # legacy tunables (pre-jewel): local retries, no descend_once, vary_r, stable
+    legacy = crush.copy()
+    legacy.tunables = Tunables(choose_local_tries=2, choose_total_tries=19,
+                               chooseleaf_descend_once=0, chooseleaf_vary_r=0,
+                               chooseleaf_stable=0)
+    for ruleno, rm in ((0, 3), (om.pools[3].crush_rule, cfg.k + cfg.m)):
+        case(cm.compile_map(legacy), ruleno, rm, xs, degraded, "legacy tunables", legacy)
 
 
 def phase_kernel_plans(cfg: Config, device, gen, codec, check) -> list:
@@ -530,8 +710,108 @@ def phase_scrub(cfg: Config, device, ec, written, rebuilt) -> dict:
     return out
 
 
+def _remap_mismatches(om: OSDMap, res: dict, sample: int | None) -> tuple[int, int]:
+    """(rows checked, rows that differ from the scalar pipeline): every
+    row of every pool, or ``sample`` rows spread over each pool."""
+    checked = bad = 0
+    for pid, pm in res.items():
+        n = om.pools[pid].pg_num
+        step = 1 if sample is None else max(n // sample, 1)
+        for ps in range(0, n, step):
+            checked += 1
+            bad += pm.rows(ps) != om.pg_to_up_acting_osds(pg_t(pid, ps), folded=True)
+    return checked, bad
+
+
+def _change_epoch(om: OSDMap, res: dict, i: int) -> None:
+    """One epoch's changes: an OSD down, one out, one reweighted to half,
+    upmap items on two PGs, an explicit upmap, a pg_temp, a primary_temp
+    and the primary affinity of two OSDs."""
+    n_osd = om.max_osd
+    om.epoch += 1
+    om.mark_down((17 + 101 * i) % n_osd)
+    om.mark_out((40 + 211 * i) % n_osd)
+    om.osd_weight[(60 + 307 * i) % n_osd] = 0x8000
+    def pg(pid: int, ps: int) -> pg_t:
+        return pg_t(pid, ps % om.pools[pid].pg_num)
+
+    for p in (pg(1, 10 + i), pg(3, 20 + i)):
+        up = res[p.pool].up[p.ps, :res[p.pool].up_cnt[p.ps]]
+        row = [int(o) for o in up if o != CRUSH_ITEM_NONE]
+        om.pg_upmap_items[p] = [(row[0], (row[0] + 8 * (i + 1) + 1) % n_osd)]
+    om.pg_upmap[pg(1, 30 + i)] = [(5 + 97 * i + 8 * j) % n_osd for j in range(3)]
+    size3 = om.pools[3].size
+    om.pg_temp[pg(3, 40 + i)] = [(3 + 89 * i + 8 * j) % n_osd for j in range(size3)]
+    om.primary_temp[pg(1, 50 + i)] = (7 + 13 * i) % n_osd
+    om.set_primary_affinity((70 + 31 * i) % n_osd, 0x4000)
+    om.set_primary_affinity((90 + 37 * i) % n_osd, 0)
+
+
+def phase_remap(cfg: Config, device, full_check: bool = True) -> dict:
+    """The whole-cluster remap of ``remap_map`` over a first epoch and
+    ``remap_epochs`` changed ones, a new ``BatchedClusterMapper`` each
+    epoch as the mon makes one.  Every row of every pool against the
+    scalar pipeline in the first and the last epoch (a sample of rows in
+    between, and in every epoch when ``full_check`` is off); one map upload
+    and no scalar pool; then an upmap balancer pass."""
+    om = remap_map(cfg, device)
+    pgs = sum(p.pg_num for p in om.pools.values())
+    remap.reset_counters()
+    epochs = []
+    res = None
+    for e in range(1 + cfg.remap_epochs):
+        if e:
+            _change_epoch(om, res, e)
+        t0 = time.perf_counter()
+        bcm = remap.BatchedClusterMapper(om, device=device)
+        res = bcm.map_cluster()
+        dt = time.perf_counter() - t0
+        last = e == cfg.remap_epochs
+        full = full_check and (e == 0 or last)
+        t1 = time.perf_counter()
+        checked, bad = _remap_mismatches(om, res, None if full else cfg.remap_sample)
+        if bad:
+            raise AssertionError(f"remap epoch {om.epoch}: {bad} of {checked} rows differ "
+                                 "from the scalar pipeline")
+        kernel_s = [t["kernel_s"] for t in bcm.timings.values()]
+        epochs.append({
+            "epoch": om.epoch, "seconds": dt, "pgs_per_s": pgs / dt,
+            "pps_s": sum(t["pps_s"] for t in bcm.timings.values()),
+            "crush_call_s": sum(t["crush_s"] for t in bcm.timings.values()),
+            "kernel_s": None if None in kernel_s else sum(kernel_s),
+            "host_pipeline_s": sum(t["pipeline_s"] for t in bcm.timings.values()),
+            "rows_checked": checked, "rows_mismatched": bad,
+            "check_s": time.perf_counter() - t1})
+    counters = remap.counters()
+    if counters["map_uploads"] != 1 or counters["scalar_pools"] != 0:
+        raise AssertionError(f"remap counters: {counters}")
+    # the mgr balancer's consumer of the census: one optimize pass
+    fd = om.crush.type_id("host")
+    bal = UpmapBalancer(om, failure_domain_type=fd, device=device)
+    before, _ = bal.census()
+    t0 = time.perf_counter()
+    items = bal.optimize(max_swaps=cfg.balancer_swaps)
+    opt_s = time.perf_counter() - t0
+    bal.apply(items)
+    after, _ = bal.census()
+    live = [o for o in range(om.max_osd) if om.is_up(o) and not om.is_out(o)]
+
+    def spread(counts: dict) -> int:
+        return max(counts.get(o, 0) for o in live) - min(counts.get(o, 0) for o in live)
+
+    steady = [ep["seconds"] for ep in epochs[1:]]
+    out = {"phase": "remap", "pools": len(om.pools), "pgs": pgs, "osds": om.max_osd,
+           "epoch1_s": epochs[0]["seconds"], "steady_s": steady,
+           "steady_pgs_per_s": pgs / statistics.median(steady) if steady else None,
+           "epochs": epochs, "counters": counters,
+           "balancer": {"upmap_items": len(items), "optimize_s": opt_s,
+                        "pg_spread_before": spread(before), "pg_spread_after": spread(after)}}
+    emit(out)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Phase 6 and the kernels line: timing on the card
+# Phase 7 and the kernels line: timing on the card
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, n_calls: int, repeats: int) -> float:
@@ -591,6 +871,40 @@ def phase_throughput(cfg: Config, device) -> dict:
     return {"data": data, "carry": carry, "codec": codec, "acc_ms": acc_ms}
 
 
+#: device -> the CRUSH kernels' main-path cases (crush_main_path)
+_CRUSH_CASES: dict = {}
+
+
+def crush_main_path(cfg: Config, device) -> dict:
+    """Each CRUSH entry point at its main-path shape: the remap map's
+    first epoch (all in), pool 1 for firstn, pool 3 (create_rule) for
+    indep, pool 2 for MSR.  Per entry: (mapper, seeds, reweights on the
+    card, straw2 draws the seeds need).  The draws are counted by the
+    scalar mapper over every seed, and its rows must equal the kernel's."""
+    cases = _CRUSH_CASES.get(str(device))
+    if cases is not None:
+        return cases
+    om = remap_map(cfg, "cpu")
+    cc = cm.compile_map(om.crush)
+    cases = {}
+    for pid in (1, 3, 2):
+        pool = om.pools[pid]
+        seeds = pool_seeds(pool)
+        mapper = cm.BatchedRuleMapper(cc, pool.crush_rule, pool.size, device=device)
+        x = torch.from_numpy(seeds.astype(np.int32)).to(device)
+        rew = torch.from_numpy(mapper.reweights(om.osd_weight)).to(device)
+        crush_mapper.straw2_draws = 0
+        want = _scalar_rows(om.crush, pool.crush_rule, seeds, pool.size, om.osd_weight)
+        draws = crush_mapper.straw2_draws
+        bad, _ = _errors(_crush_rows(*mapper.map_tensors(x, rew)).cpu(), want)
+        if bad:
+            raise AssertionError(f"pool {pid}: the kernel differs from crush_do_rule "
+                                 f"in {bad} values")
+        cases[CRUSH_ENTRIES[mapper.kind]] = (mapper, x, rew, draws)
+    _CRUSH_CASES[str(device)] = cases
+    return cases
+
+
 def main_path_shapes(cfg: Config, device, codec) -> dict:
     """For each entry point but acc: (kernel call, plain call, bound,
     shape, (bit-matrix, one input) of a bit-matrix product or None) at
@@ -613,7 +927,7 @@ def main_path_shapes(cfg: Config, device, codec) -> dict:
     t4, t2 = rk._pick_tile(s4), rk._pick_tile(s2)
     g4 = rk._pick_groups(k, m, s4, t4)
     bits = codec.encode_bits
-    return {
+    out = {
         "gf_bitmatmul_pallas": (
             lambda i: rk.gf_bitmatmul_pallas(bits, bufs2[i % 48], tile_s=t2),
             lambda i: rk.gf_bitmatmul_plain(bits, bufs2[i % 48]),
@@ -638,6 +952,15 @@ def main_path_shapes(cfg: Config, device, codec) -> dict:
             lambda i: hashing.batched_crc32c_plain(bufsc[i % 32]),
             crc_bound_ms(lanes, cfg.batch_cols), f"crc ({lanes}, {cfg.batch_cols})", None),
     }
+    for name, (mapper, x, rew, draws) in crush_main_path(cfg, device).items():
+        masked = mapper.class_masked(rew)
+        out[name] = (
+            lambda i, mapper=mapper, x=x, rew=rew: _crush_rows(*mapper.map_tensors(x, rew)),
+            lambda i, mapper=mapper, x=x, masked=masked: _crush_rows(
+                *cm.batched_rule_plain(mapper, x, masked)),
+            crush_bound_ms(draws), f"{mapper.kind} ({x.shape[0]}, {mapper.result_max}), "
+            f"{draws} draws", None)
+    return out
 
 
 def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict,
@@ -669,7 +992,8 @@ def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict,
             fn, plain, (bms, by), shape, _ = shapes[name]
             bad, err = _errors(fn(0), plain(0))
             ms = time_ms(fn, 48, cfg.repeats)
-            plain_ms = time_ms(plain, 4, 3)
+            # the plain CRUSH mapper loops in Python over its lanes' retries
+            plain_ms = time_ms(plain, 1 if name in CRUSH_ENTRIES.values() else 4, 3)
         if bad:
             raise AssertionError(f"{name} at {shape}: differs from its plain "
                                  f"version in {bad} bytes")
@@ -703,7 +1027,8 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
 
 
 def phase_profile(cfg: Config, device, tp: dict) -> dict:
-    """Phases 2-4 again under torch.profiler, reporting
+    """Phases 2-6 again under torch.profiler (the remap checked on a
+    sample of rows), reporting
     the device's busy and idle share of the phases' wall time and the
     device time per kernel; then each main-path launch shape, for the
     kernel's own device time beside the CUDA-event time per call, and
@@ -734,7 +1059,7 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
     def ours(e: dict, kernel: str) -> bool:
         return kernel in e.get("name", "")
 
-    wall, dev = traced(lambda: run_main_path(cfg, device))
+    wall, dev = traced(lambda: run_main_path(cfg, device, full_check=False))
     busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     by_cat: dict[str, float] = {}
     for e in dev:
@@ -785,16 +1110,17 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
     return out
 
 
-def run_main_path(cfg: Config, device) -> dict:
-    """Phases 2-5 on ``device``; returns the pool, what was written and
-    the scrub phase's line."""
+def run_main_path(cfg: Config, device, full_check: bool = True) -> dict:
+    """Phases 2-6 on ``device``; returns the pool, what was written and
+    the scrub and remap phases' lines."""
     ec, sinfo = make_pool(cfg, device)
     objects, written = phase_write(cfg, device, ec, sinfo)
     rebuilt = phase_recover(cfg, device, ec, sinfo, written)
     phase_degraded_read(cfg, ec, sinfo, objects, written)
     scrub = phase_scrub(cfg, device, ec, written, rebuilt)
+    remapped = phase_remap(cfg, device, full_check)
     return {"ec": ec, "sinfo": sinfo, "objects": objects, "written": written,
-            "scrub": scrub}
+            "scrub": scrub, "remap": remapped}
 
 
 def main() -> int:
@@ -820,10 +1146,11 @@ def main() -> int:
 
     rk.reset_launch_counts()
     hashing.reset_launch_counts()
+    cm.reset_launch_counts()
     run_main_path(cfg, device)
     tp = phase_throughput(cfg, device)
     torch.cuda.synchronize()
-    launches = {**rk.launch_counts(), **hashing.launch_counts()}
+    launches = {**rk.launch_counts(), **hashing.launch_counts(), **cm.launch_counts()}
     emit({"phase": "main_path_launches", **launches})
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:

@@ -168,3 +168,57 @@ class TestRegistry:
         assert ec.device.type == "cpu"
         assert ec.get_alignment() == 512
         assert ec.get_chunk_size(4096 * 8) == 4096
+
+
+class TestCreateRule:
+    """``create_rule`` builds the same CRUSH rule as the reference on an
+    equal map, step for step, with the same errno mapping."""
+
+    @staticmethod
+    def _maps():
+        from ceph_tpu.crush import builder as rb
+        from ceph_tpu.crush.types import CrushMap as RCrushMap
+        from ceph_tpu_torch.crush import builder as pb
+        from ceph_tpu_torch.crush.types import CrushMap
+
+        m, r = CrushMap(), RCrushMap()
+        pb.build_hierarchy(m, osds_per_host=4, n_hosts=8)
+        rb.build_hierarchy(r, osds_per_host=4, n_hosts=8)
+        return m, r
+
+    @staticmethod
+    def _steps(rule):
+        return (rule.rule_type, rule.device_class,
+                [(int(s.op), s.arg1, s.arg2) for s in rule.steps])
+
+    @pytest.mark.parametrize("extra", [
+        {"crush-failure-domain": "host"},
+        {"crush-failure-domain": "host", "crush-osds-per-failure-domain": "2",
+         "crush-num-failure-domains": "3"},
+        {"crush-failure-domain": "osd", "crush-device-class": "hdd"},
+    ], ids=["indep host", "msr 3x2", "osd hdd"])
+    def test_rule_equals_reference(self, extra):
+        m, r = self._maps()
+        prof = {"k": "4", "m": "2", "technique": "reed_sol_van", **extra}
+        ref = ref_registry.factory("jax", dict(prof))
+        port = registry.factory("cuda", dict(prof), device="cpu")
+        rid = port.create_rule("ecpool", m)
+        assert rid == ref.create_rule("ecpool", r)
+        assert self._steps(m.rules[rid]) == self._steps(r.rules[rid])
+        assert m.rule_names == r.rule_names == {"ecpool": rid}
+
+    def test_errors_match_reference(self):
+        m, r = self._maps()
+        for prof, code in (({"crush-root": "nowhere"}, errno.ENOENT),
+                           ({"crush-failure-domain": "planet"}, errno.ENOENT)):
+            port = registry.factory("cuda", dict(prof), device="cpu")
+            ref = ref_registry.factory("jax", dict(prof))
+            for ec, crush in ((port, m), (ref, r)):
+                with pytest.raises(Exception) as ei:
+                    ec.create_rule("bad", crush)
+                assert ei.value.errno == code
+        port = registry.factory("cuda", {}, device="cpu")
+        port.create_rule("twice", m)
+        with pytest.raises(ECError) as ei:
+            port.create_rule("twice", m)
+        assert ei.value.errno == errno.EEXIST

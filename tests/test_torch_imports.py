@@ -16,10 +16,17 @@ import pytest
 import torch
 
 import ceph_tpu_torch
+from ceph_tpu_torch.crush import builder as crush_builder
+from ceph_tpu_torch.crush.cudamapper import BatchedRuleMapper, compile_map
+from ceph_tpu_torch.crush.tester import CrushTester
+from ceph_tpu_torch.crush.types import CrushMap
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
+from ceph_tpu_torch.osd.balancer import UpmapBalancer
+from ceph_tpu_torch.osd.osdmap import OSDMap
+from ceph_tpu_torch.osd.remap import BatchedClusterMapper
 from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,6 +58,10 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
     assert "ceph_tpu_torch.ec.plugins.cuda" in mods
     assert "ceph_tpu_torch.parallel.scrub_batcher" in mods
     assert "ceph_tpu_torch.ops.hashing" in mods
+    for name in ("crush.types", "crush._ln_tables", "crush.builder", "crush.mapper",
+                 "crush.cudamapper", "crush.tester", "osd.types", "osd.osdmap",
+                 "osd.remap", "osd.balancer"):
+        assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -102,6 +113,12 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _crush_map() -> tuple[CrushMap, int]:
+    m = CrushMap()
+    root = crush_builder.build_hierarchy(m, osds_per_host=2, n_hosts=3)
+    return m, crush_builder.add_simple_rule(m, root.id, 1, mode="firstn")
+
+
 def test_default_device_constructors_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         rk.BitmatrixCodec(isa_cauchy_matrix(8, 3))
@@ -115,6 +132,15 @@ def test_default_device_constructors_raise(no_cuda):
         ScrubVerifier()
     with pytest.raises(RuntimeError, match="CUDA"):
         rk.resolve_device("cuda:0")
+    m, rule = _crush_map()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedRuleMapper(compile_map(m), rule, 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedClusterMapper(OSDMap(crush=m))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UpmapBalancer(OSDMap(crush=m))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CrushTester(m)
 
 
 def test_cpu_is_only_by_request(no_cuda):
@@ -122,6 +148,9 @@ def test_cpu_is_only_by_request(no_cuda):
     assert DecodeAggregator(device="cpu").device.type == "cpu"
     assert ScrubVerifier(device="cpu").device.type == "cpu"
     assert registry.factory("cuda", {}, device="cpu").device.type == "cpu"
+    m, rule = _crush_map()
+    assert BatchedRuleMapper(compile_map(m), rule, 3, device="cpu").device.type == "cpu"
+    assert BatchedClusterMapper(OSDMap(crush=m), device="cpu").device.type == "cpu"
 
 
 def test_version():

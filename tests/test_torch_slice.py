@@ -98,16 +98,21 @@ def test_slice_matches_reference():
 
 
 def test_chip_smoke_phases_on_cpu():
-    """chip_smoke's phases 1-5 at a tiny size on the CPU: the scrub phase
+    """chip_smoke's phases 1-6 at a tiny size on the CPU: the scrub phase
     verifies 6 objects in chunks of 4 (crc == HashInfo, the rebuilt
     shards included, no parity flagged, no cold launch) and flags two
-    planted corruptions exactly as the host re-encode does."""
+    planted corruptions exactly as the host re-encode does; the remap
+    phase maps 64 + 16 + 16 PGs of 12 hosts x 2 OSDs over three epochs,
+    every row of the first and last equal to the scalar pipeline, with
+    one map upload and no scalar pool."""
     cfg = chip_smoke.Config(
         object_bytes=64 * 1024, objects=4, small_object_bytes=32 * 1024,
         small_objects=2, kernel_cols=4096, oracle_cols=4096, batch_cols=512,
         wide_cols=512, plan_cols=(16, 4096 + 13), plan_batch_cols=(512,),
         crc_cols=(4096,), compare_cols=(512,), crc_lanes=8, scrub_chunk=4,
-        scrub_corrupt=1)
+        scrub_corrupt=1, remap_hosts=12, remap_osds_per_host=2, remap_rep_pgs=64,
+        remap_ec_pgs=16, remap_epochs=2, remap_sample=4, crush_seeds=(1, 8),
+        balancer_swaps=4)
     worst = chip_smoke.phase_kernels(cfg, "cpu")
     assert worst == {name: 0 for name in chip_smoke.REPLACES}
     run = chip_smoke.run_main_path(cfg, "cpu")
@@ -119,6 +124,17 @@ def test_chip_smoke_phases_on_cpu():
     # 6 objects of 11 shards: 66 crc lanes in two chunks (4 + 2 objects)
     assert scrub["crc_launches"] == 6 + 3 and scrub["enc_launches"] == 1 + 1
     assert [c["parity_bad"] for c in scrub["corruption"]] == [[8, 9, 10], [8]]
+    remapped = run["remap"]
+    assert (remapped["pools"], remapped["pgs"], remapped["osds"]) == (3, 96, 24)
+    assert remapped["counters"] == {"batched_pools": 9, "scalar_pools": 0, "map_uploads": 1}
+    assert [e["rows_checked"] for e in remapped["epochs"]] == [96, 12, 96]
+    assert all(e["rows_mismatched"] == 0 for e in remapped["epochs"])
+    assert remapped["balancer"]["pg_spread_after"] <= remapped["balancer"]["pg_spread_before"]
+    # each CRUSH entry point's main-path case, held against the scalar mapper
+    cases = chip_smoke.crush_main_path(cfg, "cpu")
+    assert sorted(cases) == sorted(chip_smoke.CRUSH_ENTRIES.values())
+    assert all(draws > 0 for _, _, _, draws in cases.values())
+    assert chip_smoke.crush_bound_ms(10 ** 6)[1] == "operations"
     assert chip_smoke.bound_ms(8, 3, 256 << 20, carry=True)[1] == "bytes"
     assert chip_smoke.crc_bound_ms(32, 65536)[1] == "bytes"
 
