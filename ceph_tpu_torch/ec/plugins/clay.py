@@ -1,0 +1,711 @@
+"""CLAY (coupled-layer) MSR regenerating code plugin.
+
+Counterpart of the JAX package's ``clay`` plugin (ceph_tpu/ec/plugins/
+clay.py), with the same geometry, traversals and chunk bytes.  Its
+inner ``mds`` and ``pft`` codes are built through the port's registry
+on the CLAY code's own device (the card unless the factory is given
+another); ``scalar_mds`` takes ``jerasure`` (the default), ``isa`` or
+``cuda`` (the JAX package's ``jax``, with the same techniques).  A
+failed launch of an inner code raises out of ``encode`` and ``decode``.
+The single-launch repair is ``clay_cuda.ClayRepairProgram``.
+
+Behavioral twin of the reference CLAY plugin
+(src/erasure-code/clay/ErasureCodeClay.{h,cc}): parameters (k, m, d)
+with q = d-k+1, t = (k+m+nu)/q, sub_chunk_no = q^t; single-chunk repair
+reads only ``sub_chunk_no/q`` of each of d helpers (the bandwidth-
+optimal MSR property), expressed through ``minimum_to_decode``'s
+per-chunk (sub-chunk offset, count) runs.
+
+Structure (all reference cites to ErasureCodeClay.cc):
+
+- the codeword is a (q*t)-node array of chunks, each chunk a vector of
+  ``sub_chunk_no`` sub-chunks indexed by planes z in [0, q^t);
+- node (x, y) = y*q + x; plane z has base-q digit vector z_vec;
+- "coupled" values C (what is stored) relate to "uncoupled" values U
+  (what the scalar MDS code sees) through a pairwise invertible
+  transform between (C[x,y][z], C[x',y][z']) and the matching U pair,
+  where x' = z_vec[y], z' = z with digit y replaced by x.  Pairs are
+  decoded via an inner (2,2) MDS code ("pft", :91 pft.profile), and
+  whole planes via an inner (k+nu, m) scalar MDS code ("mds");
+- encode = decode_layered with the parity nodes erased (:129);
+  decode = decode_layered over the erased nodes (:161);
+  single-erasure repair = plane-ordered traversal touching only the
+  repair planes (:462 repair_one_lost_chunk).
+
+Device formulation: the inner pair transforms are independent 2x2 GF(2^8)
+systems over sc_size-byte vectors, and all planes of one iscore level
+are mutually independent, so each level runs as THREE batched phases:
+
+1. fill-U: every pair transform of the level, grouped by its
+   (known-ids -> out-ids) pattern, concatenated and solved as ONE
+   matrix decode per pattern (:class:`_PftBatch`);
+2. scalar-MDS: all planes of the level decoded in ONE call over the
+   concatenated plane payloads (the inner MDS code's decode matrix is
+   applied once to a (nodes, planes*sc) operand — the shape the
+   BitmatrixCodec device path wants);
+3. recover-C: the level's coupled-value recoveries, batched like 1.
+
+Phase-major execution is byte-identical to the reference's sequential
+per-plane traversal because cross-plane writes only ever target planes
+of the SAME level (the partner plane differs from z only in digit y,
+and the erasure-dot count is invariant under that swap), and duplicate
+pair solves write identical bytes.  Repair with aloof nodes (d <
+k+m-1) keeps the sequential path — its pair fills read another
+plane's U mid-level.
+"""
+
+from __future__ import annotations
+
+import errno
+from typing import Mapping
+
+import numpy as np
+
+from ceph_tpu_torch.ec.interface import ECError, ErasureCode
+from ceph_tpu_torch.ops.rs_kernels import resolve_device
+
+__erasure_code_version__ = "0.1.0"
+
+
+def _pow_int(a: int, x: int) -> int:
+    return a**x
+
+
+class _PftBatch:
+    """Collects same-pattern (2,2) pair transforms and runs each
+    pattern as ONE matrix decode over the concatenated payloads — one
+    matmul per (level, kind) instead of q^t tiny host solves."""
+
+    def __init__(self, pft):
+        self.pft = pft
+        self.jobs: dict[tuple, list[tuple[dict, dict]]] = {}
+
+    def add(self, known: dict[int, np.ndarray], out: dict[int, np.ndarray]) -> None:
+        key = (tuple(sorted(known)), tuple(sorted(out)))
+        self.jobs.setdefault(key, []).append((known, out))
+
+    def run(self) -> None:
+        for (kids, oids), jobs in self.jobs.items():
+            if len(jobs) == 1:
+                known, out = jobs[0]
+                rec = self.pft.decode_payloads(known, list(out))
+                for i, buf in out.items():
+                    buf[...] = rec[i]
+                continue
+            known_cat = {
+                i: np.concatenate([np.asarray(j[0][i]) for j in jobs])
+                for i in kids
+            }
+            rec = self.pft.decode_payloads(known_cat, list(oids))
+            off = 0
+            for known, out in jobs:
+                ln = len(next(iter(known.values())))
+                for i, buf in out.items():
+                    buf[...] = rec[i][off : off + ln]
+                off += ln
+        self.jobs = {}
+
+
+class ErasureCodeClay(ErasureCode):
+    DEFAULT_K = "4"
+    DEFAULT_M = "2"
+
+    def __init__(self, *, device=None) -> None:
+        super().__init__()
+        self.device = resolve_device(device)
+        self.k = 0
+        self.m = 0
+        self.d = 0
+        self.w = 8
+        self.q = 0
+        self.t = 0
+        self.nu = 0
+        self.sub_chunk_no = 0
+        self.mds: ErasureCode | None = None
+        self.pft: ErasureCode | None = None
+
+    # -- profile -------------------------------------------------------------
+
+    def parse(self, profile: dict) -> None:
+        super().parse(profile)
+        self.k = self.to_int("k", profile, self.DEFAULT_K)
+        self.m = self.to_int("m", profile, self.DEFAULT_M)
+        self.sanity_check_k_m(self.k, self.m)
+        self.d = self.to_int("d", profile, str(self.k + self.m - 1))
+
+        scalar_mds = profile.get("scalar_mds") or "jerasure"
+        if scalar_mds not in ("jerasure", "isa", "cuda"):
+            raise ECError(
+                errno.EINVAL,
+                f"scalar_mds {scalar_mds!r} is not currently supported, "
+                "use one of 'jerasure', 'isa', 'cuda'",
+            )
+        profile.setdefault("scalar_mds", scalar_mds)
+        technique = profile.get("technique") or "reed_sol_van"
+        allowed = {
+            "jerasure": ("reed_sol_van", "cauchy_orig", "cauchy_good"),
+            "isa": ("reed_sol_van", "cauchy"),
+            "cuda": ("reed_sol_van", "cauchy"),
+        }[scalar_mds]
+        if technique not in allowed:
+            raise ECError(
+                errno.EINVAL,
+                f"technique {technique!r} is not currently supported with "
+                f"scalar_mds={scalar_mds}, use one of {allowed}",
+            )
+        profile.setdefault("technique", technique)
+
+        if not (self.k <= self.d <= self.k + self.m - 1):
+            raise ECError(
+                errno.EINVAL,
+                f"value of d {self.d} must be within [{self.k},{self.k + self.m - 1}]",
+            )
+
+        self.q = self.d - self.k + 1
+        self.nu = (self.q - (self.k + self.m) % self.q) % self.q
+        if self.k + self.m + self.nu > 254:
+            raise ECError(errno.EINVAL, "k+m+nu must be <= 254")
+
+        self.t = (self.k + self.m + self.nu) // self.q
+        self.sub_chunk_no = _pow_int(self.q, self.t)
+
+        from ceph_tpu_torch.ec import registry
+
+        # inner scalar MDS over the uncoupled plane (k+nu data, m parity)
+        mds_profile = {
+            "plugin": scalar_mds,
+            "technique": technique,
+            "k": str(self.k + self.nu),
+            "m": str(self.m),
+            "w": "8",
+        }
+        # inner (2,2) pair-forward transform code
+        pft_profile = {
+            "plugin": scalar_mds,
+            "technique": technique,
+            "k": "2",
+            "m": "2",
+            "w": "8",
+        }
+        self.mds = registry.factory(scalar_mds, mds_profile, device=self.device)
+        self.pft = registry.factory(scalar_mds, pft_profile, device=self.device)
+
+    # -- geometry ------------------------------------------------------------
+
+    def get_chunk_count(self) -> int:
+        return self.k + self.m
+
+    def get_data_chunk_count(self) -> int:
+        return self.k
+
+    def get_sub_chunk_count(self) -> int:
+        return self.sub_chunk_no
+
+    def get_chunk_size(self, object_size: int) -> int:
+        """ErasureCodeClay.cc:90-96: chunks must split into
+        sub_chunk_no sub-chunks each aligned for the scalar code."""
+        scalar_align = self.pft.get_chunk_size(1)
+        alignment = self.sub_chunk_no * self.k * scalar_align
+        padded = object_size + ((alignment - object_size % alignment) % alignment)
+        return padded // self.k
+
+    def _plane_vector(self, z: int) -> list[int]:
+        """Base-q digits of z, most-significant first (cc:884-890)."""
+        z_vec = [0] * self.t
+        for i in range(self.t):
+            z_vec[self.t - 1 - i] = z % self.q
+            z //= self.q
+        return z_vec
+
+    # -- repair predicates (cc:305-398) --------------------------------------
+
+    def is_repair(self, want_to_read: set[int], available: set[int]) -> bool:
+        if want_to_read <= available:
+            return False
+        if len(want_to_read) > 1:
+            return False
+        i = next(iter(want_to_read))
+        lost = i if i < self.k else i + self.nu
+        for x in range(self.q):
+            node = (lost // self.q) * self.q + x
+            node = node if node < self.k else node - self.nu
+            if node != i and node not in available:
+                return False
+        return len(available) >= self.d
+
+    def get_repair_subchunks(self, lost_node: int) -> list[tuple[int, int]]:
+        """Sub-chunk (offset, count) runs needed from every helper to
+        repair ``lost_node`` (cc:364-379): the x_lost-th slab of each
+        q-block along axis y_lost."""
+        y_lost, x_lost = divmod(lost_node, self.q)
+        seq_sc_count = _pow_int(self.q, self.t - 1 - y_lost)
+        num_seq = _pow_int(self.q, y_lost)
+        return [
+            (x_lost * seq_sc_count + ind * self.q * seq_sc_count, seq_sc_count)
+            for ind in range(num_seq)
+        ]
+
+    def get_repair_sub_chunk_count(self, want_to_read: set[int]) -> int:
+        """cc:381-396."""
+        weight = [0] * self.t
+        for node in want_to_read:
+            weight[node // self.q] += 1
+        remaining = 1
+        for y in range(self.t):
+            remaining *= self.q - weight[y]
+        return self.sub_chunk_no - remaining
+
+    def minimum_to_decode(
+        self, want_to_read: set[int], available: set[int]
+    ) -> dict[int, list[tuple[int, int]]]:
+        """Repair path returns d helpers with partial sub-chunk runs
+        (cc:98-106, 327-362); otherwise the greedy default."""
+        if not self.is_repair(want_to_read, available):
+            return super().minimum_to_decode(want_to_read, available)
+        i = next(iter(want_to_read))
+        lost = i if i < self.k else i + self.nu
+        runs = self.get_repair_subchunks(lost)
+        minimum: dict[int, list[tuple[int, int]]] = {}
+        for j in range(self.q):
+            if j != lost % self.q:
+                rep = (lost // self.q) * self.q + j
+                if rep < self.k:
+                    minimum[rep] = list(runs)
+                elif rep >= self.k + self.nu:
+                    minimum[rep - self.nu] = list(runs)
+        for chunk in sorted(available):
+            if len(minimum) >= self.d:
+                break
+            minimum.setdefault(chunk, list(runs))
+        assert len(minimum) == self.d, (len(minimum), self.d)
+        return minimum
+
+    # -- encode / decode entry points ----------------------------------------
+
+    def encode_chunks(self, want_to_encode: set[int], encoded: dict[int, np.ndarray]) -> None:
+        """cc:128-155: parity = layered decode with parity erased."""
+        chunk_size = len(encoded[0])
+        chunks: dict[int, np.ndarray] = {}
+        parity_chunks: set[int] = set()
+        for i in range(self.k + self.m):
+            node = i if i < self.k else i + self.nu
+            chunks[node] = encoded[i]
+            if i >= self.k:
+                parity_chunks.add(node)
+        for i in range(self.k, self.k + self.nu):
+            chunks[i] = np.zeros(chunk_size, dtype=np.uint8)
+        self._decode_layered(parity_chunks, chunks)
+
+    def decode(
+        self,
+        want_to_read: set[int],
+        chunks: Mapping[int, np.ndarray],
+        chunk_size: int = 0,
+    ) -> dict[int, np.ndarray]:
+        """cc:108-126: partial (sub-chunk) helper payloads route to the
+        repair path; full payloads to the ordinary layered decode."""
+        avail = set(chunks)
+        first_len = len(next(iter(chunks.values()))) if chunks else 0
+        if self.is_repair(want_to_read, avail) and chunk_size > first_len:
+            return self._repair(want_to_read, chunks, chunk_size)
+        return self._decode(want_to_read, chunks)
+
+    def decode_chunks(
+        self,
+        want_to_read: set[int],
+        chunks: Mapping[int, np.ndarray],
+        decoded: dict[int, np.ndarray],
+    ) -> None:
+        """cc:157-185."""
+        erasures: set[int] = set()
+        coded: dict[int, np.ndarray] = {}
+        for i in range(self.k + self.m):
+            node = i if i < self.k else i + self.nu
+            if i not in chunks:
+                erasures.add(node)
+                coded[node] = decoded[i]
+            else:
+                buf = np.asarray(decoded[i])
+                if not buf.flags.writeable:
+                    # parity nodes padded into the erasure set get
+                    # (re)written during the layered decode even when
+                    # present — wire buffers arrive read-only
+                    buf = buf.copy()
+                coded[node] = buf
+        chunk_size = len(coded[0])
+        for i in range(self.k, self.k + self.nu):
+            coded[i] = np.zeros(chunk_size, dtype=np.uint8)
+        self._decode_layered(erasures, coded)
+
+    # -- inner-code helpers --------------------------------------------------
+
+    def _pft_decode(
+        self,
+        erased: set[int],
+        known: dict[int, np.ndarray],
+        out: dict[int, np.ndarray],
+        batch: _PftBatch | None = None,
+    ) -> None:
+        """Decode the (2,2) pair code: reconstruct exactly the ids in
+        ``out`` from ``known`` ids, writing into the (possibly strided)
+        views in ``out``.  ``erased`` documents the caller's intent and
+        must cover ``out``.  With ``batch``, the solve is deferred into
+        the level's pattern batch instead of running immediately."""
+        assert set(out) <= erased
+        if batch is not None:
+            batch.add(known, out)
+            return
+        rec = self.pft.decode_payloads(known, list(out))
+        for i, buf in out.items():
+            buf[...] = rec[i]
+
+    def _mds_decode_plane(
+        self, erased: set[int], U: dict[int, np.ndarray], z: int, sc: int
+    ) -> None:
+        """decode_uncoupled (cc:741-759): run the scalar MDS code over
+        plane z of the uncoupled array."""
+        self._mds_decode_planes(erased, U, [z], sc)
+
+    def _mds_decode_planes(
+        self, erased: set[int], U: dict[int, np.ndarray], zs: list[int],
+        sc: int,
+    ) -> None:
+        """Batched decode_uncoupled: ONE scalar-MDS decode over the
+        concatenation of all given planes (they share the erasure
+        signature, so one decode matrix applies to the whole batch)."""
+        if not zs:
+            return
+        known = {
+            i: np.ascontiguousarray(
+                np.concatenate([U[i][z * sc : (z + 1) * sc] for z in zs])
+                if len(zs) > 1 else U[i][zs[0] * sc : (zs[0] + 1) * sc]
+            )
+            for i in range(self.q * self.t)
+            if i not in erased
+        }
+        decoded = dict(known)
+        for i in erased:
+            decoded[i] = np.zeros(sc * len(zs), dtype=np.uint8)
+        self.mds.decode_chunks(erased, known, decoded)
+        for i in erased:
+            for n, z in enumerate(zs):
+                U[i][z * sc : (z + 1) * sc] = decoded[i][n * sc : (n + 1) * sc]
+
+    def _pair_indices(self, x: int, y: int, z_vec: list[int], z: int):
+        """The coupled/uncoupled pair geometry shared by every
+        transform (cc:536-548 et al.): returns (node_xy, node_sw, z_sw,
+        (i0, i1, i2, i3)) with the id swap applied when z_vec[y] > x."""
+        node_xy = y * self.q + x
+        node_sw = y * self.q + z_vec[y]
+        z_sw = z + (x - z_vec[y]) * _pow_int(self.q, self.t - 1 - y)
+        if z_vec[y] > x:
+            ids = (1, 0, 3, 2)
+        else:
+            ids = (0, 1, 2, 3)
+        return node_xy, node_sw, z_sw, ids
+
+    # -- layered decode (cc:645-739) -----------------------------------------
+
+    def _decode_layered(self, erased_chunks: set[int], chunks: dict[int, np.ndarray]) -> None:
+        size = len(chunks[0])
+        assert size % self.sub_chunk_no == 0, (size, self.sub_chunk_no)
+        sc = size // self.sub_chunk_no
+        assert erased_chunks
+
+        # pad erasures with parity nodes up to m (cc:656-663)
+        erased = set(erased_chunks)
+        if len(erased) > self.m:
+            raise ECError(errno.EIO, f"{len(erased)} erasures exceed m={self.m}")
+        for i in range(self.k + self.nu, self.q * self.t):
+            if len(erased) >= self.m:
+                break
+            erased.add(i)
+        assert len(erased) == self.m
+
+        qt = self.q * self.t
+        U = {i: np.zeros(size, dtype=np.uint8) for i in range(qt)}
+
+        # order[z] = number of erased nodes "dotted" in plane z (cc:761-772)
+        order = [0] * self.sub_chunk_no
+        for z in range(self.sub_chunk_no):
+            z_vec = self._plane_vector(z)
+            order[z] = sum(1 for i in erased if i % self.q == z_vec[i // self.q])
+        max_iscore = len({i // self.q for i in erased})
+
+        for iscore in range(max_iscore + 1):
+            zs = [
+                z for z in range(self.sub_chunk_no) if order[z] == iscore
+            ]
+            # phase 1: fill U (every pair transform of the level, one
+            # batched solve per pattern)
+            batch = _PftBatch(self.pft)
+            for z in zs:
+                self._fill_uncoupled_plane(erased, z, chunks, U, sc, batch)
+            batch.run()
+            # phase 2: one scalar-MDS decode across the whole level
+            self._mds_decode_planes(erased, U, zs, sc)
+            # phase 3: recover the erased nodes' coupled values
+            batch = _PftBatch(self.pft)
+            for z in zs:
+                z_vec = self._plane_vector(z)
+                for node_xy in erased:
+                    x, y = node_xy % self.q, node_xy // self.q
+                    node_sw = y * self.q + z_vec[y]
+                    if z_vec[y] != x:
+                        if node_sw not in erased:
+                            self._recover_type1_erasure(
+                                chunks, U, x, y, z, z_vec, sc, batch)
+                        elif z_vec[y] < x:
+                            self._get_coupled_from_uncoupled(
+                                chunks, U, x, y, z, z_vec, sc, batch)
+                    else:
+                        chunks[node_xy][z * sc : (z + 1) * sc] = U[node_xy][
+                            z * sc : (z + 1) * sc
+                        ]
+            batch.run()
+
+    def _fill_uncoupled_plane(
+        self,
+        erased: set[int],
+        z: int,
+        chunks: dict[int, np.ndarray],
+        U: dict[int, np.ndarray],
+        sc: int,
+        batch: _PftBatch | None = None,
+    ) -> None:
+        """cc:712-739 (fill half): fill U for all non-erased nodes in
+        plane z; the level's MDS decode runs separately (batched)."""
+        z_vec = self._plane_vector(z)
+        for x in range(self.q):
+            for y in range(self.t):
+                node_xy = self.q * y + x
+                node_sw = self.q * y + z_vec[y]
+                if node_xy in erased:
+                    continue
+                if z_vec[y] < x:
+                    self._get_uncoupled_from_coupled(
+                        chunks, U, x, y, z, z_vec, sc, batch)
+                elif z_vec[y] == x:
+                    U[node_xy][z * sc : (z + 1) * sc] = chunks[node_xy][
+                        z * sc : (z + 1) * sc
+                    ]
+                elif node_sw in erased:
+                    self._get_uncoupled_from_coupled(
+                        chunks, U, x, y, z, z_vec, sc, batch)
+
+    # -- pair transforms (cc:774-871) ----------------------------------------
+
+    def _recover_type1_erasure(
+        self, chunks, U, x, y, z, z_vec, sc, batch=None
+    ) -> None:
+        """cc:774-811: C[node_xy][z] from its pair partner's C and own U."""
+        node_xy, node_sw, z_sw, (i0, i1, i2, i3) = self._pair_indices(x, y, z_vec, z)
+        known = {
+            i1: chunks[node_sw][z_sw * sc : (z_sw + 1) * sc],
+            i2: U[node_xy][z * sc : (z + 1) * sc],
+        }
+        out = {i0: chunks[node_xy][z * sc : (z + 1) * sc]}
+        self._pft_decode({i0}, known, out, batch)
+
+    def _get_coupled_from_uncoupled(
+        self, chunks, U, x, y, z, z_vec, sc, batch=None
+    ) -> None:
+        """cc:813-838: both C of a pair from both U (both coupled erased)."""
+        node_xy, node_sw, z_sw, _ = self._pair_indices(x, y, z_vec, z)
+        assert z_vec[y] < x
+        known = {
+            2: U[node_xy][z * sc : (z + 1) * sc],
+            3: U[node_sw][z_sw * sc : (z_sw + 1) * sc],
+        }
+        out = {
+            0: chunks[node_xy][z * sc : (z + 1) * sc],
+            1: chunks[node_sw][z_sw * sc : (z_sw + 1) * sc],
+        }
+        self._pft_decode({0, 1}, known, out, batch)
+
+    def _get_uncoupled_from_coupled(
+        self, chunks, U, x, y, z, z_vec, sc, batch=None
+    ) -> None:
+        """cc:840-871: both U of a pair from both C."""
+        node_xy, node_sw, z_sw, (i0, i1, i2, i3) = self._pair_indices(x, y, z_vec, z)
+        known = {
+            i0: chunks[node_xy][z * sc : (z + 1) * sc],
+            i1: chunks[node_sw][z_sw * sc : (z_sw + 1) * sc],
+        }
+        out = {
+            i2: U[node_xy][z * sc : (z + 1) * sc],
+            i3: U[node_sw][z_sw * sc : (z_sw + 1) * sc],
+        }
+        self._pft_decode({i2, i3}, known, out, batch)
+
+    # -- single-chunk repair (cc:398-641) ------------------------------------
+
+    def _repair(
+        self,
+        want_to_read: set[int],
+        chunks: Mapping[int, np.ndarray],
+        chunk_size: int,
+    ) -> dict[int, np.ndarray]:
+        assert len(want_to_read) == 1 and len(chunks) == self.d
+        repair_sub_chunk_no = self.get_repair_sub_chunk_count(want_to_read)
+        repair_blocksize = len(next(iter(chunks.values())))
+        assert repair_blocksize % repair_sub_chunk_no == 0
+        sub_chunksize = repair_blocksize // repair_sub_chunk_no
+        assert self.sub_chunk_no * sub_chunksize == chunk_size
+
+        lost = next(iter(want_to_read))
+        lost_node = lost if lost < self.k else lost + self.nu
+
+        helper: dict[int, np.ndarray] = {}
+        aloof: set[int] = set()
+        for i in range(self.k + self.m):
+            node = i if i < self.k else i + self.nu
+            if i in chunks:
+                helper[node] = np.asarray(chunks[i])
+            elif i != lost:
+                aloof.add(node)
+        for i in range(self.k, self.k + self.nu):  # shortening zeros
+            helper[i] = np.zeros(repair_blocksize, dtype=np.uint8)
+
+        recovered = np.zeros(chunk_size, dtype=np.uint8)
+        assert len(helper) + len(aloof) + 1 == self.q * self.t
+
+        self._repair_one_lost_chunk(
+            lost_node, recovered, aloof, helper, sub_chunksize
+        )
+        out = {lost: recovered}
+        for i, buf in chunks.items():
+            if i in want_to_read:
+                out[i] = np.asarray(buf)
+        return out
+
+    def _repair_one_lost_chunk(
+        self,
+        lost_chunk: int,
+        recovered: np.ndarray,
+        aloof_nodes: set[int],
+        helper_data: dict[int, np.ndarray],
+        sc: int,
+    ) -> None:
+        """cc:462-641: traverse only the repair planes, in order of
+        intersection score, coupling/uncoupling as needed."""
+        repair_runs = self.get_repair_subchunks(lost_chunk)
+
+        # plane -> (order, index within the packed helper payload)
+        ordered_planes: dict[int, list[int]] = {}
+        repair_plane_to_ind: dict[int, int] = {}
+        plane_ind = 0
+        for index, count in repair_runs:
+            for z in range(index, index + count):
+                z_vec = self._plane_vector(z)
+                order = sum(
+                    1
+                    for node in ([lost_chunk] + sorted(aloof_nodes))
+                    if node % self.q == z_vec[node // self.q]
+                )
+                assert order > 0
+                ordered_planes.setdefault(order, []).append(z)
+                repair_plane_to_ind[z] = plane_ind
+                plane_ind += 1
+
+        qt = self.q * self.t
+        U = {i: np.zeros(self.sub_chunk_no * sc, dtype=np.uint8) for i in range(qt)}
+        zero_sub = np.zeros(sc, dtype=np.uint8)
+
+        erasures = {lost_chunk - lost_chunk % self.q + i for i in range(self.q)}
+        erasures |= aloof_nodes
+        assert len(erasures) <= self.m + self.q - 1  # group + aloof
+
+        # with aloof nodes a pair fill reads another plane's U
+        # mid-level; keep those runs sequential.  The common d=k+m-1
+        # deployments have none and take the fully batched path.
+        phase_major = not aloof_nodes
+
+        def _fill_plane(z: int, z_vec: list[int], batch=None) -> None:
+            # fill U for all non-erased nodes in this plane
+            for y in range(self.t):
+                for x in range(self.q):
+                    node_xy = y * self.q + x
+                    if node_xy in erasures:
+                        continue
+                    _, node_sw, z_sw, (i0, i1, i2, i3) = self._pair_indices(
+                        x, y, z_vec, z
+                    )
+                    hz = repair_plane_to_ind[z]
+                    if node_sw in aloof_nodes:
+                        # partner lost to an aloof node: solve the
+                        # pair from own C and partner's U (cc:551-563)
+                        known = {
+                            i0: helper_data[node_xy][hz * sc : (hz + 1) * sc],
+                            i3: U[node_sw][z_sw * sc : (z_sw + 1) * sc],
+                        }
+                        out = {i2: U[node_xy][z * sc : (z + 1) * sc]}
+                        self._pft_decode({i2}, known, out)
+                    elif z_vec[y] != x:
+                        hz_sw = repair_plane_to_ind[z_sw]
+                        known = {
+                            i0: helper_data[node_xy][hz * sc : (hz + 1) * sc],
+                            i1: helper_data[node_sw][hz_sw * sc : (hz_sw + 1) * sc],
+                        }
+                        out = {i2: U[node_xy][z * sc : (z + 1) * sc]}
+                        self._pft_decode({i2}, known, out, batch)
+                    else:
+                        U[node_xy][z * sc : (z + 1) * sc] = helper_data[node_xy][
+                            hz * sc : (hz + 1) * sc
+                        ]
+
+        def _recover_plane(z: int, z_vec: list[int], batch=None) -> None:
+            # recover the coupled values of erased nodes (cc:600-638)
+            for i in sorted(erasures):
+                if i in aloof_nodes:
+                    continue
+                x, y = i % self.q, i // self.q
+                _, node_sw, z_sw, (i0, i1, i2, i3) = self._pair_indices(
+                    x, y, z_vec, z
+                )
+                if x == z_vec[y]:  # hole-dot pair (type 0)
+                    # within repair planes only the lost node can be
+                    # dotted: z_vec[y_lost] == x_lost defines them
+                    assert i == lost_chunk, (i, lost_chunk)
+                    recovered[z * sc : (z + 1) * sc] = U[i][z * sc : (z + 1) * sc]
+                else:
+                    assert y == lost_chunk // self.q and node_sw == lost_chunk
+                    hz = repair_plane_to_ind[z]
+                    known = {
+                        i0: helper_data[i][hz * sc : (hz + 1) * sc],
+                        i2: U[i][z * sc : (z + 1) * sc],
+                    }
+                    out = {i1: recovered[z_sw * sc : (z_sw + 1) * sc]}
+                    self._pft_decode({i1}, known, out, batch)
+
+        for order in sorted(ordered_planes):
+            zs = ordered_planes[order]
+            if phase_major:
+                batch = _PftBatch(self.pft)
+                for z in zs:
+                    _fill_plane(z, self._plane_vector(z), batch)
+                batch.run()
+                assert len(erasures) <= self.m, (erasures, self.m)
+                self._mds_decode_planes(erasures, U, zs, sc)
+                batch = _PftBatch(self.pft)
+                for z in zs:
+                    _recover_plane(z, self._plane_vector(z), batch)
+                batch.run()
+            else:
+                for z in zs:
+                    z_vec = self._plane_vector(z)
+                    _fill_plane(z, z_vec)
+                    assert len(erasures) <= self.m, (erasures, self.m)
+                    self._mds_decode_plane(erasures, U, z, sc)
+                    _recover_plane(z, z_vec)
+
+def __erasure_code_init__(name: str, registry) -> None:
+    from ceph_tpu_torch.ec.registry import ErasureCodePlugin
+
+    class ClayPlugin(ErasureCodePlugin):
+        def factory(self, profile: dict, *, device=None):
+            ec = ErasureCodeClay(device=device)
+            ec.init(profile)
+            return ec
+
+    registry.add(name, ClayPlugin())

@@ -72,6 +72,16 @@ def gf_inv(a):
     return gf_div(np.uint8(1), a)
 
 
+def gf_pow(a, n: int):
+    """a ** n in GF(2^8) (scalar semantics, vectorized over a)."""
+    a = np.asarray(a, dtype=np.uint8)
+    exp, log = _tables()
+    if n == 0:
+        return np.ones_like(a)
+    out = exp[(log[a].astype(np.int64) * n) % 255]
+    return np.where(a == 0, np.uint8(0), out)
+
+
 def gf_matmul(A: np.ndarray, B: np.ndarray) -> np.ndarray:
     """Matrix product over GF(2^8): (n,k) x (k,m) -> (n,m), XOR-accumulated."""
     A = np.asarray(A, dtype=np.uint8)

@@ -41,15 +41,38 @@ through the port's entry points:
    epoch (a sample in between), with one map upload and no pool on the
    scalar pipeline; then an ``UpmapBalancer`` pass;
 7. throughput — the timed ``carry ^= encode(data ^ seed)`` loop of
-   bench.py on (8, 256 MiB), and a 1-erasure decode at the same S.
+   bench.py on (8, 256 MiB), and a 1-erasure decode at the same S;
+8. plugins — every non-``jax`` profile of ``tests/golden/ec_kats.json``
+   (isa, jerasure with its packet codes, shec, lrc, clay) on the card:
+   the KAT payloads' chunks equal the golden bytes, then a 4 MiB object
+   (past ``device_min_bytes``, so ``gf_bitmatmul.cu`` runs) encoded and
+   decoded with 1 and up to m erasures, equal to the same plugin on
+   ``device="cpu"``;
+9. clay — a CLAY(8,4,11) pool (Ceph's default inner code,
+   ``scalar_mds=jerasure``): 64 objects of 4 MiB, each one stripe, lose
+   shard 3, then shard 9, and rebuild each object from the minimum
+   sub-chunk reads twice, through ``ecutil.decode_shards(...,
+   packed_repair=True)`` (the host traversal, its products through the
+   inner codes) and through ``ClayRepairProgram`` (one ``clay_repair``
+   launch per object), both equal to the lost shard; a 2-erasure
+   degraded read through the layered decode; ``tools/bench_all.py``'s
+   shape with ``scalar_mds=cuda`` (one 256 MiB stripe, 32 MiB chunks)
+   repaired by the program, timed by CUDA events, and by the host
+   traversal; two 4 MiB objects at the 4 KiB stripe unit rebuilt through
+   ``ecutil`` (every inner solve below ``device_min_bytes``: no launch).
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
 whole pool, all in and with zero and partial reweights; a device-class
-rule, a choose_args weight set and legacy tunables.
+rule, a choose_args weight set and legacy tunables; and the CLAY repair
+kernel against its plain version for every lost node of CLAY(4,2,5),
+(8,4,11) and (8,3,10) at the 4 MiB object's sub-chunk, at a ragged
+sub-chunk and at the 32 MiB-chunk shape.
 
 Kernel launch counts are reset just before phases 2-7 and read just
-after; every kernel must have been launched there.  Then a
+after; every kernel of that path must have been launched there.  They
+are reset again before phases 8-9 and read after: ``clay_repair`` and
+the bit-matrix kernel must have been launched there.  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, and the device time per launch at each kernel's main-path shape
 (and at each forced width of the launch plan); each kernel is timed
@@ -64,6 +87,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -83,7 +107,9 @@ from ceph_tpu_torch.crush.types import (
     CrushMap,
     Tunables,
 )
-from ceph_tpu_torch.ec import registry
+from ceph_tpu_torch.ec import ECError, registry
+from ceph_tpu_torch.ec.plugins import clay_cuda
+from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
 from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
 from ceph_tpu_torch.ops import hashing
 from ceph_tpu_torch.ops import rs_kernels as rk
@@ -110,6 +136,7 @@ MiB = 1 << 20
 GF_SOURCE = "ceph_tpu_torch/ops/csrc/gf_bitmatmul.cu"
 CRC_SOURCE = "ceph_tpu_torch/ops/csrc/crc32c_lanes.cu"
 CRUSH_SOURCE = "ceph_tpu_torch/ops/csrc/crush_rule.cu"
+CLAY_SOURCE = "ceph_tpu_torch/ops/csrc/clay_repair.cu"
 #: the CRUSH entry points, by rule kind
 CRUSH_ENTRIES = {"firstn": "crush_rule_firstn", "indep": "crush_rule_indep",
                  "msr": "crush_rule_msr"}
@@ -122,17 +149,29 @@ REPLACES = {
     "gf_encode_compare": "ceph_tpu/ops/rs_kernels.py:73",
     "batched_crc32c_device": "ceph_tpu/ops/hashing.py:376",
     **{name: "ceph_tpu/crush/jaxmapper.py:1015" for name in CRUSH_ENTRIES.values()},
+    "clay_repair": "ceph_tpu/ec/plugins/clay_jit.py:69",
 }
 #: each entry point's kernel source and the kernel's name in a trace
 KERNELS = {name: (GF_SOURCE, "gf_bitmatmul_kernel") for name in REPLACES}
 KERNELS["batched_crc32c_device"] = (CRC_SOURCE, "crc32c_lanes_kernel")
 KERNELS.update({name: (CRUSH_SOURCE, f"{name}_kernel") for name in CRUSH_ENTRIES.values()})
+KERNELS["clay_repair"] = (CLAY_SOURCE, "clay_repair_kernel")
 #: why no PyTorch call is timed beside each kernel
 NO_LIBRARY = {name: "no PyTorch call computes a GF(2^8) bit-matrix product"
               for name in REPLACES}
 NO_LIBRARY["batched_crc32c_device"] = "no PyTorch call computes crc32c"
 NO_LIBRARY.update({name: "no PyTorch call computes CRUSH placement"
                    for name in CRUSH_ENTRIES.values()})
+NO_LIBRARY["clay_repair"] = "no PyTorch call computes a GF(2^8) linear combination"
+#: the golden chunk bytes of every plugin profile (tools/gen_ec_golden.py)
+GOLDEN = "tests/golden/ec_kats.json"
+#: CLAY: the phase-1 geometries (every lost node of each) and ragged
+#: sub-chunk; the pool's lost shards, one at a time, and the shards its
+#: degraded read goes without
+CLAY_GEOMETRIES = ((4, 2, 5), (8, 4, 11), (8, 3, 10))
+CLAY_RAGGED_SC = 4096 + 13
+CLAY_LOST = (3, 9)
+CLAY_DEGRADED = (3, 9)
 
 
 @dataclasses.dataclass
@@ -184,6 +223,20 @@ class Config:
     #: seeds of the phase-1 CRUSH cases besides the whole pool
     crush_seeds: tuple = (1, 1000)
     balancer_swaps: int = 64
+    #: CLAY: the pool, CLAY(8,4,11) as tools/bench_all.py runs it, with
+    #: one stripe per object (512 KiB chunks, 8 KiB sub-chunks)
+    clay_objects: int = 64
+    clay_object_bytes: int = 4 * MiB
+    clay_degraded_objects: int = 8
+    #: tools/bench_all.py's chunk (one stripe of 8 x 32 MiB), its timed
+    #: repeats, and objects at the OSD's default stripe unit
+    clay_big_chunk: int = 32 * MiB
+    clay_big_repeats: int = 10
+    clay_small_objects: int = 2
+    #: objects of the profile pass's traced CLAY rebuild
+    clay_traced_objects: int = 8
+    #: objects of the plugins phase, each one stripe
+    plugin_object_bytes: int = 4 * MiB
     iters: int = 32
     repeats: int = 5
     seed: int = 20261016
@@ -239,6 +292,24 @@ def crush_bound_ms(draws: int) -> tuple[float, str]:
     instructions each over the card's INT32 rate.  The bytes (a 0.3 MB
     map, 4 B a seed in, 4 B a result out) are far below."""
     return draws * OPS_PER_DRAW / PEAK_INT32_OPS_PER_S * 1e3, "operations"
+
+
+def clay_bounds_ms(sched, sc: int) -> dict:
+    """Least time for one CLAY repair, both ways: the helpers read once
+    and the chunk written once, (n_helpers * P + sub_chunk_no) * sc bytes
+    over the HBM rate (the kernel keeps U in registers: no scratch); and
+    the repair's GF(2^8) products, each term of the schedule with a
+    nonzero coefficient as an 8x8 bit-matrix product of every byte
+    (2 * 8 * 8 operations), over the int8 tensor-core rate, as
+    ``bound_ms`` counts the EC products."""
+    terms = (np.count_nonzero(sched.a_c) + np.count_nonzero(sched.b_c)
+             + sched.P * np.count_nonzero(sched.d)
+             + np.count_nonzero(sched.c_h) + np.count_nonzero(sched.c_u))
+    nbytes = (sched.n_helpers * sched.P + sched.sub_chunk_no) * sc
+    ops = 2 * 8 * 8 * int(terms) * sc
+    bms, by = _bound(nbytes, ops)
+    return {"bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "operations_ms": ops / PEAK_INT8_OPS_PER_S * 1e3, "bound_ms": bms, "bound_by": by}
 
 
 def crc_bound_ms(lanes: int, width: int) -> tuple[float, str]:
@@ -325,6 +396,7 @@ def phase_kernels(cfg: Config, device) -> dict[str, int]:
     plans = phase_kernel_plans(cfg, device, gen, codec, check)
     phase_kernel_scrub(cfg, device, gen, check)
     phase_kernel_crush(cfg, device, check)
+    phase_kernel_clay(cfg, device, gen, check)
     _sync(device)
     emit({"phase": "kernels", "cases": len(cases),
           "mismatched_bytes": sum(c["mismatched_bytes"] for c in cases),
@@ -374,6 +446,46 @@ def phase_kernel_scrub(cfg: Config, device, gen, check) -> None:
                 plain = rk.gf_encode_compare_plain(bits, d, p)
                 check("gf_encode_compare", rk.gf_encode_compare(bits, d, p), plain, case)
                 check("plain_vs_expected", plain, flags, case)
+
+
+def clay_code(k: int, m: int, d: int, device, scalar_mds: str = "jerasure"):
+    return registry.factory("clay", {"k": str(k), "m": str(m), "d": str(d),
+                                     "scalar_mds": scalar_mds}, device=device)
+
+
+def clay_program(ec, chunk: int, device) -> ClayRepairProgram:
+    """The repair program of chunk id ``chunk``."""
+    return ClayRepairProgram(ec, clay_cuda.chunk_node(ec, chunk), device=device)
+
+
+def staged_random(prog: ClayRepairProgram, sc: int, gen, device) -> torch.Tensor:
+    """Random staged helpers (n_helpers, P, sc), the shortened nodes as
+    the zero rows ``stage`` lays out."""
+    H = _rand((prog.schedule.n_helpers, prog.schedule.P, sc), gen, device)
+    H[prog.shortened] = 0
+    return H
+
+
+def phase_kernel_clay(cfg: Config, device, gen, check) -> None:
+    """The CLAY repair kernel against its plain version: every lost node
+    of each geometry of ``CLAY_GEOMETRIES`` at the sub-chunk of a
+    ``clay_object_bytes`` object written as one stripe; for CLAY(8,4,11)
+    lost node 3 also a ragged sub-chunk (``repair_device`` directly) and
+    tools/bench_all.py's 32 MiB chunk."""
+    for k, m, d in CLAY_GEOMETRIES:
+        ec = clay_code(k, m, d, device)
+        sc = ec.get_chunk_size(cfg.clay_object_bytes) // ec.sub_chunk_no
+        scs = [sc]
+        for lost in range(k + m):
+            prog = clay_program(ec, lost, device)
+            if (k, m, d) == (8, 4, 11) and lost == 3:
+                scs = [sc, CLAY_RAGGED_SC, cfg.clay_big_chunk // ec.sub_chunk_no]
+            for width in scs:
+                H = staged_random(prog, width, gen, device)
+                check("clay_repair", prog.repair_device(H),
+                      clay_cuda.clay_repair_plain(H, prog.schedule),
+                      f"clay({k},{m},{d}) lost {lost} H {tuple(H.shape)}")
+            scs = [sc]
 
 
 def remap_map(cfg: Config, device) -> OSDMap:
@@ -871,6 +983,231 @@ def phase_throughput(cfg: Config, device) -> dict:
     return {"data": data, "carry": carry, "codec": codec, "acc_ms": acc_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-9: the rest of the plugin family and the CLAY pool
+# ---------------------------------------------------------------------------
+
+def kat_payloads() -> dict[str, bytes]:
+    """tools/gen_ec_golden.py's two payloads."""
+    ramp = bytes(range(256)) * 17 + b"\x00\x01\x02"
+    rnd = np.random.default_rng(0xCEF).integers(0, 256, 8192, dtype=np.uint8).tobytes()
+    return {"ramp4355": ramp, "rand8192": rnd}
+
+
+def _gf_launches() -> int:
+    return sum(rk.launch_counts().values())
+
+
+def _decodable_set(ec, n: int, e: int) -> tuple | None:
+    """The largest erasure set of at most e chunks, spread over the
+    chunk ids, that ``ec``'s minimum_to_decode can serve (SHEC and LRC
+    are not MDS)."""
+    for size in range(e, 0, -1):
+        lost = tuple(sorted({(i * n) // size for i in range(size)}))
+        try:
+            ec.minimum_to_decode(set(lost), set(range(n)) - set(lost))
+        except ECError:
+            continue
+        return lost
+    return None
+
+
+def phase_plugins(cfg: Config, device) -> dict:
+    """Every non-``jax`` profile of the golden corpus on ``device``: the
+    KAT payloads' chunks equal the golden bytes; one object of
+    ``plugin_object_bytes`` (one stripe) encoded, and decoded with one
+    erasure and with the largest spread set of up to m erasures, equal to
+    the same plugin on the CPU and to the written chunks."""
+    with open(GOLDEN) as f:
+        corpus = {k: v for k, v in json.load(f).items() if v["plugin"] != "jax"}
+    payloads = kat_payloads()
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 5)
+    rows = []
+    t0 = time.perf_counter()
+    for key in sorted(corpus):
+        entry = corpus[key]
+        ec = registry.factory(entry["plugin"], dict(entry["profile"]), device=device)
+        cpu = registry.factory(entry["plugin"], dict(entry["profile"]), device="cpu")
+        n, k = ec.get_chunk_count(), ec.get_data_chunk_count()
+        for pname, payload in payloads.items():
+            enc = ec.encode(set(range(n)), payload)
+            for i, chunk in enc.items():
+                want = entry["chunks"][pname][str(i)]["sha256"]
+                if hashlib.sha256(chunk.tobytes()).hexdigest() != want:
+                    raise AssertionError(f"{key} {pname} chunk {i} differs from the golden bytes")
+        obj = _rand((cfg.plugin_object_bytes,), gen, device).cpu().numpy()
+        launches0 = _gf_launches()
+        t1 = time.perf_counter()
+        enc = ec.encode(set(range(n)), obj)
+        encode_s = time.perf_counter() - t1
+        want = cpu.encode(set(range(n)), obj)
+        for i in range(n):
+            if not np.array_equal(enc[i], want[i]):
+                raise AssertionError(f"{key}: chunk {i} differs from the CPU plugin's")
+        cs = len(enc[0])
+        decoded = []
+        for e in (1, n - k):
+            lost = _decodable_set(cpu, n, e)
+            if lost is None or lost in decoded:
+                continue
+            avail = {i: c for i, c in enc.items() if i not in lost}
+            got = ec.decode(set(lost), avail, cs)
+            if e > 1:
+                ref = cpu.decode(set(lost), avail, cs)
+            for i in lost:
+                if not np.array_equal(got[i], enc[i]) or (e > 1 and not np.array_equal(
+                        got[i], ref[i])):
+                    raise AssertionError(f"{key}: decode of {lost} differs in chunk {i}")
+            decoded.append(lost)
+        rows.append({"profile": key, "chunk_size": cs, "encode_s": encode_s,
+                     "decoded": [list(x) for x in decoded],
+                     "gf_launches": _gf_launches() - launches0})
+    out = {"phase": "plugins", "profiles": len(rows), "seconds": time.perf_counter() - t0,
+           "object_bytes": cfg.plugin_object_bytes, "rows": rows}
+    if len(rows) != 19:
+        raise AssertionError(f"{len(rows)} non-jax profiles in the corpus, want 19")
+    emit(out)
+    return out
+
+
+def _repair_reads(ec, shards: dict, lost: int, sc: int, stripes: int = 1) -> dict:
+    """The helpers' minimum sub-chunk runs of every stripe, stripe-major
+    (the OSD's ranged reads of a CLAY repair)."""
+    cs = ec.sub_chunk_no * sc
+    minimum = ec.minimum_to_decode({lost}, set(range(ec.k + ec.m)) - {lost})
+    return {s: np.concatenate([shards[s][t * cs + o * sc: t * cs + (o + c) * sc]
+                               for t in range(stripes) for o, c in runs])
+            for s, runs in minimum.items()}
+
+
+def clay_rebuild(ec, sinfo, written: list[dict], lost: int, device,
+                 ways: tuple = ("host_traversal", "program")) -> dict:
+    """Rebuild shard ``lost`` of every object from the minimum reads, each
+    of ``ways`` (``ecutil`` host traversal, ``ClayRepairProgram``); each
+    must equal the lost shard.  Seconds, rebuilt and read bytes, the
+    launches of each way, and the bound of one object's repair."""
+    sc = sinfo.chunk_size // ec.sub_chunk_no
+    reads = [_repair_reads(ec, sh, lost, sc) for sh in written]
+    prog = clay_program(ec, lost, device)
+    out = {"lost": lost, "objects": len(written), "rebuilt_bytes": sinfo.chunk_size * len(written),
+           "helper_bytes_read": sum(v.nbytes for r in reads for v in r.values()),
+           "rs_bytes_read": ec.k * sinfo.chunk_size * len(written),
+           "bound_per_object": clay_bounds_ms(prog.schedule, sc)}
+    out["read_share_of_rs"] = out["helper_bytes_read"] / out["rs_bytes_read"]
+    for way in ways:
+        g0, c0 = _gf_launches(), clay_repair_launches()
+        t0 = time.perf_counter()
+        for sh, pl in zip(written, reads):
+            if way == "program":
+                got = prog.repair_device(prog.stage(pl)).cpu().numpy().reshape(-1)
+            else:
+                got = ecutil.decode_shards(sinfo, ec, pl, {lost}, packed_repair=True)[lost]
+            if not np.array_equal(got, sh[lost]):
+                raise AssertionError(f"CLAY shard {lost} rebuilt by the {way} differs")
+        dt = time.perf_counter() - t0
+        out[way] = {"seconds": dt, "rebuilt_GB_per_s": out["rebuilt_bytes"] / dt / 1e9,
+                    "gf_launches": _gf_launches() - g0,
+                    "clay_repair_launches": clay_repair_launches() - c0}
+    return out
+
+
+def clay_repair_launches() -> int:
+    return clay_cuda.launch_counts()["clay_repair"]
+
+
+def phase_clay(cfg: Config, device) -> dict:
+    """The CLAY(8,4,11) pool: (i) ``clay_objects`` objects, one stripe
+    each, rebuilt both ways for each lost shard, and a 2-erasure degraded
+    read; (ii) tools/bench_all.py's 32 MiB-chunk stripe with
+    ``scalar_mds=cuda``, repaired by the program (CUDA events, warm) and
+    by the host traversal; (iii) ``clay_small_objects`` objects at the
+    OSD's stripe unit rebuilt through ``ecutil`` (no launch expected)."""
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 6)
+    cuda = torch.device(device).type == "cuda"
+    ec = clay_code(8, 4, 11, device)
+    n, k = ec.get_chunk_count(), ec.get_data_chunk_count()
+    sinfo = ecutil.StripeInfo(k, k * ec.get_chunk_size(cfg.clay_object_bytes))
+    objects = [_rand((sinfo.stripe_width,), gen, device).cpu().numpy()
+               for _ in range(cfg.clay_objects)]
+    g0 = _gf_launches()
+    t0 = time.perf_counter()
+    written = [ecutil.encode(sinfo, ec, obj) for obj in objects]
+    write_s = time.perf_counter() - t0
+    out = {"phase": "clay", "profile": ec.get_profile(), "objects": len(objects),
+           "logical_bytes": sum(o.nbytes for o in objects), "chunk_size": sinfo.chunk_size,
+           "sub_chunk": sinfo.chunk_size // ec.sub_chunk_no, "write_s": write_s,
+           "write_gf_launches": _gf_launches() - g0,
+           "rounds": [clay_rebuild(ec, sinfo, written, lost, device) for lost in CLAY_LOST]}
+    t0 = time.perf_counter()
+    for obj, sh in list(zip(objects, written))[:cfg.clay_degraded_objects]:
+        got = ecutil.decode_concat(sinfo, ec, {s: c for s, c in sh.items()
+                                               if s not in CLAY_DEGRADED})
+        if not np.array_equal(got, obj):
+            raise AssertionError(f"CLAY degraded read without {CLAY_DEGRADED} differs")
+    out["degraded_read"] = {"missing": list(CLAY_DEGRADED),
+                            "objects": min(cfg.clay_degraded_objects, len(objects)),
+                            "seconds": time.perf_counter() - t0}
+    del written, objects
+
+    # (ii) tools/bench_all.py's shape, its inner code scalar_mds=jax -> cuda
+    big = clay_code(8, 4, 11, device, scalar_mds="cuda")
+    cs = big.get_chunk_size(k * cfg.clay_big_chunk)
+    bsinfo = ecutil.StripeInfo(k, k * cs)
+    data = _rand((k * cs,), gen, device).cpu().numpy()
+    t0 = time.perf_counter()
+    shards = ecutil.encode(bsinfo, big, data)
+    encode_s = time.perf_counter() - t0
+    lost = CLAY_LOST[0]
+    sc = cs // big.sub_chunk_no
+    reads = _repair_reads(big, shards, lost, sc)
+    prog = clay_program(big, lost, device)
+    H = prog.stage(reads)
+    got = prog.repair_device(H)
+    if not np.array_equal(got.cpu().numpy().reshape(-1), shards[lost]):
+        raise AssertionError("CLAY 32 MiB-chunk repair by the program differs")
+    if cuda:
+        prog_ms = time_ms(lambda i: prog.repair_device(H), cfg.clay_big_repeats, cfg.repeats)
+    else:
+        t0 = time.perf_counter()
+        prog.repair_device(H)
+        prog_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = ecutil.decode_shards(bsinfo, big, reads, {lost}, packed_repair=True)[lost]
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(host, shards[lost]):
+        raise AssertionError("CLAY 32 MiB-chunk repair by the host traversal differs")
+    out["bench_shape"] = {
+        "profile": big.get_profile(), "chunk_size": cs, "H": list(H.shape),
+        "encode_s": encode_s, "lost": lost, "program_ms": prog_ms,
+        "program_GB_per_s": cs / (prog_ms * 1e-3) / 1e9,
+        "host_traversal_s": host_s, "host_GB_per_s": cs / host_s / 1e9,
+        **clay_bounds_ms(prog.schedule, sc)}
+    del H, got, shards, reads, host, data
+
+    # (iii) the OSD's default stripe unit: 4096 B chunks, 64 B sub-chunks
+    ssinfo = ecutil.StripeInfo(k, k * ec.get_chunk_size(cfg.stripe_unit * k))
+    g0, c0 = _gf_launches(), clay_repair_launches()
+    t0 = time.perf_counter()
+    small = []
+    for _ in range(cfg.clay_small_objects):
+        obj = _rand((cfg.clay_object_bytes,), gen, device).cpu().numpy()
+        shards = ecutil.encode(ssinfo, ec, obj)
+        stripes = obj.nbytes // ssinfo.stripe_width
+        sc = ssinfo.chunk_size // ec.sub_chunk_no
+        for lost in CLAY_LOST:
+            reads = _repair_reads(ec, shards, lost, sc, stripes)
+            got = ecutil.decode_shards(ssinfo, ec, reads, {lost}, packed_repair=True)[lost]
+            if not np.array_equal(got, shards[lost]):
+                raise AssertionError(f"CLAY shard {lost} at the 4 KiB stripe unit differs")
+        small.append(stripes)
+    out["stripe_unit"] = {"chunk_size": ssinfo.chunk_size, "objects": len(small),
+                          "stripes": sum(small), "seconds": time.perf_counter() - t0,
+                          "gf_launches": _gf_launches() - g0,
+                          "clay_repair_launches": clay_repair_launches() - c0}
+    emit(out)
+    return out
+
+
 #: device -> the CRUSH kernels' main-path cases (crush_main_path)
 _CRUSH_CASES: dict = {}
 
@@ -903,6 +1240,26 @@ def crush_main_path(cfg: Config, device) -> dict:
         cases[CRUSH_ENTRIES[mapper.kind]] = (mapper, x, rew, draws)
     _CRUSH_CASES[str(device)] = cases
     return cases
+
+
+#: device -> the CLAY repair's main-path case (clay_main_path)
+_CLAY_CASES: dict = {}
+
+
+def clay_main_path(cfg: Config, device) -> tuple:
+    """The CLAY repair at phase 9's shape (CLAY(8,4,11), lost shard
+    ``CLAY_LOST[0]``, one 4 MiB object's sub-chunks): the program and
+    random staged helpers for it, rotated over more than the 50 MB L2."""
+    hit = _CLAY_CASES.get(str(device))
+    if hit is None:
+        gen = torch.Generator(device=device).manual_seed(cfg.seed + 7)
+        ec = clay_code(8, 4, 11, device)
+        prog = clay_program(ec, CLAY_LOST[0], device)
+        sc = ec.get_chunk_size(cfg.clay_object_bytes) // ec.sub_chunk_no
+        per = prog.schedule.n_helpers * prog.schedule.P * sc
+        hit = _CLAY_CASES[str(device)] = (prog, [
+            staged_random(prog, sc, gen, device) for _ in range(max(2, -(-64 * MiB // per)))])
+    return hit
 
 
 def main_path_shapes(cfg: Config, device, codec) -> dict:
@@ -952,6 +1309,14 @@ def main_path_shapes(cfg: Config, device, codec) -> dict:
             lambda i: hashing.batched_crc32c_plain(bufsc[i % 32]),
             crc_bound_ms(lanes, cfg.batch_cols), f"crc ({lanes}, {cfg.batch_cols})", None),
     }
+    clay, H_bufs = clay_main_path(cfg, device)
+    sched = clay.schedule
+    cb = clay_bounds_ms(sched, H_bufs[0].shape[-1])
+    out["clay_repair"] = (
+        lambda i: clay.repair_device(H_bufs[i % len(H_bufs)]),
+        lambda i: clay_cuda.clay_repair_plain(H_bufs[i % len(H_bufs)], sched),
+        (cb["bound_ms"], cb["bound_by"]),
+        f"CLAY(8,4,11) lost {clay.lost}, H {tuple(H_bufs[0].shape)}", None)
     for name, (mapper, x, rew, draws) in crush_main_path(cfg, device).items():
         masked = mapper.class_masked(rew)
         out[name] = (
@@ -1080,6 +1445,25 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
     shapes = main_path_shapes(cfg, device, tp["codec"])
     for name, (fn, _, _, shape, _x) in shapes.items():
         out["per_launch"][name] = per_launch(fn, 48, shape, KERNELS[name][1])
+    # phase 9's rebuild of a few objects, each way alone
+    ec = clay_code(8, 4, 11, device)
+    sinfo = ecutil.StripeInfo(ec.k, ec.k * ec.get_chunk_size(cfg.clay_object_bytes))
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 8)
+    written = [ecutil.encode(sinfo, ec, _rand((sinfo.stripe_width,), gen, device).cpu().numpy())
+               for _ in range(cfg.clay_traced_objects)]
+    out["clay_rebuild"] = {}
+    for way in ("host_traversal", "program"):
+        wall, dev = traced(lambda way=way: clay_rebuild(ec, sinfo, written, CLAY_LOST[0],
+                                                        device, ways=(way,)))
+        busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+        kinds: dict[str, float] = {}
+        for e in dev:
+            kind = next((kn for _, kn in KERNELS.values() if ours(e, kn)), e["cat"])
+            kinds[kind] = kinds.get(kind, 0.0) + e["dur"]
+        out["clay_rebuild"][way] = {"objects": len(written), "wall_s": wall,
+                                    "device_busy_s": busy * 1e-6,
+                                    "device_idle_share": 1 - busy * 1e-6 / wall,
+                                    "device_us_by_kind": kinds}
     bits, data, carry = tp["codec"].encode_bits, tp["data"], tp["carry"]
     out["per_launch"]["gf_bitmatmul_pallas_acc"] = per_launch(
         lambda i: rk.gf_bitmatmul_pallas_acc(bits, data, carry, i,
@@ -1123,6 +1507,11 @@ def run_main_path(cfg: Config, device, full_check: bool = True) -> dict:
             "scrub": scrub, "remap": remapped}
 
 
+def run_plugin_path(cfg: Config, device) -> dict:
+    """Phases 8-9 on ``device``; returns their lines."""
+    return {"plugins": phase_plugins(cfg, device), "clay": phase_clay(cfg, device)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
@@ -1156,8 +1545,22 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
+    # the plugin family and the CLAY pool: a path of its own, counted alone
+    rk.reset_launch_counts()
+    clay_cuda.reset_launch_counts()
+    run_plugin_path(cfg, device)
+    torch.cuda.synchronize()
+    plugin_launches = {**rk.launch_counts(), **clay_cuda.launch_counts()}
+    emit({"phase": "plugin_path_launches", **plugin_launches})
+    if plugin_launches["clay_repair"] <= 0 or sum(rk.launch_counts().values()) <= 0:
+        raise AssertionError(f"kernels not launched on the plugin path: {plugin_launches}")
+    launches["clay_repair"] = plugin_launches["clay_repair"]
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
+    for row in rows:
+        if row["name"] in rk.launch_counts():
+            row["plugin_path_launches"] = plugin_launches[row["name"]]
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,52 @@
+"""The port's ``ClayRepairProgram`` against the JAX package's.
+
+For every lost node of CLAY(4,2,5), (8,4,11) and (8,3,10), the port's
+program on the CPU (the plain version of ``clay_repair.cu``'s schedule)
+and the reference's jitted program (XLA on the CPU) rebuild the lost
+chunk from the same minimum-run helper reads; both must equal the
+written chunk (tolerance 0).  One XLA compile per case, so this file
+holds only these cases.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ceph_tpu.ec import registry as ref_registry
+from ceph_tpu.ec.plugins.clay_jit import ClayRepairProgram as RefProgram
+from ceph_tpu_torch.ec import registry
+from ceph_tpu_torch.ec.plugins import clay_cuda
+
+GEOMETRIES = [(4, 2, 5), (8, 4, 11), (8, 3, 10)]
+CASES = [(k, m, d, lost) for k, m, d in GEOMETRIES for lost in range(k + m)]
+_CODED: dict = {}
+
+
+def _coded(k, m, d):
+    key = (k, m, d)
+    if key not in _CODED:
+        prof = {"k": str(k), "m": str(m), "d": str(d)}
+        port = registry.factory("clay", dict(prof), device="cpu")
+        ref = ref_registry.factory("clay", dict(prof))
+        cs = port.get_chunk_size(k * 2048)
+        data = np.random.default_rng(k + 10 * m).integers(0, 256, k * cs, dtype=np.uint8)
+        _CODED[key] = (port, ref, cs, port.encode(set(range(k + m)), data))
+    return _CODED[key]
+
+
+@pytest.mark.parametrize("k,m,d,lost", CASES)
+def test_repair_program_equals_reference(k, m, d, lost):
+    port, ref, cs, enc = _coded(k, m, d)
+    sub = cs // port.sub_chunk_no
+    minimum = port.minimum_to_decode({lost}, set(range(k + m)) - {lost})
+    helpers = {c: np.concatenate([enc[c][o * sub:(o + n) * sub] for o, n in runs])
+               for c, runs in minimum.items()}
+    node = lost if lost < k else lost + port.nu
+    prog = clay_cuda.ClayRepairProgram(port, node, device="cpu")
+    got = prog.repair(helpers)
+    assert np.array_equal(got, enc[lost])
+    assert np.array_equal(got, RefProgram(ref, node).repair(helpers))
+    H = prog.stage(helpers)
+    assert H.device.type == "cpu" and tuple(H.shape) == (
+        prog.schedule.n_helpers, prog.schedule.P, sub)
+    assert torch.equal(prog.repair_device(H).reshape(-1), torch.from_numpy(enc[lost]))

@@ -21,6 +21,7 @@ from ceph_tpu_torch.crush.cudamapper import BatchedRuleMapper, compile_map
 from ceph_tpu_torch.crush.tester import CrushTester
 from ceph_tpu_torch.crush.types import CrushMap
 from ceph_tpu_torch.ec import registry
+from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
 from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
@@ -60,7 +61,9 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
     assert "ceph_tpu_torch.ops.hashing" in mods
     for name in ("crush.types", "crush._ln_tables", "crush.builder", "crush.mapper",
                  "crush.cudamapper", "crush.tester", "osd.types", "osd.osdmap",
-                 "osd.remap", "osd.balancer"):
+                 "osd.remap", "osd.balancer", "models.bitmatrices", "ec.plugins.isa",
+                 "ec.plugins.jerasure", "ec.plugins.shec", "ec.plugins.lrc",
+                 "ec.plugins.clay", "ec.plugins.clay_cuda"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -108,6 +111,12 @@ def test_static_scan_sees_a_planted_import():
     assert not _REF.search("from ceph_tpu_torch.ops import gf256")
 
 
+#: every plugin this port adds beside ``cuda``, with a profile it takes
+NEW_PLUGINS = [("isa", {}), ("jerasure", {}), ("jerasure", {"technique": "liberation"}),
+               ("shec", {}), ("lrc", {"k": "4", "m": "2", "l": "3"}), ("clay", {}),
+               ("clay", {"scalar_mds": "cuda"})]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -141,6 +150,12 @@ def test_default_device_constructors_raise(no_cuda):
         UpmapBalancer(OSDMap(crush=m))
     with pytest.raises(RuntimeError, match="CUDA"):
         CrushTester(m)
+    for plugin, profile in NEW_PLUGINS:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            registry.factory(plugin, dict(profile))
+    clay = registry.factory("clay", {"k": "4", "m": "2"}, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClayRepairProgram(clay, 0)
 
 
 def test_cpu_is_only_by_request(no_cuda):
@@ -151,11 +166,16 @@ def test_cpu_is_only_by_request(no_cuda):
     m, rule = _crush_map()
     assert BatchedRuleMapper(compile_map(m), rule, 3, device="cpu").device.type == "cpu"
     assert BatchedClusterMapper(OSDMap(crush=m), device="cpu").device.type == "cpu"
+    for plugin, profile in NEW_PLUGINS:
+        assert registry.factory(plugin, dict(profile), device="cpu").device.type == "cpu"
+    clay = registry.factory("clay", {"k": "4", "m": "2"}, device="cpu")
+    assert ClayRepairProgram(clay, 0, device="cpu").device.type == "cpu"
 
 
 def test_version():
     assert ceph_tpu_torch.__version__ == "0.1.0"
     # the plugin handshake checks its version against the package's
-    from ceph_tpu_torch.ec.plugins import cuda
+    from ceph_tpu_torch.ec.plugins import clay, cuda, isa, jerasure, lrc, shec
 
-    assert cuda.__erasure_code_version__ == ceph_tpu_torch.__version__
+    for plugin in (clay, cuda, isa, jerasure, lrc, shec):
+        assert plugin.__erasure_code_version__ == ceph_tpu_torch.__version__

@@ -97,6 +97,13 @@ def test_slice_matches_reference():
     assert set(rk.launch_counts().values()) == {0}
 
 
+#: chip_smoke's CLAY and plugin sizes cut for the CPU: 64 KiB objects
+#: (8 KiB CLAY(8,4,11) chunks, 128 B sub-chunks), a 32 KiB big chunk
+TINY_CLAY = dict(clay_objects=3, clay_object_bytes=64 * 1024, clay_degraded_objects=2,
+                 clay_big_chunk=32 * 1024, clay_big_repeats=2, clay_small_objects=1,
+                 clay_traced_objects=1, plugin_object_bytes=64 * 1024)
+
+
 def test_chip_smoke_phases_on_cpu():
     """chip_smoke's phases 1-6 at a tiny size on the CPU: the scrub phase
     verifies 6 objects in chunks of 4 (crc == HashInfo, the rebuilt
@@ -112,7 +119,7 @@ def test_chip_smoke_phases_on_cpu():
         crc_cols=(4096,), compare_cols=(512,), crc_lanes=8, scrub_chunk=4,
         scrub_corrupt=1, remap_hosts=12, remap_osds_per_host=2, remap_rep_pgs=64,
         remap_ec_pgs=16, remap_epochs=2, remap_sample=4, crush_seeds=(1, 8),
-        balancer_swaps=4)
+        balancer_swaps=4, **TINY_CLAY)
     worst = chip_smoke.phase_kernels(cfg, "cpu")
     assert worst == {name: 0 for name in chip_smoke.REPLACES}
     run = chip_smoke.run_main_path(cfg, "cpu")
@@ -148,3 +155,41 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
 def test_chip_smoke_busy_union():
     assert chip_smoke._busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
     assert chip_smoke._busy_us([]) == 0
+
+
+def test_chip_smoke_plugin_phases_on_cpu():
+    """chip_smoke's phases 8-9 at a tiny size on the CPU: all 19 plugin
+    profiles match their golden bytes and decode; the CLAY pool rebuilds
+    shards 3 and 9 both ways from 11 x 16 of 64 sub-chunks (11/32 of an
+    RS(8,4) read), degraded-reads without shards 3 and 9, repairs the
+    bench shape's stripe and the 4 KiB stripe unit's; on the CPU no
+    kernel launches."""
+    from ceph_tpu_torch.ec.plugins import clay_cuda
+
+    cfg = chip_smoke.Config(**TINY_CLAY)
+    rk.reset_launch_counts()
+    clay_cuda.reset_launch_counts()
+    run = chip_smoke.run_plugin_path(cfg, "cpu")
+    plugins, clay = run["plugins"], run["clay"]
+    assert plugins["profiles"] == 19
+    assert all(r["decoded"] and r["gf_launches"] == 0 for r in plugins["rows"])
+    assert [r["decoded"][0] for r in plugins["rows"]] == [[0]] * 19
+    assert clay["chunk_size"] == 8192 and clay["sub_chunk"] == 128
+    for r, lost in zip(clay["rounds"], chip_smoke.CLAY_LOST):
+        assert r["lost"] == lost and r["objects"] == 3
+        assert r["helper_bytes_read"] == 3 * 11 * 16 * 128
+        assert r["read_share_of_rs"] == 11 * 16 / 64 / 8
+        assert r["program"]["clay_repair_launches"] == 0
+        assert r["bound_per_object"]["bound_by"] == "bytes"
+    big = clay["bench_shape"]
+    assert big["chunk_size"] == 32 * 1024 and big["H"] == [11, 16, 512]
+    assert big["bound_by"] == "bytes" and big["bytes_ms"] > big["operations_ms"]
+    assert clay["stripe_unit"]["chunk_size"] == 4096 and clay["stripe_unit"]["stripes"] == 2
+    assert clay["stripe_unit"]["gf_launches"] == clay["stripe_unit"]["clay_repair_launches"] == 0
+    assert set(rk.launch_counts().values()) == {0}
+    assert clay_cuda.launch_counts() == {"clay_repair": 0}
+    prog, bufs = chip_smoke.clay_main_path(cfg, "cpu")
+    assert tuple(bufs[0].shape) == (11, 16, 128)
+    b = chip_smoke.clay_bounds_ms(prog.schedule, 8192)
+    assert b["bound_by"] == "bytes" and b["bound_ms"] == b["bytes_ms"]
+    assert b["bytes_ms"] == (11 * 16 + 64) * 8192 / chip_smoke.PEAK_BYTES_PER_S * 1e3
