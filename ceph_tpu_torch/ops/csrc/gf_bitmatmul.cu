@@ -7,7 +7,8 @@
 // i.e. the (m, k) GF(2^8) matrix whose bit expansion is B, applied to the
 // bytes of every column s (erasure encode with the generator, decode with
 // a per-erasure-signature matrix).  Optionally batched over a leading
-// axis, and in one of three modes (the template's MODE): store
+// axis, and in one of three modes (the template's MODE, besides the
+// stage cuts below): store
 // out = f(data); "acc"  out = out ^ f(data ^ seed); or "compare", which
 // loads the stored parity where the store would write and sets
 // flags[b, u] when f(data[b]) differs from parity[b] anywhere in row u.
@@ -87,6 +88,20 @@
 // mask is the warp's lanes that have an item in this pass of the loop (a
 // prefix: the grid stride is a multiple of 32).
 //
+// The stage cuts (modes 3-5) replace the ablation probe of the JAX
+// package's tools/perf_lab2.py (make_ablate, its pallas_call at :76),
+// which cuts the TPU encode after load, bit extraction or the MXU
+// product.  Each runs this kernel's own loop, launch plan and mask copy
+// up to its stage and writes the probe's output: data[0:m] (load),
+// data[0:m] & 1 (extract), f(data) & 1 (product); "full" is kStore.
+// This kernel has no extraction stage of its own (its byte masks select
+// the bits inside the product's LOP3), so the extract cut forms the 8k
+// bit planes (x >> b) & 0x01010101 that the TPU kernel unpacks: its cost
+// over the load cut is what unpacking would cost here.  The product cut
+// forms all 8m bit rows but skips the tree fold.  Every value a cut
+// would not need is passed to an empty asm volatile (keep_live), so
+// nvcc keeps all k input rows' loads and the work up to the stage.
+//
 // Plain C interface (ctypes); the launch goes on the caller's stream and
 // the function returns cudaGetLastError() after it.  It makes no query
 // call: the host computes the plan from the SM count it has cached.
@@ -106,7 +121,19 @@ enum Mode : int {
   kStore = 0,    // out = f(data)
   kAcc = 1,      // out ^= f(data ^ seed), in place
   kCompare = 2,  // flags[b, u] |= f(data[b]) row u != parity[b] row u
+  // The stage cuts (the measurement probe's ablation): the loop runs up
+  // to its stage over every input row, then writes an (m, S) uint8 out.
+  kCutLoad = 3,     // out = data[0:m]
+  kCutExtract = 4,  // out = data[0:m] & 1
+  kCutProduct = 5,  // out = f(data) & 1
 };
+
+// Keeps x live: the compiler must compute it into a register here, so a
+// stage cut cannot drop the work before its stage (no instruction is
+// emitted for the statement itself).
+__device__ __forceinline__ void keep_live(uint32_t x) {
+  asm volatile("" ::"r"(x));
+}
 
 // Blocks of kThreads each SM must hold at once (the register budget: 64
 // registers a thread for 8 columns, 80 for 16).
@@ -289,16 +316,15 @@ __device__ __forceinline__ void and_xor(const uint32_t (&x)[8][W], int q,
   }
 }
 
-// Bit rows c and c + 4 of output byte u over the item (XOR over input
-// rows i of x_i & mask), formed together and merged by fold_pair into
-// out.  x holds input chunk 0 when loaded (k <= 8: it is never
-// reloaded); other chunks are loaded here.  Masks come four at a time.
+// Bit rows c (lo) and c + 4 (hi) of output byte u over the item (XOR
+// over input rows i of x_i & mask), formed together.  x holds input
+// chunk 0 when loaded (k <= 8: it is never reloaded); other chunks are
+// loaded here.  Masks come four at a time.
 template <int MODE, int W, bool PACKED>
-__device__ __forceinline__ void pair(const Params& p, const uint32_t* sm,
-                                     const Item& it, uint32_t (&x)[8][W],
-                                     bool loaded, int u, int c,
-                                     uint32_t (&out)[W]) {
-  uint32_t lo[W], hi[W];
+__device__ __forceinline__ void products(const Params& p, const uint32_t* sm,
+                                         const Item& it, uint32_t (&x)[8][W],
+                                         bool loaded, int u, int c,
+                                         uint32_t (&lo)[W], uint32_t (&hi)[W]) {
 #pragma unroll
   for (int j = 0; j < W; ++j) lo[j] = hi[j] = 0u;
   for (int ch = 0; ch < p.nch; ++ch) {
@@ -316,8 +342,96 @@ __device__ __forceinline__ void pair(const Params& p, const uint32_t* sm,
         and_xor<W, false>(x, q, nrow, ml, mh, lo, hi);
     }
   }
+}
+
+// Bit rows c and c + 4 of output byte u, merged by fold_pair into out.
+template <int MODE, int W, bool PACKED>
+__device__ __forceinline__ void pair(const Params& p, const uint32_t* sm,
+                                     const Item& it, uint32_t (&x)[8][W],
+                                     bool loaded, int u, int c,
+                                     uint32_t (&out)[W]) {
+  uint32_t lo[W], hi[W];
+  products<MODE, W, PACKED>(p, sm, it, x, loaded, u, c, lo, hi);
 #pragma unroll
   for (int j = 0; j < W; ++j) out[j] = fold_pair(lo[j], hi[j]);
+}
+
+template <int W>
+__device__ __forceinline__ void store_row(const Item& it, uint8_t* orow,
+                                          const uint32_t (&res)[W]) {
+  if (it.fast)
+    store_vec<W>(orow, res);
+  else
+    store_bytes<W>(orow, it.rem, res);
+}
+
+// kCutLoad and kCutExtract: every input row of the item is loaded (and,
+// for kCutExtract, cut into its eight bit planes (x >> b) & 0x01010101,
+// the TPU kernel's unpacking), each value kept live; then output row u
+// is input row u (kCutLoad) or its bit plane 0 (kCutExtract).  Needs
+// m <= k (the host checks).
+template <int MODE, int W>
+__device__ __forceinline__ void cut_early(const Params& p, const Item& it,
+                                          uint32_t (&x)[8][W], bool loaded) {
+  for (int ch = 0; ch < p.nch; ++ch) {
+    if (!loaded || ch > 0) load_chunk<MODE, W>(p, it, ch, x);
+    const int nrow = min(8, p.k - 8 * ch);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i >= nrow) continue;
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        if (MODE == kCutLoad) {
+          keep_live(x[i][j]);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 8; ++b) keep_live((x[i][j] >> b) & 0x01010101u);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = 8 * ch + i;
+      if (i >= nrow || row >= p.m) continue;
+      uint32_t res[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        res[j] = MODE == kCutLoad ? x[i][j] : x[i][j] & 0x01010101u;
+      store_row<W>(it, it.o + (long long)row * p.s, res);
+    }
+  }
+}
+
+// kCutProduct: all 8m bit rows of the product are formed (the kernel's
+// own AND-XOR loop, each row kept live), but not folded: output byte u is
+// the byte parity of bit row 0 alone, i.e. bit 0 of f(data) row u.
+template <int MODE, int W, bool PACKED>
+__device__ __forceinline__ void cut_product(const Params& p, const uint32_t* sm,
+                                            const Item& it, uint32_t (&x)[8][W],
+                                            bool loaded) {
+  for (int u = 0; u < p.m; ++u) {
+    uint32_t row0[W];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t lo[W], hi[W];
+      products<MODE, W, PACKED>(p, sm, it, x, loaded || u + c > 0, u, c, lo, hi);
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        keep_live(lo[j]);
+        keep_live(hi[j]);
+        if (c == 0) row0[j] = lo[j];
+      }
+    }
+    uint32_t res[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      uint32_t t = row0[j] ^ (row0[j] >> 4);
+      t ^= t >> 2;
+      t ^= t >> 1;
+      res[j] = t & 0x01010101u;
+    }
+    store_row<W>(it, it.o + (long long)u * p.s, res);
+  }
 }
 
 // Every output byte of one item.  The bit rows of output byte u are
@@ -329,6 +443,14 @@ template <int MODE, int W, bool PACKED>
 __device__ __forceinline__ void item(const Params& p, const uint32_t* sm,
                                      const Item& it, uint32_t (&x)[8][W],
                                      bool loaded) {
+  if constexpr (MODE == kCutLoad || MODE == kCutExtract) {
+    cut_early<MODE, W>(p, it, x, loaded);
+    return;
+  }
+  if constexpr (MODE == kCutProduct) {
+    cut_product<MODE, W, PACKED>(p, sm, it, x, loaded);
+    return;
+  }
   for (int u = 0; u < p.m; ++u) {
     uint32_t d[2][W];
 #pragma unroll
@@ -364,10 +486,7 @@ __device__ __forceinline__ void item(const Params& p, const uint32_t* sm,
 #pragma unroll
       for (int j = 0; j < W; ++j) res[j] ^= prev[j];
     }
-    if (it.fast)
-      store_vec<W>(orow, res);
-    else
-      store_bytes<W>(orow, it.rem, res);
+    store_row<W>(it, orow, res);
   }
 }
 
@@ -429,7 +548,9 @@ extern "C" {
 // For b < batch: mode 0, out[b] = f(data[b]); mode 1, out[b] ^=
 // f(data[b] ^ seed); mode 2, out[b, u] = 1 where f(data[b]) row u
 // differs from parity[b] row u, else 0 (out: (batch, m) int32, zeroed
-// here first).  data: (batch, k, s), out (modes 0, 1) and parity (mode 2):
+// here first); the stage cuts, mode 3 out[b] = data[b][0:m], mode 4
+// data[b][0:m] & 1 (both need m <= k), mode 5 f(data[b]) & 1.
+// data: (batch, k, s), out (modes 0, 1, 3-5) and parity (mode 2):
 // (batch, m, s), contiguous.  masks: device array of m * nch * 64
 // replicated words, or with packed != 0 of m * nch * 16 packed words
 // (nch = ceil(k / 8)).  words (2 or 4) and blocks are the host's launch
@@ -439,8 +560,9 @@ int ceph_gf_bitmatmul(const void* data, const void* parity, void* out,
                       long long s, int batch, int mode, int seed, int words,
                       int blocks, void* stream) {
   if (k < 1 || m < 1 || k + m > 256 || s < 0 || batch < 0 || blocks < 1 ||
-      (words != 2 && words != 4) || mode < kStore || mode > kCompare ||
-      (mode == kCompare && parity == nullptr))
+      (words != 2 && words != 4) || mode < kStore || mode > kCutProduct ||
+      (mode == kCompare && parity == nullptr) ||
+      ((mode == kCutLoad || mode == kCutExtract) && m > k))
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (mode == kCompare && batch > 0) {
@@ -478,6 +600,9 @@ int ceph_gf_bitmatmul(const void* data, const void* parity, void* out,
   switch (mode) {
     case kAcc: return launch_w<kAcc>(p, words, blocks, st);
     case kCompare: return launch_w<kCompare>(p, words, blocks, st);
+    case kCutLoad: return launch_w<kCutLoad>(p, words, blocks, st);
+    case kCutExtract: return launch_w<kCutExtract>(p, words, blocks, st);
+    case kCutProduct: return launch_w<kCutProduct>(p, words, blocks, st);
     default: return launch_w<kStore>(p, words, blocks, st);
   }
 }

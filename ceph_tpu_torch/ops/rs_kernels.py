@@ -14,6 +14,8 @@ host-side and cached).
 Deep scrub's re-encode-compare (:func:`gf_encode_compare`) is the same
 product with a compare in place of the store: it returns a (B, m)
 mismatch mask against the stored parity, which it never writes out.
+The measurement probe's stage cuts (:func:`gf_stage_cut`) run the same
+kernel's loop up to the load, the bit extraction or the product.
 
 Every entry point has two implementations of one function:
 
@@ -220,14 +222,18 @@ def _sm_count(index: int) -> int:
 
 #: the kernel's modes (``Mode`` in the source)
 MODE_STORE, MODE_ACC, MODE_COMPARE = 0, 1, 2
+#: the stage cuts' modes, by stage; "full" is the store
+STAGE_MODES = {"load": 3, "extract": 4, "matmul": 5, "full": MODE_STORE}
 
 
 def _launch(bitmat, data, out, *, acc=False, seed=0, words=None,
-            parity=None) -> None:
+            parity=None, stage=None) -> None:
     """One kernel launch on the current stream; raises if it is refused.
     ``words`` overrides the launch plan's columns per thread (4 * words).
     With ``parity`` the launch compares: ``out`` is the int32 (..., m)
-    flags, which the C entry zeroes first.  Checks only what the kernel needs (the entry points
+    flags, which the C entry zeroes first.  ``stage`` (a key of
+    ``STAGE_MODES``) launches that stage cut instead of the store.
+    Checks only what the kernel needs (the entry points
     check the rest): all on one CUDA device, data, parity and out
     contiguous."""
     ts = (("bitmat", bitmat), ("data", data), ("out", out))
@@ -247,7 +253,8 @@ def _launch(bitmat, data, out, *, acc=False, seed=0, words=None,
     batch = data.numel() // (k * s) if s else 0
     packed, masks = _masks(bitmat)
     words, blocks = _launch_plan(s, batch, _sm_count(index), words)
-    mode = MODE_COMPARE if parity is not None else MODE_ACC if acc else MODE_STORE
+    mode = (MODE_COMPARE if parity is not None else MODE_ACC if acc
+            else STAGE_MODES[stage] if stage is not None else MODE_STORE)
     args = (data.data_ptr(), parity.data_ptr() if parity is not None else None,
             out.data_ptr(), masks, packed, k, m, s, batch, mode, seed & 0xFF,
             words, blocks)
@@ -421,22 +428,66 @@ def gf_encode_compare(bitmat: torch.Tensor, data: torch.Tensor,
     return flags != 0
 
 
+def gf_stage_cut_plain(bitmat: torch.Tensor, data: torch.Tensor,
+                       stage: str) -> torch.Tensor:
+    """Plain version of :func:`gf_stage_cut`."""
+    m = bitmat.shape[0] // 8
+    if stage == "load":
+        return data[:m].clone()
+    if stage == "extract":
+        return data[:m] & 1
+    out = gf_bitmatmul_plain(bitmat, data)
+    return out & 1 if stage == "matmul" else out
+
+
+def gf_stage_cut(bitmat: torch.Tensor, data: torch.Tensor,
+                 stage: str) -> torch.Tensor:
+    """The encode cut after ``stage``, as (m, S) uint8: ``load`` gives
+    ``data[0:m]``, ``extract`` ``data[0:m] & 1``, ``matmul``
+    ``f(data) & 1`` and ``full`` ``f(data)``, for the (8m, 8k) bit-matrix
+    f and (k, S) data (``load`` and ``extract`` need m <= k).  Replaces
+    the ablation probe ``make_ablate(stage).run`` of the JAX package's
+    tools/perf_lab2.py:74 (``pallas_call`` :76).  On the card: one launch
+    of ``gf_bitmatmul.cu`` in the stage's cut mode, which runs the
+    kernel's own loop up to the stage over every input row (``full`` is
+    the store).  Launches are counted per stage in
+    ``gf_stage_cut.by_stage``."""
+    k, m = _check(bitmat, data)
+    if data.dim() != 2:
+        raise ValueError(f"data must be (k, S), got {tuple(data.shape)}")
+    if stage not in STAGE_MODES:
+        raise ValueError(f"stage must be one of {sorted(STAGE_MODES)}, got {stage!r}")
+    if stage in ("load", "extract") and m > k:
+        raise ValueError(f"stage {stage!r} needs m <= k, got k={k}, m={m}")
+    if _on_cpu(data):
+        return gf_stage_cut_plain(bitmat, data, stage)
+    out = torch.empty((m, data.shape[1]), dtype=torch.uint8, device=data.device)
+    _launch(bitmat, data, out, stage=stage)
+    count_launch(gf_stage_cut)
+    with _count_lock:
+        gf_stage_cut.by_stage[stage] += 1
+    return out
+
+
 KERNEL_ENTRY_POINTS = (
     gf_bitmatmul,
     gf_bitmatmul_pallas,
     gf_bitmatmul_pallas_grouped,
     gf_bitmatmul_pallas_acc,
     gf_encode_compare,
+    gf_stage_cut,
 )
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_ENTRY_POINTS:
         fn.launches = 0
+    gf_stage_cut.by_stage = dict.fromkeys(STAGE_MODES, 0)
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per entry point since the last reset."""
+    """Kernel launches per entry point since the last reset
+    (``gf_stage_cut``: all stages; per stage in ``gf_stage_cut.by_stage``)."""
     return {fn.__name__: fn.launches for fn in KERNEL_ENTRY_POINTS}
 
 

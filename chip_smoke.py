@@ -59,7 +59,17 @@ through the port's entry points:
    shape with ``scalar_mds=cuda`` (one 256 MiB stripe, 32 MiB chunks)
    repaired by the program, timed by CUDA events, and by the host
    traversal; two 4 MiB objects at the 4 KiB stripe unit rebuilt through
-   ``ecutil`` (every inner solve below ``device_min_bytes``: no launch).
+   ``ecutil`` (every inner solve below ``device_min_bytes``: no launch);
+10. tools — the measurement twins of ``ceph_tpu_torch.tools`` driven
+   through their ``main`` functions at the reference's widths with fewer
+   repeats: ``perf_lab`` (the copy probes through ``row_copy``, encode
+   chains, a tile sweep), ``perf_lab2`` (dispatch sweep, grouped launches,
+   the four-stage ablation through ``gf_stage_cut``, the repeat variant),
+   ``perf_lab3`` (``acc_encode`` loops), ``bench`` (the north-star acc
+   loop), ``ec_benchmark`` (encode and an exhaustive decode for ``cuda``
+   RS(8,3) and jerasure RS(4,2)) and ``bench_all``'s configs; their lines
+   are parsed, checked and emitted.  Before it, each tools kernel is held
+   against its plain version at the probe's shape and at ragged ones.
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -72,11 +82,16 @@ sub-chunk and at the 32 MiB-chunk shape.
 Kernel launch counts are reset just before phases 2-7 and read just
 after; every kernel of that path must have been launched there.  They
 are reset again before phases 8-9 and read after: ``clay_repair`` and
-the bit-matrix kernel must have been launched there.  Then a
+the bit-matrix kernel must have been launched there; and again before
+phase 10: ``row_copy``, the three stage cuts of ``gf_stage_cut``,
+``repeat_variant`` and ``acc_encode`` must have been launched there
+(``cuobjdump -sass`` then counts the global loads of each instantiation
+of the bit-matrix kernel, the cuts' included).  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, and the device time per launch at each kernel's main-path shape
 (and at each forced width of the launch plan); each kernel is timed
-there by CUDA events and held there against its plain version.  Each
+there by CUDA events and held there against its plain version; the
+tools kernels likewise at their probes' shapes.  Each
 phase prints one JSON line; then a ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; with no CUDA device it exits 1
@@ -86,9 +101,13 @@ before doing anything.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -112,6 +131,7 @@ from ceph_tpu_torch.ec.plugins import clay_cuda
 from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
 from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
 from ceph_tpu_torch.ops import hashing
+from ceph_tpu_torch.ops import lab_kernels as lk
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.ops.gf256 import gf_matmul
 from ceph_tpu_torch.osd import ecutil, remap
@@ -120,6 +140,12 @@ from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL, PgPool, PoolType, pg_t
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
 from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
+from ceph_tpu_torch.tools import bench as t_bench
+from ceph_tpu_torch.tools import bench_all as t_bench_all
+from ceph_tpu_torch.tools import ec_benchmark as t_ec_benchmark
+from ceph_tpu_torch.tools import perf_lab as t_perf_lab
+from ceph_tpu_torch.tools import perf_lab2 as t_perf_lab2
+from ceph_tpu_torch.tools import perf_lab3 as t_perf_lab3
 
 #: NVIDIA H100 SXM data sheet: HBM3 rate and dense int8 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
@@ -137,6 +163,10 @@ GF_SOURCE = "ceph_tpu_torch/ops/csrc/gf_bitmatmul.cu"
 CRC_SOURCE = "ceph_tpu_torch/ops/csrc/crc32c_lanes.cu"
 CRUSH_SOURCE = "ceph_tpu_torch/ops/csrc/crush_rule.cu"
 CLAY_SOURCE = "ceph_tpu_torch/ops/csrc/clay_repair.cu"
+COPY_SOURCE = "ceph_tpu_torch/ops/csrc/lab_copy.cu"
+#: the stage cuts of the ablation probe with a mode of their own ("full"
+#: is the store)
+CUT_STAGES = ("load", "extract", "matmul")
 #: the CRUSH entry points, by rule kind
 CRUSH_ENTRIES = {"firstn": "crush_rule_firstn", "indep": "crush_rule_indep",
                  "msr": "crush_rule_msr"}
@@ -163,6 +193,14 @@ NO_LIBRARY["batched_crc32c_device"] = "no PyTorch call computes crc32c"
 NO_LIBRARY.update({name: "no PyTorch call computes CRUSH placement"
                    for name in CRUSH_ENTRIES.values()})
 NO_LIBRARY["clay_repair"] = "no PyTorch call computes a GF(2^8) linear combination"
+#: the PyTorch call timed beside each tools kernel, or why there is none
+TOOL_LIBRARY = {
+    "row_copy:copy_fn": "src[:rows].clone()", "row_copy:fat_copy": "src[:rows].clone()",
+    "gf_stage_cut:load": "d[:m].clone()", "gf_stage_cut:extract": "torch.bitwise_and(d[:m], 1)",
+    "gf_stage_cut:matmul": "no PyTorch call computes a GF(2^8) bit-matrix product",
+    "repeat_variant": "no PyTorch call computes a GF(2^8) bit-matrix product",
+    "acc_encode": "no PyTorch call computes a GF(2^8) bit-matrix product",
+}
 #: the golden chunk bytes of every plugin profile (tools/gen_ec_golden.py)
 GOLDEN = "tests/golden/ec_kats.json"
 #: CLAY: the phase-1 geometries (every lost node of each) and ragged
@@ -237,6 +275,26 @@ class Config:
     clay_traced_objects: int = 8
     #: objects of the plugins phase, each one stripe
     plugin_object_bytes: int = 4 * MiB
+    #: the tools path: the probes' own shapes (tools/perf_lab*.py): an
+    #: (8, 64 MiB) input, the fat copy's (1024, 512 Ki) -> 384 rows, the
+    #: acc loop's (8, 256 MiB); a ragged S for the checks
+    tools_cols: int = 64 * MiB
+    fat_rows: int = 1024
+    fat_keep: int = 384
+    fat_cols: int = 512 * 1024
+    acc_cols: int = 256 * MiB
+    tools_ragged_cols: int = MiB + 13
+    tools_calls: int = 16
+    #: the twins' arguments: the reference's widths, fewer repeats
+    perf_lab_args: tuple = ("--calls", "4", "--reps", "2")
+    perf_lab2_args: tuple = ("--calls", "8", "--reps", "2")
+    perf_lab3_args: tuple = ("--reps", "2")
+    bench_args: tuple = ("--rounds", "3", "--pause", "0")
+    ec_bench_size: int = 4 * MiB
+    ec_bench_iterations: int = 16
+    bench_all_args: tuple = ("--reps", "1", "--rounds", "2", "--pause", "0")
+    #: (field, value) changes to bench_all's sizes for the device
+    bench_all_sizes: tuple = ()
     iters: int = 32
     repeats: int = 5
     seed: int = 20261016
@@ -1374,6 +1432,38 @@ def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict,
     return rows
 
 
+def clay_bench_row(cfg: Config, device, launches: int) -> dict:
+    """``clay_repair``'s row at tools/bench_all.py's shape (one 8 x 32 MiB
+    stripe, ``scalar_mds=cuda``, random staged helpers): CUDA-event ms,
+    device µs, plain ms and bound, as ``kernel_rows`` gives them at the
+    object shape.  ``launches``: the plugin path's, this shape's among
+    them."""
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 12)
+    ec = clay_code(8, 4, 11, device, scalar_mds="cuda")
+    prog = clay_program(ec, CLAY_LOST[0], device)
+    sc = ec.get_chunk_size(8 * cfg.clay_big_chunk) // ec.sub_chunk_no
+    H = staged_random(prog, sc, gen, device)
+    sched = prog.schedule
+    shape = f"CLAY(8,4,11) lost {prog.lost}, H {tuple(H.shape)}"
+    bad, err = _errors(prog.repair_device(H), clay_cuda.clay_repair_plain(H, sched))
+    if bad:
+        raise AssertionError(f"clay_repair at {shape}: differs from its plain version "
+                             f"in {bad} bytes")
+    cb = clay_bounds_ms(sched, sc)
+    ms = time_ms(lambda i: prog.repair_device(H), cfg.clay_big_repeats, cfg.repeats)
+    return {
+        "name": "clay_repair:bench_shape", "route": "cuda", "source": CLAY_SOURCE,
+        "replaces": REPLACES["clay_repair"], "launches": launches, "max_abs_err": err,
+        "mismatched_bytes": bad, "ms": ms,
+        "plain_ms": time_ms(lambda i: clay_cuda.clay_repair_plain(H, sched), 1, 3),
+        "bound_ms": cb["bound_ms"], "bound_by": cb["bound_by"],
+        "bound_share": cb["bound_ms"] / ms, "library_ms": None,
+        "library_note": NO_LIBRARY["clay_repair"], "shape": shape,
+        "device_us": per_launch(lambda i: prog.repair_device(H), cfg.clay_big_repeats, shape,
+                                KERNELS["clay_repair"][1])["device_us_mean"],
+    }
+
+
 def gpu_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1391,6 +1481,46 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
+def traced(fn) -> tuple[float, list[dict]]:
+    """Run ``fn()`` under torch.profiler: (wall seconds to its end on the
+    device, the trace's device events: kernels, copies, memsets)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return wall, [e for e in events if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def ours(e: dict, kernel: str) -> bool:
+    return kernel in e.get("name", "")
+
+
+def per_launch(fn, calls: int, shape: str, kernel: str = "gf_bitmatmul_kernel") -> dict:
+    """Device time per launch of ``kernel`` over ``calls`` calls of
+    ``fn(i)`` (one warm-up call first), beside the wall time per call."""
+    fn(0)
+    wall_c, dev_c = traced(lambda: [fn(i) for i in range(calls)])
+    kern = [e["dur"] for e in dev_c if ours(e, kernel)]
+    return {"shape": shape, "launches": len(kern),
+            "device_us_mean": sum(kern) / max(len(kern), 1),
+            "wall_us_per_call": wall_c / calls * 1e6}
+
+
 def phase_profile(cfg: Config, device, tp: dict) -> dict:
     """Phases 2-6 again under torch.profiler (the remap checked on a
     sample of rows), reporting
@@ -1399,31 +1529,6 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
     kernel's own device time beside the CUDA-event time per call, and
     each shape again at each forced width of the launch plan (8 and 16
     columns per thread)."""
-    import os
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
-    def traced(fn) -> tuple[float, list[dict]]:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        fd, path = tempfile.mkstemp(suffix=".json")
-        os.close(fd)
-        try:
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        finally:
-            os.remove(path)
-        return wall, [e for e in events if e.get("ph") == "X"
-                      and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-
-    def ours(e: dict, kernel: str) -> bool:
-        return kernel in e.get("name", "")
-
     wall, dev = traced(lambda: run_main_path(cfg, device, full_check=False))
     busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     by_cat: dict[str, float] = {}
@@ -1433,15 +1538,6 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
     out = {"phase": "profile", "main_path_wall_s": wall,
            "device_busy_s": busy * 1e-6, "device_idle_share": 1 - busy * 1e-6 / wall,
            "device_us_by_kind": by_cat, "device_events": len(dev), "per_launch": {}}
-
-    def per_launch(fn, calls: int, shape: str, kernel: str = "gf_bitmatmul_kernel") -> dict:
-        fn(0)
-        wall_c, dev_c = traced(lambda: [fn(i) for i in range(calls)])
-        kern = [e["dur"] for e in dev_c if ours(e, kernel)]
-        return {"shape": shape, "launches": len(kern),
-                "device_us_mean": sum(kern) / max(len(kern), 1),
-                "wall_us_per_call": wall_c / calls * 1e6}
-
     shapes = main_path_shapes(cfg, device, tp["codec"])
     for name, (fn, _, _, shape, _x) in shapes.items():
         out["per_launch"][name] = per_launch(fn, 48, shape, KERNELS[name][1])
@@ -1494,6 +1590,295 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the measurement tools (ceph_tpu_torch.tools) and their kernels
+# ---------------------------------------------------------------------------
+
+#: each kernel row of the tools path: (entry point, TPU kernel it
+#: replaces, kernel source, the kernel's name in a trace)
+TOOL_ROWS = {
+    "row_copy:copy_fn": ("row_copy", "tools/perf_lab.py:61", COPY_SOURCE, "lab_row_copy"),
+    "row_copy:fat_copy": ("row_copy", "tools/perf_lab.py:101", COPY_SOURCE, "lab_row_copy"),
+    **{f"gf_stage_cut:{st}": ("gf_stage_cut", "tools/perf_lab2.py:76", GF_SOURCE,
+                              "gf_bitmatmul_kernel") for st in CUT_STAGES},
+    "repeat_variant": ("repeat_variant", "tools/perf_lab2.py:113", GF_SOURCE,
+                       "gf_bitmatmul_kernel"),
+    "acc_encode": ("acc_encode", "tools/perf_lab3.py:52", GF_SOURCE, "gf_bitmatmul_kernel"),
+}
+
+
+def tools_launches() -> dict[str, int]:
+    """Launches of the tools path's six entry points (the stage cuts by
+    stage)."""
+    return {**lk.launch_counts(),
+            **{f"gf_stage_cut:{st}": rk.gf_stage_cut.by_stage[st] for st in CUT_STAGES}}
+
+
+def tool_bounds(cfg: Config) -> dict[str, tuple[float, str]]:
+    """Each tools row's bound at its probe's shape, from the function's
+    bytes (each input byte it needs read once, each output byte written
+    once) or its operations: a copy of r rows and the load and extract
+    cuts 2 r S bytes; the matmul cut and the repeat variant an (m, S)
+    product of (k, S) data, as ``bound_ms``; the acc form with its carry."""
+    k, m, s = cfg.k, cfg.m, cfg.tools_cols
+    return {
+        "row_copy:copy_fn": _bound(2 * m * s, 0),
+        "row_copy:fat_copy": _bound(2 * cfg.fat_keep * cfg.fat_cols, 0),
+        "gf_stage_cut:load": _bound(2 * m * s, 0),
+        "gf_stage_cut:extract": _bound(2 * m * s, 0),
+        "gf_stage_cut:matmul": bound_ms(k, m, s),
+        "repeat_variant": bound_ms(k, m, s),
+        "acc_encode": bound_ms(k, m, cfg.acc_cols, carry=True),
+    }
+
+
+def tool_cases(cfg: Config, device) -> dict:
+    """Each tools row at its probe's shape: (kernel call, plain call,
+    library call or None, shape).  The library call is one PyTorch call computing the same
+    function; the port never calls it."""
+    k, m = cfg.k, cfg.m
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 10)
+    bits = rk.BitmatrixCodec(isa_cauchy_matrix(k, m), device=device).encode_bits
+    s, sa = cfg.tools_cols, cfg.acc_cols
+    d = _rand((k, s), gen, device)
+    big = _rand((cfg.fat_rows, cfg.fat_cols), gen, device)
+    da = _rand((k, sa), gen, device)
+    carry, carry_plain = (torch.zeros((m, sa), dtype=torch.uint8, device=device)
+                          for _ in range(2))
+    keep, fat = cfg.fat_keep, cfg.fat_cols
+    out = {
+        "row_copy:copy_fn": (lambda i: lk.row_copy(d, m), lambda i: lk.row_copy_plain(d, m),
+                             lambda i: d[:m].clone(), f"({k}, {s}) -> {m} rows"),
+        "row_copy:fat_copy": (lambda i: lk.row_copy(big, keep),
+                              lambda i: lk.row_copy_plain(big, keep),
+                              lambda i: big[:keep].clone(),
+                              f"({cfg.fat_rows}, {fat}) -> {keep} rows"),
+        "gf_stage_cut:load": (lambda i: rk.gf_stage_cut(bits, d, "load"),
+                              lambda i: rk.gf_stage_cut_plain(bits, d, "load"),
+                              lambda i: d[:m].clone(), f"load ({k}, {s}) -> ({m}, {s})"),
+        "gf_stage_cut:extract": (lambda i: rk.gf_stage_cut(bits, d, "extract"),
+                                 lambda i: rk.gf_stage_cut_plain(bits, d, "extract"),
+                                 lambda i: torch.bitwise_and(d[:m], 1),
+                                 f"extract ({k}, {s}) -> ({m}, {s})"),
+        "gf_stage_cut:matmul": (lambda i: rk.gf_stage_cut(bits, d, "matmul"),
+                                lambda i: rk.gf_stage_cut_plain(bits, d, "matmul"),
+                                None, f"matmul ({k}, {s}) -> ({m}, {s})"),
+        "repeat_variant": (lambda i: lk.repeat_variant(bits, d),
+                           lambda i: lk.repeat_variant_plain(bits, d),
+                           None, f"folded product ({k}, {s}) -> ({m}, {s})"),
+        "acc_encode": (lambda i: lk.acc_encode(bits, da, carry, i),
+                       lambda i: lk.acc_encode_plain(bits, da, carry_plain, i),
+                       None, f"acc ({k}, {sa})"),
+    }
+    return out
+
+
+def phase_kernel_tools(cfg: Config, device) -> dict[str, int]:
+    """Each tools kernel against its plain version on the same inputs, at
+    the probe's shape and at ragged ones (a ragged S; a copy whose
+    start is not 16-byte aligned; k = 16 and a packed k + m = 256 code
+    for the stage cuts; seeds 0, 3 and 255 and a nonzero carry for the
+    acc form).  Returns the largest absolute byte error per row; raises
+    on any mismatched byte."""
+    k, m = cfg.k, cfg.m
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 11)
+    worst = {name: 0 for name in TOOL_ROWS}
+    cases = []
+
+    def check(name: str, got: torch.Tensor, want: torch.Tensor, case: str) -> None:
+        bad, err = _errors(got, want)
+        worst[name] = max(worst[name], err)
+        cases.append({"row": name, "case": case, "mismatched_bytes": bad})
+        if bad:
+            raise AssertionError(f"{name} {case}: {bad} bytes differ from the plain version")
+
+    codes = {(k, m): rk.BitmatrixCodec(isa_cauchy_matrix(k, m), device=device).encode_bits}
+    for kk, mm in ((16, 4), (128, 128), (4, 2)):
+        codes[(kk, mm)] = rk.BitmatrixCodec(isa_cauchy_matrix(kk, mm), device=device).encode_bits
+    ragged = cfg.tools_ragged_cols
+    for s in (cfg.tools_cols, ragged):
+        d = _rand((k, s), gen, device)
+        check("row_copy:copy_fn", lk.row_copy(d, m), lk.row_copy_plain(d, m), f"({k}, {s})")
+        for st in CUT_STAGES:
+            check(f"gf_stage_cut:{st}", rk.gf_stage_cut(codes[(k, m)], d, st),
+                  rk.gf_stage_cut_plain(codes[(k, m)], d, st), f"({k}, {s})")
+        check("repeat_variant", lk.repeat_variant(codes[(k, m)], d),
+              lk.repeat_variant_plain(codes[(k, m)], d), f"({k}, {s})")
+        del d
+    for kk, mm in ((16, 4), (128, 128), (4, 2)):
+        d = _rand((kk, 4096 + 13), gen, device)
+        for st in CUT_STAGES:
+            if st != "matmul" and mm > kk:
+                continue
+            check(f"gf_stage_cut:{st}", rk.gf_stage_cut(codes[(kk, mm)], d, st),
+                  rk.gf_stage_cut_plain(codes[(kk, mm)], d, st), f"({kk}, {mm}) S=4109")
+        check("repeat_variant", lk.repeat_variant(codes[(kk, mm)], d),
+              lk.repeat_variant_plain(codes[(kk, mm)], d), f"({kk}, {mm}) S=4109")
+    for shape, keep, off in (((cfg.fat_rows, cfg.fat_cols), cfg.fat_keep, 0),
+                             ((cfg.fat_rows, 4096 + 13), cfg.fat_keep, 0),
+                             ((cfg.fat_rows + 1, 4096 + 13), cfg.fat_keep, 1)):
+        src = _rand(shape, gen, device)[off:]
+        check("row_copy:fat_copy", lk.row_copy(src, keep), lk.row_copy_plain(src, keep),
+              f"{tuple(src.shape)} -> {keep}" + (" unaligned" if off else ""))
+    for s in (cfg.tools_cols, ragged, cfg.acc_cols):
+        d = _rand((k, s), gen, device)
+        c0 = _rand((m, s), gen, device)
+        for seed in (0, 3, 255):
+            got = lk.acc_encode(codes[(k, m)], d, c0.clone(), seed)
+            check("acc_encode", got, lk.acc_encode_plain(codes[(k, m)], d, c0.clone(), seed),
+                  f"({k}, {s}) seed {seed}")
+            del got
+        del d, c0
+    _sync(device)
+    emit({"phase": "kernels_tools", "cases": len(cases),
+          "mismatched_bytes": sum(c["mismatched_bytes"] for c in cases), "worst": worst})
+    return worst
+
+
+_TIMED_LINE = re.compile(r"^(?P<name>.+?)\s+(?P<ms>[\d.]+) ms\s+(?P<gbs>[\d.]+) GB/s$")
+
+
+def _run_twin(main_fn, argv: list[str]) -> tuple[float, list[str]]:
+    """Run a twin's ``main(argv)``: (seconds, its stdout lines); raises
+    unless it returns 0."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__} {argv} exited {rc}:\n{buf.getvalue()}")
+    return time.perf_counter() - t0, buf.getvalue().splitlines()
+
+
+def _parse_lab(lines: list[str]) -> dict:
+    """A perf_lab twin's lines: timed lines as {name: [ms, GB/s]}, the
+    check lines as {name: bool}, section headers dropped."""
+    timed, checks = {}, {}
+    for ln in lines:
+        hit = _TIMED_LINE.match(ln.strip())
+        if hit:
+            timed[hit["name"]] = [float(hit["ms"]), float(hit["gbs"])]
+        elif ln.rstrip().endswith(("True", "False")):
+            name, _, val = ln.rpartition(":")
+            checks[name.strip()] = val.strip() == "True"
+        elif not ln.startswith("=="):
+            raise AssertionError(f"unparsed line: {ln!r}")
+    return {"timed": timed, "checks": checks}
+
+
+def phase_tools(cfg: Config, device) -> dict:
+    """Drive the measurement twins through their ``main`` functions on
+    ``device``: perf_lab, perf_lab2, perf_lab3, bench, ec_benchmark
+    (encode and an exhaustive decode for ``cuda`` RS(8,3) and jerasure
+    RS(4,2) reed_sol_van) and bench_all's configs.  Their output lines are
+    parsed and checked: the acc probe's checks True, the repeat variant's
+    check against the encode False (a reference fact: it is not the
+    encode) and against its folded product True, every bench_all config
+    without error.  Emits one line a twin, and returns their results."""
+    dev = ["--device", str(device)]
+    out = {}
+
+    def done(twin: str, seconds: float, result) -> None:
+        out[twin] = result
+        emit({"phase": "tools", "twin": twin, "seconds": seconds, "result": result})
+
+    for name, fn, args in (("perf_lab", t_perf_lab.main, cfg.perf_lab_args),
+                           ("perf_lab2", t_perf_lab2.main, cfg.perf_lab2_args),
+                           ("perf_lab3", t_perf_lab3.main, cfg.perf_lab3_args)):
+        secs, lines = _run_twin(fn, dev + list(args))
+        done(name, secs, _parse_lab(lines))
+    if not all(out["perf_lab3"]["checks"].values()) or len(out["perf_lab3"]["checks"]) != 2:
+        raise AssertionError(f"perf_lab3 checks: {out['perf_lab3']['checks']}")
+    want = {"repeat variant bit-exact": False, "repeat variant equals the folded product": True}
+    if out["perf_lab2"]["checks"] != want:
+        raise AssertionError(f"perf_lab2 checks: {out['perf_lab2']['checks']}")
+    secs, lines = _run_twin(t_bench.main, dev + list(cfg.bench_args))
+    done("bench", secs, json.loads(lines[-1]))
+    runs = []
+    t0 = time.perf_counter()
+    for plugin, params in (("cuda", ("k=8", "m=3")),
+                           ("jerasure", ("k=4", "m=2", "technique=reed_sol_van"))):
+        common = dev + ["--plugin", plugin, "--size", str(cfg.ec_bench_size),
+                        "--iterations", str(cfg.ec_bench_iterations)]
+        for p in params:
+            common += ["--parameter", p]
+        m = 3 if plugin == "cuda" else 2
+        for workload in (["--workload", "encode"],
+                         ["--workload", "decode", "--erasures", str(m),
+                          "--erasures-generation", "exhaustive"]):
+            _, lines = _run_twin(t_ec_benchmark.main, common + workload)
+            secs, kib = lines[-1].split("\t")
+            runs.append({"plugin": plugin, "workload": workload[1], "seconds": float(secs),
+                         "KiB": int(kib), "GB_per_s": int(kib) * 1024 / float(secs) / 1e9})
+    done("ec_benchmark", time.perf_counter() - t0, runs)
+    sizes = t_bench_all.Sizes.for_device(torch.device(device), **dict(cfg.bench_all_sizes))
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = t_bench_all.main(dev + list(cfg.bench_all_args), sizes=sizes)
+    done("bench_all", time.perf_counter() - t0,
+         [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")])
+    if rc != 0 or any("error" in ln for ln in out["bench_all"]):
+        raise AssertionError(f"bench_all failed: {out['bench_all']}")
+    return out
+
+
+def sass_ldg_counts() -> dict:
+    """Global loads (LDG) in each instantiation of ``gf_bitmatmul.cu``'s
+    kernel and in the copy kernels, from ``cuobjdump -sass`` of the built
+    libraries: that the stage cuts still load every input row is read
+    here.  Keys ``mode<M>_W<W>`` (modes 3-5 the cuts); values (all LDG,
+    vector LDG.128 / .64)."""
+    from ceph_tpu_torch.ops import _build
+
+    exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    out = {}
+    for lib, pattern in (("gf_bitmatmul", r"gf_bitmatmul_kernelILi(\d)ELi(\d)E"),
+                         ("lab_copy", r"(lab_row_copy\w*kernel)")):
+        sass = subprocess.run([exe, "-sass", os.path.join(_build.BUILD_DIR, f"lib{lib}.so")],
+                              check=True, capture_output=True, text=True, timeout=300).stdout
+        name = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                hit = re.search(pattern, ln)
+                name = (f"mode{hit[1]}_W{hit[2]}" if lib == "gf_bitmatmul" else hit[1]) if hit else None
+                if name:
+                    out[name] = [0, 0]
+            elif name and re.search(r"\bLDG\b|\bLDG\.", ln):
+                out[name][0] += 1
+                out[name][1] += bool(re.search(r"LDG\.\S*(128|64)\b", ln))
+    return out
+
+
+def tools_kernel_rows(cfg: Config, device, worst: dict, launches: dict) -> list[dict]:
+    """One row per tools kernel at its probe's shape: CUDA-event ms per
+    call, device µs per launch (profile pass), plain and library ms, the
+    bound and its share; raises unless it equals its plain version
+    there."""
+    rows = []
+    bounds = tool_bounds(cfg)
+    for name, (fn, plain, lib, shape) in tool_cases(cfg, device).items():
+        entry, replaces, source, kernel = TOOL_ROWS[name]
+        bms, by = bounds[name]
+        bad, err = _errors(fn(0), plain(0))
+        if bad:
+            raise AssertionError(f"{name} at {shape}: differs from its plain version "
+                                 f"in {bad} bytes")
+        calls = 4 if name == "acc_encode" else cfg.tools_calls
+        ms = time_ms(fn, calls, cfg.repeats)
+        dev_us = per_launch(fn, calls, shape, kernel)["device_us_mean"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name if name in launches else entry],
+            "max_abs_err": max(worst[name], err), "mismatched_bytes": bad,
+            "ms": ms, "plain_ms": time_ms(plain, 1, 3), "bound_ms": bms, "bound_by": by,
+            "bound_share": bms / ms,
+            "library_ms": time_ms(lib, calls, cfg.repeats) if lib is not None else None,
+            "library_note": TOOL_LIBRARY[name], "shape": shape, "device_us": dev_us,
+        })
+    return rows
+
+
 def run_main_path(cfg: Config, device, full_check: bool = True) -> dict:
     """Phases 2-6 on ``device``; returns the pool, what was written and
     the scrub and remap phases' lines."""
@@ -1510,6 +1895,17 @@ def run_main_path(cfg: Config, device, full_check: bool = True) -> dict:
 def run_plugin_path(cfg: Config, device) -> dict:
     """Phases 8-9 on ``device``; returns their lines."""
     return {"plugins": phase_plugins(cfg, device), "clay": phase_clay(cfg, device)}
+
+
+def run_tools_path(cfg: Config, device) -> dict:
+    """Phase 10 on ``device`` with the six tools entry points' launches
+    counted alone: reset just before the twins run, read just after.
+    Returns the tools line and the launches."""
+    rk.reset_launch_counts()
+    lk.reset_launch_counts()
+    tools = phase_tools(cfg, device)
+    _sync(device)
+    return {"tools": tools, "launches": tools_launches()}
 
 
 def main() -> int:
@@ -1541,7 +1937,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {**rk.launch_counts(), **hashing.launch_counts(), **cm.launch_counts()}
     emit({"phase": "main_path_launches", **launches})
-    missing = [n for n, c in launches.items() if c <= 0]
+    missing = [n for n, c in launches.items() if c <= 0 and n in REPLACES]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
@@ -1556,11 +1952,23 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the plugin path: {plugin_launches}")
     launches["clay_repair"] = plugin_launches["clay_repair"]
 
+    # the measurement tools: a path of their own, counted alone; their
+    # kernels are first held against their plain versions (not counted)
+    tool_worst = phase_kernel_tools(cfg, device)
+    tools = run_tools_path(cfg, device)
+    emit({"phase": "tools_path_launches", **tools["launches"]})
+    idle = [n for n, c in tools["launches"].items() if c <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the tools path: {idle}")
+    emit({"phase": "sass_ldg", **sass_ldg_counts()})
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     for row in rows:
         if row["name"] in rk.launch_counts():
             row["plugin_path_launches"] = plugin_launches[row["name"]]
+    rows.append(clay_bench_row(cfg, device, launches["clay_repair"]))
+    rows += tools_kernel_rows(cfg, device, tool_worst, tools["launches"])
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -63,7 +63,9 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "crush.cudamapper", "crush.tester", "osd.types", "osd.osdmap",
                  "osd.remap", "osd.balancer", "models.bitmatrices", "ec.plugins.isa",
                  "ec.plugins.jerasure", "ec.plugins.shec", "ec.plugins.lrc",
-                 "ec.plugins.clay", "ec.plugins.clay_cuda"):
+                 "ec.plugins.clay", "ec.plugins.clay_cuda", "ops.lab_kernels", "tools",
+                 "tools.perf_lab", "tools.perf_lab2", "tools.perf_lab3", "tools.bench",
+                 "tools.ec_benchmark", "tools.bench_all"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"

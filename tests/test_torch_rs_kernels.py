@@ -216,7 +216,8 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(rk, "_fn", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         rk._kernel()
-    assert _build.sources() == ["clay_repair", "crc32c_lanes", "crush_rule", "gf_bitmatmul"]
+    assert _build.sources() == ["clay_repair", "crc32c_lanes", "crush_rule", "gf_bitmatmul",
+                                "lab_copy"]
 
 
 def test_launch_refuses_cpu_tensors():

@@ -193,3 +193,108 @@ def test_chip_smoke_plugin_phases_on_cpu():
     b = chip_smoke.clay_bounds_ms(prog.schedule, 8192)
     assert b["bound_by"] == "bytes" and b["bound_ms"] == b["bytes_ms"]
     assert b["bytes_ms"] == (11 * 16 + 64) * 8192 / chip_smoke.PEAK_BYTES_PER_S * 1e3
+
+
+#: chip_smoke's tools path cut for the CPU: the probes' kernels at 4 KiB
+#: rows, the twins at KiB sizes with one repeat, bench_all on a 24-OSD map
+TINY_TOOLS = dict(
+    tools_cols=4096, fat_rows=64, fat_keep=24, fat_cols=4096, acc_cols=8192,
+    tools_ragged_cols=4096 + 13, tools_calls=2,
+    perf_lab_args=("--cols", "4096", "--tile", "1024", "--tiles", "1024,2048", "--fat-rows", "64",
+                   "--fat-keep", "24", "--fat-cols", "4096", "--calls", "2", "--reps", "1"),
+    perf_lab2_args=("--sizes", "4,8", "--unit", "1024", "--ns", "1,2", "--cols", "8192",
+                    "--tile", "1024", "--groups", "1024:1,512:2", "--repeat-tiles", "1024,2048",
+                    "--check-cols", "4096", "--calls", "2", "--reps", "1"),
+    perf_lab3_args=("--check-cols", "4096", "--sizes", "4,8", "--unit", "1024", "--ns", "1,2",
+                    "--reps", "1"),
+    bench_args=("--cols", "8192", "--iters", "2", "--rounds", "1", "--check-cols", "4096"),
+    ec_bench_size=65536, ec_bench_iterations=4,
+    bench_all_sizes=(("jerasure_bytes", 256 * 1024), ("jerasure_calls", 2),
+                     ("clay_chunk", 65536), ("batch_objects", 8), ("batch_object_bytes", 65536),
+                     ("remap_hosts", 12), ("remap_osds_per_host", 2), ("remap_rep_pgs", 64),
+                     ("remap_ec_pgs", 16), ("remap_check_stride", 7),
+                     ("remap_scalar_sample", 8)))
+
+
+def test_chip_smoke_tools_path_on_cpu():
+    """chip_smoke's phase 10 at a tiny size on the CPU: every tools kernel
+    case equals its plain version; the twins run through their ``main``
+    functions and their lines parse: perf_lab's eight kinds of timed line,
+    perf_lab2's ablation of all four stages and its repeat-variant checks
+    (False against the encode, True against the folded product),
+    perf_lab3's two checks, bench's JSON line, four ec_benchmark runs and
+    bench_all's six configs; on the CPU no kernel launches."""
+    from ceph_tpu_torch.ops import lab_kernels as lk
+
+    cfg = chip_smoke.Config(**TINY_TOOLS)
+    worst = chip_smoke.phase_kernel_tools(cfg, "cpu")
+    assert worst == {name: 0 for name in chip_smoke.TOOL_ROWS}
+    run = chip_smoke.run_tools_path(cfg, "cpu")
+    tools = run["tools"]
+    assert "fat copy (24x4096 r+w traffic GB/s)" in tools["perf_lab"]["timed"]
+    assert len(tools["perf_lab"]["timed"]) == 9
+    assert {f"ablate:{st}" for st in ("load", "extract", "matmul", "full")} <= set(
+        tools["perf_lab2"]["timed"])
+    assert tools["perf_lab2"]["checks"] == {"repeat variant bit-exact": False,
+                                            "repeat variant equals the folded product": True}
+    assert list(tools["perf_lab3"]["checks"].values()) == [True, True]
+    assert len(tools["perf_lab3"]["timed"]) == 4
+    assert tools["bench"]["device"] == "cpu" and tools["bench"]["vs_baseline"] is None
+    assert [(r["plugin"], r["workload"], r["KiB"]) for r in tools["ec_benchmark"]] == [
+        (p, w, 256) for p in ("cuda", "jerasure") for w in ("encode", "decode")]
+    assert len(tools["bench_all"]) == 6
+    assert all("error" not in ln and ln["device"] == "cpu" for ln in tools["bench_all"])
+    assert set(run["launches"].values()) == {0}
+    assert set(run["launches"]) == {"row_copy", "repeat_variant", "acc_encode",
+                                    "gf_stage_cut:load", "gf_stage_cut:extract",
+                                    "gf_stage_cut:matmul"}
+    assert lk.launch_counts() == {"row_copy": 0, "repeat_variant": 0, "acc_encode": 0}
+
+
+def test_chip_smoke_tools_bounds():
+    """The tools rows' bounds at the probes' shapes, by bytes at 3.35 TB/s:
+    402,653,184 B for either copy and the load and extract cuts,
+    (k + m) S for the matmul cut and the repeat variant at (8, 64 MiB),
+    (k + 2m) S for the acc form at (8, 256 MiB)."""
+    bounds = chip_smoke.tool_bounds(chip_smoke.Config())
+    assert set(bounds) == set(chip_smoke.TOOL_ROWS)
+    assert all(by == "bytes" for _, by in bounds.values())
+    want = {"row_copy:copy_fn": 0.1202, "row_copy:fat_copy": 0.1202,
+            "gf_stage_cut:load": 0.1202, "gf_stage_cut:extract": 0.1202,
+            "gf_stage_cut:matmul": 0.2204, "repeat_variant": 0.2204, "acc_encode": 1.1218}
+    for name, ms in want.items():
+        assert round(bounds[name][0], 4) == ms, name
+    assert bounds["row_copy:copy_fn"][0] == 402653184 / chip_smoke.PEAK_BYTES_PER_S * 1e3
+    assert {replaces for _, replaces, _, _ in chip_smoke.TOOL_ROWS.values()} == {
+        "tools/perf_lab.py:61", "tools/perf_lab.py:101", "tools/perf_lab2.py:76",
+        "tools/perf_lab2.py:113", "tools/perf_lab3.py:52"}
+
+
+def test_chip_smoke_tools_rows_on_cpu(monkeypatch):
+    """The kernels line's new rows, built on the CPU with the card-only
+    timers (CUDA events, the profiler) stubbed: every tools row and the
+    CLAY bench-shape row has the contract's keys, its plain version's
+    bytes and its library call where one exists."""
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, calls, repeats: (fn(0), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "per_launch",
+                        lambda fn, calls, shape, kernel: {"device_us_mean": 1.0})
+    cfg = chip_smoke.Config(**TINY_TOOLS, clay_big_chunk=32 * 1024)
+    launches = {**{name: 3 for name in ("row_copy", "repeat_variant", "acc_encode")},
+                **{f"gf_stage_cut:{st}": 2 for st in chip_smoke.CUT_STAGES}}
+    rows = chip_smoke.tools_kernel_rows(cfg, "cpu", {n: 0 for n in chip_smoke.TOOL_ROWS},
+                                        launches)
+    rows.append(chip_smoke.clay_bench_row(cfg, "cpu", 7))
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert [r["name"] for r in rows] == [*chip_smoke.TOOL_ROWS, "clay_repair:bench_shape"]
+    for r in rows:
+        assert keys <= set(r) and r["route"] == "cuda" and r["max_abs_err"] == 0
+        assert r["bound_by"] == "bytes" and r["bound_ms"] > 0
+    with_library = {r["name"] for r in rows if r["library_ms"] is not None}
+    assert with_library == {"row_copy:copy_fn", "row_copy:fat_copy", "gf_stage_cut:load",
+                            "gf_stage_cut:extract"}
+    by_name = {r["name"]: r for r in rows}
+    assert by_name["row_copy:fat_copy"]["launches"] == 3
+    assert by_name["gf_stage_cut:matmul"]["launches"] == 2
+    assert by_name["clay_repair:bench_shape"]["launches"] == 7
+    assert by_name["clay_repair:bench_shape"]["shape"].endswith("(11, 16, 512)")
