@@ -16,8 +16,9 @@ uses the scalar pipeline by design, as the reference does).
 per compiled map.  :class:`BatchedRuleMapper` maps a batch of seeds:
 
 - on the card, one launch of the hand-written kernel of
-  ``ops/csrc/crush_rule.cu`` (one thread per seed, the rule as a small
-  program of steps), through the entry point of the rule's kind,
+  ``ops/csrc/crush_rule.cu`` (one warp per seed, a lane per bucket item
+  in straw2, the rule as a small program of steps), through the entry
+  point of the rule's kind,
   :func:`crush_rule_firstn`, :func:`crush_rule_indep` or
   :func:`crush_rule_msr`, each counting its launches;
 - on the CPU, the plain PyTorch version :func:`batched_rule_plain`, the
@@ -59,7 +60,7 @@ _OUT_BREAK, _OUT_PLACE, _OUT_NONE = 0, 1, 2
 _S64_MIN = -(2 ** 63)
 
 #: the kernel's compile-time caps (``kMaxResult``, ``kMaxSteps``,
-#: ``kMaxMsrLevels`` in the source): per-thread scratch is fixed-size
+#: ``kMaxMsrLevels`` in the source): per-seed scratch is fixed-size
 MAX_RESULT = 32
 MAX_STEPS = 32
 MAX_MSR_LEVELS = 6
@@ -890,8 +891,20 @@ def _kernel():
     return _fn
 
 
+def launch_geometry(batch: int) -> dict[str, int]:
+    """The kernel's launch for ``batch`` seeds, as the library computes
+    it: a warp per seed, ``warps_per_block`` warps a block, ``blocks``
+    blocks (builds the kernel on first use)."""
+    from ceph_tpu_torch.ops import _build
+
+    lib = _build.library("crush_rule")
+    wpb, blocks = ctypes.c_int(), ctypes.c_int()
+    lib.ceph_crush_rule_geometry(ctypes.c_int(batch), ctypes.byref(wpb), ctypes.byref(blocks))
+    return {"warps_per_block": wpb.value, "blocks": blocks.value}
+
+
 def check_caps(mapper: "BatchedRuleMapper") -> None:
-    """Raise if the rule is past the kernel's per-thread caps."""
+    """Raise if the rule is past the kernel's per-seed caps."""
     if mapper.result_max > MAX_RESULT:
         raise ValueError(f"result_max {mapper.result_max} > the kernel's "
                          f"cap of {MAX_RESULT}")

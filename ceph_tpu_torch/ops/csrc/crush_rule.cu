@@ -1,26 +1,39 @@
-// Batched CRUSH placement: one thread per placement seed (sm_90a).
+// Batched CRUSH placement: one warp per placement seed, a lane per bucket
+// item (sm_90a).
 //
 // Replaces the jitted XLA program of ceph_tpu/crush/jaxmapper.py
 // (BatchedRuleMapper._build, :997-1015: jit(vmap(lane)) over whole rule
 // programs, with the crush_hash32_3 / _2 twins of ops/hashing.py:208-260
-// inside).  Each thread maps one seed x through the rule exactly as the
+// inside).  Each warp maps one seed x through the rule exactly as the
 // scalar interpreter does (ceph_tpu_torch/crush/mapper.py, a twin of
 // src/crush/mapper.c): crush_do_rule's step loop, crush_choose_firstn
 // with its retry_descent / retry_bucket loops and chooseleaf recursion,
 // crush_choose_indep's breadth-first rounds, and crush_msr_do_rule with
 // its stride tree, collision retries and whole-descent retries.  The
 // JAX program had to express that control flow as masked while-loops
-// over every lane; a thread runs the C loops as they are.
+// over every lane; a warp runs the C loops as they are.
+//
+// The work is in straw2: every choose draws each item of a bucket (a
+// root of 128 hosts is 128 draws a descent).  Lane l of the warp draws
+// items l, l + 32, ... and keeps its best (draw, index); a five-step
+// xor butterfly of shuffles then gives every lane the winner, the
+// larger draw and on equal draws the lower index (mapper.c's first on
+// ties, jaxmapper.py:237-254's jnp.argmax).  Every lane thus ends each
+// straw2 with the same item, and the rest of the interpreter runs
+// warp-uniform: all 32 lanes hold the same scratch and take the same
+// branches, so their local-memory accesses coalesce and every shuffle
+// sees the whole warp.  The lanes write the seed's results together.
 //
 // Inputs: the rule as a small program of (op, arg1, arg2) steps plus the
 // tunables, in the kernel's argument block (every thread reads the same
 // step, so the constant bank broadcasts it); the compiled map's dense
 // arrays (items, child, ids, per-position weights, sizes, types) and the
-// reweights in device memory; the crush_ln tables (258 + 256 int64),
-// copied by each block into shared memory, since constant memory would
-// serialise the divergent table indices of a warp.
+// reweights in device memory, an item's weight and id read by its lane
+// (the 32 lanes read neighbouring words); the crush_ln tables (258 + 256
+// int64), copied by each block into shared memory, since constant memory
+// would serialise the divergent table indices of a warp.
 //
-// Per-thread scratch (the working vector, the output windows, the MSR
+// Per-seed scratch (the working vector, the output windows, the MSR
 // used-vectors) is fixed-size local memory, capped at kMaxResult
 // results, kMaxSteps steps and kMaxMsrLevels CHOOSE_MSR steps per
 // segment; the wrapper (crush/cudamapper.py) raises above the caps.
@@ -28,17 +41,31 @@
 // frame is static.
 //
 // Bound: integer operations.  A straw2 draw is one crush_hash32_3 (5
-// Jenkins mixes of 27 ops), a crush_ln (a clz, a shift, three table
-// loads, a 64-bit product), one 64-bit division (emulated, some tens of
-// instructions) and a compare: about 220 instructions.  This first
-// kernel is latency-bound: one thread per seed gives a few warps per
-// SM, and the draws of one bucket run one after another in a thread.
+// Jenkins mixes of 27 fused ops), a crush_ln (a clz, a shift, three table
+// loads, a 64-bit product), one 64-bit division and a compare: about 175
+// INT32 instructions at the least, the division being an FP64 reciprocal
+// product (on the FP64 pipe) and one integer correction (div_weight).
+// A warp per seed
+// gives 2048-8192 warps for a pool's PGs, enough to fill the 132 SMs;
+// a lane per item turns a 128-item bucket's 128 dependent draws into 4
+// per lane.  What stays serial is the descent itself (root, then host,
+// then the retries), the butterfly after each bucket, and the lanes a
+// small bucket leaves idle (a host of 8 OSDs draws on 8 of 32 lanes).
+//
+// CRUSH_LANES (default 32, the warp) is the lane count; a host build of
+// this source sets it to 1 and stubs the shuffle, and then runs one
+// lane over every item, one seed after another.
 
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-// the caps of the per-thread scratch (cudamapper.MAX_STEPS, MAX_RESULT,
+#ifndef CRUSH_LANES
+#define CRUSH_LANES 32
+#endif
+
+// the caps of the per-seed scratch (cudamapper.MAX_STEPS, MAX_RESULT,
 // MAX_MSR_LEVELS)
 constexpr int kMaxSteps = 32;
 
@@ -65,7 +92,8 @@ struct Args {
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kLanes = CRUSH_LANES;  // lanes per seed
+constexpr int kWarps = 4;            // seeds (warps) per block
 constexpr int kMaxResult = 32;
 constexpr int kMaxMsrLevels = 6;
 constexpr int kLnEntries = 258 + 256;
@@ -145,33 +173,81 @@ struct Ctx {
   uint32_t x;
 };
 
-// bucket_straw2_choose (mapper.c:342-365): the item of the largest draw,
-// the first one on ties; a zero weight draws S64_MIN.  Sets *cidx to the
-// item's dense child index (-1 for a device or an unknown bucket).
-__device__ int straw2(const Ctx& c, int bidx, uint32_t r, int pos, int* cidx) {
+// num / w, truncated, for 0 <= num <= 2^48 and w >= 1 (any int64).  The
+// FP64 product of num and the correctly rounded 1/w has a relative error
+// under 3 * 2^-53, so it lies within num * 3 * 2^-53 / w < 1 / w of the
+// quotient: never past the next integer (num / w is at least 1 / w below
+// it), at most just under an exact quotient, whose truncation one integer
+// remainder then corrects.  This replaces nvcc's emulated 64-bit
+// division, a long dependent chain on every draw.
+__device__ __forceinline__ uint64_t div_weight(uint64_t num, int64_t w) {
+  const uint64_t q = (uint64_t)__dmul_rn((double)num, __drcp_rn((double)w));
+  return num - q * (uint64_t)w >= (uint64_t)w ? q + 1 : q;
+}
+
+// A straw2 candidate: its draw and its index in the bucket.  An empty
+// lane holds (INT64_MIN, INT_MAX), which loses every comparison to a
+// real item, a zero-weight item (whose draw is INT64_MIN) included.
+struct Best {
+  int64_t draw;
+  int idx;
+};
+
+// The larger draw, the lower index on equal draws: a total order, so any
+// order of combining gives the first maximum.
+__device__ __forceinline__ Best best_of(Best a, Best b) {
+  return (b.draw > a.draw || (b.draw == a.draw && b.idx < a.idx)) ? b : a;
+}
+
+// One lane's part of bucket_straw2_choose (mapper.c:342-365): items
+// lane, lane + lanes, ... of bucket bidx; a zero weight draws S64_MIN.
+__device__ __forceinline__ Best straw2_lane(const Ctx& c, int bidx, uint32_t r, int pos,
+                                            int lane, int lanes) {
   const Args& a = c.a;
   const int n = a.size[bidx];
   const int p = min(max(pos, 0), a.npos[bidx] - 1);
   const int base = bidx * a.m;
   const int64_t* w = a.weights + ((int64_t)bidx * a.npos_all + p) * a.m;
-  int high = 0;
-  int64_t high_draw = 0;
-  for (int i = 0; i < n; ++i) {
+  Best b{INT64_MIN, INT_MAX};
+  for (int i = lane; i < n; i += lanes) {
     const int64_t wi = __ldg(w + i);
     int64_t draw = INT64_MIN;
     if (wi > 0) {
       const uint32_t u = hash3(c.x, (uint32_t)__ldg(a.argids + base + i), r) & 0xFFFFu;
       // -(2^48 - ln) / w, truncated; the numerator is >= 0
       const uint64_t num = 0x1000000000000ULL - (uint64_t)crush_ln(c.ln, u);
-      draw = -(int64_t)(num / (uint64_t)wi);
+      draw = -(int64_t)div_weight(num, wi);
     }
-    if (i == 0 || draw > high_draw) {
-      high = i;
-      high_draw = draw;
-    }
+    b = best_of(b, Best{draw, i});
   }
-  *cidx = __ldg(a.child + base + high);
-  return __ldg(a.items + base + high);
+  return b;
+}
+
+// The warp's winner in every lane: a butterfly of kLanes / 2, ..., 1.
+__device__ __forceinline__ Best warp_best(Best b) {
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    // The full mask is valid: the 32 lanes of a warp run one seed, hold
+    // the same state and take the same branches, so all of them reach
+    // every straw2 call, and this shuffle, together.
+    const Best o{(int64_t)__shfl_xor_sync(0xFFFFFFFFu, (long long)b.draw, off),
+                 __shfl_xor_sync(0xFFFFFFFFu, b.idx, off)};
+    b = best_of(b, o);
+  }
+  return b;
+}
+
+__device__ __forceinline__ int lane_id() { return (int)(threadIdx.x % kLanes); }
+
+// bucket_straw2_choose over the warp: the item of the largest draw, the
+// first one on ties.  Sets *cidx to the item's dense child index (-1 for
+// a device or an unknown bucket).  The bucket is not empty (every caller
+// checks), so lane 0's item 0 makes the winner a real item.
+__device__ int straw2(const Ctx& c, int bidx, uint32_t r, int pos, int* cidx) {
+  const Args& a = c.a;
+  const Best b = warp_best(straw2_lane(c, bidx, r, pos, lane_id(), kLanes));
+  const int base = bidx * a.m;
+  *cidx = __ldg(a.child + base + b.idx);
+  return __ldg(a.items + base + b.idx);
 }
 
 // is_out (mapper.c:405-419) on the reweight vector
@@ -643,7 +719,7 @@ __device__ int msr_rule(const Ctx& c, const int32_t* __restrict__ rew, int* res)
 }
 
 // ---------------------------------------------------------------------------
-// The kernels: one seed per thread
+// The kernels: one seed per warp
 // ---------------------------------------------------------------------------
 
 template <int MODE>
@@ -651,7 +727,8 @@ __device__ __forceinline__ void rule_body(const Args& a) {
   __shared__ int64_t s_ln[kLnEntries];
   for (int i = threadIdx.x; i < kLnEntries; i += blockDim.x) s_ln[i] = a.ln[i];
   __syncthreads();
-  const int seed = blockIdx.x * blockDim.x + threadIdx.x;
+  // warp-uniform, so a warp past the batch exits whole
+  const int seed = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
   if (seed >= a.batch) return;
   const Ctx c{a, s_ln, (uint32_t)a.xs[seed]};
   int res[kMaxResult];
@@ -661,10 +738,13 @@ __device__ __forceinline__ void rule_body(const Args& a) {
   } else {
     n = classic_rule<MODE>(c, a.rew, res);
   }
+  // every lane holds the whole result: lane i writes value i
   int32_t* out = a.vals + (int64_t)seed * a.result_max;
-  for (int i = 0; i < a.result_max; ++i) out[i] = i < n ? res[i] : kNone;
-  a.counts[seed] = n;
+  for (int i = lane_id(); i < a.result_max; i += kLanes) out[i] = i < n ? res[i] : kNone;
+  if (lane_id() == 0) a.counts[seed] = n;
 }
+
+constexpr int kThreads = kWarps * kLanes;
 
 __global__ void __launch_bounds__(kThreads) crush_rule_firstn_kernel(const __grid_constant__ Args a) {
   rule_body<kFirstn>(a);
@@ -680,16 +760,25 @@ __global__ void __launch_bounds__(kThreads) crush_rule_msr_kernel(const __grid_c
 
 }  // namespace
 
-// One launch of the mode's kernel on `stream`; returns the launch's
-// cudaError_t (0 on success).
+// The launch geometry of a batch: warps (seeds) per block and blocks.
+// ceph_crush_rule launches with it.
+extern "C" void ceph_crush_rule_geometry(int batch, int* warps_per_block, int* blocks) {
+  *warps_per_block = kWarps;
+  *blocks = batch > 0 ? (batch + kWarps - 1) / kWarps : 0;
+}
+
+// One launch of the mode's kernel on `stream`: a warp per seed, kWarps
+// warps a block.  Returns the launch's cudaError_t (0 on success).
 extern "C" int ceph_crush_rule(int mode, const Args* args, void* stream) {
-  if (args->batch <= 0) return 0;
-  const dim3 grid((args->batch + kThreads - 1) / kThreads);
+  int warps, blocks;
+  ceph_crush_rule_geometry(args->batch, &warps, &blocks);
+  if (blocks == 0) return 0;
+  const dim3 grid(blocks), block(warps * kLanes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kFirstn: crush_rule_firstn_kernel<<<grid, kThreads, 0, s>>>(*args); break;
-    case kIndep: crush_rule_indep_kernel<<<grid, kThreads, 0, s>>>(*args); break;
-    case kMsr: crush_rule_msr_kernel<<<grid, kThreads, 0, s>>>(*args); break;
+    case kFirstn: crush_rule_firstn_kernel<<<grid, block, 0, s>>>(*args); break;
+    case kIndep: crush_rule_indep_kernel<<<grid, block, 0, s>>>(*args); break;
+    case kMsr: crush_rule_msr_kernel<<<grid, block, 0, s>>>(*args); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -2,6 +2,7 @@
 """Drive ceph_tpu_torch's erasure-code data path on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --crush-lab   # the CRUSH lab line alone
 
 Builds the CUDA kernels from ``ceph_tpu_torch/ops/csrc`` (first use, one
 ``nvcc`` per source, all started together), then runs one RS(8,3) pool
@@ -74,7 +75,8 @@ through the port's entry points:
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
 whole pool, all in and with zero and partial reweights; a device-class
-rule, a choose_args weight set and legacy tunables; and the CLAY repair
+rule, a choose_args weight set, one past 2^32 (against the plain version
+alone) and legacy tunables; and the CLAY repair
 kernel against its plain version for every lost node of CLAY(4,2,5),
 (8,4,11) and (8,3,10) at the 4 MiB object's sub-chunk, at a ragged
 sub-chunk and at the 32 MiB-chunk shape.
@@ -90,23 +92,33 @@ of the bit-matrix kernel, the cuts' included).  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, and the device time per launch at each kernel's main-path shape
 (and at each forced width of the launch plan); each kernel is timed
-there by CUDA events and held there against its plain version; the
-tools kernels likewise at their probes' shapes.  Each
+there by CUDA events and held there against its plain version (a CRUSH
+row also gives its launch: warps per block and blocks); the tools
+kernels likewise at their probes' shapes.  Each
 phase prints one JSON line; then a ``kernels`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; with no CUDA device it exits 1
 before doing anything.
+
+``--crush-lab`` builds the kernels and prints only a ``crush_lab`` line:
+the CRUSH kernels launched directly at the main path's shapes, in turns
+with a build of ``crush_rule.cu`` whose draws use nvcc's emulated 64-bit
+division (the yardstick of its FP64-reciprocal division), and over a
+sweep of seed counts (where a launch stops being latency-bound).  The
+smoke itself does not run it.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import ctypes
 import dataclasses
 import hashlib
 import io
 import json
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -152,11 +164,26 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
 #: H100 SXM: 132 SMs of 64 INT32 lanes at the 1.98 GHz boost clock
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
-#: integer instructions per straw2 draw, counted from crush_rule.cu: the
-#: hash (5 mixes of 27 ops plus 4), crush_ln (about 15), the emulated
-#: 64-bit division (about 60) and the weight and id loads, compare and
-#: select (about 6)
-OPS_PER_DRAW = 220
+#: the least integer work of one straw2 draw, counted from the function
+#: (bucket_straw2_choose) with each op one fused instruction (IADD3 for
+#: a - b - c, LOP3 for a three-input logic op, IMAD for a product plus a
+#: sum, LEA for a shift plus a sum):
+#: - the hash, 137: 5 Jenkins mixes of 9 statements a = (a - b - c) ^
+#:   (c >> k) at 3 ops (IADD3, SHF, LOP3), the item id's xor into the
+#:   seed's (hoisted out of the bucket's loop) and the 16-bit mask;
+#: - crush_ln, 18: the increment, the clz test, clz, shift and exponent,
+#:   the table index and its address, the 32 x 64-bit product's two IMADs,
+#:   its byte, the second address, the 64-bit sum and shift, the exponent;
+#: - the numerator 2^48 - ln, 2;
+#: - the division's integer part, 9: q * w (three IMADs), the remainder,
+#:   its compare with w and the increment;
+#: - the zero-weight test, 2; keeping the larger draw, 5 (a 64-bit
+#:   compare, three selects); the weight's and id's addresses, 2.
+#: The loop's own counter is left out.  The division's quotient estimate
+#: runs on the FP64 pipe (two conversions at 16 a clock per SM, one product
+#: at 64; 1/w is the map's, not the draw's): 0.14 clocks a draw per SM
+#: beside the 2.73 of this count, so it does not raise the bound.
+INT32_OPS_PER_DRAW = 137 + 18 + 2 + 9 + 2 + 5 + 2
 
 MiB = 1 << 20
 GF_SOURCE = "ceph_tpu_torch/ops/csrc/gf_bitmatmul.cu"
@@ -346,10 +373,10 @@ def bound_ms(k: int, m: int, cols: int, *, carry: bool = False) -> tuple[float, 
 
 def crush_bound_ms(draws: int) -> tuple[float, str]:
     """Least time for a batch of placements: the straw2 draws its seeds
-    need (counted by the scalar mapper) at ``OPS_PER_DRAW`` integer
+    need (counted by the scalar mapper) at ``INT32_OPS_PER_DRAW`` integer
     instructions each over the card's INT32 rate.  The bytes (a 0.3 MB
     map, 4 B a seed in, 4 B a result out) are far below."""
-    return draws * OPS_PER_DRAW / PEAK_INT32_OPS_PER_S * 1e3, "operations"
+    return draws * INT32_OPS_PER_DRAW / PEAK_INT32_OPS_PER_S * 1e3, "operations"
 
 
 def clay_bounds_ms(sched, sc: int) -> dict:
@@ -604,9 +631,10 @@ def phase_kernel_crush(cfg: Config, device, check) -> None:
     """The CRUSH kernel on the remap map: each pool's rule at each seed
     count of ``crush_seeds`` and at the whole pool, all in and with zero
     and partial reweights; then a device-class rule, a choose_args weight
-    set on the root and legacy tunables at the largest seed count.  Each
-    launch against the plain version on the same inputs, and against the
-    scalar crush_do_rule up to the largest seed count."""
+    set on the root, one past 2^32 and legacy tunables at the largest seed
+    count.  Each launch against the plain version on the same inputs, and
+    (but past 2^32) against the scalar crush_do_rule up to the largest
+    seed count."""
     om = remap_map(cfg, "cpu")
     crush = om.crush
     n_osd = crush.max_devices
@@ -618,7 +646,7 @@ def phase_kernel_crush(cfg: Config, device, check) -> None:
     degraded = [int(w) for w in degraded]
     most = max(cfg.crush_seeds)
 
-    def case(cc, ruleno, rm, xs, weights, what, crush_=crush, choose_args=None):
+    def case(cc, ruleno, rm, xs, weights, what, crush_=crush, choose_args=None, scalar=True):
         mapper = cm.BatchedRuleMapper(cc, ruleno, rm, device=device)
         x = torch.from_numpy(xs.astype(np.int32)).to(device)
         rew = torch.from_numpy(mapper.reweights(weights)).to(device)
@@ -627,7 +655,7 @@ def phase_kernel_crush(cfg: Config, device, check) -> None:
         name = CRUSH_ENTRIES[mapper.kind]
         label = f"crush {what} rule {ruleno} ({len(xs)}, {rm})"
         check(name, got, want, label)
-        if len(xs) <= most:
+        if scalar and len(xs) <= most:
             check("plain_vs_scalar", want.cpu(),
                   _scalar_rows(crush_, ruleno, xs, rm, weights, choose_args), label)
 
@@ -653,6 +681,14 @@ def phase_kernel_crush(cfg: Config, device, check) -> None:
     ca = {root: ChooseArg(root, weight_set=[
         [int(w) for w in rng.integers(0x8000, 0x30000, hosts)] for _ in range(2)])}
     case(cm.compile_map(crush, choose_args=ca), 0, 3, xs, None, "choose_args", crush, ca)
+    # a weight set past 2^32, as the int64 weights of the batched engine
+    # allow: the kernel's FP64-reciprocal division at large divisors.  The
+    # scalar oracle takes Ceph's u32 weights, so only the plain version
+    # (int64, as ceph_tpu's engine) is held beside it.
+    big = {root: ChooseArg(root, weight_set=[
+        [int(w) for w in rng.integers(1 << 32, 1 << 44, hosts)] for _ in range(2)])}
+    case(cm.compile_map(crush, choose_args=big), om.pools[3].crush_rule, cfg.k + cfg.m, xs,
+         degraded, "choose_args past 2^32", scalar=False)
     # legacy tunables (pre-jewel): local retries, no descend_once, vary_r, stable
     legacy = crush.copy()
     legacy.tunables = Tunables(choose_local_tries=2, choose_total_tries=19,
@@ -950,6 +986,8 @@ def phase_remap(cfg: Config, device, full_check: bool = True) -> dict:
             "crush_call_s": sum(t["crush_s"] for t in bcm.timings.values()),
             "kernel_s": None if None in kernel_s else sum(kernel_s),
             "host_pipeline_s": sum(t["pipeline_s"] for t in bcm.timings.values()),
+            "pools": {pid: {"kernel_s": t["kernel_s"], "host_pipeline_s": t["pipeline_s"]}
+                      for pid, t in bcm.timings.items()},
             "rows_checked": checked, "rows_mismatched": bad,
             "check_s": time.perf_counter() - t1})
     counters = remap.counters()
@@ -1429,6 +1467,9 @@ def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict,
             "library_note": NO_LIBRARY[name], "shape": shape,
             "device_us": per_launch[name]["device_us_mean"],
         })
+        if name in CRUSH_ENTRIES.values():
+            # a warp per seed: the launch's warps per block and blocks
+            rows[-1].update(cm.launch_geometry(crush_main_path(cfg, device)[name][1].shape[0]))
     return rows
 
 
@@ -1462,6 +1503,72 @@ def clay_bench_row(cfg: Config, device, launches: int) -> dict:
         "device_us": per_launch(lambda i: prog.repair_device(H), cfg.clay_big_repeats, shape,
                                 KERNELS["clay_repair"][1])["device_us_mean"],
     }
+
+
+#: seed counts of the CRUSH sweep: 4 warps an SM (one a scheduler) up to
+#: twice the largest pool
+CRUSH_SWEEP = (528, 2048, 8192, 16384)
+#: crush_rule.cu's division of a draw, and nvcc's emulated one in its place
+CRUSH_DIV = ("draw = -(int64_t)div_weight(num, wi);", "draw = -(int64_t)(num / (uint64_t)wi);")
+
+
+def crush_emulated_division_source() -> str:
+    """``crush_rule.cu`` with the emulated 64-bit division in place of
+    its FP64-reciprocal ``div_weight``: the yardstick of that choice."""
+    src = (pathlib.Path(__file__).resolve().parent / CRUSH_SOURCE).read_text()
+    if src.count(CRUSH_DIV[0]) != 1:
+        raise AssertionError("crush_rule.cu: the draw's division is not where the lab expects it")
+    return src.replace(*CRUSH_DIV)
+
+
+def phase_crush_lab(cfg: Config, device) -> dict:
+    """The CRUSH kernels launched directly (CUDA events, no wrapper): at
+    each main-path shape in turns with a build of the source whose draws
+    divide as nvcc emulates it (kernel, emulated, emulated, kernel; both
+    must give the same rows), and over ``CRUSH_SWEEP`` random seeds of
+    each rule, which shows where a launch stops being latency-bound."""
+    from ceph_tpu_torch.ops import _build
+
+    src = os.path.join(_build.BUILD_DIR, "crush_rule_emudiv.cu")
+    so = os.path.join(_build.BUILD_DIR, "libcrush_rule_emudiv.so")
+    with open(src, "w") as f:
+        f.write(crush_emulated_division_source())
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, src], check=True,
+                   capture_output=True, timeout=600)
+    emulated = ctypes.CDLL(so).ceph_crush_rule
+    emulated.restype = ctypes.c_int
+    emulated.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(cfg.seed + 13)
+
+    def launcher(fn, mapper, x, rew):
+        masked = mapper.class_masked(rew).contiguous()
+        vals = torch.empty((x.shape[0], mapper.result_max), dtype=torch.int32, device=device)
+        counts = torch.empty((x.shape[0],), dtype=torch.int32, device=device)
+        args = cm.kernel_args(mapper, x, masked, vals, counts)
+        mode = cm.MODES[mapper.kind]
+        held = (x, masked, vals, counts)  # the argument block has only their addresses
+
+        def launch(i):
+            if fn(mode, ctypes.byref(args), stream):
+                raise RuntimeError("crush_rule launch refused")
+            return held[2:]
+        return launch
+
+    out = {"phase": "crush_lab", "division_ms": {}, "sweep_ms": {}}
+    for name, (mapper, x, rew, _) in crush_main_path(cfg, device).items():
+        ours, theirs = launcher(cm._kernel(), mapper, x, rew), launcher(emulated, mapper, x, rew)
+        bad, _ = _errors(_crush_rows(*ours(0)), _crush_rows(*theirs(0)))
+        if bad:
+            raise AssertionError(f"{name}: the emulated division differs in {bad} values")
+        turns = [time_ms(fn, 24, cfg.repeats) for fn in (ours, theirs, theirs, ours)]
+        out["division_ms"][name] = {"reciprocal": [turns[0], turns[3]],
+                                    "emulated": [turns[1], turns[2]]}
+        out["sweep_ms"][name] = {
+            n: time_ms(launcher(cm._kernel(), mapper, torch.from_numpy(
+                rng.integers(0, 2 ** 31, n).astype(np.int32)).to(device), rew), 24, cfg.repeats)
+            for n in CRUSH_SWEEP}
+    return out
 
 
 def gpu_name_and_power_limit() -> str:
@@ -1908,7 +2015,18 @@ def run_tools_path(cfg: Config, device) -> dict:
     return {"tools": tools, "launches": tools_launches()}
 
 
-def main() -> int:
+def ptxas_lines(log: str) -> list[str]:
+    """What ``ptxas -v`` says of each function: its name, then its stack
+    frame and spills, then its registers."""
+    return [ln.strip() for ln in log.splitlines()
+            if "Function properties for" in ln or "registers" in ln or "spill" in ln]
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = argv or []
+    if argv not in ([], ["--crush-lab"]):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
               file=sys.stderr)
@@ -1922,10 +2040,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {n: [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-                    for n, log in _build.BUILD_LOG.items()}})
+          "ptxas": {n: ptxas_lines(log) for n, log in _build.BUILD_LOG.items()}})
     emit({"config": dataclasses.asdict(cfg), "plugin": "cuda",
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if argv:
+        # the CRUSH lab alone: no path is driven, no result line
+        emit(phase_crush_lab(cfg, device))
+        print(gpu_name_and_power_limit(), flush=True)
+        return 0
 
     worst = phase_kernels(cfg, device)
 
@@ -1978,4 +2100,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

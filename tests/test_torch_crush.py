@@ -6,8 +6,8 @@ Every comparison is exact (tolerance 0: placements are integers).  The
 oracles are the golden vectors compiled from the reference's C
 (``tests/golden/crush_vectors.json``) and the JAX package's scalar
 ``crush_do_rule``; the JAX batched engine, which compiles for seconds
-per rule on one CPU core, sits beside the port in one case here and one
-in ``test_torch_remap.py``.
+per rule on one CPU core, sits beside the port in each of the kernel's
+three modes here and in one case of ``test_torch_remap.py``.
 """
 
 from __future__ import annotations
@@ -405,11 +405,13 @@ def test_unsupported_map_for_a_list_bucket():
         cm.BatchedRuleMapper(cm.compile_map(m2), rid, 3, device="cpu")
 
 
-def test_plain_batched_beside_the_jax_engine(maps):
+@pytest.mark.parametrize("case", ["replicated firstn 3", "ec indep", "msr indep"])
+def test_plain_batched_beside_the_jax_engine(maps, case):
     """The same seeds through ceph_tpu's jit/vmap engine and the port's
-    plain version: equal (vals, counts), NONE padding included."""
+    plain version, in each of the kernel's three modes: equal (vals,
+    counts), NONE padding included."""
     m, r, _, rules = maps
-    rid, rm = rules["replicated firstn 3"]
+    rid, rm = rules[case]
     weights = _reweights(9, m.max_devices, 6)
     want_vals, want_cnt = JaxRuleMapper(jax_compile_map(r), rid, rm)(XS, weights)
     vals, cnt = cm.BatchedRuleMapper(cm.compile_map(m), rid, rm, device="cpu")(XS, weights)
@@ -447,6 +449,10 @@ _HOST_PRELUDE = r"""
 #include <cstdint>
 using std::max;
 using std::min;
+#define CRUSH_LANES 1
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
+inline double __drcp_rn(double x) { return 1.0 / x; }
+inline double __dmul_rn(double a, double b) { return a * b; }
 #define __device__
 #define __forceinline__ inline
 #define __global__
@@ -469,6 +475,29 @@ extern "C" void host_rule(int mode, const Args* a) {
     else rule_body<kMsr>(*a);
   }
 }
+
+// Bucket bidx's straw2 winner for seed x as `lanes` lanes find it: the
+// kernel's straw2_lane on each lane, then warp_best's butterfly (lane l
+// takes best_of(its own, lane l ^ off's) for off = lanes / 2, ..., 1),
+// run in lockstep.  Returns the index, or -1 if the lanes disagree.
+extern "C" int host_straw2(const Args* a, int bidx, unsigned x, unsigned r, int pos,
+                           int lanes, long long* draw) {
+  const Ctx c{*a, a->ln, x};
+  Best v[32], nv[32];
+  for (int l = 0; l < lanes; ++l) v[l] = straw2_lane(c, bidx, r, pos, l, lanes);
+  for (int off = lanes / 2; off > 0; off >>= 1) {
+    for (int l = 0; l < lanes; ++l) nv[l] = best_of(v[l], v[l ^ off]);
+    for (int l = 0; l < lanes; ++l) v[l] = nv[l];
+  }
+  for (int l = 1; l < lanes; ++l)
+    if (v[l].draw != v[0].draw || v[l].idx != v[0].idx) return -1;
+  *draw = v[0].draw;
+  return v[0].idx;
+}
+
+extern "C" unsigned long long host_div_weight(unsigned long long num, long long w) {
+  return div_weight(num, w);
+}
 """
 
 
@@ -486,6 +515,10 @@ def host_kernel(tmp_path_factory):
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     lib.host_rule.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.host_straw2.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.host_div_weight.argtypes = [ctypes.c_ulonglong, ctypes.c_longlong]
+    lib.host_div_weight.restype = ctypes.c_ulonglong
     return lib
 
 
@@ -535,6 +568,100 @@ def test_kernel_source_as_host_code_tunables_classes_and_weight_sets(maps, host_
         want = mapper(XS, weights)
         got = _host_map(host_kernel, mapper, XS, weights)
         assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_kernel_division_as_host_code(host_kernel):
+    """div_weight, the draw's num // w by an FP64 reciprocal and one
+    integer correction, against Python's // over its edges: numerators 0
+    to 2^48, weights 1 to 2^63 - 1, exact multiples and their neighbours."""
+    rng = np.random.default_rng(48)
+    top = 1 << 48
+    weights = [1, 2, 3, 7, 0xFFFF, 0x10000, 0x10001, 0x30000, (1 << 32) - 1, 1 << 32,
+               (1 << 32) + 1, (1 << 40) + 7, top - 1, top, top + 1, (1 << 53) + 1,
+               (1 << 62) + 3, (1 << 63) - 1]
+    weights += [int(v) for v in rng.integers(1, 1 << 20, 40)]
+    weights += [int(v) for v in rng.integers(1 << 32, 1 << 62, 40)]
+    for w in weights:
+        nums = {0, 1, top - 1, top, w - 1, w, w + 1, top // w * w, top // w * w - 1}
+        for k in rng.integers(0, top // w + 1, 12):
+            nums |= {int(k) * w - 1, int(k) * w, int(k) * w + 1}
+        nums |= {int(v) for v in rng.integers(0, top + 1, 12)}
+        for num in sorted(n for n in nums if 0 <= n <= top):
+            assert host_kernel.host_div_weight(num, w) == num // w, (num, w)
+
+
+def _straw2_want(cc, bidx, x, r, pos):
+    """(index, draw) of bucket_straw2_choose in Python ints: the first
+    maximum of -((2^48 - crush_ln(u)) // w), S64_MIN for a zero weight."""
+    n = int(cc.size[bidx])
+    p = min(max(pos, 0), int(cc.npos[bidx]) - 1)
+    best = None
+    for i in range(n):
+        w = int(cc.weights[bidx, p, i])
+        draw = -(2 ** 63)
+        if w > 0:
+            u = int(phash.crush_hash32_3(x, int(cc.argids[bidx, i]) & 0xFFFFFFFF, r)) & 0xFFFF
+            draw = -(((1 << 48) - pmapper.crush_ln(u)) // w)
+        if best is None or draw > best[1]:
+            best = (i, draw)
+    return best
+
+
+def _weighted(kind: str, n: int, rng) -> list[int]:
+    """Weights of one bucket's n items for each lane-split case."""
+    if kind == "random":
+        return [int(v) for v in rng.integers(1, 0x50000, n)]
+    if kind == "all zero":
+        return [0] * n
+    if kind == "zero first":
+        return [0] + [int(v) for v in rng.integers(0x8000, 0x30000, n - 1)]
+    if kind == "equal draws":
+        # weights past 2^48 draw 0, weight 1 draws -(2^48 - ln) < 0: the
+        # huge-weight items tie, 65 on a lane below the lowest index's
+        w = [1] * n
+        for i in (40, 65, 69, 7, 4, 2) + ((1,) if n <= 3 else ()):
+            if i < n:
+                w[i] = 1 << 50
+        return w
+    # past 2^32, beside small ones
+    return [int(v) if i % 3 else int(v) >> 24
+            for i, v in enumerate(rng.integers(1 << 32, 1 << 56, n))]
+
+
+@pytest.mark.parametrize("kind", ["random", "all zero", "zero first", "equal draws",
+                                  "past 2^32"])
+@pytest.mark.parametrize("hosts", [70, 32, 33, 5])
+def test_kernel_straw2_lane_split_as_host_code(host_kernel, hosts, kind):
+    """straw2 over 32 lanes and the xor butterfly, in C++: every lane ends
+    with the one-lane winner (the lower index on equal draws), which is
+    the first maximum of bucket_straw2_choose."""
+    rng = np.random.default_rng(hosts)
+    m = CrushMap()
+    root = pb.build_hierarchy(m, osds_per_host=3, n_hosts=hosts)
+    rid = pb.add_simple_rule(m, root.id, 1, mode="firstn")
+    cc = cm.compile_map(m)
+    root_idx = cc.idx_of[root.id]
+    host_idx = cc.idx_of[m.buckets[root.id].items[0]]
+    cc.weights[root_idx, 0, :hosts] = _weighted(kind, hosts, rng)
+    cc.weights[host_idx, 0, :3] = _weighted(kind, 3, rng)
+    mapper = cm.BatchedRuleMapper(cc, rid, 3, device="cpu")
+    x = torch.zeros(1, dtype=torch.int32)
+    vals, counts = torch.empty((1, 3), dtype=torch.int32), torch.empty(1, dtype=torch.int32)
+    args = cm.kernel_args(mapper, x, torch.full((m.max_devices,), 0x10000, dtype=torch.int32),
+                          vals, counts)
+    draw = ctypes.c_longlong()
+    for seed in rng.integers(0, 2 ** 32, 24, dtype=np.uint32):
+        for bidx in (root_idx, host_idx):
+            for r in (0, 1, 0x20003):
+                want = _straw2_want(cc, bidx, int(seed), r, 0)
+                for lanes in (1, 2, 8, 32):
+                    got = host_kernel.host_straw2(ctypes.byref(args), bidx, int(seed), r, 0,
+                                                  lanes, ctypes.byref(draw))
+                    assert (got, draw.value) == want, (kind, hosts, bidx, int(seed), r, lanes)
+    if kind == "all zero":
+        assert want[0] == 0
+    if kind == "equal draws" and hosts == 70:
+        assert _straw2_want(cc, root_idx, 0, 0, 0)[0] == 2
 
 
 # ---------------------------------------------------------------------------

@@ -77,6 +77,31 @@ def _edge_cluster(pkg):
     return om
 
 
+def _wide_cluster(pkg):
+    """A root of 70 hosts, more than a warp's 32 lanes and no multiple of
+    them, with a replicated, an EC indep and an MSR pool on it."""
+    B, T, O, P = pkg
+    m = T.CrushMap()
+    root = B.build_hierarchy(m, osds_per_host=2, n_hosts=70)
+    r_rep = B.add_simple_rule(m, root.id, 1, mode="firstn")
+    r_ec = B.add_simple_rule(m, root.id, 1, mode="indep", rule_type=3)
+    r_msr = B.add_osd_multi_per_domain_rule(m, root.id, 1, num_per_domain=1, num_domains=11)
+    om = O.OSDMap(crush=m)
+    for o in range(140):
+        om.new_osd(o)
+    om.mark_down(3)
+    om.mark_out(70)
+    om.osd_weight[101] = 0x6000
+    PT = P.PoolType
+    om.pools[1] = P.PgPool(id=1, type=PT.REPLICATED, size=3, crush_rule=r_rep,
+                           pg_num=32, pgp_num=32)
+    om.pools[2] = P.PgPool(id=2, type=PT.ERASURE, size=11, min_size=8, crush_rule=r_ec,
+                           pg_num=16, pgp_num=16)
+    om.pools[3] = P.PgPool(id=3, type=PT.ERASURE, size=11, min_size=8, crush_rule=r_msr,
+                           pg_num=16, pgp_num=16)
+    return om
+
+
 def _edge_upmap_wider(pkg, om):
     om.pg_upmap[pkg[3].pg_t(1, 2)] = [0, 4, 8, 12]
 
@@ -107,6 +132,7 @@ CLUSTERS = {
     "upmap wider than size": (_edge_cluster, _edge_upmap_wider),
     "pg_temp wider than size": (_edge_cluster, _edge_pg_temp_wider),
     "indep rule on a replicated pool": (_edge_cluster, _edge_indep_on_replicated),
+    "root of 70 hosts": (_wide_cluster, None),
 }
 
 

@@ -9,6 +9,7 @@ flow is exercised here before it meets the card.
 """
 
 import asyncio
+from pathlib import Path
 
 import numpy as np
 
@@ -144,6 +145,17 @@ def test_chip_smoke_phases_on_cpu():
     assert chip_smoke.crush_bound_ms(10 ** 6)[1] == "operations"
     assert chip_smoke.bound_ms(8, 3, 256 << 20, carry=True)[1] == "bytes"
     assert chip_smoke.crc_bound_ms(32, 65536)[1] == "bytes"
+
+
+def test_chip_smoke_crush_lab_variant_source():
+    """The lab's yardstick build differs from crush_rule.cu in the draw's
+    division alone."""
+    src = (Path(chip_smoke.__file__).parent / chip_smoke.CRUSH_SOURCE).read_text()
+    variant = chip_smoke.crush_emulated_division_source()
+    assert src.count(chip_smoke.CRUSH_DIV[0]) == 1 and chip_smoke.CRUSH_DIV[0] not in variant
+    assert variant == src.replace(*chip_smoke.CRUSH_DIV)
+    assert chip_smoke.CRUSH_SWEEP[0] == 4 * 132
+    assert chip_smoke.main(["--crush-lab", "--bogus"]) == 2
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
