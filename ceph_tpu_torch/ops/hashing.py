@@ -425,11 +425,15 @@ def batched_crc32c_plain(data: torch.Tensor) -> torch.Tensor:
 # The CUDA kernel: tables, advance operators, launch
 # ---------------------------------------------------------------------------
 
-#: threads per block, lane bytes per thread, lane bytes per block
-#: (``kThreads``, ``kSeg``, ``kBlockBytes`` in the source)
-THREADS = 256
-SEG = 16
-BLOCK_BYTES = THREADS * SEG
+#: threads per block, the largest cluster, words of the 8-byte step's
+#: nibble tables and of one advance's, and the combine tree's levels
+#: (``kThreads``, ``kMaxCluster``, ``kStepWords``, ``kAdvWords``,
+#: ``kLevels`` in the source)
+THREADS = 128
+MAX_CLUSTER = 8
+STEP_WORDS = 16 * 16
+ADV_WORDS = 8 * 16
+LEVELS = (THREADS * MAX_CLUSTER).bit_length() - 1
 POLY = 0x82F63B78
 
 
@@ -449,6 +453,17 @@ def slice8_tables() -> np.ndarray:
     return t
 
 
+def step_tables() -> np.ndarray:
+    """(16, 16) uint32 nibble tables of the kernel's 8-byte step: entry
+    [j, v] is the register after 8 bytes, from register 0, whose nibble j
+    (little-endian: byte j // 2, its high half for odd j) is v and every
+    other nibble 0.  That byte meets 7 - j // 2 zeros after it, so the
+    entry is slice-by-8 table 7 - j // 2 at ``v << 4 (j % 2)``."""
+    t8 = slice8_tables()
+    v = np.arange(16)
+    return np.stack([t8[7 - j // 2][v << (4 * (j % 2))] for j in range(16)])
+
+
 def advance_op(n: int) -> int:
     """x^(8n) modulo the crc32c polynomial, reflected: the register is
     advanced through n zero bytes by multiplying it by this word (the
@@ -456,23 +471,53 @@ def advance_op(n: int) -> int:
     return native.crc32c_zeros(n, 1 << 31)
 
 
+def advance_tables(n: int) -> np.ndarray:
+    """(8, 16) uint32 nibble tables of the advance through n zero bytes:
+    entry [k, v] is the register ``v << 4k`` advanced.  The advance is
+    linear in the register, so it is the XOR of the eight entries its
+    nibbles pick (``advance`` in the source)."""
+    basis = np.array([native.crc32c_zeros(n, 1 << b) for b in range(32)], dtype=np.uint32)
+    v = np.arange(16, dtype=np.uint32)
+    out = np.zeros((8, 16), dtype=np.uint32)
+    for k in range(8):
+        for bit in range(4):
+            out[k] ^= np.where((v >> np.uint32(bit)) & np.uint32(1), basis[4 * k + bit],
+                               np.uint32(0))
+    return out
+
+
+def crc_geometry(width: int) -> tuple[int, int, int]:
+    """(16-byte loads a thread a pass, blocks a lane, passes a thread) of a
+    launch over lanes of ``width`` bytes, as ``ceph_crc32c_geometry``
+    computes them: two loads when a lane fits one block at 32 bytes a
+    thread, else four; the cluster is the lane's blocks at that rate
+    rounded up to a power of two, at most ``MAX_CLUSTER``."""
+    vec = 2 if width <= 32 * THREADS else 4
+    block_pass = 16 * vec * THREADS
+    blocks = -(-width // block_pass)
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster < blocks:
+        cluster *= 2
+    return vec, cluster, -(-width // (cluster * block_pass))
+
+
+def combine_advances(width: int) -> list[int]:
+    """Bytes of each level's advance in the kernel's combine tree: level s
+    advances a run of 2^s segments past the next run, 2^s L bytes, L = 16
+    vec passes the bytes a thread owns (levels 0-4 over a warp's lanes,
+    5-6 over a block's warps, 7-9 over a cluster's blocks)."""
+    vec, _, passes = crc_geometry(width)
+    return [(16 * vec * passes) << s for s in range(LEVELS)]
+
+
 @functools.lru_cache(maxsize=64)
 def kernel_operators(width: int) -> np.ndarray:
     """The kernel's operand block for lanes of ``width`` bytes, flat
-    uint32: the slice-by-8 tables (2048 words); for each thread t the
-    advance from the end of its segment to the end of its block,
-    ``advance_op(BLOCK_BYTES - SEG (t + 1))`` (THREADS words); for each
-    block j of a lane the advance from its end to the lane's,
-    ``advance_op(span - BLOCK_BYTES (j + 1))`` (span / BLOCK_BYTES
-    words).  ``span`` is the lane's width rounded up to whole blocks:
-    the lane reads as left-padded with zeros, which leaves a seed-0 crc
-    unchanged."""
-    span = -(-width // BLOCK_BYTES) * BLOCK_BYTES
-    per_thread = [advance_op(BLOCK_BYTES - SEG * (t + 1)) for t in range(THREADS)]
-    per_block = [advance_op(span - BLOCK_BYTES * (j + 1))
-                 for j in range(span // BLOCK_BYTES)]
-    return np.concatenate([slice8_tables().reshape(-1),
-                           np.array(per_thread + per_block, dtype=np.uint32)])
+    uint32: the 8-byte step's nibble tables (``STEP_WORDS``), then the
+    nibble tables of each of :func:`combine_advances` (``ADV_WORDS``
+    each)."""
+    return np.concatenate([step_tables().reshape(-1)] + [
+        advance_tables(n).reshape(-1) for n in combine_advances(width)])
 
 
 #: (device index, width) -> the operand block on that device
@@ -507,8 +552,7 @@ def _device_operators(width: int, index: int) -> torch.Tensor:
 
 
 def _launch(data: torch.Tensor, out: torch.Tensor) -> None:
-    """One launch on the current stream (the C entry zeroes ``out``
-    first); raises if it is refused."""
+    """One launch on the current stream; raises if it is refused."""
     if not (data.is_cuda and out.is_cuda):
         raise ValueError(f"data on {data.device}, out on {out.device}: "
                          "the kernel needs CUDA")

@@ -33,10 +33,12 @@ import torch
 
 from ceph_tpu_torch.ops import rs_kernels as rk
 
-#: threads per block of the copy kernel (``kThreads`` in the source), and
-#: the grid cap in blocks per SM
+#: threads per block and 16-byte loads in flight a thread of the copy
+#: kernel (``kThreads``, ``kUnroll`` in the source), and the grid cap in
+#: blocks per SM
 COPY_THREADS = 256
-COPY_BLOCKS_PER_SM = 8
+COPY_UNROLL = 8
+COPY_BLOCKS_PER_SM = 64
 
 _copy_fn = None
 
@@ -56,9 +58,11 @@ def _copy_kernel():
 
 
 def copy_blocks(nbytes: int, sm_count: int) -> int:
-    """Grid of a copy of ``nbytes``: one 16-byte vector a thread, capped
-    at ``COPY_BLOCKS_PER_SM`` blocks per SM (past which threads stride)."""
-    return max(1, min(-(-nbytes // (16 * COPY_THREADS)), sm_count * COPY_BLOCKS_PER_SM))
+    """Grid of a copy of ``nbytes``: a contiguous chunk a block of at
+    least one pass (``COPY_UNROLL`` 16-byte vectors a thread), at most
+    ``COPY_BLOCKS_PER_SM`` blocks per SM (past which chunks grow)."""
+    return max(1, min(-(-nbytes // (16 * COPY_THREADS * COPY_UNROLL)),
+                      sm_count * COPY_BLOCKS_PER_SM))
 
 
 def _launch_copy(src: torch.Tensor, out: torch.Tensor, nbytes: int) -> None:

@@ -100,6 +100,11 @@ and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; with no CUDA device it exits 1
 before doing anything.
 
+After the kernel rows are measured, a ``crc_sweep`` line holds the crc
+kernel against its plain version over the scrub path's lane counts and
+widths and two throughput shapes, with device µs a launch, CUDA-event
+ms, device operations a call and the byte bound of each.
+
 ``--crush-lab`` builds the kernels and prints only a ``crush_lab`` line:
 the CRUSH kernels launched directly at the main path's shapes, in turns
 with a build of ``crush_rule.cu`` whose draws use nvcc's emulated 64-bit
@@ -223,7 +228,10 @@ NO_LIBRARY["clay_repair"] = "no PyTorch call computes a GF(2^8) linear combinati
 #: the PyTorch call timed beside each tools kernel, or why there is none
 TOOL_LIBRARY = {
     "row_copy:copy_fn": "src[:rows].clone()", "row_copy:fat_copy": "src[:rows].clone()",
-    "gf_stage_cut:load": "d[:m].clone()", "gf_stage_cut:extract": "torch.bitwise_and(d[:m], 1)",
+    "gf_stage_cut:load": "d[:m].clone(), which reads m of the k rows the probe reads "
+                         "(tools/perf_lab2.py:81)",
+    "gf_stage_cut:extract": "torch.bitwise_and(d[:m], 1), which reads m of the k rows the "
+                            "probe reads (tools/perf_lab2.py:81)",
     "gf_stage_cut:matmul": "no PyTorch call computes a GF(2^8) bit-matrix product",
     "repeat_variant": "no PyTorch call computes a GF(2^8) bit-matrix product",
     "acc_encode": "no PyTorch call computes a GF(2^8) bit-matrix product",
@@ -275,6 +283,10 @@ class Config:
     scrub_chunk: int = 25
     scrub_corrupt: int = 3
     crc_lanes: int = 32
+    #: the crc sweep: (lanes, width) at the scrub path's lane counts and
+    #: bucket widths, then two throughput shapes
+    crc_sweep: tuple = ((1, 4096), (1, 16384), (1, 65536), (32, 4096), (32, 16384),
+                        (32, 65536), (256, 65536), (32, 1 << 20))
     #: the remap map: tools/bench_all.py:_big_map (BASELINE.md's "10k PGs
     #: x 1024-OSD map") plus a pool on the profile's create_rule rule
     remap_hosts: int = 128
@@ -509,6 +521,14 @@ def phase_kernel_scrub(cfg: Config, device, gen, check) -> None:
             host = torch.tensor([native.crc32c(row, 0) for row in x.cpu().numpy()],
                                 dtype=torch.int64)
             check("plain_vs_native", _wide(plain).cpu(), host, case)
+    # lanes that start off a 16-byte boundary (the byte loads), and lanes
+    # twice the widest bucket (eight blocks a lane at 131072)
+    w, wide = cfg.crc_cols[0], 2 * max(cfg.crc_cols)
+    flat = _rand((3 * w + 1,), gen, device)
+    for case, x in ((f"crc (3, {w}) misaligned", flat[1:].view(3, w)),
+                    (f"crc (2, {wide})", _rand((2, wide), gen, device))):
+        check("batched_crc32c_device", hashing.batched_crc32c_device(x),
+              hashing.batched_crc32c_plain(x), case)
     k = cfg.k
     for m in (cfg.m, 1):
         bits = rk.BitmatrixCodec(isa_cauchy_matrix(k, m), device=device).encode_bits
@@ -1466,6 +1486,7 @@ def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict,
             "bound_share": bms / ms, "library_ms": None,
             "library_note": NO_LIBRARY[name], "shape": shape,
             "device_us": per_launch[name]["device_us_mean"],
+            "device_ops_per_call": per_launch[name]["device_ops_per_call"],
         })
         if name in CRUSH_ENTRIES.values():
             # a warp per seed: the launch's warps per block and blocks
@@ -1571,6 +1592,44 @@ def phase_crush_lab(cfg: Config, device) -> dict:
     return out
 
 
+def phase_crc_sweep(cfg: Config, device) -> dict:
+    """The crc kernel over ``cfg.crc_sweep``: each shape against its plain
+    version on the card (the 1 MiB lanes against the host's native crc32c:
+    the plain version's M_W there is a 256 MB host build), then device µs a
+    launch (profile pass), CUDA-event ms a call and device operations a
+    call, beside the byte bound.  Inputs rotate over more than the 50 MB
+    L2 where the shape allows."""
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 14)
+    out = {"phase": "crc_sweep", "cases": []}
+    for b, w in cfg.crc_sweep:
+        bufs = [_rand((b, w), gen, device) for _ in range(min(32, -(-64 * MiB // (b * w))))]
+        x = bufs[0]
+        if w <= cfg.batch_cols:
+            oracle, want = "batched_crc32c_plain", hashing.batched_crc32c_plain(x)
+        else:
+            oracle = "native.crc32c"
+            want = torch.tensor([native.crc32c(row, 0) for row in x.cpu().numpy()],
+                                dtype=torch.int64)
+        bad, _ = _errors(_wide(hashing.batched_crc32c_device(x)).cpu(), _wide(want).cpu())
+        if bad:
+            raise AssertionError(f"crc ({b}, {w}): {bad} lanes differ from {oracle}")
+
+        def fn(i, bufs=bufs):
+            return hashing.batched_crc32c_device(bufs[i % len(bufs)])
+        prof = per_launch(fn, 48, f"crc ({b}, {w})", KERNELS["batched_crc32c_device"][1])
+        bms, by = crc_bound_ms(b, w)
+        vec, cluster, passes = hashing.crc_geometry(w)
+        out["cases"].append({
+            "lanes": b, "width": w, "oracle": oracle, "mismatched_lanes": bad,
+            "loads_per_pass": vec, "cluster": cluster, "passes": passes,
+            "device_us": prof["device_us_mean"],
+            "ms": time_ms(fn, 48, cfg.repeats), "bound_ms": bms, "bound_by": by,
+            "bound_share_device": bms * 1e3 / prof["device_us_mean"],
+            "device_ops_per_call": prof["device_ops_per_call"]})
+        del bufs
+    return out
+
+
 def gpu_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1623,9 +1682,12 @@ def per_launch(fn, calls: int, shape: str, kernel: str = "gf_bitmatmul_kernel") 
     fn(0)
     wall_c, dev_c = traced(lambda: [fn(i) for i in range(calls)])
     kern = [e["dur"] for e in dev_c if ours(e, kernel)]
+    memsets = sum(e["cat"] == "gpu_memset" for e in dev_c)
     return {"shape": shape, "launches": len(kern),
             "device_us_mean": sum(kern) / max(len(kern), 1),
-            "wall_us_per_call": wall_c / calls * 1e6}
+            "wall_us_per_call": wall_c / calls * 1e6,
+            "device_ops_per_call": {"kernel": len(kern) / calls, "memset": memsets / calls,
+                                    "other": (len(dev_c) - len(kern) - memsets) / calls}}
 
 
 def phase_profile(cfg: Config, device, tp: dict) -> dict:
@@ -1725,8 +1787,9 @@ def tool_bounds(cfg: Config) -> dict[str, tuple[float, str]]:
     """Each tools row's bound at its probe's shape, from the function's
     bytes (each input byte it needs read once, each output byte written
     once) or its operations: a copy of r rows and the load and extract
-    cuts 2 r S bytes; the matmul cut and the repeat variant an (m, S)
-    product of (k, S) data, as ``bound_ms``; the acc form with its carry."""
+    cuts 2 r S bytes (their output is m rows of m read); the matmul cut
+    and the repeat variant an (m, S) product of (k, S) data, as
+    ``bound_ms``; the acc form with its carry."""
     k, m, s = cfg.k, cfg.m, cfg.tools_cols
     return {
         "row_copy:copy_fn": _bound(2 * m * s, 0),
@@ -1737,6 +1800,14 @@ def tool_bounds(cfg: Config) -> dict[str, tuple[float, str]]:
         "repeat_variant": bound_ms(k, m, s),
         "acc_encode": bound_ms(k, m, cfg.acc_cols, carry=True),
     }
+
+
+def probe_bounds(cfg: Config) -> dict[str, float]:
+    """The load and extract cuts' bound in ms for the probe's work rather
+    than the function's: (k + m) S bytes, since the probe's BlockSpec
+    brings all k rows in before it stores m (tools/perf_lab2.py:81)."""
+    ms = _bound((cfg.k + cfg.m) * cfg.tools_cols, 0)[0]
+    return {"gf_stage_cut:load": ms, "gf_stage_cut:extract": ms}
 
 
 def tool_cases(cfg: Config, device) -> dict:
@@ -1963,7 +2034,7 @@ def tools_kernel_rows(cfg: Config, device, worst: dict, launches: dict) -> list[
     bound and its share; raises unless it equals its plain version
     there."""
     rows = []
-    bounds = tool_bounds(cfg)
+    bounds, probe = tool_bounds(cfg), probe_bounds(cfg)
     for name, (fn, plain, lib, shape) in tool_cases(cfg, device).items():
         entry, replaces, source, kernel = TOOL_ROWS[name]
         bms, by = bounds[name]
@@ -1973,7 +2044,7 @@ def tools_kernel_rows(cfg: Config, device, worst: dict, launches: dict) -> list[
                                  f"in {bad} bytes")
         calls = 4 if name == "acc_encode" else cfg.tools_calls
         ms = time_ms(fn, calls, cfg.repeats)
-        dev_us = per_launch(fn, calls, shape, kernel)["device_us_mean"]
+        prof = per_launch(fn, calls, shape, kernel)
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name if name in launches else entry],
@@ -1981,8 +2052,12 @@ def tools_kernel_rows(cfg: Config, device, worst: dict, launches: dict) -> list[
             "ms": ms, "plain_ms": time_ms(plain, 1, 3), "bound_ms": bms, "bound_by": by,
             "bound_share": bms / ms,
             "library_ms": time_ms(lib, calls, cfg.repeats) if lib is not None else None,
-            "library_note": TOOL_LIBRARY[name], "shape": shape, "device_us": dev_us,
+            "library_note": TOOL_LIBRARY[name], "shape": shape,
+            "device_us": prof["device_us_mean"],
+            "device_ops_per_call": prof["device_ops_per_call"],
         })
+        if name in probe:
+            rows[-1]["probe_bound_ms"] = probe[name]
     return rows
 
 
@@ -2091,6 +2166,7 @@ def main(argv: list[str] | None = None) -> int:
             row["plugin_path_launches"] = plugin_launches[row["name"]]
     rows.append(clay_bench_row(cfg, device, launches["clay_repair"]))
     rows += tools_kernel_rows(cfg, device, tool_worst, tools["launches"])
+    emit(phase_crc_sweep(cfg, device))
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

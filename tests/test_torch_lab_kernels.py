@@ -195,9 +195,14 @@ def test_no_launch_counted_on_cpu():
 
 
 def test_copy_grid():
+    """A block's chunk is at least one pass of 256 threads x 8 vectors x
+    16 bytes (32 KiB), at most 64 blocks an SM: the probes' 192 MiB runs
+    take 6144 blocks of one pass each; past 8448 passes chunks grow."""
     assert lk.copy_blocks(16, 132) == 1
-    assert lk.copy_blocks(16 * 256 * 5, 132) == 5
-    assert lk.copy_blocks(3 << 26, 132) == 132 * lk.COPY_BLOCKS_PER_SM
+    assert lk.copy_blocks(16 * 256 * 8 * 5, 132) == 5
+    assert lk.copy_blocks(16 * 256 * 8 * 5 + 1, 132) == 6
+    assert lk.copy_blocks(3 << 26, 132) == 6144
+    assert lk.copy_blocks(1 << 30, 132) == 132 * lk.COPY_BLOCKS_PER_SM == 132 * 64
 
 
 # ---------------------------------------------------------------------------
@@ -312,3 +317,4 @@ def test_stage_modes_match_kernel_source():
         assert f"{name} = {rk.STAGE_MODES[mode]}," in text
     copy = (ROOT / "ceph_tpu_torch" / "ops" / "csrc" / "lab_copy.cu").read_text()
     assert f"kThreads = {lk.COPY_THREADS};" in copy
+    assert f"kUnroll = {lk.COPY_UNROLL};" in copy

@@ -267,7 +267,8 @@ def test_chip_smoke_tools_bounds():
     """The tools rows' bounds at the probes' shapes, by bytes at 3.35 TB/s:
     402,653,184 B for either copy and the load and extract cuts,
     (k + m) S for the matmul cut and the repeat variant at (8, 64 MiB),
-    (k + 2m) S for the acc form at (8, 256 MiB)."""
+    (k + 2m) S for the acc form at (8, 256 MiB); the load and extract
+    cuts' probe bound, all k rows read, (k + m) S beside it."""
     bounds = chip_smoke.tool_bounds(chip_smoke.Config())
     assert set(bounds) == set(chip_smoke.TOOL_ROWS)
     assert all(by == "bytes" for _, by in bounds.values())
@@ -276,6 +277,9 @@ def test_chip_smoke_tools_bounds():
             "gf_stage_cut:matmul": 0.2204, "repeat_variant": 0.2204, "acc_encode": 1.1218}
     for name, ms in want.items():
         assert round(bounds[name][0], 4) == ms, name
+    probe = chip_smoke.probe_bounds(chip_smoke.Config())
+    assert {name: round(ms, 4) for name, ms in probe.items()} == {
+        "gf_stage_cut:load": 0.2204, "gf_stage_cut:extract": 0.2204}
     assert bounds["row_copy:copy_fn"][0] == 402653184 / chip_smoke.PEAK_BYTES_PER_S * 1e3
     assert {replaces for _, replaces, _, _ in chip_smoke.TOOL_ROWS.values()} == {
         "tools/perf_lab.py:61", "tools/perf_lab.py:101", "tools/perf_lab2.py:76",
@@ -289,7 +293,9 @@ def test_chip_smoke_tools_rows_on_cpu(monkeypatch):
     bytes and its library call where one exists."""
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, calls, repeats: (fn(0), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "per_launch",
-                        lambda fn, calls, shape, kernel: {"device_us_mean": 1.0})
+                        lambda fn, calls, shape, kernel: {
+                            "device_us_mean": 1.0,
+                            "device_ops_per_call": {"kernel": 1.0, "memset": 0.0, "other": 0.0}})
     cfg = chip_smoke.Config(**TINY_TOOLS, clay_big_chunk=32 * 1024)
     launches = {**{name: 3 for name in ("row_copy", "repeat_variant", "acc_encode")},
                 **{f"gf_stage_cut:{st}": 2 for st in chip_smoke.CUT_STAGES}}
@@ -306,7 +312,35 @@ def test_chip_smoke_tools_rows_on_cpu(monkeypatch):
     assert with_library == {"row_copy:copy_fn", "row_copy:fat_copy", "gf_stage_cut:load",
                             "gf_stage_cut:extract"}
     by_name = {r["name"]: r for r in rows}
+    assert all("device_ops_per_call" in by_name[n] for n in chip_smoke.TOOL_ROWS)
+    # the load and extract cuts: the function's m rows in and out, and
+    # beside it the probe's bound with all k rows read
+    k, m, s = cfg.k, cfg.m, cfg.tools_cols
+    for st in ("load", "extract"):
+        row = by_name[f"gf_stage_cut:{st}"]
+        assert row["bound_ms"] == 2 * m * s / chip_smoke.PEAK_BYTES_PER_S * 1e3
+        assert row["probe_bound_ms"] == (k + m) * s / chip_smoke.PEAK_BYTES_PER_S * 1e3
+    assert sum("probe_bound_ms" in r for r in rows) == 2
     assert by_name["row_copy:fat_copy"]["launches"] == 3
     assert by_name["gf_stage_cut:matmul"]["launches"] == 2
     assert by_name["clay_repair:bench_shape"]["launches"] == 7
     assert by_name["clay_repair:bench_shape"]["shape"].endswith("(11, 16, 512)")
+
+
+def test_chip_smoke_crc_sweep_on_cpu(monkeypatch):
+    """The crc_sweep line on the CPU with the card-only timers stubbed:
+    every case equals its oracle (the plain version, or native crc32c
+    past the widest bucket) and carries its geometry, bound and device
+    operations a call."""
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, calls, repeats: (fn(0), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "per_launch", lambda fn, calls, shape, kernel: {
+        "device_us_mean": 1.0, "device_ops_per_call": {"kernel": 1.0, "memset": 0.0, "other": 0.0}})
+    cfg = chip_smoke.Config(batch_cols=4096, crc_sweep=((1, 1024), (3, 4096), (2, 8192)))
+    out = chip_smoke.phase_crc_sweep(cfg, "cpu")
+    assert [(c["lanes"], c["width"]) for c in out["cases"]] == [(1, 1024), (3, 4096), (2, 8192)]
+    assert [c["oracle"] for c in out["cases"]] == ["batched_crc32c_plain"] * 2 + ["native.crc32c"]
+    for c in out["cases"]:
+        assert c["mismatched_lanes"] == 0 and c["bound_by"] == "bytes"
+        assert (c["loads_per_pass"], c["cluster"], c["passes"]) == \
+            chip_smoke.hashing.crc_geometry(c["width"])
+        assert c["device_ops_per_call"]["memset"] == 0
