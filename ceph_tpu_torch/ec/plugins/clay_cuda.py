@@ -8,8 +8,7 @@ once per (code, lost node) from the code's geometry and its inner
 codecs' decode matrices, uploaded once and run by one launch of the
 hand-written kernel ``ops/csrc/clay_repair.cu`` per repair.
 
-The schedule has three stages, per repair plane p (see the kernel's
-source for the layout):
+The schedule has three stages, per repair plane p:
 
 - **A** fills U for the K = k + nu survivors of the MDS decode: a copy
   of one helper sub-chunk, or a 2-term pair solve over the node's and
@@ -17,6 +16,11 @@ source for the layout):
 - **B** is one MDS decode of the lost node's q-row over every plane;
 - **C** recovers the lost chunk's coupled values: a copy of the lost
   node's U, or a 2-term solve over a q-row helper's C and its U.
+
+The kernel runs them composed: the host folds the three stages of each
+plane into one GF(2^8) combination per output (``RepairSchedule.coef``)
+and expands each coefficient into the kernel's product tables
+(:func:`product_tables`).
 
 Operand order is the reference's: a pair's two coefficients are the
 decode row over the survivors in sorted id order (``decode_matrix_for``'s
@@ -48,6 +52,8 @@ from ceph_tpu_torch.ops.rs_kernels import _on_cpu, count_launch, resolve_device
 
 #: the largest q the kernel takes (``kMaxQ`` in the source)
 MAX_Q = 8
+#: threads a block (``kThreads`` in the source)
+THREADS = 128
 #: columns per step of the plain version: bounds its int64 index tensors
 _PLAIN_COLS = 1 << 16
 
@@ -78,7 +84,8 @@ class RepairSchedule:
     inner MDS decode of the erased q-row from the survivors.  Stage C,
     per plane and erased node e: ``out_z`` (output sub-chunk), ``e_h``
     (helper row of e), ``c_h``/``c_u`` (coefficients of H[e_h, p] and of
-    V[e]).  ``table`` is the kernel's (P, 4K + QK + 3Q) int32 form."""
+    V[e]).  ``S``, ``inputs``, ``coef`` and ``table``: the stages
+    composed, the kernel's form (:meth:`_compose`)."""
 
     def __init__(self, ec, lost_node: int):
         if ec.d != ec.k + ec.m - 1:
@@ -142,16 +149,58 @@ class RepairSchedule:
         assert self.d.shape == (Q, K)
         assert sorted(self.out_z.reshape(-1).tolist()) == list(range(self.sub_chunk_no))
 
-        coef_a = self.a_c.astype(np.int32) | (self.b_c.astype(np.int32) << 8)
-        stage_a = np.stack([self.a_h, self.b_h, self.b_p, coef_a], axis=-1).astype(np.int32)
-        coef_c = self.c_h.astype(np.int32) | (self.c_u.astype(np.int32) << 8)
-        stage_c = np.stack([self.out_z, np.broadcast_to(self.e_h, (P, Q)), coef_c],
-                           axis=-1).astype(np.int32)
-        self.table = np.ascontiguousarray(np.concatenate([
-            stage_a.reshape(P, 4 * K),
-            np.broadcast_to(self.d.astype(np.int32).reshape(1, Q * K), (P, Q * K)),
-            stage_c.reshape(P, 3 * Q)], axis=1))
+        self._compose()
         self._tensors: dict[tuple[str, str], torch.Tensor] = {}
+
+    def _compose(self) -> None:
+        """The kernel's form: the three stages composed, per plane, into
+        one GF(2^8) combination for each output e of the plane's shared
+        inputs (the a- and b-operands of stage A, through stages B and C)
+        and one private input (H[e_h, p] through stage C), with the
+        product tables of each coefficient (see ``clay_repair.cu``).
+
+        ``inputs`` (P, S + Q) int32: sub-chunk (row * P + plane) of each
+        input, -1 for an absent private one; ``coef`` (P, S + 1, Q)
+        uint8: the coefficient of input i (private row: S) in output e;
+        ``table`` (P, 5Q(S + 1) + S + 2Q) int32: per plane the
+        (S + 1) x Q product tables as 4 + 1 words (``product_tables``),
+        then ``inputs``, then ``out_z``."""
+        P, K, Q = self.P, self.K, self.Q
+        shared = []
+        for p in range(P):
+            terms: dict[int, np.ndarray] = {}
+            cu_d = gf_mul(self.c_u[p][:, None], self.d)                   # (Q, K)
+            for j in range(K):
+                for row, plane, c in ((self.a_h[p, j], p, self.a_c[p, j]),
+                                      (self.b_h[p, j], self.b_p[p, j], self.b_c[p, j])):
+                    if c:
+                        key = int(row) * P + int(plane)
+                        terms[key] = terms.get(key, np.zeros(Q, np.uint8)) ^ gf_mul(c, cu_d[:, j])
+            shared.append(terms)
+        S = max(len(t) for t in shared)
+        self.S = S
+        self.inputs = np.full((P, S + Q), -1, np.int32)
+        self.coef = np.zeros((P, S + 1, Q), np.uint8)
+        for p, terms in enumerate(shared):
+            for e in range(Q):
+                key = int(self.e_h[e]) * P + p
+                if not self.c_h[p, e]:
+                    continue
+                if key in terms:  # never in a CLAY schedule: merged all the same
+                    terms[key] = terms[key].copy()
+                    terms[key][e] ^= self.c_h[p, e]
+                else:
+                    self.inputs[p, S + e] = key
+                    self.coef[p, S, e] = self.c_h[p, e]
+            for i, (key, c) in enumerate(sorted(terms.items())):
+                self.inputs[p, i] = key
+                self.coef[p, i] = c
+            # padding inputs read sub-chunk 0 with zero coefficients
+            self.inputs[p, len(terms):S] = 0
+        tabs = product_tables(self.coef)                                   # (P, S+1, Q, 5)
+        self.table = np.ascontiguousarray(np.concatenate([
+            tabs[..., :4].reshape(P, -1), tabs[..., 4].reshape(P, -1),
+            self.inputs, self.out_z.astype(np.int32)], axis=1).astype(np.int32))
 
     def on(self, device, name: str) -> torch.Tensor:
         """The schedule's array ``name`` on ``device``, uploaded once."""
@@ -161,6 +210,19 @@ class RepairSchedule:
             t = self._tensors[key] = torch.from_numpy(
                 np.ascontiguousarray(getattr(self, name))).to(device)
         return t
+
+
+def product_tables(coef: np.ndarray) -> np.ndarray:
+    """(..., ) uint8 coefficients -> (..., 5) int32: the kernel's PRMT
+    tables of each, T0[v] = c v and T1[v] = c (v << 3) for v < 8 as two
+    words each (byte v of the pair), T2[v] = c (v << 6) for v < 4 as one
+    word."""
+    c = np.asarray(coef, np.uint8)[..., None]
+    v = np.arange(8, dtype=np.uint8)
+    t0, t1 = gf_mul(c, v), gf_mul(c, v << 3)
+    t2 = gf_mul(c, (v[:4] << 6).astype(np.uint8))
+    words = np.concatenate([t0, t1, t2], axis=-1)                     # (..., 20)
+    return np.ascontiguousarray(words).view("<u4").view(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +288,7 @@ def _kernel():
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # H, out, table
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,            # P, K, Q
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,            # P, S, Q
             ctypes.c_longlong, ctypes.c_int,                     # sc, aligned
             ctypes.c_void_p,                                     # stream
         ]
@@ -247,7 +309,9 @@ def clay_repair(H: torch.Tensor, sched: RepairSchedule) -> torch.Tensor:
     """The lost chunk, (sub_chunk_no, sc) uint8, from the staged helper
     sub-chunks H (n_helpers, P, sc).  On the card: one launch of
     ``clay_repair.cu`` (replaces the jitted XLA ``ClayRepairProgram._run``
-    of ceph_tpu/ec/plugins/clay_jit.py:69); a refused launch raises."""
+    of ceph_tpu/ec/plugins/clay_jit.py:69); a refused launch raises.
+    A thread takes two words (8 columns) where the cells are aligned,
+    one where they are not (byte loads)."""
     sc = _check(H, sched)
     if _on_cpu(H):
         return clay_repair_plain(H, sched)
@@ -260,14 +324,15 @@ def clay_repair(H: torch.Tensor, sched: RepairSchedule) -> torch.Tensor:
         return out
     index = H.get_device()
     table = sched.on(H.device, "table")
-    aligned = int(sc % 4 == 0 and H.data_ptr() % 4 == 0 and out.data_ptr() % 4 == 0)
-    args = (H.data_ptr(), out.data_ptr(), table.data_ptr(), sched.P, sched.K, sched.Q,
-            sc, aligned)
+    aligned = sc % 4 == 0 and H.data_ptr() % 4 == 0 and out.data_ptr() % 4 == 0
+    args = (H.data_ptr(), out.data_ptr(), table.data_ptr(), sched.P, sched.S, sched.Q,
+            sc, int(aligned))
     with torch.cuda.device(index):
         err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"clay_repair kernel launch failed: cudaError {err} "
-                           f"(P={sched.P}, K={sched.K}, Q={sched.Q}, sc={sc})")
+                           f"(P={sched.P}, S={sched.S}, Q={sched.Q}, sc={sc}, "
+                           f"aligned={aligned})")
     count_launch(clay_repair)
     return out
 

@@ -7,11 +7,11 @@
 // i.e. the (m, k) GF(2^8) matrix whose bit expansion is B, applied to the
 // bytes of every column s (erasure encode with the generator, decode with
 // a per-erasure-signature matrix).  Optionally batched over a leading
-// axis, and in one of three modes (the template's MODE, besides the
-// stage cuts below): store
-// out = f(data); "acc"  out = out ^ f(data ^ seed); or "compare", which
-// loads the stored parity where the store would write and sets
-// flags[b, u] when f(data[b]) differs from parity[b] anywhere in row u.
+// axis, and in one of two modes (the template's MODE, besides the stage
+// cuts below): store out = f(data), or "acc" out = out ^ f(data ^ seed).
+// A kernel of its own (gf_encode_compare_kernel, below) compares instead:
+// flags[b, u] = 1 where f(data[b]) differs from the stored parity[b]
+// anywhere in row u, else 0.
 //
 // Replaces the three Pallas TPU kernels of the JAX package's
 // ceph_tpu/ops/rs_kernels.py: gf_bitmatmul_pallas (_bitmatmul_kernel),
@@ -77,17 +77,26 @@
 // is loaded once, into registers, and the loads of the object-sized
 // launches are all issued at the start.
 //
-// The compare epilogue.  Where the store writes the output words, the
-// compare mode loads the stored parity's words (zeros past S, where the
-// re-encode of zero columns is zero too), ORs their XOR with the result,
-// and on a difference sets the item's (b, u) flag, which the C entry
-// zeroes before the launch, with an atomicOr.  A
-// warp first asks __any_sync whether any of its items differ, so a clean
-// row costs one vote; each thread still sets only its own item's flag,
-// since with a ragged S one warp may span two batch entries.  The vote's
-// mask is the warp's lanes that have an item in this pass of the loop (a
-// prefix: the grid stride is a multiple of 32).
-//
+// The compare (deep scrub's re-encode-compare) is one launch that writes
+// the (batch, m) bool mask itself: no memset, no atomic, no cast after
+// it.  Its work is split into units, one (item of 8 columns, stored row)
+// pair each, so a thread forms one output row's product (the store's
+// pair / fold_stage2 / fold_stage3), not m of them: RS(8,3) scrub's
+// (8, 8, 65536) is 196,608 units, about two a thread on 264 blocks of
+// 384.
+// A warp takes one row of 32 items (the masks' loads broadcast; they are
+// read through L1, with no copy into shared memory, so no round trip
+// comes before the first load), and the rows of those 32 items are
+// neighbouring warps, which share the data's lines.  A unit issues the
+// loads of its data words and of its stored row's words together: no
+// DRAM round trip waits at a unit's tail.  Each batch entry is `parts`
+// blocks; each block ORs its units' differences (one bit a row), parts
+// 1.. post theirs to a slot (8 bytes, bit 32 set), and part 0 takes
+// them, clears each slot for the next launch and writes every flag of
+// its entry once.  Part 0 waits on its partners, so the launch is
+// cooperative: every block resident at once, or the launch is refused.
+// The host's plan (rs_kernels.compare_plan) takes a block an SM where
+// that gives each thread one unit, else two blocks an SM.
 // The stage cuts (modes 3-5) replace the ablation probe of the JAX
 // package's tools/perf_lab2.py (make_ablate, its pallas_call at :76),
 // which cuts the TPU encode after load, bit extraction or the MXU
@@ -116,11 +125,11 @@ constexpr int kThreads = 256;
 constexpr int kReplicatedBytes = 48 * 1024;  // replicated masks up to this size
 constexpr int kMaxSmemBytes = 232448;        // a block's shared memory on sm_90
 
-// What the kernel does with each output word.
+// What the kernel does with each output word (2 is not a mode of this
+// kernel: the compare has its own, gf_encode_compare_kernel).
 enum Mode : int {
   kStore = 0,    // out = f(data)
   kAcc = 1,      // out ^= f(data ^ seed), in place
-  kCompare = 2,  // flags[b, u] |= f(data[b]) row u != parity[b] row u
   // The stage cuts (the measurement probe's ablation): the loop runs up
   // to its stage over every input row, then writes an (m, S) uint8 out.
   kCutLoad = 3,     // out = data[0:m]
@@ -142,12 +151,12 @@ constexpr int kBlocksPerSm = W == 4 ? 3 : 4;
 
 struct Params {
   const uint8_t* data;
-  uint8_t* out;            // kCompare: the (batch, m) int32 flags
-  const uint8_t* parity;   // kCompare: the stored (batch, m, s) parity
+  uint8_t* out;            // the compare: the (batch, m) bool flags
+  const uint8_t* parity;   // the compare: the stored (batch, m, s) parity
   const uint32_t* masks;   // device: [u][chunk][c][i] replicated, or packed
   long long s;
   unsigned items_per_row;  // ceil(s / 4W)
-  unsigned items;          // batch * items_per_row
+  unsigned items;          // batch * items_per_row (the compare: unused)
   int k, m, nch;           // nch: 8-row chunks of the input
   uint32_t seed_rep;       // acc seed in all four bytes
   int vec;                 // rows aligned for W-word vector access
@@ -241,37 +250,33 @@ __device__ __forceinline__ void mask_quad(const uint32_t* sm, int base, int c,
 }
 
 // One item: 4W columns of one batch row.  d and o point at its first
-// column in input row 0 and output row 0 (kCompare: o is the stored
-// parity's, flag the batch row's m flags); rem = S - that column; fast:
-// the item lies inside S and the rows are aligned for W-word vectors;
-// lanes: the warp's lanes with an item in this pass (kCompare's vote).
+// column in input row 0 and output row 0 (the compare: o is the stored
+// parity's); rem = S - that column; fast: the item lies inside S and the
+// rows are aligned for W-word vectors.
 struct Item {
   const uint8_t* d;
   uint8_t* o;
-  int* flag;
   long long rem;
   bool fast;
-  unsigned lanes;
 };
 
-template <int MODE, int W>
-__device__ __forceinline__ Item locate(const Params& p, unsigned t) {
-  const unsigned bi = t / p.items_per_row;
-  const long long col = (long long)(t - bi * p.items_per_row) * (4 * W);
+// Item j of batch row bi.
+template <int W>
+__device__ __forceinline__ Item item_at(const Params& p, uint8_t* out, unsigned bi,
+                                        unsigned j) {
+  const long long col = (long long)j * (4 * W);
   Item it;
   it.d = p.data + (long long)bi * p.k * p.s + col;
-  if (MODE == kCompare) {
-    it.o = const_cast<uint8_t*>(p.parity) + (long long)bi * p.m * p.s + col;
-    it.flag = reinterpret_cast<int*>(p.out) + (long long)bi * p.m;
-    const unsigned first = t - (threadIdx.x & 31u);  // the warp's lane 0
-    const unsigned n = p.items - first;
-    it.lanes = n >= 32u ? 0xffffffffu : (1u << n) - 1u;
-  } else {
-    it.o = p.out + (long long)bi * p.m * p.s + col;
-  }
+  it.o = out + (long long)bi * p.m * p.s + col;
   it.rem = p.s - col;
   it.fast = p.vec && it.rem >= 4 * W;
   return it;
+}
+
+template <int W>
+__device__ __forceinline__ Item locate(const Params& p, unsigned t) {
+  const unsigned bi = t / p.items_per_row;
+  return item_at<W>(p, p.out, bi, t - bi * p.items_per_row);
 }
 
 // Input rows 8 * ch .. 8 * ch + 7 of the item (rows past k are not read).
@@ -465,18 +470,6 @@ __device__ __forceinline__ void item(const Params& p, const uint32_t* sm,
 #pragma unroll
     for (int j = 0; j < W; ++j) res[j] = fold_stage3(d[0][j], d[1][j]);
     uint8_t* orow = it.o + (long long)u * p.s;
-    if (MODE == kCompare) {
-      uint32_t stored[W];
-      if (it.fast)
-        load_vec<W, true>(stored, orow);
-      else
-        load_bytes<W>(stored, orow, it.rem);
-      uint32_t diff = 0u;
-#pragma unroll
-      for (int j = 0; j < W; ++j) diff |= res[j] ^ stored[j];
-      if (__any_sync(it.lanes, diff != 0u) && diff != 0u) atomicOr(it.flag + u, 1);
-      continue;
-    }
     if (MODE == kAcc) {
       uint32_t prev[W];
       if (it.fast)
@@ -497,12 +490,12 @@ __device__ __forceinline__ void run(const Params& p, uint32_t* sm) {
   // the first item's rows are in flight while the masks are copied
   uint32_t x[8][W];
   const bool pre = p.nch == 1 && t0 < p.items;
-  if (pre) load_chunk<MODE, W>(p, locate<MODE, W>(p, t0), 0, x);
+  if (pre) load_chunk<MODE, W>(p, locate<W>(p, t0), 0, x);
   const int n = p.m * p.nch * (PACKED ? 16 : 64);
   for (int j = threadIdx.x; j < n; j += kThreads) sm[j] = __ldg(p.masks + j);
   __syncthreads();
   for (unsigned t = t0; t < p.items; t += stride)
-    item<MODE, W, PACKED>(p, sm, locate<MODE, W>(p, t), x, pre && t == t0);
+    item<MODE, W, PACKED>(p, sm, locate<W>(p, t), x, pre && t == t0);
 }
 
 template <int MODE, int W>
@@ -541,35 +534,189 @@ int launch_w(const Params& p, int words, int blocks, cudaStream_t stream) {
   }
 }
 
+// -- the compare ------------------------------------------------------
+
+// The compare's block: at most kCompareMaxThreads threads, two of them an
+// SM at 64 registers a thread, so 2 x SMs blocks are resident at once.
+constexpr int kCompareMaxThreads = 512;
+// Words a unit (4 kCompareWords columns of one stored row).
+constexpr int kCompareWords = 2;
+// The flags that one pass over an entry's data reduces, a bit each.
+constexpr int kGroupRows = 32;
+// Polls of a slot before the launch traps rather than hangs.
+constexpr unsigned kMaxPolls = 1u << 24;
+
+struct CompareParams {
+  Params p;
+  int parts;                  // blocks a batch entry
+  unsigned long long* slots;  // [batch][row group][part]; zero between launches
+};
+
+// One unit: stored row u of one item (ok: the item lies inside the row).
+struct Unit {
+  Item it;
+  int u;
+  bool ok;
+};
+
+// Unit w of the row group of rows u0 .. u0 + rows - 1: chunk c = w / 32
+// of 32 units is stored row u0 + c % rows of items (c / rows) * 32 +
+// lane, so a warp shares its row (the masks' loads broadcast) and the
+// rows of 32 items are neighbouring warps.
+__device__ __forceinline__ Unit unit_at(const Params& p, uint8_t* parity, unsigned b,
+                                        unsigned w, int u0, unsigned rows) {
+  const unsigned c = w >> 5;
+  const unsigned ci = c / rows;
+  const unsigned g = ci * 32u + (w & 31u);
+  Unit un;
+  un.ok = g < p.items_per_row;
+  un.u = u0 + int(c - ci * rows);
+  un.it = item_at<kCompareWords>(p, parity, b, un.ok ? g : 0u);
+  return un;
+}
+
+// A unit's loads, issued together: input chunk 0 (k <= 8; wider codes
+// load each chunk in the product) and the stored row's words.
+__device__ __forceinline__ void unit_loads(const Params& p, const Unit& un,
+                                           uint32_t (&x)[8][kCompareWords],
+                                           uint32_t (&y)[kCompareWords]) {
+  if (p.nch == 1) load_chunk<kStore, kCompareWords>(p, un.it, 0, x);
+  const uint8_t* q = un.it.o + (long long)un.u * p.s;
+  if (un.it.fast)
+    load_vec<kCompareWords, true>(y, q);
+  else
+    load_bytes<kCompareWords>(y, q, un.it.rem);
+}
+
+// Output row u of the item XOR the stored row: nonzero where they differ.
+// The product and fold are the store's (pair, fold_stage2, fold_stage3).
+template <bool PACKED>
+__device__ __forceinline__ uint32_t compare_row(const Params& p, const uint32_t* masks,
+                                                const Item& it,
+                                                uint32_t (&x)[8][kCompareWords], int u,
+                                                const uint32_t (&stored)[kCompareWords]) {
+  constexpr int W = kCompareWords;
+  uint32_t d[2][W];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t b0[W], b2[W];
+    pair<kStore, W, PACKED>(p, masks, it, x, true, u, h, b0);
+    pair<kStore, W, PACKED>(p, masks, it, x, true, u, h + 2, b2);
+#pragma unroll
+    for (int j = 0; j < W; ++j) d[h][j] = fold_stage2(b0[j], b2[j]);
+  }
+  uint32_t diff = 0u;
+#pragma unroll
+  for (int j = 0; j < W; ++j) diff |= fold_stage3(d[0][j], d[1][j]) ^ stored[j];
+  return diff;
+}
+
+// The OR of v over the block, to every thread (red: a word a warp).
+__device__ __forceinline__ uint32_t block_or(uint32_t v, uint32_t* red) {
+  v = __reduce_or_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31u) == 0u) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  uint32_t all = 0u;
+  for (unsigned w = 0; w < blockDim.x >> 5; ++w) all |= red[w];
+  __syncthreads();
+  return all;
+}
+
+__device__ __forceinline__ unsigned long long slot_load(const unsigned long long* q) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(q) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void slot_store(unsigned long long* q, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(q), "l"(v) : "memory");
+}
+
+// A partner block's word, once its slot holds it (bit 32 set); the slot
+// is cleared again for the next launch.
+__device__ __forceinline__ uint32_t take(unsigned long long* q) {
+  unsigned long long v;
+  unsigned polls = 0;
+  while (((v = slot_load(q)) >> 32) == 0ull)
+    if (++polls == kMaxPolls) __trap();
+  slot_store(q, 0ull);
+  return uint32_t(v);
+}
+
+// Block i takes part i % parts of batch entry b = i / parts: its thread t
+// units part * T + t, + parts * T, ... of each row group (kGroupRows
+// stored rows: one group for m <= 32).  A unit loads its item's data and
+// its stored row together, forms that row's product (the masks read
+// through L1, no copy first) and compares.  The block ORs its units'
+// bits; with parts > 1 the other parts post theirs to their slots and
+// part 0 takes them, then writes each flag once.
+template <bool PACKED>
+__device__ __forceinline__ void compare_run(const CompareParams& cp) {
+  __shared__ uint32_t red[kCompareMaxThreads / 32];
+  const Params& p = cp.p;
+  const unsigned parts = unsigned(cp.parts);
+  const unsigned b = blockIdx.x / parts;
+  const unsigned part = blockIdx.x - b * parts;
+  const unsigned g0 = part * blockDim.x + threadIdx.x;
+  const unsigned stride = parts * blockDim.x;
+  const unsigned chunks = (p.items_per_row + 31u) / 32u;
+  uint8_t* parity = const_cast<uint8_t*>(p.parity);
+  const int groups = (p.m + kGroupRows - 1) / kGroupRows;
+  for (int grp = 0; grp < groups; ++grp) {
+    const int u0 = grp * kGroupRows;
+    const unsigned rows = unsigned(min(kGroupRows, p.m - u0));
+    uint32_t bad = 0u;  // bit r: stored row u0 + r differs
+    for (unsigned w = g0; w < chunks * rows * 32u; w += stride) {
+      const Unit un = unit_at(p, parity, b, w, u0, rows);
+      if (!un.ok) continue;
+      uint32_t x[8][kCompareWords], y[kCompareWords];
+      unit_loads(p, un, x, y);
+      if (compare_row<PACKED>(p, p.masks, un.it, x, un.u, y) != 0u) bad |= 1u << (un.u - u0);
+    }
+    uint32_t all = block_or(bad, red);
+    if (parts > 1) {
+      unsigned long long* slot = cp.slots + ((long long)b * groups + grp) * parts;
+      if (part != 0) {
+        if (threadIdx.x == 0) slot_store(slot + part, (1ull << 32) | all);
+        continue;
+      }
+      uint32_t theirs = 0u;
+      for (unsigned q = threadIdx.x + 1; q < parts; q += blockDim.x) theirs |= take(slot + q);
+      all |= block_or(theirs, red);
+    }
+    if (threadIdx.x < rows)
+      p.out[(long long)b * p.m + u0 + threadIdx.x] = uint8_t((all >> threadIdx.x) & 1u);
+  }
+}
+
+__global__ void __launch_bounds__(kCompareMaxThreads, 2)
+gf_encode_compare_kernel(const __grid_constant__ CompareParams cp) {
+  if (cp.p.packed)
+    compare_run<true>(cp);
+  else
+    compare_run<false>(cp);
+}
+
 }  // namespace
 
 extern "C" {
 
 // For b < batch: mode 0, out[b] = f(data[b]); mode 1, out[b] ^=
-// f(data[b] ^ seed); mode 2, out[b, u] = 1 where f(data[b]) row u
-// differs from parity[b] row u, else 0 (out: (batch, m) int32, zeroed
-// here first); the stage cuts, mode 3 out[b] = data[b][0:m], mode 4
+// f(data[b] ^ seed); the stage cuts, mode 3 out[b] = data[b][0:m], mode 4
 // data[b][0:m] & 1 (both need m <= k), mode 5 f(data[b]) & 1.
-// data: (batch, k, s), out (modes 0, 1, 3-5) and parity (mode 2):
-// (batch, m, s), contiguous.  masks: device array of m * nch * 64
-// replicated words, or with packed != 0 of m * nch * 16 packed words
-// (nch = ceil(k / 8)).  words (2 or 4) and blocks are the host's launch
-// plan.  Returns a cudaError_t value (0 on success).
-int ceph_gf_bitmatmul(const void* data, const void* parity, void* out,
-                      const void* masks, int packed, int k, int m,
-                      long long s, int batch, int mode, int seed, int words,
+// data: (batch, k, s), out: (batch, m, s), contiguous.  masks: device
+// array of m * nch * 64 replicated words, or with packed != 0 of
+// m * nch * 16 packed words (nch = ceil(k / 8)).  words (2 or 4) and
+// blocks are the host's launch plan.  Returns a cudaError_t value (0 on
+// success).
+int ceph_gf_bitmatmul(const void* data, void* out, const void* masks, int packed, int k,
+                      int m, long long s, int batch, int mode, int seed, int words,
                       int blocks, void* stream) {
   if (k < 1 || m < 1 || k + m > 256 || s < 0 || batch < 0 || blocks < 1 ||
       (words != 2 && words != 4) || mode < kStore || mode > kCutProduct ||
-      (mode == kCompare && parity == nullptr) ||
-      ((mode == kCutLoad || mode == kCutExtract) && m > k))
+      mode == 2 || ((mode == kCutLoad || mode == kCutExtract) && m > k))
     return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (mode == kCompare && batch > 0) {
-    const cudaError_t err =
-        cudaMemsetAsync(out, 0, size_t(batch) * m * sizeof(int), st);
-    if (err != cudaSuccess) return int(err);
-  }
   if (s == 0 || batch == 0) return 0;
   const int nch = (k + 7) / 8;
   const long long per_row = (s + 4 * words - 1) / (4 * words);
@@ -584,7 +731,7 @@ int ceph_gf_bitmatmul(const void* data, const void* parity, void* out,
   Params p;
   p.data = static_cast<const uint8_t*>(data);
   p.out = static_cast<uint8_t*>(out);
-  p.parity = static_cast<const uint8_t*>(parity);
+  p.parity = nullptr;
   p.masks = static_cast<const uint32_t*>(masks);
   p.s = s;
   p.items_per_row = unsigned(per_row);
@@ -594,17 +741,75 @@ int ceph_gf_bitmatmul(const void* data, const void* parity, void* out,
   p.nch = nch;
   p.seed_rep = mode == kAcc ? (uint32_t(seed) & 0xFFu) * 0x01010101u : 0u;
   // every row starts aligned when s is a multiple of the vector width
-  p.vec = s % (4 * words) == 0 && aligned(data) &&
-          aligned(mode == kCompare ? parity : out);
+  p.vec = s % (4 * words) == 0 && aligned(data) && aligned(out);
   p.packed = packed != 0;
   switch (mode) {
     case kAcc: return launch_w<kAcc>(p, words, blocks, st);
-    case kCompare: return launch_w<kCompare>(p, words, blocks, st);
     case kCutLoad: return launch_w<kCutLoad>(p, words, blocks, st);
     case kCutExtract: return launch_w<kCutExtract>(p, words, blocks, st);
     case kCutProduct: return launch_w<kCutProduct>(p, words, blocks, st);
     default: return launch_w<kStore>(p, words, blocks, st);
   }
+}
+
+// flags[b, u] = 1 where f(data[b]) row u differs from parity[b] row u,
+// else 0, for b < batch: one launch, each flag written once.  data:
+// (batch, k, s) and parity: (batch, m, s) contiguous; flags: batch * m
+// bytes (torch.bool).  masks as for ceph_gf_bitmatmul.  parts (blocks a
+// batch entry) and threads (a multiple of 32 up to 512) are the host's
+// launch plan; with parts > 1 the launch is cooperative (refused unless
+// every block is resident at once: batch * parts <= 2 x the SMs) and
+// slots are n_slots >= batch * ceil(m / 32) * parts zeroed 8-byte words
+// on the device, which the launch leaves zero, for one stream at a time.
+// Returns a cudaError_t value (0 on success).
+int ceph_gf_encode_compare(const void* data, const void* parity, void* flags,
+                           const void* masks, void* slots, long long n_slots, int packed,
+                           int k, int m, long long s, int batch, int parts, int threads,
+                           void* stream) {
+  if (k < 1 || m < 1 || k + m > 256 || s < 0 || batch < 0 || parts < 1 ||
+      (parity == nullptr && s > 0) || threads < 32 || threads > kCompareMaxThreads ||
+      threads % 32 != 0)
+    return int(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  constexpr int W = kCompareWords;
+  const long long groups = (m + kGroupRows - 1) / kGroupRows;
+  const long long per_row = (s + 4 * W - 1) / (4 * W);
+  if ((per_row + 31) / 32 * 32 * min(m, kGroupRows) >= (1ll << 31) ||
+      (long long)batch * parts >= (1ll << 31) || (long long)parts * threads >= (1ll << 31) ||
+      (parts > 1 && (slots == nullptr || n_slots < batch * groups * parts)))
+    return int(cudaErrorInvalidValue);
+  const auto aligned = [](const void* ptr) {
+    return (reinterpret_cast<uintptr_t>(ptr) & uintptr_t(4 * W - 1)) == 0;
+  };
+  CompareParams cp;
+  Params& p = cp.p;
+  p.data = static_cast<const uint8_t*>(data);
+  p.out = static_cast<uint8_t*>(flags);
+  p.parity = static_cast<const uint8_t*>(parity);
+  p.masks = static_cast<const uint32_t*>(masks);
+  p.s = s;
+  p.items_per_row = unsigned(per_row);
+  p.items = 0u;
+  p.k = k;
+  p.m = m;
+  p.nch = (k + 7) / 8;
+  p.seed_rep = 0u;
+  p.vec = s % (4 * W) == 0 && aligned(data) && aligned(parity);
+  p.packed = packed != 0;
+  cp.parts = parts;
+  cp.slots = static_cast<unsigned long long*>(slots);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(batch) * unsigned(parts));
+  cfg.blockDim = dim3(unsigned(threads));
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gf_encode_compare_kernel, cp);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -12,8 +12,9 @@ Decode is the same product with a per-erasure-signature matrix (inverted
 host-side and cached).
 
 Deep scrub's re-encode-compare (:func:`gf_encode_compare`) is the same
-product with a compare in place of the store: it returns a (B, m)
-mismatch mask against the stored parity, which it never writes out.
+product with a compare in place of the store, in a kernel of its own: it
+returns a (B, m) mismatch mask against the stored parity, which it never
+writes out.
 The measurement probe's stage cuts (:func:`gf_stage_cut`) run the same
 kernel's loop up to the load, the bit extraction or the product.
 
@@ -110,28 +111,59 @@ REPLICATED_BYTES = 48 * 1024
 #: each thread strides over items
 MAX_BLOCKS_PER_SM = 8
 
+#: the compare's block: at most ``kCompareMaxThreads`` threads, and the
+#: plan's fewest
+COMPARE_MAX_THREADS = 512
+COMPARE_MIN_THREADS = 128
+#: the compare's words a unit (4 * words columns of one stored row;
+#: ``kCompareWords``)
+COMPARE_WORDS = 2
+#: flags one pass over a batch entry reduces (``kGroupRows``)
+COMPARE_GROUP_ROWS = 32
+
 _fn = None
+_compare_fn = None
+
+
+def _library_entry(name: str, argtypes: list):
+    """ctypes handle of ``name`` in the gf_bitmatmul library (built on
+    first use)."""
+    from ceph_tpu_torch.ops import _build
+
+    fn = getattr(_build.library("gf_bitmatmul"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
 
 
 def _kernel():
     """ctypes handle of ``ceph_gf_bitmatmul``, built on first use."""
     global _fn
     if _fn is None:
-        from ceph_tpu_torch.ops import _build
-
-        fn = _build.library("gf_bitmatmul").ceph_gf_bitmatmul
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # data, parity, out
-            ctypes.c_void_p,                                     # masks
+        _fn = _library_entry("ceph_gf_bitmatmul", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # data, out, masks
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # packed, k, m
             ctypes.c_longlong, ctypes.c_int,                     # s, batch
             ctypes.c_int, ctypes.c_int,                          # mode, seed
             ctypes.c_int, ctypes.c_int,                          # words, blocks
             ctypes.c_void_p,                                     # stream
-        ]
-        _fn = fn
+        ])
     return _fn
+
+
+def _compare_kernel():
+    """ctypes handle of ``ceph_gf_encode_compare``, built on first use."""
+    global _compare_fn
+    if _compare_fn is None:
+        _compare_fn = _library_entry("ceph_gf_encode_compare", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # data, parity, flags
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, # masks, slots, n_slots
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,            # packed, k, m
+            ctypes.c_longlong, ctypes.c_int,                     # s, batch
+            ctypes.c_int, ctypes.c_int,                          # parts, threads
+            ctypes.c_void_p,                                     # stream
+        ])
+    return _compare_fn
 
 
 def replicated_masks(bitmat: np.ndarray) -> np.ndarray:
@@ -221,52 +253,120 @@ def _sm_count(index: int) -> int:
 
 
 #: the kernel's modes (``Mode`` in the source)
-MODE_STORE, MODE_ACC, MODE_COMPARE = 0, 1, 2
+MODE_STORE, MODE_ACC = 0, 1
 #: the stage cuts' modes, by stage; "full" is the store
 STAGE_MODES = {"load": 3, "extract": 4, "matmul": 5, "full": MODE_STORE}
 
 
-def _launch(bitmat, data, out, *, acc=False, seed=0, words=None,
-            parity=None, stage=None) -> None:
-    """One kernel launch on the current stream; raises if it is refused.
-    ``words`` overrides the launch plan's columns per thread (4 * words).
-    With ``parity`` the launch compares: ``out`` is the int32 (..., m)
-    flags, which the C entry zeroes first.  ``stage`` (a key of
-    ``STAGE_MODES``) launches that stage cut instead of the store.
-    Checks only what the kernel needs (the entry points
-    check the rest): all on one CUDA device, data, parity and out
+def _operands(ts) -> int:
+    """The CUDA device index of the (name, tensor) operands; raises
+    unless all are CUDA tensors on one device, all but ``bitmat``
     contiguous."""
-    ts = (("bitmat", bitmat), ("data", data), ("out", out))
-    if parity is not None:
-        ts += (("parity", parity),)
     for name, t in ts:
         if not t.is_cuda:
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
     if not all(t.is_contiguous() for name, t in ts if name != "bitmat"):
-        raise ValueError("data, parity and out must be contiguous")
-    index = data.get_device()
+        raise ValueError(", ".join(n for n, _ in ts if n != "bitmat") + " must be contiguous")
+    index = ts[0][1].get_device()
     if any(t.get_device() != index for _, t in ts):
         raise ValueError("operands on different devices: " + ", ".join(
             f"{name} on {t.device}" for name, t in ts))
+    return index
+
+
+def _call(fn, args, index: int) -> int:
+    """``fn(*args, stream)`` on device ``index``'s current stream."""
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def _launch(bitmat, data, out, *, acc=False, seed=0, words=None,
+            stage=None) -> None:
+    """One kernel launch on the current stream; raises if it is refused.
+    ``words`` overrides the launch plan's columns per thread (4 * words).
+    ``stage`` (a key of ``STAGE_MODES``) launches that stage cut instead
+    of the store.  Checks only what the kernel needs (the entry points
+    check the rest): all on one CUDA device, data and out contiguous."""
+    index = _operands((("bitmat", bitmat), ("data", data), ("out", out)))
     *_, k, s = data.shape
     m = bitmat.shape[0] // 8
     batch = data.numel() // (k * s) if s else 0
     packed, masks = _masks(bitmat)
     words, blocks = _launch_plan(s, batch, _sm_count(index), words)
-    mode = (MODE_COMPARE if parity is not None else MODE_ACC if acc
-            else STAGE_MODES[stage] if stage is not None else MODE_STORE)
-    args = (data.data_ptr(), parity.data_ptr() if parity is not None else None,
-            out.data_ptr(), masks, packed, k, m, s, batch, mode, seed & 0xFF,
-            words, blocks)
-    if index == torch.cuda.current_device():
-        err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
+    mode = (MODE_ACC if acc else STAGE_MODES[stage] if stage is not None
+            else MODE_STORE)
+    err = _call(_kernel(), (data.data_ptr(), out.data_ptr(), masks, packed, k, m, s,
+                            batch, mode, seed & 0xFF, words, blocks), index)
     if err != 0:
         raise RuntimeError(
             f"gf_bitmatmul kernel launch failed: cudaError {err} "
             f"(k={k}, m={m}, S={s}, batch={batch}, mode={mode}, words={words})")
+
+
+def compare_plan(s: int, batch: int, m: int, sms: int) -> tuple[int, int]:
+    """(parts, threads) of a compare launch over ``batch`` entries of
+    ``s`` columns and ``m`` stored rows on a card of ``sms`` SMs: block i
+    takes part i % parts of entry i // parts.  A unit is one (item of 4 *
+    ``COMPARE_WORDS`` columns, stored row) pair of a row group, items in
+    chunks of 32; thread t of a part takes units part * threads + t, +
+    parts * threads, ...  A block an SM where that gives every thread at
+    most one unit; else as many blocks an entry as the card holds for
+    every entry at once (two an SM: 64 registers a thread, no shared
+    memory but a word a warp), each thread the same count of units.  One
+    part an entry where the entries outnumber the blocks."""
+    lo, hi = COMPARE_MIN_THREADS, COMPARE_MAX_THREADS
+    items = -(-s // (4 * COMPARE_WORDS))
+    units = -(-items // 32) * 32 * min(m, COMPARE_GROUP_ROWS)
+    if units == 0:
+        return 1, lo
+
+    def block(n: int) -> int:
+        return min(hi, max(lo, -(-n // 32) * 32))
+
+    parts = min(sms // max(batch, 1), -(-units // lo))
+    if parts >= 1 and units <= parts * hi:
+        return parts, block(-(-units // parts))
+    parts = max(1, min(2 * sms // max(batch, 1), -(-units // lo)))
+    per = -(-units // (parts * hi))
+    return parts, block(-(-units // (parts * per)))
+
+
+#: (device index, raw stream) -> the compare's zeroed slots
+_SLOTS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _compare_slots(index: int, stream: int) -> torch.Tensor:
+    """The compare's slots on one device and stream: 8 bytes for each
+    (entry, row group, part), at most two blocks an SM times the row
+    groups of the widest code; zeroed once, left zero by every launch."""
+    slots = _SLOTS.get((index, stream))
+    if slots is None:
+        n = 2 * _sm_count(index) * -(-256 // COMPARE_GROUP_ROWS)
+        slots = _SLOTS[(index, stream)] = torch.zeros(n, dtype=torch.int64,
+                                                      device=f"cuda:{index}")
+    return slots
+
+
+def _launch_compare(bitmat, data, parity, flags) -> None:
+    """One compare launch on the current stream; raises if it is refused.
+    ``flags``: the (..., m) bool tensor the kernel writes."""
+    index = _operands((("bitmat", bitmat), ("data", data), ("parity", parity),
+                       ("flags", flags)))
+    *_, k, s = data.shape
+    m = bitmat.shape[0] // 8
+    batch = flags.numel() // m
+    packed, masks = _masks(bitmat)
+    parts, threads = compare_plan(s, batch, m, _sm_count(index))
+    slots = _compare_slots(index, torch._C._cuda_getCurrentRawStream(index))
+    err = _call(_compare_kernel(), (data.data_ptr(), parity.data_ptr(), flags.data_ptr(), masks,
+                                    slots.data_ptr(), slots.numel(), packed, k, m, s, batch,
+                                    parts, threads), index)
+    if err != 0:
+        raise RuntimeError(
+            f"gf_encode_compare kernel launch failed: cudaError {err} (k={k}, m={m}, "
+            f"S={s}, batch={batch}, parts={parts}, threads={threads})")
 
 
 def _check(bitmat: torch.Tensor, data: torch.Tensor) -> tuple[int, int]:
@@ -410,8 +510,9 @@ def gf_encode_compare(bitmat: torch.Tensor, data: torch.Tensor,
     encode bit-matrix to (..., k, S) data-shard lanes and compare with
     the stored (..., m, S) parity lanes, returning a (..., m) bool
     mismatch mask.  Zero-padded columns are exact (the encode of zeros
-    is zeros).  On the card: one launch of the kernel's compare mode,
-    whose expected parity never reaches memory (replaces the jitted XLA
+    is zeros).  On the card: one launch of ``gf_encode_compare_kernel``,
+    which writes the mask itself and whose expected parity never reaches
+    memory: one device operation a call (replaces the jitted XLA
     ``gf_encode_compare`` of ceph_tpu/ops/rs_kernels.py:73-83)."""
     k, m = _check(bitmat, data)
     if not isinstance(parity, torch.Tensor) or parity.dtype != torch.uint8:
@@ -422,10 +523,11 @@ def gf_encode_compare(bitmat: torch.Tensor, data: torch.Tensor,
                          f"{tuple(parity.shape)} on {parity.device}")
     if _on_cpu(data):
         return gf_encode_compare_plain(bitmat, data, parity)
-    flags = torch.empty(want[:-1], dtype=torch.int32, device=data.device)
-    _launch(bitmat, data, flags, parity=parity)
-    count_launch(gf_encode_compare)
-    return flags != 0
+    flags = torch.empty(want[:-1], dtype=torch.bool, device=data.device)
+    if flags.numel():
+        _launch_compare(bitmat, data, parity, flags)
+        count_launch(gf_encode_compare)
+    return flags
 
 
 def gf_stage_cut_plain(bitmat: torch.Tensor, data: torch.Tensor,

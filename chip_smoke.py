@@ -78,8 +78,10 @@ whole pool, all in and with zero and partial reweights; a device-class
 rule, a choose_args weight set, one past 2^32 (against the plain version
 alone) and legacy tunables; and the CLAY repair
 kernel against its plain version for every lost node of CLAY(4,2,5),
-(8,4,11) and (8,3,10) at the 4 MiB object's sub-chunk, at a ragged
-sub-chunk and at the 32 MiB-chunk shape.
+(8,4,11), (8,3,10) and (4,5,8) at the 4 MiB object's sub-chunk, at a
+ragged sub-chunk and at the 32 MiB-chunk shape.  The re-encode compare
+is also held at a ragged S at batch 1, at more batch entries than the
+card has SMs (one block an entry) and for a wide code.
 
 Kernel launch counts are reset just before phases 2-7 and read just
 after; every kernel of that path must have been launched there.  They
@@ -90,8 +92,9 @@ phase 10: ``row_copy``, the three stage cuts of ``gf_stage_cut``,
 (``cuobjdump -sass`` then counts the global loads of each instantiation
 of the bit-matrix kernel, the cuts' included).  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
-share, and the device time per launch at each kernel's main-path shape
-(and at each forced width of the launch plan); each kernel is timed
+share, the main path's memset µs, and the device time per launch at
+each kernel's main-path shape (and at each forced width of the launch
+plan); each kernel is timed
 there by CUDA events and held there against its plain version (a CRUSH
 row also gives its launch: warps per block and blocks); the tools
 kernels likewise at their probes' shapes.  Each
@@ -215,6 +218,7 @@ REPLACES = {
 }
 #: each entry point's kernel source and the kernel's name in a trace
 KERNELS = {name: (GF_SOURCE, "gf_bitmatmul_kernel") for name in REPLACES}
+KERNELS["gf_encode_compare"] = (GF_SOURCE, "gf_encode_compare_kernel")
 KERNELS["batched_crc32c_device"] = (CRC_SOURCE, "crc32c_lanes_kernel")
 KERNELS.update({name: (CRUSH_SOURCE, f"{name}_kernel") for name in CRUSH_ENTRIES.values()})
 KERNELS["clay_repair"] = (CLAY_SOURCE, "clay_repair_kernel")
@@ -238,10 +242,10 @@ TOOL_LIBRARY = {
 }
 #: the golden chunk bytes of every plugin profile (tools/gen_ec_golden.py)
 GOLDEN = "tests/golden/ec_kats.json"
-#: CLAY: the phase-1 geometries (every lost node of each) and ragged
-#: sub-chunk; the pool's lost shards, one at a time, and the shards its
-#: degraded read goes without
-CLAY_GEOMETRIES = ((4, 2, 5), (8, 4, 11), (8, 3, 10))
+#: CLAY: the phase-1 geometries (every lost node of each; (4, 5, 8) has
+#: q = 5, 25 sub-chunks) and ragged sub-chunk; the pool's lost shards,
+#: one at a time, and the shards its degraded read goes without
+CLAY_GEOMETRIES = ((4, 2, 5), (8, 4, 11), (8, 3, 10), (4, 5, 8))
 CLAY_RAGGED_SC = 4096 + 13
 CLAY_LOST = (3, 9)
 CLAY_DEGRADED = (3, 9)
@@ -506,10 +510,13 @@ def phase_kernel_scrub(cfg: Config, device, gen, check) -> None:
     and ``crc_lanes`` lanes, every other lane's tail zero-padded as the
     verifier pads short lanes, against its plain version and the native
     crc32c.  The re-encode compare for m = 3 and m = 1 at batches 1 and 8
-    of each width of ``compare_cols`` and at a ragged S (a warp spans two
-    batch entries): clean, one parity byte flipped, one data byte
-    flipped, every parity byte wrong (every thread sets a flag), against
-    its plain version, and the plain version against the flags expected."""
+    of each width of ``compare_cols`` and at a ragged S at batches 1 and
+    8: clean, one parity byte flipped, one data byte flipped, every
+    parity byte wrong (every thread sets a flag), against its plain
+    version, and the plain version against the flags expected; 160
+    entries of the narrowest width (more than the SMs: one block an entry,
+    no slots); a wide code (packed masks, rows past the four loaded early,
+    four row groups)."""
     for w in cfg.crc_cols:
         for b in (1, cfg.crc_lanes):
             x = _rand((b, w), gen, device)
@@ -533,7 +540,8 @@ def phase_kernel_scrub(cfg: Config, device, gen, check) -> None:
     for m in (cfg.m, 1):
         bits = rk.BitmatrixCodec(isa_cauchy_matrix(k, m), device=device).encode_bits
         shapes = [(b, s) for b in (1, 8) for s in cfg.compare_cols]
-        for b, s in shapes + [(8, cfg.compare_cols[0] + 13)]:
+        for b, s in shapes + [(8, cfg.compare_cols[0] + 13), (1, cfg.compare_cols[0] + 13),
+                              (160, cfg.compare_cols[0])]:
             data = _rand((b, k, s), gen, device)
             parity = rk.gf_bitmatmul_plain(bits, data)
             pflip, dflip = parity.clone(), data.clone()
@@ -551,6 +559,14 @@ def phase_kernel_scrub(cfg: Config, device, gen, check) -> None:
                 plain = rk.gf_encode_compare_plain(bits, d, p)
                 check("gf_encode_compare", rk.gf_encode_compare(bits, d, p), plain, case)
                 check("plain_vs_expected", plain, flags, case)
+    wide = rk.BitmatrixCodec(isa_cauchy_matrix(128, 128), device=device).encode_bits
+    data = _rand((2, 128, cfg.compare_cols[0]), gen, device)
+    parity = rk.gf_bitmatmul_plain(wide, data)
+    parity[1, 77, 5] ^= 4
+    for what, p in (("one flip", parity), ("all wrong", parity ^ 0xFF)):
+        check("gf_encode_compare", rk.gf_encode_compare(wide, data, p),
+              rk.gf_encode_compare_plain(wide, data, p),
+              f"compare {what} (2, 128, {cfg.compare_cols[0]}) m=128")
 
 
 def clay_code(k: int, m: int, d: int, device, scalar_mds: str = "jerasure"):
@@ -1494,17 +1510,27 @@ def kernel_rows(cfg: Config, device, worst: dict, launches: dict, tp: dict,
     return rows
 
 
+def clay_bench_case(cfg: Config, device) -> tuple:
+    """tools/bench_all.py's CLAY shape (one 8 x 32 MiB stripe,
+    ``scalar_mds=cuda``): the program of lost shard ``CLAY_LOST[0]`` and
+    random staged helpers for it."""
+    hit = _CLAY_CASES.get(f"{device} bench")
+    if hit is None:
+        gen = torch.Generator(device=device).manual_seed(cfg.seed + 12)
+        ec = clay_code(8, 4, 11, device, scalar_mds="cuda")
+        prog = clay_program(ec, CLAY_LOST[0], device)
+        sc = ec.get_chunk_size(8 * cfg.clay_big_chunk) // ec.sub_chunk_no
+        hit = _CLAY_CASES[f"{device} bench"] = (prog, staged_random(prog, sc, gen, device))
+    return hit
+
+
 def clay_bench_row(cfg: Config, device, launches: int) -> dict:
-    """``clay_repair``'s row at tools/bench_all.py's shape (one 8 x 32 MiB
-    stripe, ``scalar_mds=cuda``, random staged helpers): CUDA-event ms,
-    device µs, plain ms and bound, as ``kernel_rows`` gives them at the
-    object shape.  ``launches``: the plugin path's, this shape's among
-    them."""
-    gen = torch.Generator(device=device).manual_seed(cfg.seed + 12)
-    ec = clay_code(8, 4, 11, device, scalar_mds="cuda")
-    prog = clay_program(ec, CLAY_LOST[0], device)
-    sc = ec.get_chunk_size(8 * cfg.clay_big_chunk) // ec.sub_chunk_no
-    H = staged_random(prog, sc, gen, device)
+    """``clay_repair``'s row at tools/bench_all.py's shape
+    (:func:`clay_bench_case`): CUDA-event ms, device µs, plain ms and
+    bound, as ``kernel_rows`` gives them at the object shape.
+    ``launches``: the plugin path's, this shape's among them."""
+    prog, H = clay_bench_case(cfg, device)
+    sc = H.shape[-1]
     sched = prog.schedule
     shape = f"CLAY(8,4,11) lost {prog.lost}, H {tuple(H.shape)}"
     bad, err = _errors(prog.repair_device(H), clay_cuda.clay_repair_plain(H, sched))
@@ -1693,9 +1719,10 @@ def per_launch(fn, calls: int, shape: str, kernel: str = "gf_bitmatmul_kernel") 
 def phase_profile(cfg: Config, device, tp: dict) -> dict:
     """Phases 2-6 again under torch.profiler (the remap checked on a
     sample of rows), reporting
-    the device's busy and idle share of the phases' wall time and the
-    device time per kernel; then each main-path launch shape, for the
-    kernel's own device time beside the CUDA-event time per call, and
+    the device's busy and idle share of the phases' wall time, the
+    device time per kernel and the memsets' (the compare must add none:
+    one device operation a call); then each main-path launch shape, for
+    the kernel's own device time beside the CUDA-event time per call,
     each shape again at each forced width of the launch plan (8 and 16
     columns per thread)."""
     wall, dev = traced(lambda: run_main_path(cfg, device, full_check=False))
@@ -1706,10 +1733,18 @@ def phase_profile(cfg: Config, device, tp: dict) -> dict:
         by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"]
     out = {"phase": "profile", "main_path_wall_s": wall,
            "device_busy_s": busy * 1e-6, "device_idle_share": 1 - busy * 1e-6 / wall,
-           "device_us_by_kind": by_cat, "device_events": len(dev), "per_launch": {}}
+           "device_us_by_kind": by_cat, "device_events": len(dev),
+           "main_path_memset_us": by_cat.get("gpu_memset", 0.0), "per_launch": {}}
     shapes = main_path_shapes(cfg, device, tp["codec"])
     for name, (fn, _, _, shape, _x) in shapes.items():
         out["per_launch"][name] = per_launch(fn, 48, shape, KERNELS[name][1])
+    # the compare writes its mask itself: no memset, no other kernel
+    ops = out["per_launch"]["gf_encode_compare"]["device_ops_per_call"]
+    if ops["memset"] or ops["other"] or not ops["kernel"]:
+        raise AssertionError(f"gf_encode_compare is not one device operation a call: {ops}")
+    # the compare's launch plan at its main-path shape: (parts, threads)
+    out["compare_plan"] = rk.compare_plan(cfg.batch_cols, 8, cfg.m, rk._sm_count(
+        torch.cuda.current_device()))
     # phase 9's rebuild of a few objects, each way alone
     ec = clay_code(8, 4, 11, device)
     sinfo = ecutil.StripeInfo(ec.k, ec.k * ec.get_chunk_size(cfg.clay_object_bytes))
@@ -2003,28 +2038,61 @@ def phase_tools(cfg: Config, device) -> dict:
 
 def sass_ldg_counts() -> dict:
     """Global loads (LDG) in each instantiation of ``gf_bitmatmul.cu``'s
-    kernel and in the copy kernels, from ``cuobjdump -sass`` of the built
+    kernels and in the copy kernels, from ``cuobjdump -sass`` of the built
     libraries: that the stage cuts still load every input row is read
-    here.  Keys ``mode<M>_W<W>`` (modes 3-5 the cuts); values (all LDG,
-    vector LDG.128 / .64)."""
+    here.  Keys ``mode<M>_W<W>`` (modes 3-5 the cuts), ``gf_encode_compare``
+    and the copy kernels'; values (all LDG, vector LDG.128 / .64)."""
     from ceph_tpu_torch.ops import _build
 
     exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     out = {}
-    for lib, pattern in (("gf_bitmatmul", r"gf_bitmatmul_kernelILi(\d)ELi(\d)E"),
-                         ("lab_copy", r"(lab_row_copy\w*kernel)")):
+    for lib, pattern, key in (
+            ("gf_bitmatmul", r"gf_bitmatmul_kernelILi(\d)ELi(\d)E", "mode{}_W{}"),
+            ("gf_bitmatmul", r"(gf_encode_compare)_kernel", "{}"),
+            ("lab_copy", r"(lab_row_copy\w*kernel)", "{}")):
         sass = subprocess.run([exe, "-sass", os.path.join(_build.BUILD_DIR, f"lib{lib}.so")],
                               check=True, capture_output=True, text=True, timeout=300).stdout
         name = None
         for ln in sass.splitlines():
             if "Function :" in ln:
                 hit = re.search(pattern, ln)
-                name = (f"mode{hit[1]}_W{hit[2]}" if lib == "gf_bitmatmul" else hit[1]) if hit else None
+                name = key.format(*hit.groups()) if hit else None
                 if name:
                     out[name] = [0, 0]
             elif name and re.search(r"\bLDG\b|\bLDG\.", ln):
                 out[name][0] += 1
                 out[name][1] += bool(re.search(r"LDG\.\S*(128|64)\b", ln))
+    return out
+
+
+#: the integer-pipe opcodes counted in ``sass_clay_ops``
+INT_OPCODES = ("LOP3", "PRMT", "SHF", "LEA", "IADD3", "IMAD", "ISETP", "SEL", "IADD", "LOP")
+
+
+def sass_clay_ops() -> dict:
+    """Instructions of each aligned ``clay_repair_kernel<4, W, true>``
+    (q = 4, CLAY(8,4,11)'s) by opcode, from ``cuobjdump -sass``: the
+    integer ones of ``INT_OPCODES`` and the shared and global loads and
+    stores.  The body holds ``kChunk`` = 16 shared inputs unrolled (S = 14
+    run) and the 4 private ones."""
+    from ceph_tpu_torch.ops import _build
+
+    exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([exe, "-sass", os.path.join(_build.BUILD_DIR, "libclay_repair.so")],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            hit = re.search(r"clay_repair_kernelILi4ELi(\d)ELb1E", ln)
+            name = f"Q4_W{hit[1]}" if hit else None
+            if name:
+                out[name] = dict.fromkeys((*INT_OPCODES, "LDS", "LDG", "STG", "all"), 0)
+        elif name:
+            op = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", ln)
+            if op:
+                out[name]["all"] += 1
+                if op[1] in out[name]:
+                    out[name][op[1]] += 1
     return out
 
 
@@ -2158,6 +2226,7 @@ def main(argv: list[str] | None = None) -> int:
     if idle:
         raise AssertionError(f"kernels not launched on the tools path: {idle}")
     emit({"phase": "sass_ldg", **sass_ldg_counts()})
+    emit({"phase": "sass_clay_ops", **sass_clay_ops()})
 
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])

@@ -6,9 +6,11 @@ sub-chunk runs, the host repair from the minimum reads, the layered
 multi-erasure decode, and ``ecutil.decode_shards(packed_repair=True)``
 over 3 stripes, each equal to the reference's (tolerance 0).  Then the
 kernel's arithmetic: a numpy model of its packed-word GF(2^8) multiply
-against ``gf_mul`` for all 256 x 256 pairs, and ``clay_repair.cu``'s
-device code compiled with g++ as host C++ and held against the plain
-version (aligned and ragged sub-chunks).  ``ClayRepairProgram`` against
+(PRMT lookups in the host-built product tables) against ``gf_mul`` for
+all 256 x 256 pairs, a numpy model of the whole kernel on the schedule's
+table (also CLAY(4,5,8), q = 5) against the plain version, and
+``clay_repair.cu``'s device code compiled with g++ as host C++ and held
+against the plain version (aligned and ragged sub-chunks).  ``ClayRepairProgram`` against
 the reference's jitted program is in test_torch_clay_program.py.
 """
 
@@ -189,7 +191,14 @@ def test_schedule_table_layout():
     _, prog, _ = _staged(8, 4, 11, 9, 4)
     s = prog.schedule
     assert (s.P, s.K, s.Q, s.n_helpers, s.sub_chunk_no) == (16, 8, 4, 11, 64)
-    assert s.table.shape == (16, 4 * 8 + 4 * 8 + 3 * 4) and s.table.dtype == np.int32
+    # the stages composed: 14 shared inputs (8 a-, 6 b-operands) and one
+    # private input per output, each product a 5-word table
+    assert s.S == 14 and s.inputs.shape == (16, 14 + 4) and s.coef.shape == (16, 15, 4)
+    assert s.table.shape == (16, 5 * 4 * 15 + 14 + 2 * 4) and s.table.dtype == np.int32
+    assert np.array_equal(s.table[:, -4:], s.out_z)
+    assert np.array_equal(s.table[:, 300:318], s.inputs)
+    # the lost node's own output is a copy of its U: no private input
+    assert np.all((s.inputs[:, 14:] < 0) == (s.c_h == 0))
     assert sorted(s.out_z.reshape(-1).tolist()) == list(range(64))
     # one copy per survivor q-row in each plane, the rest pair solves
     assert int((s.b_c == 0).sum()) == 16 * (s.K // s.Q)
@@ -198,57 +207,149 @@ def test_schedule_table_layout():
 
 # -- the kernel's arithmetic ----------------------------------------------------
 
-def _xtime4(x: np.ndarray) -> np.ndarray:
-    return (((x & np.uint32(0x7F7F7F7F)) << np.uint32(1))
-            ^ (((x >> np.uint32(7)) & np.uint32(0x01010101)) * np.uint32(0x1D)))
+def byte_perm(a, b, sel) -> np.ndarray:
+    """CUDA's ``__byte_perm`` (default mode) on numpy uint32 arrays: byte
+    t of the result is byte ``sel`` nibble t of the 8 bytes (b:a); the
+    kernel keeps bit 3 of every nibble clear."""
+    a, b, sel = (np.asarray(v, np.uint32) for v in (a, b, sel))
+    v = (b.astype(np.uint64) << np.uint64(32)) | a.astype(np.uint64)
+    out = np.zeros(np.broadcast(a, b, sel).shape, np.uint32)
+    for t in range(4):
+        nib = (sel >> np.uint32(4 * t)) & np.uint32(15)
+        assert not np.any(nib & np.uint32(8))
+        byte = (v >> (np.uint64(8) * (nib & np.uint32(7)).astype(np.uint64))) & np.uint64(0xFF)
+        out |= byte.astype(np.uint32) << np.uint32(8 * t)
+    return out
 
 
-def _gf_mul4(x: np.ndarray, c: int) -> np.ndarray:
-    """clay_repair.cu's gf_mul4 on numpy uint32 words."""
-    if c == 1:
-        return x
-    r = np.zeros_like(x)
-    while c:
-        if c & 1:
-            r ^= x
-        x = _xtime4(x)
-        c >>= 1
-    return r
+def kernel_selectors(x) -> list:
+    """clay_repair.cu's ``selectors``: the three fields of each byte at
+    nibble t of a PRMT selector (bytes 1 and 2 swapped)."""
+    x = np.asarray(x, np.uint32)
+    fields = (x & np.uint32(0x07070707), (x >> np.uint32(3)) & np.uint32(0x07070707),
+              (x >> np.uint32(6)) & np.uint32(0x03030303))
+    return [v + (v >> np.uint32(12)) for v in fields]
+
+
+def kernel_product(t: np.ndarray, x) -> np.ndarray:
+    """clay_repair.cu's ``product``: the 5 table words t (one coefficient)
+    times the words x, bytes 1 and 2 swapped."""
+    s0, s1, s2 = kernel_selectors(x)
+    t = np.asarray(t).view(np.uint32)
+    return byte_perm(t[0], t[1], s0) ^ byte_perm(t[2], t[3], s1) ^ byte_perm(t[4], 0, s2)
+
+
+def unswap(w) -> np.ndarray:
+    """The stored word: bytes 1 and 2 of a sum swapped back."""
+    return byte_perm(w, 0, 0x3120)
+
+
+def kernel_model(H: np.ndarray, sched) -> np.ndarray:
+    """numpy model of clay_repair.cu on the schedule's table: per plane,
+    each output the XOR of the products of its shared inputs and its
+    private input, read from the table exactly as the kernel reads it
+    (zeros past sc).  H (n_helpers, P, sc) -> (sub_chunk_no, sc)."""
+    nh, P, sc = H.shape
+    S, Q = sched.S, sched.Q
+    words = -(-sc // 4)
+    cells = np.zeros((nh * P, 4 * words), np.uint8)
+    cells[:, :sc] = H.reshape(nh * P, sc)
+    cells = cells.view("<u4")
+    out = np.zeros((sched.sub_chunk_no, 4 * words), np.uint8)
+    n = 5 * Q * (S + 1)
+    for p in range(P):
+        row = sched.table[p]
+        t01 = row[:4 * Q * (S + 1)].reshape(S + 1, Q, 4)
+        t2 = row[4 * Q * (S + 1):n].reshape(S + 1, Q)
+        ins, oz = row[n:n + S + Q], row[n + S + Q:]
+        acc = np.zeros((Q, words), np.uint32)
+        for e in range(Q):
+            for i in range(S + 1):
+                r = ins[i] if i < S else ins[S + e]
+                if r >= 0:
+                    acc[e] ^= kernel_product(np.append(t01[i, e], t2[i, e]), cells[r])
+            out[oz[e]] = unswap(acc[e]).view(np.uint8)
+    return out[:, :sc]
 
 
 def test_packed_word_multiply_model_all_pairs():
+    """The kernel's multiply: every constant's product tables applied to
+    all 256 bytes (packed four to a word) give gf_mul, once the sum's
+    bytes 1 and 2 are swapped back."""
     xs = np.arange(256, dtype=np.uint8)
     words = xs.view("<u4")
+    tables = clay_cuda.product_tables(np.arange(256, dtype=np.uint8))
     for c in range(256):
-        got = _gf_mul4(words.copy(), c).view(np.uint8)
+        got = unswap(kernel_product(tables[c], words)).view(np.uint8)
         assert np.array_equal(got, gf_mul(np.uint8(c), xs)), c
 
 
+@pytest.mark.parametrize("k,m,d", GEOMETRIES + [(4, 5, 8)])
+def test_kernel_model_equals_plain(k, m, d):
+    """The numpy model of the kernel on the host-built table equals the
+    plain version for every lost node, at an aligned and a ragged
+    sub-chunk (the reference's jitted program: test_torch_clay_program.py)."""
+    for lost in range(k + m):
+        for sc in (64, 64 + 13):
+            _, prog, H = _staged(k, m, d, lost, sc, seed=lost + sc)
+            want = clay_cuda.clay_repair_plain(H, prog.schedule).numpy()
+            assert np.array_equal(kernel_model(H.numpy(), prog.schedule), want), (lost, sc)
+
+
 _HOST_PRELUDE = r"""
+#include <algorithm>
 #include <cstdint>
+#include <cstring>
+using std::min;
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
+struct uint4 { uint32_t x, y, z, w; };
+template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (uint64_t(y) << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) r |= uint32_t((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
 """
+# every thread of every block, one after another, with the plane's slice
+# copied to an aligned buffer as the block copies it to shared memory
 _HOST_LOOP = r"""
+template <int Q, int W, bool kAligned>
+static void run(const uint8_t* H, uint8_t* out, const int32_t* table, int P, int S,
+                long long sc) {
+  const int n = slice_words(S, Q);
+  alignas(16) static int32_t slice[12288];
+  long long* off = reinterpret_cast<long long*>(slice + offsets_at(S, Q));
+  for (int p = 0; p < P; ++p) {
+    std::memcpy(slice, table + (long long)p * n, n * sizeof(int32_t));
+    const int32_t* in = slice + 5 * Q * (S + 1);
+    for (int i = 0; i < S + Q; ++i) off[i] = in[i] >= 0 ? (long long)in[i] * sc : -1ll;
+    for (long long blk = 0; 4 * blk * kThreads * W < sc; ++blk)
+      for (int t = 0; t < kThreads; ++t) {
+        long long cols[W];
+        for (int j = 0; j < W; ++j) cols[j] = 4 * (blk * kThreads * W + j * kThreads + t);
+        if (cols[0] < sc) repair_words<Q, W, kAligned>(H + cols[0], out, slice, off, S, sc, cols);
+      }
+  }
+}
 template <int Q>
-static void run(const uint8_t* H, uint8_t* out, const int32_t* table, int P, int K,
-                long long sc, int aligned) {
-  const int n = 4 * K + Q * K + 3 * Q;
-  for (int p = 0; p < P; ++p)
-    for (long long col = 0; col < sc; col += 4) {
-      if (aligned) repair_column<Q, true>(H, out, table + (long long)p * n, P, K, sc, p, col);
-      else repair_column<Q, false>(H, out, table + (long long)p * n, P, K, sc, p, col);
-    }
+static void run_q(const uint8_t* H, uint8_t* out, const int32_t* table, int P, int S,
+                  long long sc, int aligned) {
+  if (aligned) run<Q, 2, true>(H, out, table, P, S, sc);
+  else run<Q, 1, false>(H, out, table, P, S, sc);
 }
 }  // namespace
 
 extern "C" void host_repair(const uint8_t* H, uint8_t* out, const int32_t* table, int P,
-                            int K, int Q, long long sc, int aligned) {
+                            int S, int Q, long long sc, int aligned) {
   switch (Q) {
-    case 2: run<2>(H, out, table, P, K, sc, aligned); break;
-    case 3: run<3>(H, out, table, P, K, sc, aligned); break;
-    default: run<4>(H, out, table, P, K, sc, aligned); break;
+    case 2: run_q<2>(H, out, table, P, S, sc, aligned); break;
+    case 3: run_q<3>(H, out, table, P, S, sc, aligned); break;
+    case 4: run_q<4>(H, out, table, P, S, sc, aligned); break;
+    default: run_q<5>(H, out, table, P, S, sc, aligned); break;
   }
 }
 """
@@ -275,16 +376,26 @@ def host_kernel(tmp_path_factory):
 @pytest.mark.parametrize("k,m,d,lost,sc", [
     (4, 2, 5, 0, 64), (4, 2, 5, 5, 64), (8, 4, 11, 3, 64), (8, 4, 11, 9, 256),
     (8, 3, 10, 0, 64), (8, 3, 10, 10, 64), (8, 4, 11, 3, 64 + 13), (8, 3, 10, 7, 5),
+    (4, 5, 8, 0, 64), (4, 5, 8, 8, 4096 + 13), (8, 4, 11, 3, 4096),
 ])
 def test_kernel_source_as_host_code(host_kernel, k, m, d, lost, sc):
+    """Each thread's words as the launch lays them out: two words a
+    thread kThreads words apart where aligned, else one; the inputs'
+    offsets after the slice, as in the block's shared memory."""
     _, prog, H = _staged(k, m, d, lost, sc, seed=lost + sc)
     s = prog.schedule
     want = clay_cuda.clay_repair_plain(H, s)
-    out = torch.zeros_like(want)
     table = torch.from_numpy(s.table)
-    host_kernel.host_repair(H.data_ptr(), out.data_ptr(), table.data_ptr(), s.P, s.K, s.Q,
-                            sc, int(sc % 4 == 0))
+    out = torch.zeros_like(want)
+    host_kernel.host_repair(H.data_ptr(), out.data_ptr(), table.data_ptr(), s.P, s.S, s.Q, sc,
+                            int(sc % 4 == 0))
     assert torch.equal(out, want)
+
+
+def test_constants_match_kernel_source():
+    text = (ROOT / "ceph_tpu_torch" / "ops" / "csrc" / "clay_repair.cu").read_text()
+    assert f"kThreads = {clay_cuda.THREADS};" in text
+    assert f"kMaxQ = {clay_cuda.MAX_Q};" in text
 
 
 def test_inner_code_failure_raises_out_of_encode_and_decode(monkeypatch):

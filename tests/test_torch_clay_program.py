@@ -1,13 +1,17 @@
 """The port's ``ClayRepairProgram`` against the JAX package's.
 
-For every lost node of CLAY(4,2,5), (8,4,11) and (8,3,10), the port's
-program on the CPU (the plain version of ``clay_repair.cu``'s schedule)
-and the reference's jitted program (XLA on the CPU) rebuild the lost
-chunk from the same minimum-run helper reads; both must equal the
-written chunk (tolerance 0).  One XLA compile per case, so this file
-holds only these cases.
+For every lost node of CLAY(4,2,5), (8,4,11), (8,3,10) and (4,5,8)
+(q = 5: the kernel's larger Q), the port's program on the CPU (the plain
+version of ``clay_repair.cu``'s schedule) and the reference's jitted
+program (XLA on the CPU) rebuild the lost chunk from the same minimum-run
+helper reads; both must equal the written chunk.  Then the numpy model of
+the kernel on the schedule's host-built table (tests/test_torch_clay.py)
+and the plain version equal the reference's program on random staged
+helpers at an aligned and a ragged sub-chunk.  Tolerance 0.  One XLA
+compile per program and sub-chunk, so this file holds only these cases.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,10 +20,12 @@ from ceph_tpu.ec import registry as ref_registry
 from ceph_tpu.ec.plugins.clay_jit import ClayRepairProgram as RefProgram
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.ec.plugins import clay_cuda
+from tests.test_torch_clay import kernel_model
 
-GEOMETRIES = [(4, 2, 5), (8, 4, 11), (8, 3, 10)]
+GEOMETRIES = [(4, 2, 5), (8, 4, 11), (8, 3, 10), (4, 5, 8)]
 CASES = [(k, m, d, lost) for k, m, d in GEOMETRIES for lost in range(k + m)]
 _CODED: dict = {}
+_REF: dict = {}
 
 
 def _coded(k, m, d):
@@ -34,6 +40,17 @@ def _coded(k, m, d):
     return _CODED[key]
 
 
+def _ref_program(k, m, d, node, sc) -> RefProgram:
+    """The reference's program of one lost node for one sub-chunk width,
+    kept for the tests that share it (its trace caches the inner decode
+    matrices as traced values, so a second width needs a program of its
+    own)."""
+    key = (k, m, d, node, sc)
+    if key not in _REF:
+        _REF[key] = RefProgram(_coded(k, m, d)[1], node)
+    return _REF[key]
+
+
 @pytest.mark.parametrize("k,m,d,lost", CASES)
 def test_repair_program_equals_reference(k, m, d, lost):
     port, ref, cs, enc = _coded(k, m, d)
@@ -45,8 +62,25 @@ def test_repair_program_equals_reference(k, m, d, lost):
     prog = clay_cuda.ClayRepairProgram(port, node, device="cpu")
     got = prog.repair(helpers)
     assert np.array_equal(got, enc[lost])
-    assert np.array_equal(got, RefProgram(ref, node).repair(helpers))
+    assert np.array_equal(got, _ref_program(k, m, d, node, sub).repair(helpers))
     H = prog.stage(helpers)
     assert H.device.type == "cpu" and tuple(H.shape) == (
         prog.schedule.n_helpers, prog.schedule.P, sub)
     assert torch.equal(prog.repair_device(H).reshape(-1), torch.from_numpy(enc[lost]))
+
+
+@pytest.mark.parametrize("k,m,d,lost", CASES)
+def test_kernel_model_equals_reference(k, m, d, lost):
+    port, _ref, cs, _enc = _coded(k, m, d)
+    node = lost if lost < k else lost + port.nu
+    prog = clay_cuda.ClayRepairProgram(port, node, device="cpu")
+    sched = prog.schedule
+    rng = np.random.default_rng(1000 * k + lost)
+    sub = cs // port.sub_chunk_no
+    for sc in (sub, sub + 13):
+        H = rng.integers(0, 256, (sched.n_helpers, sched.P, sc), dtype=np.uint8)
+        H[prog.shortened] = 0
+        want = np.asarray(_ref_program(k, m, d, node, sc).repair_device(jnp.asarray(H)))
+        assert np.array_equal(kernel_model(H, sched), want), sc
+        assert np.array_equal(clay_cuda.clay_repair_plain(torch.from_numpy(H), sched).numpy(),
+                              want), sc

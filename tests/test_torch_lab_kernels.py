@@ -228,9 +228,6 @@ static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
   for (int i = 0; i < 4; ++i) r |= uint32_t((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
   return r;
 }
-static inline bool __any_sync(unsigned, bool p) { return p; }
-static inline int atomicOr(int* a, int v) { const int o = *a; *a |= v; return o; }
-static struct { unsigned x = 0; } threadIdx;
 """
 # one item after another, each as one thread would run it, with the
 # masks as the block's shared copy
@@ -239,7 +236,7 @@ template <int MODE, int W, bool PACKED>
 static void run_host(const Params& p) {
   for (unsigned t = 0; t < p.items; ++t) {
     uint32_t x[8][W];
-    item<MODE, W, PACKED>(p, p.masks, locate<MODE, W>(p, t), x, false);
+    item<MODE, W, PACKED>(p, p.masks, locate<W>(p, t), x, false);
   }
 }
 template <int MODE>

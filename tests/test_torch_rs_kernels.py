@@ -285,6 +285,11 @@ def test_constants_match_kernel_source():
     assert re.search(r"kReplicatedBytes = 48 \* 1024;", text)
     assert rk.REPLICATED_BYTES == 48 * 1024
     assert int(re.search(r"kThreads = (\d+);", text).group(1)) == rk.THREADS
+    assert int(re.search(r"kCompareMaxThreads = (\d+);", text).group(1)) == rk.COMPARE_MAX_THREADS
+    assert int(re.search(r"kGroupRows = (\d+);", text).group(1)) == rk.COMPARE_GROUP_ROWS
+    assert int(re.search(r"kCompareWords = (\d+);", text).group(1)) == rk.COMPARE_WORDS
+    # the compare writes its mask itself: no memset call, no atomic op
+    assert "cudaMemset" not in text and not re.search(r"\batomic[A-Z]", text)
     assert rk.replicated_fits(8, 3) and rk.replicated_fits(16, 4)
 
 
@@ -484,11 +489,19 @@ def test_encode_compare_rejects_bad_parity():
     assert "gf_encode_compare" in rk.launch_counts()
 
 
-def _compare_model(bitmat, data, parity, words, blocks):
-    """numpy model of the kernel's compare epilogue over its launch plan:
-    thread g takes items g, g + stride, ...; in each pass a warp votes
-    over its lanes that hold an item (a prefix), and each thread that
-    differs sets only its own item's (b, u) flag."""
+def _compare_model(bitmat, data, parity, parts, threads, words=rk.COMPARE_WORDS):
+    """numpy model of gf_encode_compare_kernel over its launch plan.
+    Block i takes part q = i % parts of entry b = i // parts.  A unit is
+    one (item, stored row) pair of a row group (32 rows, a bit each):
+    chunk c of 32 units is row c % rows of items (c // rows) * 32 + lane
+    (4 * words columns an item, zeros past S; items past the row are
+    skipped), and thread t of part q takes units q * threads + t, +
+    parts * threads, ...  The block ORs its units' bits; with parts > 1
+    parts 1.. post (1 << 32) | bits to their slots, and part 0 takes each
+    slot once it is posted, clears it, ORs and writes the group's flags.
+    The output starts as garbage (``torch.empty``), the slots as zeros.
+    Returns (flags, stores per flag, units each thread took per entry,
+    slots after the launch)."""
     batch, k, s = data.shape
     m = parity.shape[1]
     diff = np.stack([_kernel_model(bitmat, d) for d in data]) != parity  # (B, m, S)
@@ -496,32 +509,127 @@ def _compare_model(bitmat, data, parity, words, blocks):
     pad = np.zeros((batch, m, ipr * 4 * words), dtype=bool)
     pad[:, :, :s] = diff
     item_bad = pad.reshape(batch, m, ipr, 4 * words).any(-1)  # (B, m, ipr)
-    items, stride = batch * ipr, blocks * rk.THREADS
-    flags = np.zeros((batch, m), dtype=np.int32)
-    for base in range(0, stride, 32):  # each warp
-        t = base
-        while t < items:
-            lanes = min(32, items - t)
-            ts = t + np.arange(lanes)
-            for u in range(m):
-                bad = item_bad[ts // ipr, u, ts % ipr]
-                if bad.any():  # __any_sync over the active lanes
-                    for ti in ts[bad]:
-                        flags[ti // ipr, u] |= 1
-            t += stride
-    return flags != 0
+    chunks = -(-ipr // 32)
+    groups = -(-m // rk.COMPARE_GROUP_ROWS)
+    slots = np.zeros(batch * groups * parts, dtype=np.uint64)
+    out = np.full(batch * m, 0xA5, dtype=np.uint8)
+    stores = np.zeros(batch * m, dtype=int)
+    taken = np.zeros(parts * threads, dtype=int)
+    for b in range(batch):
+        for grp in range(groups):
+            u0 = grp * rk.COMPARE_GROUP_ROWS
+            rows = min(rk.COMPARE_GROUP_ROWS, m - u0)
+            w = np.arange(chunks * rows * 32)
+            c, lane = w // 32, w % 32
+            item, row = (c // rows) * 32 + lane, u0 + c % rows
+            ok = item < ipr
+            thread = w % (parts * threads)
+            if b == 0:
+                taken += np.bincount(thread[ok], minlength=parts * threads)
+            unit_bad = np.zeros(w.size, dtype=bool)
+            unit_bad[ok] = item_bad[b, row[ok], item[ok]]
+            bits = [int(np.bitwise_or.reduce(
+                np.where(unit_bad & (thread // threads == q), 1 << (row - u0), 0), initial=0))
+                for q in range(parts)]                         # block_or
+            base = (b * groups + grp) * parts
+            for q in range(1, parts):                          # posts
+                assert slots[base + q] == 0
+                slots[base + q] = np.uint64((1 << 32) | bits[q])
+            every = bits[0]
+            for q in range(1, parts):                          # part 0 takes
+                v = int(slots[base + q])
+                assert v >> 32 == 1
+                slots[base + q] = 0
+                every |= v & 0xFFFFFFFF
+            for r in range(rows):
+                out[b * m + u0 + r] = (every >> r) & 1
+                stores[b * m + u0 + r] += 1
+    return out.reshape(batch, m).astype(bool), stores.reshape(batch, m), taken, slots
 
 
 @pytest.mark.parametrize("s,batch", [(4096 + 13, 8), (301, 3), (64, 8)])
-@pytest.mark.parametrize("words", [2, 4])
-def test_compare_epilogue_model(rng, s, batch, words):
-    """Ragged S puts two batch entries in one warp: their flags stay
-    apart; a flip in one entry flags only it."""
+@pytest.mark.parametrize("sms", [132, 6])
+def test_compare_epilogue_model(rng, s, batch, sms):
+    """Ragged S: every part reads zeros past S; a flip in one entry flags
+    only it; on a card of 132 SMs and of 6 (fewer parts, or one a batch
+    entry), each flag is stored once and the slots are left zero."""
     bits, data, parity = _compare_inputs(rng, 8, 3, batch, s, "clean")
     parity[0, 1, s - 1] ^= 0x80                  # entry 0, row 1, last column
     data[batch - 1, 0, 0] ^= 0x01                # the last entry, every row
     want = rk.gf_encode_compare_plain(_t(bits), _t(data), _t(parity)).numpy()
-    blocks = rk._launch_plan(s, batch, 132, words)[1]
-    assert np.array_equal(_compare_model(bits, data, parity, words, blocks), want)
+    got, stores, _, slots = _compare_model(bits, data, parity,
+                                           *rk.compare_plan(s, batch, 3, sms))
+    assert np.array_equal(got, want) and np.all(stores == 1) and not slots.any()
     assert want[0].tolist() == [False, True, False] or batch == 1
     assert want[batch - 1].all()
+
+
+#: forced (parts, threads) beside the plan's: one block an entry striding,
+#: three parts of 96 threads, 40 parts of 32 threads
+_PLAN_FORMS = [None, (1, 128), (3, 96), (40, 32)]
+
+
+@pytest.mark.parametrize("s", [4096, 65536, 4096 + 13])
+@pytest.mark.parametrize("m", [1, 3])
+def test_compare_flags_written_once(s, m):
+    """Batches 1-8, clean, one parity byte flipped and every parity byte
+    wrong, at the plan's form and three forced ones: the model's mask
+    equals the plain version and the reference's, each (b, u) flag is
+    stored exactly once, with no zeroing, every (item, row) unit is taken
+    by exactly one thread, and every slot is posted, taken and left
+    zero."""
+    rng = np.random.default_rng(s + m)
+    bits, data, parity = _compare_inputs(rng, 8, m, 8, s, "clean")
+    flipped = parity.copy()
+    flipped[5, m - 1, s // 3] ^= 0x10
+    for what, par in (("clean", parity), ("one flip", flipped), ("all wrong", parity ^ 0xFF)):
+        want8 = np.asarray(ref_rk.gf_encode_compare(
+            jnp.asarray(bits), jnp.asarray(data), jnp.asarray(par)))
+        for batch in range(1, 9):
+            d, p = data[:batch], par[:batch]
+            want = want8[:batch]
+            assert np.array_equal(
+                rk.gf_encode_compare_plain(_t(bits), _t(d), _t(p)).numpy(), want)
+            for form in _PLAN_FORMS:
+                plan = form or rk.compare_plan(s, batch, m, 132)
+                got, stores, taken, slots = _compare_model(bits, d, p, *plan)
+                assert np.array_equal(got, want), (what, batch, plan)
+                assert np.all(stores == 1) and not slots.any()
+                assert taken.sum() == -(-s // (4 * rk.COMPARE_WORDS)) * m
+        assert want8.sum() == {"clean": 0, "one flip": 1, "all wrong": 8 * m}[what]
+
+
+def test_compare_model_wide_code(rng):
+    """A code of 40 parity rows takes two row groups (rows 32-39 past
+    the four loaded early): each flag is stored once, the slots of both
+    groups are left zero, and the mask equals the reference's."""
+    bits, data, parity = _compare_inputs(rng, 8, 40, 2, 301, "clean")
+    parity[1, 37, 100] ^= 0x40
+    parity[0, 2, 7] ^= 0x01
+    want = np.asarray(ref_rk.gf_encode_compare(
+        jnp.asarray(bits), jnp.asarray(data), jnp.asarray(parity)))
+    got, stores, _, slots = _compare_model(bits, data, parity, 3, 32)
+    assert np.array_equal(got, want) and np.all(stores == 1) and not slots.any()
+    assert np.flatnonzero(want).tolist() == [2, 40 + 37]
+
+
+def test_compare_plan():
+    """On 132 SMs: the scrub path's (8, 8, 65536) with m = 3 is 24576
+    units an entry, more than a block an SM gives one a thread: 33 parts
+    an entry (264 blocks, two an SM) of 384 threads, two units a thread;
+    one entry takes a block an SM of 192 threads, one unit a thread; a
+    4096-column lane 12 parts; no columns one part; more entries than
+    blocks one part an entry, its threads striding.  Wherever parts wait
+    on each other, every block is resident at once (two an SM)."""
+    assert rk.compare_plan(65536, 8, 3, 132) == (33, 384)
+    assert rk.compare_plan(65536, 1, 3, 132) == (132, 192)
+    assert rk.compare_plan(4096, 8, 3, 132) == (12, 128)
+    assert rk.compare_plan(4096 + 13, 1, 1, 132) == (5, 128)
+    assert rk.compare_plan(0, 3, 3, 132) == (1, 128)
+    assert rk.compare_plan(65536, 1000, 3, 132) == (1, 512)
+    for s in (0, 64, 4096 + 13, 65536, 1 << 20):
+        for batch in (1, 3, 8, 66, 133, 300):
+            for m in (1, 3, 40):
+                parts, threads = rk.compare_plan(s, batch, m, 132)
+                assert parts == 1 or parts * batch <= 2 * 132
+                assert threads % 32 == 0 and 128 <= threads <= rk.COMPARE_MAX_THREADS
