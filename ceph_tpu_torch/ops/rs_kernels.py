@@ -17,6 +17,9 @@ returns a (B, m) mismatch mask against the stored parity, which it never
 writes out.
 The measurement probe's stage cuts (:func:`gf_stage_cut`) run the same
 kernel's loop up to the load, the bit extraction or the product.
+The encode farm's chunk-sharded encode combines its ranks' packed
+partials with :func:`gf_fold`, an XOR in a kernel of its own
+(``csrc/farm_fold.cu``).
 
 Every entry point has two implementations of one function:
 
@@ -410,16 +413,23 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def gf_bitmatmul(bitmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+def gf_bitmatmul(bitmat: torch.Tensor, data: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """Apply an (8m, 8k) GF(2) bit-matrix to (..., k, S) uint8 chunk data,
-    returning (..., m, S) uint8.  On the card: one launch, the leading
-    dimensions folded into its flat item index (replaces the jitted XLA
-    ``gf_bitmatmul`` of ceph_tpu/ops/rs_kernels.py:59-70)."""
+    returning (..., m, S) uint8, into ``out`` where given (a contiguous
+    tensor of that shape on data's device).  On the card: one launch, the
+    leading dimensions folded into its flat item index (replaces the
+    jitted XLA ``gf_bitmatmul`` of ceph_tpu/ops/rs_kernels.py:59-70)."""
     k, m = _check(bitmat, data)
+    want = (*data.shape[:-2], m, data.shape[-1])
+    if out is not None and (not isinstance(out, torch.Tensor) or out.dtype != torch.uint8
+                            or tuple(out.shape) != want or out.device != data.device):
+        raise ValueError(f"out must be a uint8 tensor {want} on {data.device}")
     if _on_cpu(data):
-        return gf_bitmatmul_plain(bitmat, data)
-    out = torch.empty((*data.shape[:-2], m, data.shape[-1]),
-                      dtype=torch.uint8, device=data.device)
+        res = gf_bitmatmul_plain(bitmat, data)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(want, dtype=torch.uint8, device=data.device)
     _launch(bitmat, data, out)
     count_launch(gf_bitmatmul)
     return out
@@ -571,6 +581,76 @@ def gf_stage_cut(bitmat: torch.Tensor, data: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The encode farm's parity fold (csrc/farm_fold.cu)
+# ---------------------------------------------------------------------------
+
+#: threads per block of the fold kernel (``kThreads`` in the source) and
+#: its grid cap in blocks per SM (past it each thread strides)
+FOLD_THREADS = 256
+FOLD_BLOCKS_PER_SM = 8
+
+_fold_fn = None
+
+
+def _fold_kernel():
+    """ctypes handle of ``ceph_farm_fold``, built on first use."""
+    global _fold_fn
+    if _fold_fn is None:
+        from ceph_tpu_torch.ops import _build
+
+        fn = _build.library("farm_fold").ceph_farm_fold
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # partials, out, bytes
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]          # n, blocks, stream
+        _fold_fn = fn
+    return _fold_fn
+
+
+def fold_blocks(nbytes: int, sm_count: int) -> int:
+    """Grid of a fold over ``nbytes`` output bytes: a thread per 16
+    bytes, at most ``FOLD_BLOCKS_PER_SM`` blocks per SM."""
+    return max(1, min(-(-nbytes // (16 * FOLD_THREADS)), sm_count * FOLD_BLOCKS_PER_SM))
+
+
+def gf_fold_plain(partials: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gf_fold`: an XOR reduction over dim 0."""
+    out = partials[0].clone()
+    for r in range(1, partials.shape[0]):
+        out.bitwise_xor_(partials[r])
+    return out
+
+
+def gf_fold(partials: torch.Tensor) -> torch.Tensor:
+    """XOR of n packed GF(2) partials, (n, m, S) uint8 -> (m, S): the
+    combine of the chunk-sharded encode.  Replaces the ``psum``, ``& 1``
+    and ``pack_bits`` of ``sharded_encode_tp._encode``
+    (ceph_tpu/parallel/encode_farm.py:113-122): each rank's partial is
+    already reduced mod 2 and packed, and (sum a_i) mod 2 = XOR (a_i mod
+    2).  On the card: one launch of ``farm_fold.cu``, 16 bytes a thread
+    where m S is a multiple of 16; a byte a thread otherwise, which no
+    encode-service dispatch at its default ``min_bytes`` reaches (it pads
+    S to a power of two, at least 32768 / k)."""
+    if not isinstance(partials, torch.Tensor) or partials.dtype != torch.uint8:
+        raise TypeError("partials must be a uint8 torch.Tensor")
+    if partials.dim() != 3 or partials.shape[0] < 1:
+        raise ValueError(f"partials must be (n, m, S) with n >= 1, got {tuple(partials.shape)}")
+    if _on_cpu(partials):
+        return gf_fold_plain(partials)
+    if not partials.is_contiguous():
+        raise ValueError("partials must be contiguous")
+    n, m, s = partials.shape
+    out = torch.empty((m, s), dtype=torch.uint8, device=partials.device)
+    index = partials.get_device()
+    blocks = fold_blocks(m * s, _sm_count(index))
+    err = _call(_fold_kernel(), (partials.data_ptr(), out.data_ptr(), m * s, n, blocks), index)
+    if err != 0:
+        raise RuntimeError(f"farm_fold kernel launch failed: cudaError {err} "
+                           f"(n={n}, m={m}, S={s}, blocks={blocks})")
+    count_launch(gf_fold)
+    return out
+
+
 KERNEL_ENTRY_POINTS = (
     gf_bitmatmul,
     gf_bitmatmul_pallas,
@@ -578,6 +658,7 @@ KERNEL_ENTRY_POINTS = (
     gf_bitmatmul_pallas_acc,
     gf_encode_compare,
     gf_stage_cut,
+    gf_fold,
 )
 
 

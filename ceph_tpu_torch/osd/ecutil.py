@@ -149,7 +149,85 @@ def encode(
     }
 
 
-# -- recovery: per-object decodes batched by the DecodeAggregator ------------
+# -- async twins: the encode-farm data path ---------------------------------
+#
+# The OSD's EC write, read and recovery paths call these instead of the
+# sync functions; with an EncodeService attached
+# (ceph_tpu_torch/parallel/encode_service.py) the GF matmul of each op is
+# coalesced with concurrent ops into one farm dispatch — the production
+# form of the ECSubWrite fan-out seam (reference src/osd/ECCommon.cc:749).
+# A request the farm does not take (inactive service, payload under
+# min_bytes, not a matrix code, a packet code) takes the sync path, which
+# is the same device path op by op.
+
+
+def _farm_ready(service, ec_impl, nbytes: int) -> bool:
+    return (
+        service is not None
+        and service.active()
+        and nbytes >= service.min_bytes
+        and isinstance(ec_impl, MatrixErasureCode)
+        and ec_impl.rows_per_chunk == 1
+    )
+
+
+async def encode_async(
+    sinfo: StripeInfo,
+    ec_impl: ErasureCodeInterface,
+    data: bytes | np.ndarray,
+    want: set[int] | None = None,
+    *,
+    service=None,
+) -> dict[int, np.ndarray]:
+    """:func:`encode` routed through the encode farm when available."""
+    arr = (
+        np.asarray(data, dtype=np.uint8).reshape(-1)
+        if isinstance(data, np.ndarray)
+        else np.frombuffer(bytes(data), dtype=np.uint8)
+    )
+    if not _farm_ready(service, ec_impl, arr.nbytes):
+        return encode(sinfo, ec_impl, arr, want)
+    sw, cs = sinfo.stripe_width, sinfo.chunk_size
+    if arr.nbytes % sw:
+        raise ECError(errno.EINVAL, f"logical size {arr.nbytes} not stripe aligned")
+    if arr.nbytes == 0:
+        return {}
+    k = ec_impl.get_data_chunk_count()
+    m = ec_impl.get_chunk_count() - k
+    ns = arr.nbytes // sw
+    data_shards = np.ascontiguousarray(
+        arr.reshape(ns, k, cs).transpose(1, 0, 2).reshape(k, ns * cs)
+    )
+    parity = await service.apply(ec_impl.coding_matrix, data_shards)
+    out = {ec_impl.chunk_index(i): data_shards[i] for i in range(k)}
+    for j in range(m):
+        out[ec_impl.chunk_index(k + j)] = parity[j]
+    if want is not None:
+        out = {s: c for s, c in out.items() if s in want}
+    return out
+
+
+async def decode_concat_async(
+    sinfo: StripeInfo,
+    ec_impl: ErasureCodeInterface,
+    to_decode: Mapping[int, np.ndarray],
+    *,
+    service=None,
+) -> np.ndarray:
+    """:func:`decode_concat` with farm-batched reconstruction."""
+    rec = await _decode_chunks_async(sinfo, ec_impl, to_decode,
+                                     range(ec_impl.get_data_chunk_count()),
+                                     service=service)
+    if rec is None:
+        return decode_concat(sinfo, ec_impl, to_decode)
+    cs, sw = sinfo.chunk_size, sinfo.stripe_width
+    k = ec_impl.get_data_chunk_count()
+    total = len(next(iter(to_decode.values())))
+    ns = total // cs
+    if total == 0:
+        return np.zeros(0, dtype=np.uint8)
+    stacked = np.stack([rec[c].reshape(ns, cs) for c in range(k)], axis=1)
+    return np.ascontiguousarray(stacked.reshape(ns * sw))
 
 
 async def decode_shards_async(
@@ -159,16 +237,18 @@ async def decode_shards_async(
     need: set[int],
     *,
     packed_repair: bool = False,
+    service=None,
     aggregator=None,
 ) -> dict[int, np.ndarray]:
     """:func:`decode_shards` with batched reconstruction (recovery
-    path; falls back for sub-chunk/packed codes).
+    path; sub-chunk and packed codes take the sync path).
 
-    ``aggregator`` (a parallel.decode_batcher.DecodeAggregator): per-
-    object recovery decodes that share an erasure signature coalesce
-    into fixed-shape batched launches — the repair-pipelining
-    discipline — instead of one matmul per object.  Without one this
-    is the sync :func:`decode_shards`."""
+    ``aggregator`` (a parallel.decode_batcher.DecodeAggregator) takes
+    precedence over the encode farm (``service``): per-object recovery
+    decodes that share an erasure signature coalesce into fixed-shape
+    batched launches — the repair-pipelining discipline — instead of
+    one farm matmul per object.  With neither this is the sync
+    :func:`decode_shards`."""
     if packed_repair or (
         not isinstance(ec_impl, MatrixErasureCode)
         or ec_impl.get_sub_chunk_count() != 1
@@ -182,8 +262,12 @@ async def decode_shards_async(
             ec_impl, to_decode, want_chunks, aggregator)
         if rec is not None:
             return {ec_impl.chunk_index(c): v for c, v in rec.items()}
-    return decode_shards(sinfo, ec_impl, to_decode, need,
-                         packed_repair=packed_repair)
+    rec = await _decode_chunks_async(sinfo, ec_impl, to_decode,
+                                     want_chunks, service=service)
+    if rec is None:
+        return decode_shards(sinfo, ec_impl, to_decode, need,
+                             packed_repair=packed_repair)
+    return {ec_impl.chunk_index(c): v for c, v in rec.items()}
 
 
 async def _decode_chunks_batched(
@@ -200,6 +284,30 @@ async def _decode_chunks_batched(
         if rows.shape[1] == 0:
             return None
         rec_rows = await aggregator.apply(D, rows)
+    return ec_impl.decode_assemble(
+        to_decode, want_chunks, erasures, need_rec, rec_rows)
+
+
+async def _decode_chunks_async(
+    sinfo, ec_impl, to_decode, want_chunks, *, service
+) -> dict[int, np.ndarray] | None:
+    """decode_payloads (matrix_base) with the matmul on the farm;
+    None = the caller takes the sync path."""
+    if not to_decode:
+        return None
+    nbytes = sum(np.asarray(v).size for v in to_decode.values())
+    if not _farm_ready(service, ec_impl, nbytes):
+        return None
+    if ec_impl.get_sub_chunk_count() != 1:
+        return None
+    # the plan, rows and assembly of the sync decode_payloads; only the
+    # matmul moves onto the farm
+    want_chunks = list(want_chunks)
+    erasures, survivors, need_rec, D = ec_impl.decode_plan(to_decode, want_chunks)
+    rec_rows = None
+    if need_rec:
+        rec_rows = await service.apply(
+            D, ec_impl.decode_rows(to_decode, survivors))
     return ec_impl.decode_assemble(
         to_decode, want_chunks, erasures, need_rec, rec_rows)
 

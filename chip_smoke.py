@@ -70,7 +70,26 @@ through the port's entry points:
    loop), ``ec_benchmark`` (encode and an exhaustive decode for ``cuda``
    RS(8,3) and jerasure RS(4,2)) and ``bench_all``'s configs; their lines
    are parsed, checked and emitted.  Before it, each tools kernel is held
-   against its plain version at the probe's shape and at ragged ones.
+   against its plain version at the probe's shape and at ragged ones;
+11. mgr analytics — at the mgr's configured store (16, 16, 32) and at the
+   remap map's 1024 OSDs (1024, 16, 32): ``mgr_analytics.cu`` against its
+   plain version on random stores (op latencies, the whole clamp range,
+   full-range int64 with negatives, ties, one sample a metric, none;
+   wrapped and negative cursors), also at (130, 3, 7), (1000, 2, 5),
+   (20, 2, 40) (clusters of 2 and 8 with a ragged last block, odd and
+   two-chunk windows), (3000, 2, 32) and (16, 2, 1000) (rows staged in
+   global scratch), then 40 report rounds into a
+   ``TimeSeriesStore``, an ``AnalyticsEngine`` prewarmed and four passes,
+   each equal to ``analyze_numpy``, one launch a pass, no cold launch,
+   the slow OSD flagged by ``analytics_summary``;
+12. encode farm — 16 concurrent ``encode_async`` writers of 4 MiB objects
+   through a prewarmed single-device ``EncodeService`` (fewer dispatches
+   than ops, byte-equal to the host ``gf_matmul`` and to the per-op
+   ``ecutil.encode``, GB/s beside it), again at 512 KiB and 64 KiB, then ``batch_encode_dp``, ``sharded_encode_tp`` (its partials
+   folded by ``farm_fold.cu``) and the service's tp path for a lone
+   request on a (2, 2) mesh of the one card, byte-equal to ``gf_matmul``;
+   before it ``farm_fold.cu`` against its plain version at (2, 3, 524288),
+   (4, 3, 524288) and a ragged S.
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -90,7 +109,10 @@ the bit-matrix kernel must have been launched there; and again before
 phase 10: ``row_copy``, the three stage cuts of ``gf_stage_cut``,
 ``repeat_variant`` and ``acc_encode`` must have been launched there
 (``cuobjdump -sass`` then counts the global loads of each instantiation
-of the bit-matrix kernel, the cuts' included).  Then a
+of the bit-matrix kernel, the cuts' included); after each mgr shape's
+prewarm and again after its passes: ``mgr_analytics`` once a pass; and
+before and after phase 12: ``farm_fold`` and the bit-matrix kernel.
+Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, the main path's memset µs, and the device time per launch at
 each kernel's main-path shape (and at each forced width of the launch
@@ -106,7 +128,8 @@ before doing anything.
 After the kernel rows are measured, a ``crc_sweep`` line holds the crc
 kernel against its plain version over the scrub path's lane counts and
 widths and two throughput shapes, with device µs a launch, CUDA-event
-ms, device operations a call and the byte bound of each.
+ms, device operations a call and the byte bound of each; a
+``fold_sweep`` line does the same for the fold at its three shapes.
 
 ``--crush-lab`` builds the kernels and prints only a ``crush_lab`` line:
 the CRUSH kernels launched directly at the main path's shapes, in turns
@@ -149,16 +172,21 @@ from ceph_tpu_torch.crush.types import (
 from ceph_tpu_torch.ec import ECError, registry
 from ceph_tpu_torch.ec.plugins import clay_cuda
 from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
+from ceph_tpu_torch.mgr import analytics as mgr_analytics
+from ceph_tpu_torch.mgr import daemon as mgr_daemon
 from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
+from ceph_tpu_torch.ops import analytics_kernels as ak
 from ceph_tpu_torch.ops import hashing
 from ceph_tpu_torch.ops import lab_kernels as lk
 from ceph_tpu_torch.ops import rs_kernels as rk
-from ceph_tpu_torch.ops.gf256 import gf_matmul
+from ceph_tpu_torch.ops.gf256 import gf_matmul, gf_matrix_to_bitmatrix
 from ceph_tpu_torch.osd import ecutil, remap
 from ceph_tpu_torch.osd.balancer import UpmapBalancer
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL, PgPool, PoolType, pg_t
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
+from ceph_tpu_torch.parallel.encode_farm import Mesh, batch_encode_dp, sharded_encode_tp
+from ceph_tpu_torch.parallel.encode_service import EncodeService
 from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
 from ceph_tpu_torch.tools import bench as t_bench
 from ceph_tpu_torch.tools import bench_all as t_bench_all
@@ -338,6 +366,29 @@ class Config:
     bench_all_args: tuple = ("--reps", "1", "--rounds", "2", "--pause", "0")
     #: (field, value) changes to bench_all's sizes for the device
     bench_all_sizes: tuple = ()
+    #: the mgr's store: its configured (mgr_stats_max_daemons,
+    #: mgr_stats_max_metrics, mgr_stats_window) and the remap map's 1024
+    #: OSDs; report rounds (more than the window: rings wrap) and passes
+    mgr_shapes: tuple = ((16, 16, 32), (1024, 16, 32))
+    #: more stores for the kernel's checks alone: clusters of 2 and 8 with
+    #: a ragged last block and odd windows, a window of two 32-column
+    #: chunks a row, and two stores whose rows do not fit a block's shared
+    #: memory (staged in global scratch): 3000 daemons, and a window of 1000
+    mgr_check_shapes: tuple = ((130, 3, 7), (1000, 2, 5), (20, 2, 40), (3000, 2, 32),
+                               (16, 2, 1000))
+    mgr_reports: int = 40
+    mgr_passes: int = 4
+    #: the encode farm: concurrent writers of the write phase's objects,
+    #: the mesh of the one card, and the fold's (n, m, S): the tp path's
+    #: two partials of a 4 MiB object's rows, four, and a ragged S
+    farm_writers: int = 16
+    #: smaller objects the service and the per-op path also write (the
+    #: service's single-device gate is read from where it wins), and the
+    #: timed runs of each path a size, interleaved
+    farm_sweep_bytes: tuple = (64 * 1024, 512 * 1024)
+    farm_reps: int = 3
+    farm_mesh: tuple = (2, 2)
+    fold_shapes: tuple = ((2, 3, 524288), (4, 3, 524288), (2, 3, 524288 + 13))
     iters: int = 32
     repeats: int = 5
     seed: int = 20261016
@@ -2129,6 +2180,428 @@ def tools_kernel_rows(cfg: Config, device, worst: dict, launches: dict) -> list[
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-12: the mgr's analytics and the encode service / farm
+# ---------------------------------------------------------------------------
+
+MGR_SOURCE = "ceph_tpu_torch/ops/csrc/mgr_analytics.cu"
+FOLD_SOURCE = "ceph_tpu_torch/ops/csrc/farm_fold.cu"
+#: the jitted XLA code each new kernel replaces
+MGR_REPLACES = "ceph_tpu/mgr/analytics.py:213"
+FOLD_REPLACES = "ceph_tpu/parallel/encode_farm.py:113"
+#: the kinds of random store the analytics kernel is held on: op
+#: latencies as the mgr path reports them (the kernel rows' inputs),
+#: samples over the store's whole clamp range (one metric never
+#: reported), the full int64 range (negatives, wrapping sums and shifts),
+#: small values with ties, one sample a metric (n = 1), no sample at all
+MGR_KINDS = ("latency", "clamp", "full", "ties", "single", "empty")
+
+
+def mgr_store(rng: np.random.Generator, shape: tuple, kind: str) -> tuple:
+    """A (values, valid, cursor) store of ``kind``; but for ``latency``
+    (the mgr's own cursors, in the window) its cursors mix in-window,
+    past-the-window, negative and next-to-INT64_MAX values (the ring's
+    floor modulo of a wrapped sum)."""
+    D, M, W = shape
+    i64 = np.iinfo(np.int64)
+    if kind == "latency":  # as mgr_reports: 150-2050 µs, a slow daemon, 1 in 8 left out
+        vals = rng.integers(150, 2051, size=shape).astype(np.int64)
+        vals[3 % D] += 20000
+        valid = rng.random(shape) >= 0.125
+        return vals, valid, rng.integers(0, W, size=D).astype(np.int64)
+    if kind == "full":
+        vals = rng.integers(i64.min, i64.max, size=shape, dtype=np.int64, endpoint=True)
+        valid = rng.random(shape) < 0.6
+    elif kind == "ties":
+        vals = rng.integers(-4, 5, size=shape).astype(np.int64)
+        valid = rng.random(shape) < 0.8
+    else:
+        vals = rng.integers(0, (1 << 40) + 1, size=shape).astype(np.int64)
+        valid = rng.random(shape) < rng.uniform(0.2, 0.9)
+        if kind == "single":
+            valid[:] = False
+            for m in range(M):
+                valid[rng.integers(D), m, rng.integers(W)] = True
+        elif kind == "empty":
+            valid[:] = False
+        else:
+            valid[:, 0, :] = False
+    cursor = rng.integers(0, W, size=D).astype(np.int64)
+    cursor[::3] += W * rng.integers(1, 5)
+    cursor[1::5] -= 7 * W
+    cursor[: min(D, 2)] = [i64.max, i64.max - 1][: min(D, 2)]
+    return vals, valid, cursor
+
+
+def _mgr_errors(got: dict, want: dict) -> tuple[int, int]:
+    """(mismatched values, largest absolute difference) over the six
+    outputs, compared on the host as Python ints (no int64 wrap)."""
+    bad, err = 0, 0
+    for name in ak.OUTPUTS:
+        g = got[name].cpu().numpy().astype(np.int64)
+        w = want[name].cpu().numpy().astype(np.int64)
+        diff = g != w
+        bad += int(diff.sum())
+        if diff.any():
+            err = max(err, max(abs(int(a) - int(b)) for a, b in zip(g[diff], w[diff])))
+    return bad, err
+
+
+def mgr_bound_ms(shape: tuple) -> tuple[float, str]:
+    """Least time for one analytics pass: each sample's 8 + 1 bytes and the
+    cursors read once, the six outputs written once, over the HBM rate;
+    or the EWMA walk's 8 INT32 instructions a sample (the 64-bit shift,
+    difference, shift and sum) over the INT32 rate."""
+    D, M, W = shape
+    nbytes = D * M * W * 9 + D * 8 + (4 * M + 3 * D * M) * 8 + D * M
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 8 * D * M * W / PEAK_INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fold_bound_ms(n: int, m: int, s: int) -> tuple[float, str]:
+    """Least time for one fold: n partials read, the parity written,
+    (n + 1) m S bytes over the HBM rate (its n - 1 XORs a word are far
+    below the INT32 rate)."""
+    return (n + 1) * m * s / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def _shape_name(shape: tuple) -> str:
+    return "x".join(map(str, shape))
+
+
+def phase_kernel_mgr(cfg: Config, device) -> dict[str, int]:
+    """The analytics kernel against its plain version on the same
+    tensors, every kind of store at each shape of the path and of
+    ``cfg.mgr_check_shapes``; returns the largest absolute error a shape
+    (raises unless 0)."""
+    rng = np.random.default_rng(cfg.seed + 21)
+    worst, cases = {}, []
+    shapes = (*cfg.mgr_shapes, *cfg.mgr_check_shapes)
+    for shape in shapes:
+        worst[_shape_name(shape)] = 0
+        for kind in MGR_KINDS:
+            t = [torch.from_numpy(x).to(device) for x in mgr_store(rng, shape, kind)]
+            bad, err = _mgr_errors(ak.analyze(*t), ak.analyze_plain(*t))
+            if bad:
+                raise AssertionError(f"mgr_analytics {shape} {kind}: {bad} values differ "
+                                     "from the plain version")
+            cases.append({"shape": list(shape), "kind": kind, "mismatches": bad,
+                          "samples": int(t[1].sum())})
+    emit({"phase": "kernels_mgr", "cases": cases,
+          "geometry": {_shape_name(s): ak.geometry(s[0], s[2]) for s in shapes}})
+    return worst
+
+
+def mgr_reports(store, shape: tuple, reports: int, rng: np.random.Generator) -> None:
+    """``reports`` report rounds into ``store``: every daemon ``osd.<d>``
+    reports each metric (an op latency in µs, about 1 in 8 left out) once
+    a round, osd.3 20 ms slower; more rounds than the window, so every
+    ring wraps."""
+    D, M, _ = shape
+    names = [f"m{m}" for m in range(M)]
+    store.reserve(names)
+    base = rng.integers(200, 2000, size=(D, M))
+    base[3 % D] += 20000
+    for r in range(reports):
+        keep = rng.random((D, M)) >= 0.125
+        noise = rng.integers(-50, 51, size=(D, M))
+        for d in range(D):
+            store.ingest(f"osd.{d}", {names[m]: float(base[d, m] + noise[d, m])
+                                      for m in range(M) if keep[d, m]}, float(r))
+
+
+def phase_mgr(cfg: Config, device) -> dict:
+    """The mgr's digest path at each shape: reports into a
+    ``TimeSeriesStore``, an ``AnalyticsEngine`` prewarmed, then
+    ``cfg.mgr_passes`` passes over the store's snapshot, each equal to
+    the mgr's numpy host path, one kernel launch a pass and no cold
+    launch; the summary must flag osd.3.  Launches are counted a shape:
+    reset after its prewarm (mgr start), read after its passes."""
+    rng = np.random.default_rng(cfg.seed + 22)
+    out = {"phase": "mgr_analytics", "shapes": [], "launches": {}}
+    for shape in cfg.mgr_shapes:
+        store = mgr_daemon.TimeSeriesStore(*shape)
+        t0 = time.perf_counter()
+        mgr_reports(store, shape, cfg.mgr_reports, rng)
+        ingest_s = time.perf_counter() - t0
+        engine = mgr_analytics.AnalyticsEngine(*shape, device=device)
+        prewarmed = engine.prewarm()
+        _sync(device)
+        ak.reset_launch_counts()
+        pass_s, bad = [], 0
+        for _ in range(cfg.mgr_passes):
+            snap = store.snapshot()
+            t0 = time.perf_counter()
+            res = engine.analyze(*snap)
+            pass_s.append(time.perf_counter() - t0)
+            want = mgr_analytics.analyze_numpy(*snap)
+            bad += sum(int((np.asarray(res[k]) != want[k]).sum()) for k in want)
+        _sync(device)
+        launches = ak.launch_counts()["mgr_analytics"]
+        summary = mgr_daemon.analytics_summary(store, res)
+        flagged = sorted({d for ds in summary["outliers"].values() for d in ds})
+        out["shapes"].append({
+            "shape": list(shape), "reports": cfg.mgr_reports * shape[0], "ingest_s": ingest_s,
+            "prewarmed_shapes": prewarmed, "passes": cfg.mgr_passes,
+            "pass_ms": [s * 1e3 for s in pass_s], "mismatches_vs_numpy": bad,
+            "stats": dict(engine.stats), "kernel_launches": launches, "flagged": flagged[:8]})
+        out["launches"][_shape_name(shape)] = launches
+        if bad:
+            raise AssertionError(f"analytics {shape}: {bad} values differ from analyze_numpy")
+        if engine.stats["cold_launches"] or prewarmed != 1:
+            raise AssertionError(f"analytics {shape}: cold launches {dict(engine.stats)}")
+        want_launches = cfg.mgr_passes if torch.device(device).type == "cuda" else 0
+        if launches != want_launches or engine.stats["launches"] != cfg.mgr_passes:
+            raise AssertionError(f"analytics {shape}: {launches} kernel launches for "
+                                 f"{cfg.mgr_passes} passes")
+        if f"osd.{3 % shape[0]}" not in flagged:
+            raise AssertionError(f"analytics {shape}: the slow osd is not flagged: {flagged}")
+    emit(out)
+    return out
+
+
+def _writers(ec, sinfo, svc, objects) -> list:
+    async def go():
+        return await asyncio.gather(*(ecutil.encode_async(sinfo, ec, o, service=svc)
+                                      for o in objects))
+
+    return asyncio.run(go())
+
+
+def _one_device_mesh(shape: tuple, device) -> Mesh:
+    grid = np.array([torch.device(device)] * int(np.prod(shape)), dtype=object).reshape(shape)
+    return Mesh(grid, ("pg", "shard"))
+
+
+def _host_shards(ec, sinfo, C: np.ndarray, obj: np.ndarray) -> dict[int, np.ndarray]:
+    """An object's shards on the host: its data shards, and the parity
+    ``gf_matmul(C, data)`` (numpy, independent of the kernels)."""
+    k, cs = C.shape[1], sinfo.chunk_size
+    ns = obj.size // sinfo.stripe_width
+    data = obj.reshape(ns, k, cs).transpose(1, 0, 2).reshape(k, ns * cs)
+    rows = np.concatenate([data, gf_matmul(C, data)])
+    return {ec.chunk_index(i): rows[i] for i in range(rows.shape[0])}
+
+
+def _service_vs_per_op(cfg: Config, device, ec, sinfo, C, nbytes: int, gen) -> dict:
+    """``cfg.farm_writers`` objects of ``nbytes`` written ``cfg.farm_reps``
+    times by each path, interleaved: the per-op ``ecutil.encode`` one by
+    one, and concurrent ``encode_async`` writers through a prewarmed
+    single-device ``EncodeService``.  Every writer's shards are held
+    against the host's ``gf_matmul`` and the per-op path's; the
+    dispatches and kernel launches are those of the service's timed runs."""
+    objects = [_rand((nbytes,), gen, device).cpu().numpy() for _ in range(cfg.farm_writers)]
+    s_obj = nbytes // sinfo.stripe_width * sinfo.chunk_size
+    svc = EncodeService(device=device, min_bytes=0, window_s=0.002)
+    prewarmed = svc.prewarm(C, [s_obj], coalesce=cfg.farm_writers)
+    per_op = [ecutil.encode(sinfo, ec, o) for o in objects]   # warm
+    farm = _writers(ec, sinfo, svc, objects)
+    stats0 = dict(svc.stats)
+    per_op_s, farm_s, launches = [], [], 0
+    for _ in range(cfg.farm_reps):
+        t0 = time.perf_counter()
+        per_op = [ecutil.encode(sinfo, ec, o) for o in objects]
+        per_op_s.append(time.perf_counter() - t0)
+        launches0 = sum(rk.launch_counts().values())
+        t0 = time.perf_counter()
+        farm = _writers(ec, sinfo, svc, objects)
+        farm_s.append(time.perf_counter() - t0)
+        launches += sum(rk.launch_counts().values()) - launches0
+    host = [_host_shards(ec, sinfo, C, o) for o in objects]
+    bad = sum(int((farm[i][sh] != per_op[i][sh]).sum()) for i in range(len(objects))
+              for sh in per_op[i])
+    host_bad = sum(int((farm[i][sh] != host[i][sh]).sum()) + int(set(farm[i]) != set(host[i]))
+                   for i in range(len(objects)) for sh in host[i])
+    logical = cfg.farm_writers * nbytes
+    dispatches = svc.stats["single_dispatches"] - stats0["single_dispatches"]
+    out = {"writers": cfg.farm_writers, "object_bytes": nbytes, "prewarmed_shapes": prewarmed,
+           "runs": cfg.farm_reps, "single_dispatches": dispatches,
+           "coalesced": svc.stats["coalesced"] - stats0["coalesced"],
+           "kernel_launches": launches,
+           "launches_per_op": launches / (cfg.farm_reps * cfg.farm_writers),
+           "cold_launches": svc.stats["cold_launches"],
+           "farm_s": farm_s, "farm_GB_per_s": logical / statistics.median(farm_s) / 1e9,
+           "per_op_s": per_op_s, "per_op_GB_per_s": logical / statistics.median(per_op_s) / 1e9,
+           "mismatched_bytes": bad, "mismatched_vs_host_gf_matmul": host_bad}
+    if bad or host_bad or dispatches >= cfg.farm_reps * cfg.farm_writers \
+            or svc.stats["cold_launches"]:
+        raise AssertionError(f"encode service: {out}")
+    return out
+
+
+def phase_encode_farm(cfg: Config, device) -> dict:
+    """The encode service and farm at the write phase's objects (RS(8,3),
+    4 MiB, rows of (8, 524288)): (a) ``cfg.farm_writers`` concurrent
+    ``encode_async`` writers through a prewarmed single-device
+    ``EncodeService``, byte-equal to the host ``gf_matmul`` and to the
+    per-op ``ecutil.encode``, with the dispatches, launches an op and
+    logical GB/s beside the per-op path's, at these objects and at
+    ``cfg.farm_sweep_bytes``; (b) ``batch_encode_dp`` and
+    ``sharded_encode_tp`` on a ``cfg.farm_mesh`` mesh of the one device,
+    and the service's tp path for a lone request, byte-equal to the host
+    ``gf_matmul``.  Returns the line."""
+    ec, sinfo = make_pool(cfg, device)
+    k, m = ec.get_data_chunk_count(), ec.get_chunk_count() - ec.get_data_chunk_count()
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 23)
+    s_obj = cfg.object_bytes // sinfo.stripe_width * sinfo.chunk_size
+    C = np.asarray(ec.coding_matrix, np.uint8)
+    single = _service_vs_per_op(cfg, device, ec, sinfo, C, cfg.object_bytes, gen)
+    sweep = [_service_vs_per_op(cfg, device, ec, sinfo, C, n, gen)
+             for n in cfg.farm_sweep_bytes]
+
+    # (b) the farm's mesh paths on one repeated device
+    mesh = _one_device_mesh(cfg.farm_mesh, device)
+    bits = torch.as_tensor(gf_matrix_to_bitmatrix(C), device=device)
+    rng = np.random.default_rng(cfg.seed + 24)
+    batch = rng.integers(0, 256, (mesh.size, k, s_obj), dtype=np.uint8)
+    dp = batch_encode_dp(mesh, bits, torch.from_numpy(batch), axis=("pg", "shard")).cpu().numpy()
+    dp_bad = sum(int((dp[i] != gf_matmul(C, batch[i])).sum()) for i in range(mesh.size))
+    data = rng.integers(0, 256, (k, s_obj), dtype=np.uint8)
+    want = gf_matmul(C, data)
+    tp_bad = int((sharded_encode_tp(mesh, bits, torch.from_numpy(data)).cpu().numpy()
+                  != want).sum())
+    msvc = EncodeService(mesh, min_bytes=0, window_s=0.002)
+    svc_tp_bad = int((asyncio.run(msvc.apply(C, data)) != want).sum())
+    _sync(device)
+    mesh_line = {"mesh": mesh.shape, "dp_batch": list(batch.shape), "dp_mismatched": dp_bad,
+                 "tp_data": list(data.shape), "tp_mismatched": tp_bad,
+                 "service_tp_dispatches": msvc.stats["tp_dispatches"],
+                 "service_tp_mismatched": svc_tp_bad}
+    out = {"phase": "encode_farm", "k": k, "m": m, "single_device": single,
+           "single_device_sweep": sweep, "mesh_paths": mesh_line}
+    emit(out)
+    if dp_bad or tp_bad or svc_tp_bad or msvc.stats["tp_dispatches"] != 1:
+        raise AssertionError(f"encode farm mesh paths: {mesh_line}")
+    return out
+
+
+def run_farm_path(cfg: Config, device) -> dict:
+    """Phase 12 with the bit-matrix and fold launches counted alone:
+    reset just before, read just after; on the card the fold and the
+    store kernel must have been launched."""
+    rk.reset_launch_counts()
+    farm = phase_encode_farm(cfg, device)
+    _sync(device)
+    launches = rk.launch_counts()
+    store = sum(launches[n] for n in ("gf_bitmatmul", "gf_bitmatmul_pallas",
+                                      "gf_bitmatmul_pallas_grouped"))
+    if torch.device(device).type == "cuda" and (launches["gf_fold"] <= 0 or store <= 0):
+        raise AssertionError(f"kernels not launched on the farm path: {launches}")
+    return {"farm": farm, "launches": launches}
+
+
+def phase_kernel_fold(cfg: Config, device) -> int:
+    """``gf_fold`` against its plain version at every ``cfg.fold_shapes``;
+    returns the largest absolute error (raises unless 0)."""
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 25)
+    for n, m, s in cfg.fold_shapes:
+        parts = _rand((n, m, s), gen, device)
+        bad, _ = _errors(rk.gf_fold(parts), rk.gf_fold_plain(parts))
+        if bad:
+            raise AssertionError(f"gf_fold ({n}, {m}, {s}): {bad} bytes differ")
+    return 0
+
+
+def _rotated(make, nbytes: int) -> list:
+    """Inputs of a timed kernel, enough of them to exceed the 50 MB L2."""
+    return [make() for _ in range(max(2, min(16, -(-64 * MiB // max(nbytes, 1)))))]
+
+
+def mgr_kernel_rows(cfg: Config, device, worst: dict, launches: dict) -> list[dict]:
+    """One row a mgr shape: CUDA-event ms a call of ``analyze_packed`` and
+    of the plain version, device µs a launch and device operations a call
+    (profile pass) and the bound, on latency stores as the mgr path's,
+    rotated over more than the L2."""
+    rng = np.random.default_rng(cfg.seed + 26)
+    rows = []
+    for shape in cfg.mgr_shapes:
+        D, M, W = shape
+        bufs = _rotated(lambda: [torch.from_numpy(x).to(device)
+                                 for x in mgr_store(rng, shape, "latency")], D * M * W * 9)
+        bad, err = _mgr_errors(ak.unpack(ak.analyze_packed(*bufs[0]), D, M),
+                               ak.analyze_plain(*bufs[0]))
+        if bad:
+            raise AssertionError(f"mgr_analytics {shape}: {bad} values differ")
+
+        def fn(i, bufs=bufs):
+            return ak.analyze_packed(*bufs[i % len(bufs)])
+
+        def plain(i, bufs=bufs):
+            return ak.analyze_plain(*bufs[i % len(bufs)])
+        name = _shape_name(shape)
+        prof = per_launch(fn, 48, f"analytics {shape}", "mgr_analytics_kernel")
+        ms = time_ms(fn, 48, cfg.repeats)
+        bms, by = mgr_bound_ms(shape)
+        rows.append({
+            "name": f"mgr_analytics:{name}", "route": "cuda", "source": MGR_SOURCE,
+            "replaces": MGR_REPLACES, "launches": launches[name],
+            "max_abs_err": max(worst[name], err), "mismatched_values": bad,
+            "ms": ms, "plain_ms": time_ms(plain, 2, 3), "bound_ms": bms, "bound_by": by,
+            "bound_share": bms / ms, "library_ms": None,
+            "library_note": "no PyTorch call computes the digest (percentiles, EWMA, "
+                            "means and outliers)",
+            "shape": f"store {shape}", "cluster_and_daemons_a_block": ak.geometry(D, W)[:2],
+            "device_us": prof["device_us_mean"],
+            "device_ops_per_call": prof["device_ops_per_call"]})
+    return rows
+
+
+def fold_kernel_row(cfg: Config, device, worst: int, launches: int) -> dict:
+    """``farm_fold``'s row at the farm's tp shape, (2, m, S) of the write
+    phase's object: CUDA-event ms, device µs, plain ms, the bound, and
+    ``torch.bitwise_xor`` of the two partials, the same function at
+    n = 2."""
+    n, m, s = cfg.fold_shapes[0]
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 27)
+    bufs = _rotated(lambda: _rand((n, m, s), gen, device), n * m * s)
+    bad, err = _errors(rk.gf_fold(bufs[0]), rk.gf_fold_plain(bufs[0]))
+    if bad:
+        raise AssertionError(f"gf_fold ({n}, {m}, {s}): {bad} bytes differ")
+
+    def fn(i):
+        return rk.gf_fold(bufs[i % len(bufs)])
+    prof = per_launch(fn, 48, f"fold ({n}, {m}, {s})", "farm_fold")
+    ms = time_ms(fn, 48, cfg.repeats)
+    bms, by = fold_bound_ms(n, m, s)
+    lib = (time_ms(lambda i: torch.bitwise_xor(bufs[i % len(bufs)][0], bufs[i % len(bufs)][1]),
+                   48, cfg.repeats) if n == 2 else None)
+    return {"name": "farm_fold", "route": "cuda", "source": FOLD_SOURCE,
+            "replaces": FOLD_REPLACES, "launches": launches, "max_abs_err": max(worst, err),
+            "mismatched_bytes": bad, "ms": ms,
+            "plain_ms": time_ms(lambda i: rk.gf_fold_plain(bufs[i % len(bufs)]), 4, 3),
+            "bound_ms": bms, "bound_by": by, "bound_share": bms / ms, "library_ms": lib,
+            "library_note": "torch.bitwise_xor(p[0], p[1]): the same function at n = 2; "
+                            "no PyTorch call XORs n > 2 partials",
+            "shape": f"fold ({n}, {m}, {s})", "device_us": prof["device_us_mean"],
+            "device_ops_per_call": prof["device_ops_per_call"]}
+
+
+def phase_fold_sweep(cfg: Config, device) -> dict:
+    """``farm_fold`` at every ``cfg.fold_shapes`` (n = 2 and 4 partials of
+    the write phase's rows, and a ragged S): device µs a launch, CUDA-event
+    ms a call and the byte bound."""
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 28)
+    out = {"phase": "fold_sweep", "cases": []}
+    for n, m, s in cfg.fold_shapes:
+        bufs = _rotated(lambda: _rand((n, m, s), gen, device), n * m * s)
+
+        def fn(i, bufs=bufs):
+            return rk.gf_fold(bufs[i % len(bufs)])
+        bad, _ = _errors(fn(0), rk.gf_fold_plain(bufs[0]))
+        if bad:
+            raise AssertionError(f"gf_fold ({n}, {m}, {s}): {bad} bytes differ")
+        prof = per_launch(fn, 48, f"fold ({n}, {m}, {s})", "farm_fold")
+        bms, by = fold_bound_ms(n, m, s)
+        out["cases"].append({"shape": [n, m, s], "mismatched_bytes": bad,
+                             "device_us": prof["device_us_mean"],
+                             "ms": time_ms(fn, 48, cfg.repeats), "bound_ms": bms,
+                             "bound_by": by,
+                             "bound_share_device": bms * 1e3 / prof["device_us_mean"],
+                             "device_ops_per_call": prof["device_ops_per_call"]})
+    return out
+
+
 def run_main_path(cfg: Config, device, full_check: bool = True) -> dict:
     """Phases 2-6 on ``device``; returns the pool, what was written and
     the scrub and remap phases' lines."""
@@ -2228,6 +2701,16 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "sass_ldg", **sass_ldg_counts()})
     emit({"phase": "sass_clay_ops", **sass_clay_ops()})
 
+    # the mgr's digest path and the encode farm: paths of their own, each
+    # counted alone; their kernels are first held against their plain
+    # versions (not counted)
+    mgr_worst = phase_kernel_mgr(cfg, device)
+    mgr = phase_mgr(cfg, device)
+    emit({"phase": "mgr_path_launches", **mgr["launches"]})
+    fold_worst = phase_kernel_fold(cfg, device)
+    farm = run_farm_path(cfg, device)
+    emit({"phase": "farm_path_launches", **farm["launches"]})
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     for row in rows:
@@ -2235,7 +2718,10 @@ def main(argv: list[str] | None = None) -> int:
             row["plugin_path_launches"] = plugin_launches[row["name"]]
     rows.append(clay_bench_row(cfg, device, launches["clay_repair"]))
     rows += tools_kernel_rows(cfg, device, tool_worst, tools["launches"])
+    rows += mgr_kernel_rows(cfg, device, mgr_worst, mgr["launches"])
+    rows.append(fold_kernel_row(cfg, device, fold_worst, farm["launches"]["gf_fold"]))
     emit(phase_crc_sweep(cfg, device))
+    emit(phase_fold_sweep(cfg, device))
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

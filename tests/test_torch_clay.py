@@ -29,6 +29,7 @@ from ceph_tpu_torch.ec import ECError, registry
 from ceph_tpu_torch.ec.plugins import clay_cuda
 from ceph_tpu_torch.ops.gf256 import gf_mul
 from ceph_tpu_torch.osd import ecutil
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 GEOMETRIES = [(4, 2, 5), (8, 4, 11), (8, 3, 10)]

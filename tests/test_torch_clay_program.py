@@ -11,6 +11,9 @@ helpers at an aligned and a ragged sub-chunk.  Tolerance 0.  One XLA
 compile per program and sub-chunk, so this file holds only these cases.
 """
 
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,11 +24,23 @@ from ceph_tpu.ec.plugins.clay_jit import ClayRepairProgram as RefProgram
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.ec.plugins import clay_cuda
 from tests.test_torch_clay import kernel_model
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 GEOMETRIES = [(4, 2, 5), (8, 4, 11), (8, 3, 10), (4, 5, 8)]
 CASES = [(k, m, d, lost) for k, m, d in GEOMETRIES for lost in range(k + m)]
 _CODED: dict = {}
 _REF: dict = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_programs():
+    """Drop the module's codes and reference programs when it ends, so
+    their compiled executables (and memory mappings) go with them."""
+    yield
+    _REF.clear()
+    _CODED.clear()
+    gc.collect()
+    jax.clear_caches()
 
 
 def _coded(k, m, d):
@@ -84,3 +99,8 @@ def test_kernel_model_equals_reference(k, m, d, lost):
         assert np.array_equal(kernel_model(H, sched), want), sc
         assert np.array_equal(clay_cuda.clay_repair_plain(torch.from_numpy(H), sched).numpy(),
                               want), sc
+    # this node's programs have no later user: release them (each compiled
+    # program holds memory mappings, see tests/xla_private.py)
+    for sc in (sub, sub + 13):
+        _REF.pop((k, m, d, node, sc), None)
+    gc.collect()

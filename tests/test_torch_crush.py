@@ -46,6 +46,7 @@ from ceph_tpu_torch.crush.types import (
     Tunables,
 )
 from ceph_tpu_torch.ops import hashing as phash
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden" / "crush_vectors.json"

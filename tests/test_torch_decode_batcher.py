@@ -17,6 +17,7 @@ from ceph_tpu.osd import ecutil as ref_ecutil
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator, pow2_bucket
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 
 def _ec(k=4, m=2):

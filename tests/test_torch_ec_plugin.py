@@ -18,6 +18,7 @@ from ceph_tpu.ec import registry as ref_registry
 from ceph_tpu_torch.ec import ECError, ErasureCodePluginRegistry
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.ec.plugins.cuda import ErasureCodeCuda
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 PROFILES = [
     {"k": "8", "m": "3", "technique": "cauchy"},

@@ -14,6 +14,7 @@ from ceph_tpu.osd import ecutil as ref_ecutil
 from ceph_tpu_torch import native
 from ceph_tpu_torch.ec import ECError, registry
 from ceph_tpu_torch.osd import ecutil
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 # (seed, payload, expected) from reference test_crc32c.cc:21-43, as
 # tests/test_ecutil.py pins them

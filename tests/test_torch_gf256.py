@@ -13,6 +13,7 @@ from ceph_tpu.models import matrices as ref_mx
 from ceph_tpu.ops import gf256 as ref_gf
 from ceph_tpu_torch.models import matrices as mx
 from ceph_tpu_torch.ops import gf256 as gf
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 KM = [(2, 1), (4, 2), (8, 3), (6, 4), (16, 4), (10, 6)]
 

@@ -25,6 +25,7 @@ from ceph_tpu import native as ref_native
 from ceph_tpu.ops import hashing as ref_h
 from ceph_tpu_torch import native
 from ceph_tpu_torch.ops import hashing as h
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 POW2 = [1 << i for i in range(17)]  # 1 .. 65536
 

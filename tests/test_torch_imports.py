@@ -22,8 +22,10 @@ from ceph_tpu_torch.crush.tester import CrushTester
 from ceph_tpu_torch.crush.types import CrushMap
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
+from ceph_tpu_torch.mgr.analytics import AnalyticsEngine
 from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
 from ceph_tpu_torch.ops import rs_kernels as rk
+from ceph_tpu_torch.parallel import encode_service
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
 from ceph_tpu_torch.osd.balancer import UpmapBalancer
 from ceph_tpu_torch.osd.osdmap import OSDMap
@@ -65,7 +67,9 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "ec.plugins.jerasure", "ec.plugins.shec", "ec.plugins.lrc",
                  "ec.plugins.clay", "ec.plugins.clay_cuda", "ops.lab_kernels", "tools",
                  "tools.perf_lab", "tools.perf_lab2", "tools.perf_lab3", "tools.bench",
-                 "tools.ec_benchmark", "tools.bench_all"):
+                 "tools.ec_benchmark", "tools.bench_all", "mgr", "mgr.analytics",
+                 "mgr.daemon", "ops.analytics_kernels", "parallel.encode_farm",
+                 "parallel.encode_service"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -158,6 +162,13 @@ def test_default_device_constructors_raise(no_cuda):
     clay = registry.factory("clay", {"k": "4", "m": "2"}, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ClayRepairProgram(clay, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AnalyticsEngine(16, 16, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encode_service.EncodeService(device="cuda")
+    encode_service.reset_shared()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encode_service.shared()
 
 
 def test_cpu_is_only_by_request(no_cuda):
@@ -172,6 +183,11 @@ def test_cpu_is_only_by_request(no_cuda):
         assert registry.factory(plugin, dict(profile), device="cpu").device.type == "cpu"
     clay = registry.factory("clay", {"k": "4", "m": "2"}, device="cpu")
     assert ClayRepairProgram(clay, 0, device="cpu").device.type == "cpu"
+    assert AnalyticsEngine(16, 16, 32, device="cpu").device.type == "cpu"
+    assert AnalyticsEngine(16, 16, 32, backend="numpy").device is None
+    encode_service.reset_shared()
+    assert encode_service.shared(device="cpu").device.type == "cpu"
+    encode_service.reset_shared()
 
 
 def test_version():

@@ -36,6 +36,7 @@ from ceph_tpu.ops.gf256 import gf_matmul as ref_gf_matmul
 from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
 from ceph_tpu_torch.ops import lab_kernels as lk
 from ceph_tpu_torch.ops import rs_kernels as rk
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CODES = [(8, 3), (4, 2), (6, 3)]

@@ -29,6 +29,7 @@ from ceph_tpu_torch.models import bitmatrices as bm
 from ceph_tpu_torch.models import matrices as mx
 from ceph_tpu_torch.ops import gf256
 from ceph_tpu_torch.ops import rs_kernels as rk
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "ec_kats.json")
 with open(GOLDEN) as _f:

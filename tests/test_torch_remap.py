@@ -24,6 +24,7 @@ import ceph_tpu_torch.osd.types as posdtypes
 from ceph_tpu_torch.crush import cudamapper as cm
 from ceph_tpu_torch.osd import balancer as pbalancer
 from ceph_tpu_torch.osd import remap
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 REF = (rb, rtypes, rosdmap, rosdtypes)
 PORT = (pb, ptypes, posdmap, posdtypes)

@@ -19,6 +19,7 @@ from ceph_tpu.ops import gf256 as ref_gf
 from ceph_tpu.ops import rs_kernels as ref_rk
 from ceph_tpu_torch.models import matrices as mx
 from ceph_tpu_torch.ops import rs_kernels as rk
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 CODES = [(8, 3), (4, 2), (16, 4)]
 
@@ -216,8 +217,8 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(rk, "_fn", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         rk._kernel()
-    assert _build.sources() == ["clay_repair", "crc32c_lanes", "crush_rule", "gf_bitmatmul",
-                                "lab_copy"]
+    assert _build.sources() == ["clay_repair", "crc32c_lanes", "crush_rule", "farm_fold",
+                                "gf_bitmatmul", "lab_copy", "mgr_analytics"]
 
 
 def test_launch_refuses_cpu_tensors():

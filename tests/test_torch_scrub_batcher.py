@@ -24,6 +24,7 @@ from ceph_tpu_torch.native import crc32c
 from ceph_tpu_torch.ops.gf256 import gf_matmul
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.parallel.scrub_batcher import ObjectCheck, ScrubVerifier
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 
 def _ec(k=3, m=2):

@@ -21,6 +21,7 @@ from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 PROFILE = {"k": "8", "m": "3", "technique": "cauchy", "device-min-bytes": "0"}
 STRIPE_UNIT = 4096
@@ -344,3 +345,80 @@ def test_chip_smoke_crc_sweep_on_cpu(monkeypatch):
         assert (c["loads_per_pass"], c["cluster"], c["passes"]) == \
             chip_smoke.hashing.crc_geometry(c["width"])
         assert c["device_ops_per_call"]["memset"] == 0
+
+
+#: chip_smoke's mgr and farm paths cut for the CPU: a 4-daemon store and
+#: a 130-daemon one (two blocks a metric on the card), 64 KiB objects
+TINY_MGR_FARM = dict(mgr_shapes=((4, 3, 8), (130, 2, 4)), mgr_check_shapes=((3, 2, 33),),
+                     mgr_reports=10, mgr_passes=2,
+                     farm_writers=4, object_bytes=64 * 1024, farm_sweep_bytes=(32 * 1024,),
+                     farm_reps=1,
+                     fold_shapes=((2, 3, 8192), (4, 3, 8192), (2, 3, 8192 + 13)))
+
+
+def test_chip_smoke_mgr_and_farm_paths_on_cpu():
+    """chip_smoke's phases 11-12 at a tiny size on the CPU: the analytics
+    kernel's cases equal its plain version; the mgr path's passes equal
+    the numpy host path with no cold launch and flag the slow OSD; four
+    concurrent writers through the service are one dispatch, byte-equal
+    to the per-op encode and to the host gf_matmul (also at a smaller
+    object); the dp, tp and service-tp paths on a (2, 2)
+    mesh equal gf_matmul; on the CPU no kernel launches."""
+    from ceph_tpu_torch.ops import analytics_kernels as ak
+
+    cfg = chip_smoke.Config(**TINY_MGR_FARM)
+    assert chip_smoke.phase_kernel_mgr(cfg, "cpu") == {"4x3x8": 0, "130x2x4": 0, "3x2x33": 0}
+    mgr = chip_smoke.phase_mgr(cfg, "cpu")
+    assert mgr["launches"] == {"4x3x8": 0, "130x2x4": 0}
+    for row in mgr["shapes"]:
+        assert row["mismatches_vs_numpy"] == 0 and "osd.3" in row["flagged"]
+        assert row["stats"] == {"prewarmed_shapes": 1, "passes": 2, "launches": 2}
+    assert ak.geometry(130, 4) == (2, 65, False)
+    assert chip_smoke.phase_kernel_fold(cfg, "cpu") == 0
+    run = chip_smoke.run_farm_path(cfg, "cpu")
+    single, mesh = run["farm"]["single_device"], run["farm"]["mesh_paths"]
+    assert single["single_dispatches"] == 1 and single["coalesced"] == 4
+    assert single["mismatched_bytes"] == 0 and single["cold_launches"] == 0
+    for row in (single, *run["farm"]["single_device_sweep"]):
+        assert row["mismatched_vs_host_gf_matmul"] == 0 and row["single_dispatches"] == 1
+    assert mesh["mesh"] == {"pg": 2, "shard": 2} and mesh["service_tp_dispatches"] == 1
+    assert mesh["dp_mismatched"] == mesh["tp_mismatched"] == mesh["service_tp_mismatched"] == 0
+    assert set(run["launches"].values()) == {0}
+
+
+def test_chip_smoke_mgr_and_farm_rows_on_cpu(monkeypatch):
+    """The kernels line's new rows and the fold sweep, built on the CPU
+    with the card-only timers stubbed: the contract's keys, the byte
+    bounds, and the library call of the fold at n = 2."""
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, calls, repeats: (fn(0), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "per_launch", lambda fn, calls, shape, kernel: {
+        "device_us_mean": 1.0, "device_ops_per_call": {"kernel": 1.0, "memset": 0.0, "other": 0.0}})
+    cfg = chip_smoke.Config(**TINY_MGR_FARM)
+    rows = chip_smoke.mgr_kernel_rows(cfg, "cpu", {"4x3x8": 0, "130x2x4": 0},
+                                      {"4x3x8": 2, "130x2x4": 2})
+    rows.append(chip_smoke.fold_kernel_row(cfg, "cpu", 0, 3))
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert [r["name"] for r in rows] == ["mgr_analytics:4x3x8", "mgr_analytics:130x2x4",
+                                         "farm_fold"]
+    for r in rows:
+        assert keys <= set(r) and r["route"] == "cuda" and r["max_abs_err"] == 0
+        assert r["bound_by"] == "bytes" and r["bound_ms"] > 0
+    assert [r["library_ms"] is None for r in rows] == [True, True, False]
+    assert rows[2]["launches"] == 3 and rows[2]["replaces"] == chip_smoke.FOLD_REPLACES
+    sweep = chip_smoke.phase_fold_sweep(cfg, "cpu")
+    assert [c["shape"] for c in sweep["cases"]] == [list(s) for s in cfg.fold_shapes]
+    assert all(c["mismatched_bytes"] == 0 for c in sweep["cases"])
+
+
+def test_chip_smoke_mgr_and_fold_bounds():
+    """The byte bounds at 3.35 TB/s: about 81 KB (0.024 µs) at the
+    mgr's configured (16, 16, 32), 5.14 MB (1.53 µs) at (1024, 16, 32);
+    (n + 1) m S for the fold."""
+    small, by = chip_smoke.mgr_bound_ms((16, 16, 32))
+    assert by == "bytes" and small == 80768 / chip_smoke.PEAK_BYTES_PER_S * 1e3
+    big, by = chip_smoke.mgr_bound_ms((1024, 16, 32))
+    assert by == "bytes" and big == 5136896 / chip_smoke.PEAK_BYTES_PER_S * 1e3
+    assert round(small * 1e3, 3) == 0.024 and round(big * 1e3, 2) == 1.53
+    assert chip_smoke.fold_bound_ms(2, 3, 524288) == (
+        3 * 3 * 524288 / chip_smoke.PEAK_BYTES_PER_S * 1e3, "bytes")

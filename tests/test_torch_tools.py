@@ -31,6 +31,7 @@ from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.osd.types import pg_t
 from ceph_tpu_torch.tools import bench, bench_all, ec_benchmark
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 JERASURE = ["--plugin", "jerasure", "--size", "65536", "--iterations", "4",
