@@ -54,9 +54,23 @@ _I64_MAX = torch.iinfo(torch.int64).max
 #: block holds where the cluster allows
 MAX_CLUSTER = 8
 DAEMONS_PER_BLOCK = 128
-#: shared memory a block may use on an H100, less the kernel's static
-#: arrays (two histogram buffers, their sum, the selects' state)
-SMEM_LIMIT = 232448 - 16384
+#: the selects' pass plan (``kFirstBits``, ``kLaterBits``, ``kGather`` in
+#: the source): a select's first histogram pass decides the 11 bits below
+#: the highest bit where the cluster's keys differ, each later pass the
+#: next 10, its bins read as super-bins of 32; a select with at most
+#: ``GATHER_MAX`` candidates left ends by a rank count among them
+FIRST_DIGIT_BITS = 11
+LATER_DIGIT_BITS = 10
+GATHER_MAX = 64
+#: the two histogram buffers at the front of the dynamic shared memory,
+#: 4096 bins of 4 bytes each: two selects' first passes, or four later
+HIST_BYTES = 2 * 4096 * 4
+#: shared memory a block may use on an H100 for its staging area: less
+#: the histograms and the kernel's static arrays (super-bins, the early
+#: ends' lists, the selects' state; under 8 KiB).  At 128 daemons of 32
+#: samples a block takes under half an SM's 228 KiB, so two blocks share
+#: an SM and every cluster of a (1024, 16, 32) store is resident at once
+SMEM_LIMIT = 232448 - HIST_BYTES - 8192
 
 #: output names, in the packed buffer's order
 OUTPUTS = ("percentiles", "n_samples", "ewma_scaled", "mean_scaled", "count", "outlier")

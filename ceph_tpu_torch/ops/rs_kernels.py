@@ -608,9 +608,10 @@ def _fold_kernel():
 
 
 def fold_blocks(nbytes: int, sm_count: int) -> int:
-    """Grid of a fold over ``nbytes`` output bytes: a thread per 16
-    bytes, at most ``FOLD_BLOCKS_PER_SM`` blocks per SM."""
-    return max(1, min(-(-nbytes // (16 * FOLD_THREADS)), sm_count * FOLD_BLOCKS_PER_SM))
+    """Grid of a fold over ``nbytes`` output bytes: a thread per 16-byte
+    chunk, at most ``FOLD_BLOCKS_PER_SM`` blocks per SM, at least one
+    block (the tail bytes of a ragged S are block 0's)."""
+    return max(1, min(-(-(nbytes // 16) // FOLD_THREADS), sm_count * FOLD_BLOCKS_PER_SM))
 
 
 def gf_fold_plain(partials: torch.Tensor) -> torch.Tensor:
@@ -627,10 +628,9 @@ def gf_fold(partials: torch.Tensor) -> torch.Tensor:
     and ``pack_bits`` of ``sharded_encode_tp._encode``
     (ceph_tpu/parallel/encode_farm.py:113-122): each rank's partial is
     already reduced mod 2 and packed, and (sum a_i) mod 2 = XOR (a_i mod
-    2).  On the card: one launch of ``farm_fold.cu``, 16 bytes a thread
-    where m S is a multiple of 16; a byte a thread otherwise, which no
-    encode-service dispatch at its default ``min_bytes`` reaches (it pads
-    S to a power of two, at least 32768 / k)."""
+    2).  On the card: one launch of ``farm_fold.cu`` for any S and any
+    address of the partials (a contiguous view at any offset), a 16-byte
+    chunk a thread (:func:`fold_blocks`)."""
     if not isinstance(partials, torch.Tensor) or partials.dtype != torch.uint8:
         raise TypeError("partials must be a uint8 torch.Tensor")
     if partials.dim() != 3 or partials.shape[0] < 1:

@@ -2,7 +2,8 @@
 """Drive ceph_tpu_torch's erasure-code data path on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --crush-lab   # the CRUSH lab line alone
+    python3 chip_smoke.py --crush-lab      # the CRUSH lab line alone
+    python3 chip_smoke.py --mgr-fold-lab   # the analytics and fold lab line alone
 
 Builds the CUDA kernels from ``ceph_tpu_torch/ops/csrc`` (first use, one
 ``nvcc`` per source, all started together), then runs one RS(8,3) pool
@@ -89,7 +90,8 @@ through the port's entry points:
    folded by ``farm_fold.cu``) and the service's tp path for a lone
    request on a (2, 2) mesh of the one card, byte-equal to ``gf_matmul``;
    before it ``farm_fold.cu`` against its plain version at (2, 3, 524288),
-   (4, 3, 524288) and a ragged S.
+   (4, 3, 524288), (8, 3, 524288), one partial, two ragged S, each also
+   on a view that starts one byte into its buffer.
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -128,8 +130,14 @@ before doing anything.
 After the kernel rows are measured, a ``crc_sweep`` line holds the crc
 kernel against its plain version over the scrub path's lane counts and
 widths and two throughput shapes, with device µs a launch, CUDA-event
-ms, device operations a call and the byte bound of each; a
-``fold_sweep`` line does the same for the fold at its three shapes.
+ms, device operations a call and the byte bound of each; an
+``mgr_staged`` line gives the analytics kernel's staged instantiation
+(rows in global scratch) at (3000, 2, 32) and (16, 2, 1000) on latency
+and clamp-range stores; a ``fold_sweep`` line does the same for the fold
+at its four shapes (n = 2, 4 and 8, and a ragged S), beside
+``torch.bitwise_xor`` in device µs and ms at n = 2.  The
+``mgr_analytics:*`` kernel rows also give the device µs on clamp-range
+stores, the ``farm_fold`` row the library call's device µs.
 
 ``--crush-lab`` builds the kernels and prints only a ``crush_lab`` line:
 the CRUSH kernels launched directly at the main path's shapes, in turns
@@ -137,6 +145,14 @@ with a build of ``crush_rule.cu`` whose draws use nvcc's emulated 64-bit
 division (the yardstick of its FP64-reciprocal division), and over a
 sweep of seed counts (where a launch stops being latency-bound).  The
 smoke itself does not run it.
+
+``--mgr-fold-lab`` builds the analytics and fold kernels only and prints
+only an ``mgr_fold_lab`` line (each kernel held against its plain version
+first): the analytics kernel at the mgr shapes and the staged shapes on
+latency and clamp-range stores, the fold at every shape and on
+odd-offset views, beside ``torch.bitwise_xor``.  It uses only what the
+wrappers of earlier trees also take, so an A/B runs this script from the
+root of each tree (``_archive/parent``) in one call.
 """
 
 from __future__ import annotations
@@ -388,7 +404,15 @@ class Config:
     farm_sweep_bytes: tuple = (64 * 1024, 512 * 1024)
     farm_reps: int = 3
     farm_mesh: tuple = (2, 2)
-    fold_shapes: tuple = ((2, 3, 524288), (4, 3, 524288), (2, 3, 524288 + 13))
+    fold_shapes: tuple = ((2, 3, 524288), (4, 3, 524288), (2, 3, 524288 + 13), (8, 3, 524288))
+    #: more folds for the kernel's checks alone: one partial, and a ragged
+    #: S of another residue; every fold is also checked on a view that
+    #: starts one byte into its buffer (no partial aligned to 16)
+    fold_check_shapes: tuple = ((1, 3, 524288), (3, 3, 524288 + 7))
+    #: the analytics stores timed in the staged instantiation (rows in
+    #: global scratch): the check shapes past 2632 daemons and past a
+    #: window of 701
+    mgr_staged_shapes: tuple = ((3000, 2, 32), (16, 2, 1000))
     iters: int = 32
     repeats: int = 5
     seed: int = 20261016
@@ -1753,11 +1777,22 @@ def ours(e: dict, kernel: str) -> bool:
     return kernel in e.get("name", "")
 
 
+def traced_calls(fn, calls: int) -> tuple[float, list[dict]]:
+    """``traced`` over ``calls`` calls of ``fn(i)``.  A trace that holds no
+    device event at all lost its window (the calls launched kernels, or
+    raised): it is taken again, up to three times."""
+    for _ in range(3):
+        wall, dev = traced(lambda: [fn(i) for i in range(calls)])
+        if dev:
+            break
+    return wall, dev
+
+
 def per_launch(fn, calls: int, shape: str, kernel: str = "gf_bitmatmul_kernel") -> dict:
     """Device time per launch of ``kernel`` over ``calls`` calls of
     ``fn(i)`` (one warm-up call first), beside the wall time per call."""
     fn(0)
-    wall_c, dev_c = traced(lambda: [fn(i) for i in range(calls)])
+    wall_c, dev_c = traced_calls(fn, calls)
     kern = [e["dur"] for e in dev_c if ours(e, kernel)]
     memsets = sum(e["cat"] == "gpu_memset" for e in dev_c)
     return {"shape": shape, "launches": len(kern),
@@ -2491,15 +2526,31 @@ def run_farm_path(cfg: Config, device) -> dict:
     return {"farm": farm, "launches": launches}
 
 
+def odd_view(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in a contiguous view that starts one byte into its
+    buffer (so none of a fold's partials is 16-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def phase_kernel_fold(cfg: Config, device) -> int:
-    """``gf_fold`` against its plain version at every ``cfg.fold_shapes``;
-    returns the largest absolute error (raises unless 0)."""
+    """``gf_fold`` against its plain version at every ``cfg.fold_shapes``
+    and ``cfg.fold_check_shapes``, each also on an odd-offset view; emits
+    the cases and returns the largest absolute error (raises unless 0)."""
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 25)
-    for n, m, s in cfg.fold_shapes:
+    cases = []
+    for n, m, s in (*cfg.fold_shapes, *cfg.fold_check_shapes):
         parts = _rand((n, m, s), gen, device)
-        bad, _ = _errors(rk.gf_fold(parts), rk.gf_fold_plain(parts))
-        if bad:
-            raise AssertionError(f"gf_fold ({n}, {m}, {s}): {bad} bytes differ")
+        for view in (parts, odd_view(parts)):
+            bad, _ = _errors(rk.gf_fold(view), rk.gf_fold_plain(view))
+            if bad:
+                raise AssertionError(f"gf_fold ({n}, {m}, {s}) at offset "
+                                     f"{view.data_ptr() % 16}: {bad} bytes differ")
+            cases.append({"shape": [n, m, s], "offset_mod_16": view.data_ptr() % 16,
+                          "mismatched_bytes": bad})
+    emit({"phase": "kernels_fold", "cases": cases})
     return 0
 
 
@@ -2508,98 +2559,164 @@ def _rotated(make, nbytes: int) -> list:
     return [make() for _ in range(max(2, min(16, -(-64 * MiB // max(nbytes, 1)))))]
 
 
+def mgr_case(cfg: Config, device, rng: np.random.Generator, shape: tuple, kind: str,
+             plain_ms: bool = False) -> dict:
+    """The analytics kernel on ``kind`` stores of ``shape``, rotated over
+    more than the L2: held against its plain version, then device µs a
+    launch and device operations a call (profile pass), CUDA-event ms a
+    call and the byte bound; the plain version's ms where ``plain_ms``."""
+    D, M, W = shape
+    bufs = _rotated(lambda: [torch.from_numpy(x).to(device)
+                             for x in mgr_store(rng, shape, kind)], D * M * W * 9)
+    bad, err = _mgr_errors(ak.unpack(ak.analyze_packed(*bufs[0]), D, M),
+                           ak.analyze_plain(*bufs[0]))
+    if bad:
+        raise AssertionError(f"mgr_analytics {shape} {kind}: {bad} values differ")
+
+    def fn(i):
+        return ak.analyze_packed(*bufs[i % len(bufs)])
+    prof = per_launch(fn, 48, f"analytics {shape} {kind}", "mgr_analytics_kernel")
+    bms, by = mgr_bound_ms(shape)
+    out = {"shape": list(shape), "kind": kind, "geometry": list(ak.geometry(D, W)),
+           "mismatched_values": bad, "max_abs_err": err,
+           "device_us": prof["device_us_mean"], "device_ops_per_call": prof["device_ops_per_call"],
+           "ms": time_ms(fn, 48, cfg.repeats), "bound_ms": bms, "bound_by": by}
+    if plain_ms:
+        out["plain_ms"] = time_ms(lambda i: ak.analyze_plain(*bufs[i % len(bufs)]), 2, 3)
+    return out
+
+
 def mgr_kernel_rows(cfg: Config, device, worst: dict, launches: dict) -> list[dict]:
     """One row a mgr shape: CUDA-event ms a call of ``analyze_packed`` and
     of the plain version, device µs a launch and device operations a call
-    (profile pass) and the bound, on latency stores as the mgr path's,
-    rotated over more than the L2."""
+    (profile pass) and the bound, on latency stores as the mgr path's;
+    beside them the device µs on clamp-range stores."""
     rng = np.random.default_rng(cfg.seed + 26)
     rows = []
     for shape in cfg.mgr_shapes:
         D, M, W = shape
-        bufs = _rotated(lambda: [torch.from_numpy(x).to(device)
-                                 for x in mgr_store(rng, shape, "latency")], D * M * W * 9)
-        bad, err = _mgr_errors(ak.unpack(ak.analyze_packed(*bufs[0]), D, M),
-                               ak.analyze_plain(*bufs[0]))
-        if bad:
-            raise AssertionError(f"mgr_analytics {shape}: {bad} values differ")
-
-        def fn(i, bufs=bufs):
-            return ak.analyze_packed(*bufs[i % len(bufs)])
-
-        def plain(i, bufs=bufs):
-            return ak.analyze_plain(*bufs[i % len(bufs)])
+        case = mgr_case(cfg, device, rng, shape, "latency", plain_ms=True)
+        clamp = mgr_case(cfg, device, rng, shape, "clamp")
         name = _shape_name(shape)
-        prof = per_launch(fn, 48, f"analytics {shape}", "mgr_analytics_kernel")
-        ms = time_ms(fn, 48, cfg.repeats)
-        bms, by = mgr_bound_ms(shape)
         rows.append({
             "name": f"mgr_analytics:{name}", "route": "cuda", "source": MGR_SOURCE,
             "replaces": MGR_REPLACES, "launches": launches[name],
-            "max_abs_err": max(worst[name], err), "mismatched_values": bad,
-            "ms": ms, "plain_ms": time_ms(plain, 2, 3), "bound_ms": bms, "bound_by": by,
-            "bound_share": bms / ms, "library_ms": None,
+            "max_abs_err": max(worst[name], case["max_abs_err"], clamp["max_abs_err"]),
+            "mismatched_values": case["mismatched_values"] + clamp["mismatched_values"],
+            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "bound_share": case["bound_ms"] / case["ms"], "library_ms": None,
             "library_note": "no PyTorch call computes the digest (percentiles, EWMA, "
                             "means and outliers)",
             "shape": f"store {shape}", "cluster_and_daemons_a_block": ak.geometry(D, W)[:2],
-            "device_us": prof["device_us_mean"],
-            "device_ops_per_call": prof["device_ops_per_call"]})
+            "device_us": case["device_us"], "device_ops_per_call": case["device_ops_per_call"],
+            "device_us_clamp": clamp["device_us"], "ms_clamp": clamp["ms"]})
     return rows
+
+
+def phase_mgr_staged(cfg: Config, device) -> dict:
+    """The analytics kernel's staged instantiation (rows in global
+    scratch) at ``cfg.mgr_staged_shapes``, on latency and clamp-range
+    stores: device µs a launch, CUDA-event ms and the byte bound."""
+    rng = np.random.default_rng(cfg.seed + 29)
+    return {"phase": "mgr_staged",
+            "cases": [mgr_case(cfg, device, rng, shape, kind)
+                      for shape in cfg.mgr_staged_shapes for kind in ("latency", "clamp")]}
+
+
+def library_launch(fn, calls: int) -> dict:
+    """Device µs a call of a PyTorch call ``fn(i)`` over ``calls`` calls
+    (one warm-up first; profile pass): every kernel it launched, and their
+    names."""
+    fn(0)
+    _, dev = traced_calls(fn, calls)
+    kern = [e for e in dev if e["cat"] == "kernel"]
+    return {"device_us_per_call": sum(e["dur"] for e in kern) / calls,
+            "kernels_per_call": len(kern) / calls,
+            "kernel_names": sorted({e["name"][:120] for e in kern})}
+
+
+def fold_case(cfg: Config, device, gen, shape: tuple, *, odd: bool = False) -> dict:
+    """The fold at ``shape`` (on odd-offset views where ``odd``), rotated
+    over more than the L2: held against its plain version, device µs a launch and device
+    operations a call (profile pass), CUDA-event ms, the byte bound; at
+    n = 2 beside ``torch.bitwise_xor(p[0], p[1])``, the same function,
+    in device µs and ms."""
+    n, m, s = shape
+    bufs = _rotated(lambda: _rand((n, m, s), gen, device), n * m * s)
+    if odd:
+        bufs = [odd_view(b) for b in bufs]
+    def fn(i):
+        return rk.gf_fold(bufs[i % len(bufs)])
+    bad, err = _errors(fn(0), rk.gf_fold_plain(bufs[0]))
+    if bad:
+        raise AssertionError(f"gf_fold {shape} odd={odd}: {bad} bytes differ")
+    prof = per_launch(fn, 48, f"fold {shape}", "farm_fold")
+    bms, by = fold_bound_ms(n, m, s)
+    out = {"shape": list(shape), "offset_mod_16": bufs[0].data_ptr() % 16,
+           "mismatched_bytes": bad, "max_abs_err": err,
+           "device_us": prof["device_us_mean"], "device_ops_per_call": prof["device_ops_per_call"],
+           "ms": time_ms(fn, 48, cfg.repeats), "bound_ms": bms, "bound_by": by,
+           "bound_share_device": bms * 1e3 / max(prof["device_us_mean"], 1e-9)}
+    if n == 2:
+        def lib(i):
+            return torch.bitwise_xor(bufs[i % len(bufs)][0], bufs[i % len(bufs)][1])
+        out["library"] = {**library_launch(lib, 48), "ms": time_ms(lib, 48, cfg.repeats)}
+    out["plain_ms"] = time_ms(lambda i: rk.gf_fold_plain(bufs[i % len(bufs)]), 4, 3)
+    return out
+
+
+def phase_mgr_fold_lab(cfg: Config, device) -> dict:
+    """The analytics and fold kernels alone, for an A/B of two trees (run
+    this script from each tree's root; it uses only what both wrappers
+    take): the analytics kernel at ``cfg.mgr_shapes`` and
+    ``cfg.mgr_staged_shapes`` on latency and clamp-range stores; the fold
+    at every ``cfg.fold_shapes`` and ``cfg.fold_check_shapes``, and on
+    odd-offset views at n = 2."""
+    rng = np.random.default_rng(cfg.seed + 30)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 31)
+    out = {"phase": "mgr_fold_lab",
+           "mgr": [mgr_case(cfg, device, rng, shape, kind)
+                   for shape in (*cfg.mgr_shapes, *cfg.mgr_staged_shapes)
+                   for kind in ("latency", "clamp")],
+           "fold": [fold_case(cfg, device, gen, shape)
+                    for shape in (*cfg.fold_shapes, *cfg.fold_check_shapes)]}
+    out["fold"] += [fold_case(cfg, device, gen, shape, odd=True)
+                    for shape in cfg.fold_shapes if shape[0] == 2]
+    return out
 
 
 def fold_kernel_row(cfg: Config, device, worst: int, launches: int) -> dict:
     """``farm_fold``'s row at the farm's tp shape, (2, m, S) of the write
     phase's object: CUDA-event ms, device µs, plain ms, the bound, and
     ``torch.bitwise_xor`` of the two partials, the same function at
-    n = 2."""
+    n = 2, in ms and device µs."""
     n, m, s = cfg.fold_shapes[0]
-    gen = torch.Generator(device=device).manual_seed(cfg.seed + 27)
-    bufs = _rotated(lambda: _rand((n, m, s), gen, device), n * m * s)
-    bad, err = _errors(rk.gf_fold(bufs[0]), rk.gf_fold_plain(bufs[0]))
-    if bad:
-        raise AssertionError(f"gf_fold ({n}, {m}, {s}): {bad} bytes differ")
-
-    def fn(i):
-        return rk.gf_fold(bufs[i % len(bufs)])
-    prof = per_launch(fn, 48, f"fold ({n}, {m}, {s})", "farm_fold")
-    ms = time_ms(fn, 48, cfg.repeats)
-    bms, by = fold_bound_ms(n, m, s)
-    lib = (time_ms(lambda i: torch.bitwise_xor(bufs[i % len(bufs)][0], bufs[i % len(bufs)][1]),
-                   48, cfg.repeats) if n == 2 else None)
+    case = fold_case(cfg, device, torch.Generator(device=device).manual_seed(cfg.seed + 27),
+                     (n, m, s))
+    lib = case.get("library")
     return {"name": "farm_fold", "route": "cuda", "source": FOLD_SOURCE,
-            "replaces": FOLD_REPLACES, "launches": launches, "max_abs_err": max(worst, err),
-            "mismatched_bytes": bad, "ms": ms,
-            "plain_ms": time_ms(lambda i: rk.gf_fold_plain(bufs[i % len(bufs)]), 4, 3),
-            "bound_ms": bms, "bound_by": by, "bound_share": bms / ms, "library_ms": lib,
+            "replaces": FOLD_REPLACES, "launches": launches,
+            "max_abs_err": max(worst, case["max_abs_err"]),
+            "mismatched_bytes": case["mismatched_bytes"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "bound_share": case["bound_ms"] / case["ms"],
+            "library_ms": lib["ms"] if lib else None,
+            "library_device_us": lib["device_us_per_call"] if lib else None,
             "library_note": "torch.bitwise_xor(p[0], p[1]): the same function at n = 2; "
                             "no PyTorch call XORs n > 2 partials",
-            "shape": f"fold ({n}, {m}, {s})", "device_us": prof["device_us_mean"],
-            "device_ops_per_call": prof["device_ops_per_call"]}
+            "shape": f"fold ({n}, {m}, {s})", "device_us": case["device_us"],
+            "device_ops_per_call": case["device_ops_per_call"]}
 
 
 def phase_fold_sweep(cfg: Config, device) -> dict:
-    """``farm_fold`` at every ``cfg.fold_shapes`` (n = 2 and 4 partials of
-    the write phase's rows, and a ragged S): device µs a launch, CUDA-event
-    ms a call and the byte bound."""
+    """``farm_fold`` at every ``cfg.fold_shapes`` (n = 2, 4 and 8 partials
+    of the write phase's rows, and a ragged S): device µs a launch,
+    CUDA-event ms a call and the byte bound; at n = 2 beside
+    ``torch.bitwise_xor``."""
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 28)
-    out = {"phase": "fold_sweep", "cases": []}
-    for n, m, s in cfg.fold_shapes:
-        bufs = _rotated(lambda: _rand((n, m, s), gen, device), n * m * s)
-
-        def fn(i, bufs=bufs):
-            return rk.gf_fold(bufs[i % len(bufs)])
-        bad, _ = _errors(fn(0), rk.gf_fold_plain(bufs[0]))
-        if bad:
-            raise AssertionError(f"gf_fold ({n}, {m}, {s}): {bad} bytes differ")
-        prof = per_launch(fn, 48, f"fold ({n}, {m}, {s})", "farm_fold")
-        bms, by = fold_bound_ms(n, m, s)
-        out["cases"].append({"shape": [n, m, s], "mismatched_bytes": bad,
-                             "device_us": prof["device_us_mean"],
-                             "ms": time_ms(fn, 48, cfg.repeats), "bound_ms": bms,
-                             "bound_by": by,
-                             "bound_share_device": bms * 1e3 / prof["device_us_mean"],
-                             "device_ops_per_call": prof["device_ops_per_call"]})
-    return out
+    return {"phase": "fold_sweep",
+            "cases": [fold_case(cfg, device, gen, shape) for shape in cfg.fold_shapes]}
 
 
 def run_main_path(cfg: Config, device, full_check: bool = True) -> dict:
@@ -2640,13 +2757,21 @@ def ptxas_lines(log: str) -> list[str]:
 
 def main(argv: list[str] | None = None) -> int:
     argv = argv or []
-    if argv not in ([], ["--crush-lab"]):
+    if argv not in ([], ["--crush-lab"], ["--mgr-fold-lab"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
               file=sys.stderr)
         return 1
+    if argv == ["--mgr-fold-lab"]:
+        # the two kernels alone: no path is driven, no result line
+        from ceph_tpu_torch.ops import _build
+
+        _build.build(["mgr_analytics", "farm_fold"])
+        emit(phase_mgr_fold_lab(Config(), torch.device("cuda")))
+        print(gpu_name_and_power_limit(), flush=True)
+        return 0
     if not native.available():
         raise RuntimeError("the native crc32c library did not build (g++)")
     device = torch.device("cuda")
@@ -2721,6 +2846,7 @@ def main(argv: list[str] | None = None) -> int:
     rows += mgr_kernel_rows(cfg, device, mgr_worst, mgr["launches"])
     rows.append(fold_kernel_row(cfg, device, fold_worst, farm["launches"]["gf_fold"]))
     emit(phase_crc_sweep(cfg, device))
+    emit(phase_mgr_staged(cfg, device))
     emit(phase_fold_sweep(cfg, device))
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)

@@ -164,6 +164,88 @@ def test_gf_fold_plain_matches_numpy():
         rk.gf_fold(torch.zeros((2, 3, 4), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("n", range(1, 9))
+def test_gf_fold_plain_every_n(n):
+    """The plain version against numpy's XOR reduction at n = 1 .. 8
+    partials, aligned and ragged S, also on a view at an odd offset."""
+    rng = np.random.default_rng(n)
+    for m, s in ((3, 4096), (3, 4096 + 13), (1, 7), (2, 1)):
+        buf = rng.integers(0, 256, n * m * s + 1, dtype=np.uint8)
+        for off in (0, 1):
+            parts = buf[off:off + n * m * s].reshape(n, m, s)
+            want = np.bitwise_xor.reduce(parts, axis=0)
+            got = rk.gf_fold_plain(torch.from_numpy(buf)[off:off + n * m * s].view(n, m, s))
+            assert np.array_equal(got.numpy(), want)
+
+
+def _fold_kernel_model(mem: np.ndarray, off: int, n: int, N: int, blocks: int) -> np.ndarray:
+    """``farm_fold.cu`` step by step on the bytes ``mem`` (address 0 of it
+    16-byte aligned), the partials at byte ``off``: every thread's chunks,
+    the aligned 16-byte words it loads (each must hold a byte of its
+    partial: no load leaves the partials' pages) funnel-shifted into
+    place, and block 0's tail bytes.  Returns the output and checks each
+    byte is written once."""
+    T = rk.FOLD_THREADS
+    out = np.zeros(N, np.uint8)
+    written = np.zeros(N, np.int64)
+    nvec = N >> 4
+
+    def word(a16: int, r: int) -> list[int]:
+        lo, hi = a16 * 16, a16 * 16 + 16
+        start, end = off + r * N, off + (r + 1) * N
+        assert lo < end and hi > start          # holds a byte of partial r
+        return [int(x) for x in mem[lo:hi].view("<u4")]
+
+    def realign(lo: list[int], hi: list[int], phase: int) -> list[int]:
+        w = lo + hi
+        q, s = phase >> 2, (phase & 3) * 8
+        return [((w[q + j] | w[q + j + 1] << 32) >> s) & 0xFFFFFFFF for j in range(4)]
+
+    for b in range(blocks):
+        for t in range(T):
+            for c in range(b * T + t, nvec, blocks * T):
+                acc = [0, 0, 0, 0]
+                for r in range(n):
+                    a = off + r * N
+                    phase = a & 15
+                    lo = word((a - phase) // 16 + c, r)
+                    v = realign(lo, word((a - phase) // 16 + c + 1, r), phase) if phase else lo
+                    acc = [x ^ y for x, y in zip(acc, v)]
+                out[16 * c:16 * c + 16] = np.array(acc, "<u4").view(np.uint8)
+                written[16 * c:16 * c + 16] += 1
+    for t in range(N & 15):                     # block 0's tail
+        i = nvec * 16 + t
+        out[i] = np.bitwise_xor.reduce(mem[off + i:off + n * N:N])
+        written[i] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_fold_kernel_model(n):
+    """The kernel's split of a fold (a 16-byte chunk a thread, realigned
+    partials, block 0's tail) equals numpy's XOR at aligned and ragged S,
+    the partials at offsets 0, 1, 7 and 16, on the planned grid and on a
+    grid too small for the chunks (so threads stride)."""
+    rng = np.random.default_rng(n)
+    for N in (4096, 4096 + 13, 16 * 700 + 5, 160, 9):
+        for off in (0, 1, 7, 16):
+            mem = rng.integers(0, 256, off + n * N + 32, dtype=np.uint8)
+            want = np.bitwise_xor.reduce(mem[off:off + n * N].reshape(n, N), axis=0)
+            for blocks in (1, rk.fold_blocks(N, 132)):
+                got = _fold_kernel_model(mem, off, n, N, blocks)
+                assert np.array_equal(got, want), (n, N, off, blocks)
+
+
+def test_fold_blocks():
+    """The fold's grid: a thread per 16-byte chunk, at most eight blocks an
+    SM, at least one (a ragged S's tail alone)."""
+    assert rk.fold_blocks(3 * 524288, 132) == 384
+    assert rk.fold_blocks(3 * 524288 + 39, 132) == 385
+    assert rk.fold_blocks(13, 132) == 1
+    assert rk.fold_blocks(1 << 30, 132) == 132 * rk.FOLD_BLOCKS_PER_SM
+
+
 def test_gf_bitmatmul_into_out():
     rng = np.random.default_rng(6)
     C = rng.integers(0, 256, (3, 5), dtype=np.uint8)

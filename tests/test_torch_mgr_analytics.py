@@ -189,48 +189,118 @@ def _key(x: int) -> int:
     return (x & M64) ^ (1 << 63)
 
 
-def _select(lists, total, rank, kmin, kmax):
-    """The kernel's radix select of rank ``rank`` among the keys of
-    ``lists`` (one a block): the shared leading bytes skipped, then one
-    8-bit digit a pass, the histograms summed over the blocks.  Returns
-    (key, passes)."""
+def _start(total, rank, kmin, kmax):
+    """A select's state before its first round (``start_select``): the
+    bits from ``top`` up are every candidate's; at most ``GATHER_MAX``
+    candidates end it at once by a rank count."""
+    st = {"rank": rank, "count": total, "top": 64, "prefix": 0, "passes": 0, "gathered": False}
     if total == 0:
-        return 0, 0
-    x = kmin ^ kmax
-    if x == 0:
-        return kmin, 0
-    common = (64 - x.bit_length()) // 8
-    prefix = kmin & (M64 << (64 - 8 * common)) & M64 if common else 0
-    shift = 56 - 8 * common
-    passes = 0
-    while shift >= 0:
-        above = 0 if shift >= 56 else (M64 << (shift + 8)) & M64
-        tot = [0] * 256
-        for keys in lists:
-            for k in keys:
-                if (k ^ prefix) & above == 0:
-                    tot[(k >> shift) & 255] += 1
-        below = 0
-        for b in range(256):
-            if below + tot[b] > rank:
-                break
-            below += tot[b]
-        rank -= below
-        prefix |= b << shift
-        shift -= 8
-        passes += 1
-    return prefix, passes
+        st["mode"] = "done"
+    elif kmin == kmax:
+        st.update(prefix=kmin, mode="done")
+    else:
+        top = (kmin ^ kmax).bit_length()
+        st.update(top=top, prefix=kmin >> top << top,
+                  mode="gather" if total <= ak.GATHER_MAX else "hist")
+    return st
+
+
+def _matches(k, st):
+    return (k ^ st["prefix"]) >> st["top"] == 0
+
+
+def _digit_bits(rnd):
+    """A histogram pass's digit width: 11 bits in a select's first round,
+    10 in later ones."""
+    return ak.FIRST_DIGIT_BITS if rnd == 0 else ak.LATER_DIGIT_BITS
+
+
+def _pick_digit(st, hists, bits):
+    """A histogram pass's pick from the blocks' histograms of the digit
+    below ``top``: their super-bins of 32 bins summed, the super-bin where
+    the rank falls, then its 32 bins (``pick_digit``)."""
+    w = min(bits, st["top"])
+    shift = st["top"] - w
+    tot = [sum(h[b] for h in hists) for b in range(1 << bits)]
+    width = 32
+    supers = [sum(tot[i * width:(i + 1) * width]) for i in range((1 << bits) // width)]
+    want, below, sup = st["rank"], 0, 0
+    while below + supers[sup] <= want:
+        below += supers[sup]
+        sup += 1
+    b = sup * width
+    while below + tot[b] <= want:
+        below += tot[b]
+        b += 1
+    st.update(rank=want - below, prefix=st["prefix"] | b << shift, top=shift, count=tot[b],
+              passes=st["passes"] + 1)
+    st["mode"] = ("done" if shift == 0 else "gather" if tot[b] <= ak.GATHER_MAX else "hist")
+
+
+def _pick_gathered(st, lists):
+    """An early end: the blocks' lists of the candidates (at most
+    ``GATHER_MAX`` together); the key of the rank by counting, for each,
+    the candidates below it and those not above it."""
+    cands = [k for lst in lists for k in lst]
+    assert len(cands) == st["count"] <= ak.GATHER_MAX
+    want = st["rank"]
+    hit = [k for k in cands if sum(y < k for y in cands) <= want < sum(y <= k for y in cands)]
+    st.update(prefix=hit[0], top=0, mode="done", gathered=True)
+
+
+def _selects(blocks, mblocks, ranks, mrank):
+    """The kernel's four selects on the blocks' sample key lists and mean
+    key lists, round by round (an 11-bit digit in the first, 10 bits
+    later): the percentile selects that seek among the same candidates
+    share a histogram; from the second round each block first keeps only
+    the keys that match a running percentile select, and the round's
+    selects scan those.  Returns the four states (key in
+    ``prefix``, ``passes``, ``gathered``) and the rounds."""
+    flat = [k for b in blocks for k in b]
+    mflat = [k for b in mblocks for k in b]
+    n, nm = len(flat), len(mflat)
+    sts = [_start(n, r, min(flat or [0]), max(flat or [0])) for r in ranks]
+    sts.append(_start(nm, mrank, min(mflat or [0]), max(mflat or [0])))
+    lists = [list(b) for b in blocks]
+    rounds = 0
+    while any(st["mode"] != "done" for st in sts):
+        if rounds > 0:
+            running = [st for st in sts[:3] if st["mode"] != "done"]
+            lists = [[k for k in b if any(_matches(k, st) for st in running)] for b in lists]
+        for i, st in enumerate(sts):
+            if st["mode"] == "done":
+                continue
+            src = mblocks if i == 3 else lists
+            # the compacted lists hold every candidate of a running select
+            assert [[k for k in b if _matches(k, st)] for b in src] == \
+                [[k for k in b if _matches(k, st)] for b in (mblocks if i == 3 else blocks)]
+            if st["mode"] == "gather":
+                _pick_gathered(st, [[k for k in b if _matches(k, st)] for b in src])
+            else:
+                bits = _digit_bits(rounds)
+                w = min(bits, st["top"])
+                hists = []
+                for b in src:
+                    h = [0] * (1 << bits)
+                    for k in b:
+                        if _matches(k, st):
+                            h[(k >> (st["top"] - w)) & ((1 << w) - 1)] += 1
+                    hists.append(h)
+                _pick_digit(st, hists, bits)
+        rounds += 1
+    return sts, rounds
 
 
 def kernel_model(values, valid, cursor):
     """``mgr_analytics.cu`` step by step on Python ints: returns the six
-    outputs and the passes each metric's selects took."""
+    outputs and, a metric, its four selects' (histogram passes, ended by a
+    rank count) and its rounds."""
     D, M, W = values.shape
     cluster, nd, _ = ak.geometry(D, W)
     out = {"percentiles": np.zeros((M, 3), np.int64), "n_samples": np.zeros(M, np.int64),
            "ewma_scaled": np.zeros((D, M), np.int64), "mean_scaled": np.zeros((D, M), np.int64),
            "count": np.zeros((D, M), np.int64), "outlier": np.zeros((D, M), bool)}
-    passes = []
+    plans = []
     for m in range(M):
         skeys, mkeys, means = [], [], {}
         for r in range(cluster):
@@ -259,23 +329,17 @@ def kernel_model(values, valid, cursor):
             mkeys.append(mk)
         n = sum(map(len, skeys))
         nm = sum(map(len, mkeys))
-        flat = [k for keys in skeys for k in keys] or [0]
-        mflat = [k for keys in mkeys for k in keys] or [0]
-        took = []
-        for i, p in enumerate(an.PCTS):
-            pos = min(max((p * n + 99) // 100 - 1, 0), D * W - 1)
-            k, np_ = _select(skeys, n, pos, min(flat), max(flat))
-            out["percentiles"][m, i] = _s64(k ^ (1 << 63)) if n else 0
-            took.append(np_)
-        k, np_ = _select(mkeys, nm, min((nm - 1) // 2 if nm else 0, D - 1), min(mflat),
-                         max(mflat))
-        took.append(np_)
-        med = _s64(k ^ (1 << 63)) if nm else 0
+        ranks = [min(max((p * n + 99) // 100 - 1, 0), D * W - 1) for p in an.PCTS]
+        sts, rounds = _selects(skeys, mkeys, ranks, min((nm - 1) // 2 if nm else 0, D - 1))
+        for i in range(3):
+            out["percentiles"][m, i] = _s64(sts[i]["prefix"] ^ (1 << 63)) if n else 0
+        med = _s64(sts[3]["prefix"] ^ (1 << 63)) if nm else 0
         for d, (mean, cnt) in means.items():
             out["outlier"][d, m] = cnt > 0 and mean > _s64(2 * med) and med > 0
         out["n_samples"][m] = n
-        passes.append(took)
-    return out, passes
+        plans.append({"selects": [(st["passes"], st["gathered"]) for st in sts],
+                      "rounds": rounds})
+    return out, plans
 
 
 def _ring_index(c: int, tw: int, r64: int, W: int, t: int) -> int:
@@ -322,18 +386,93 @@ def test_kernel_model_matches_numpy(shape):
 
 
 def test_kernel_model_skips_shared_bytes():
-    """Samples of the store's clamp range share their leading bytes: the
-    select takes a pass only for the bytes where they differ."""
+    """Samples of the store's clamp range share their leading bits: the
+    first digit starts at the highest bit where they differ, one 11-bit
+    pass leaves at most 64 candidates and a rank count among them ends
+    the select; 16 means end by a rank count at once."""
     rng = np.random.default_rng(11)
     vals = rng.integers(0, 1 << 20, size=(16, 2, 32)).astype(np.int64)
     valid = np.ones(vals.shape, bool)
     valid[:, 1] = False
     vals[:, 1] = 5
-    got, passes = kernel_model(vals, valid, np.zeros(16, np.int64))
+    got, plans = kernel_model(vals, valid, np.zeros(16, np.int64))
     _assert_same(got, an.analyze_numpy(vals, valid, np.zeros(16, np.int64)))
-    # 20-bit samples differ in at most 3 bytes, their means (<< 8) in 4
-    assert passes[0][:3] == [3, 3, 3] and passes[0][3] == 4
-    assert passes[1] == [0, 0, 0, 0]        # no samples: no pass
+    assert plans[0] == {"selects": [(1, True)] * 3 + [(0, True)], "rounds": 2}
+    assert plans[1] == {"selects": [(0, False)] * 4, "rounds": 0}   # no samples: no round
+
+
+@pytest.mark.parametrize("kind", ["latency", "clamp"])
+def test_kernel_model_two_rounds(kind):
+    """Seeded stores like the mgr path's end in two rounds: op latencies
+    (150-2050 µs, a slow daemon, 1 in 8 left out) and samples over the
+    store's whole clamp range, at one block and at a cluster of three."""
+    for D in (16, 300):
+        rng = np.random.default_rng(D)
+        shape = (D, 2, 32)
+        if kind == "latency":
+            vals = rng.integers(150, 2051, size=shape).astype(np.int64)
+            vals[3] += 20000
+        else:
+            vals = rng.integers(0, (1 << 40) + 1, size=shape).astype(np.int64)
+        valid = rng.random(shape) >= 0.125
+        cursor = rng.integers(0, 32, size=D).astype(np.int64)
+        got, plans = kernel_model(vals, valid, cursor)
+        _assert_same(got, an.analyze_numpy(vals, valid, cursor))
+        assert [p["rounds"] for p in plans] == [2, 2], (D, plans)
+
+
+@pytest.mark.parametrize("case", ["gather_edge", "over_edge", "ties", "one_key_apart", "wide"])
+def test_select_model_every_rank(case):
+    """The select alone, over three blocks' lists, at every rank: equal to
+    the sorted keys at 64 candidates (an early end at once) and 65 (a pass
+    first), with heavy ties, keys one apart and keys over all 64 bits."""
+    rng = np.random.default_rng(len(case))
+    if case == "gather_edge":
+        keys = [int(k) for k in rng.integers(0, 1 << 62, 64)]
+    elif case == "over_edge":
+        keys = [int(k) for k in rng.integers(0, 1 << 62, 65)]
+    elif case == "ties":
+        keys = [int(k) for k in rng.integers(0, 3, 300)] + [1 << 40]
+    elif case == "one_key_apart":
+        keys = [(1 << 63) + int(k) for k in rng.integers(0, 2, 200)]
+    else:
+        keys = [int(k) for k in rng.integers(0, 1 << 64, 500, dtype=np.uint64)]
+    blocks = [keys[0::3], keys[1::3], keys[2::3]]
+    want = sorted(keys)
+    for rank in range(len(keys)):
+        sts, _ = _selects(blocks, [[], [], []], [rank, 0, len(keys) - 1], 0)
+        assert sts[0]["prefix"] == want[rank]
+        assert sts[2]["prefix"] == want[-1]
+        plan = (sts[0]["passes"], sts[0]["gathered"])
+        if case == "gather_edge":
+            assert plan == (0, True)
+        elif case == "over_edge":
+            assert plan == (1, True)
+        assert plan[0] <= 1 + -(-(64 - ak.FIRST_DIGIT_BITS) // ak.LATER_DIGIT_BITS)
+
+
+@pytest.mark.parametrize("W", [1, 5, 31, 32, 33, 40, 64, 100])
+def test_key_segments_tile_the_list(W):
+    """The kernel's split of a block's key list among its key warps: the
+    walkers are ceil(nd / 32) warps, at most 8 of 16; key warp q takes the
+    contiguous jobs [q J / Q, (q + 1) J / Q) of the J = rows x chunks and
+    its segment starts at (row of its first job) W + (its chunk) 32.  The
+    segments tile the list exactly, each as long as its jobs' columns, and
+    q J stays under 2^32 (the kernel's unsigned arithmetic)."""
+    chunks = -(-W // 32)
+    for nloc in (1, 2, 16, 33, 128, 273, 375):
+        walkers = min(8, max(1, -(-nloc // 32)))
+        Q = 16 - walkers
+        jobs = nloc * chunks
+        ends = []
+        for q in range(Q):
+            jb, je = q * jobs // Q, (q + 1) * jobs // Q
+            start = jb // chunks * W + jb % chunks * 32
+            cols = sum(min(32, W - j % chunks * 32) for j in range(jb, je))
+            ends.append((start, start + cols))
+        assert ends[0][0] == 0 and ends[-1][1] == nloc * W
+        assert all(a[1] == b[0] for a, b in zip(ends, ends[1:]))
+    assert 15 * ((1 << 28) + (1 << 23)) < 1 << 32
 
 
 def test_geometry():
@@ -346,10 +485,20 @@ def test_geometry():
     assert ak.smem_bytes(128, 32) == 128 * (33 * 8 + 32 * 8 + 28 + 33)
     assert ak.smem_bytes(128, 32) <= ak.SMEM_LIMIT
     assert ak.stage_bytes(1024, 16, 32) == 0
+    # the two histogram buffers (4096 four-byte bins each: two 2048-bin
+    # first passes or four 1024-bin later ones) come first in a block's
+    # shared memory; under 8 KiB of static arrays; 128 daemons of 32
+    # samples take under half an SM's 228 KiB, so two blocks share an SM
+    assert ak.HIST_BYTES == 32768 and ak.SMEM_LIMIT == 232448 - 32768 - 8192
+    assert 2 << ak.FIRST_DIGIT_BITS == 4 << ak.LATER_DIGIT_BITS == 4096
+    assert ak.GATHER_MAX == 64
+    assert 2 * (ak.smem_bytes(128, 32) + ak.HIST_BYTES + 8192 + 1024) <= 228 * 1024
     # the largest store staged in shared memory, and the next one
-    assert ak.geometry(2968, 32) == (8, 371, False)
-    assert ak.geometry(2969, 32) == (8, 372, True)
-    assert ak.geometry(16, 792) == (1, 16, False)
+    assert ak.geometry(2632, 32) == (8, 329, False)
+    assert ak.geometry(2633, 32) == (8, 330, True)
+    assert ak.geometry(2968, 32) == (8, 371, True)
+    assert ak.geometry(16, 701) == (1, 16, False)
+    assert ak.geometry(16, 702) == (1, 16, True)
     assert ak.geometry(16, 793) == (1, 16, True)
     assert ak.geometry(8192, 32) == (8, 1024, True)
     assert ak.stage_bytes(8192, 4, 32) == 8 * 4 * 1024 * 581
@@ -363,9 +512,9 @@ def test_geometry():
 @pytest.mark.parametrize("shape", [(2968, 1, 32), (2969, 1, 32), (16, 2, 793)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_staged_shapes_match_reference(shape):
-    """At the largest store staged in shared memory and past it (staged
-    in global scratch), the engine and the kernel's model equal the
-    reference's analyze_numpy bit for bit."""
+    """At stores staged in global scratch (past 2632 daemons at W = 32, or
+    a window past 701 at D = 16), the engine and the kernel's model equal
+    the reference's analyze_numpy bit for bit."""
     D, M, W = shape
     rng = np.random.default_rng(D + W)
     for vals, valid, cursor in (_random_store(rng, D, M, W),

@@ -353,7 +353,19 @@ TINY_MGR_FARM = dict(mgr_shapes=((4, 3, 8), (130, 2, 4)), mgr_check_shapes=((3, 
                      mgr_reports=10, mgr_passes=2,
                      farm_writers=4, object_bytes=64 * 1024, farm_sweep_bytes=(32 * 1024,),
                      farm_reps=1,
-                     fold_shapes=((2, 3, 8192), (4, 3, 8192), (2, 3, 8192 + 13)))
+                     fold_shapes=((2, 3, 8192), (4, 3, 8192), (2, 3, 8192 + 13), (8, 3, 8192)),
+                     fold_check_shapes=((1, 3, 8192), (3, 3, 8192 + 7)),
+                     mgr_staged_shapes=((40, 2, 3),))
+
+
+def _stub_card_timers(monkeypatch):
+    """chip_smoke's card-only timers stubbed for the CPU: CUDA-event ms,
+    the profile pass's device µs of a kernel and of a library call."""
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, calls, repeats: (fn(0), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "per_launch", lambda fn, calls, shape, kernel: {
+        "device_us_mean": 1.0, "device_ops_per_call": {"kernel": 1.0, "memset": 0.0, "other": 0.0}})
+    monkeypatch.setattr(chip_smoke, "library_launch", lambda fn, calls: (fn(0), {
+        "device_us_per_call": 1.0, "kernels_per_call": 1.0, "kernel_names": ["xor"]})[1])
 
 
 def test_chip_smoke_mgr_and_farm_paths_on_cpu():
@@ -390,9 +402,7 @@ def test_chip_smoke_mgr_and_farm_rows_on_cpu(monkeypatch):
     """The kernels line's new rows and the fold sweep, built on the CPU
     with the card-only timers stubbed: the contract's keys, the byte
     bounds, and the library call of the fold at n = 2."""
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, calls, repeats: (fn(0), 1.0)[1])
-    monkeypatch.setattr(chip_smoke, "per_launch", lambda fn, calls, shape, kernel: {
-        "device_us_mean": 1.0, "device_ops_per_call": {"kernel": 1.0, "memset": 0.0, "other": 0.0}})
+    _stub_card_timers(monkeypatch)
     cfg = chip_smoke.Config(**TINY_MGR_FARM)
     rows = chip_smoke.mgr_kernel_rows(cfg, "cpu", {"4x3x8": 0, "130x2x4": 0},
                                       {"4x3x8": 2, "130x2x4": 2})
@@ -406,9 +416,30 @@ def test_chip_smoke_mgr_and_farm_rows_on_cpu(monkeypatch):
         assert r["bound_by"] == "bytes" and r["bound_ms"] > 0
     assert [r["library_ms"] is None for r in rows] == [True, True, False]
     assert rows[2]["launches"] == 3 and rows[2]["replaces"] == chip_smoke.FOLD_REPLACES
+    assert rows[0]["device_us_clamp"] == 1.0 and rows[2]["library_device_us"] == 1.0
     sweep = chip_smoke.phase_fold_sweep(cfg, "cpu")
     assert [c["shape"] for c in sweep["cases"]] == [list(s) for s in cfg.fold_shapes]
     assert all(c["mismatched_bytes"] == 0 for c in sweep["cases"])
+    assert [c["shape"][0] for c in sweep["cases"] if "library" in c] == [2, 2]
+
+
+def test_chip_smoke_mgr_fold_lab_on_cpu(monkeypatch):
+    """The A/B lab of the two kernels (``--mgr-fold-lab``) on the CPU with
+    the card-only timers stubbed: latency and clamp stores at each mgr and
+    staged shape, every fold shape and the odd-offset folds at n = 2; no
+    mismatch."""
+    _stub_card_timers(monkeypatch)
+    cfg = chip_smoke.Config(**TINY_MGR_FARM)
+    lab = chip_smoke.phase_mgr_fold_lab(cfg, "cpu")
+    assert [(c["shape"], c["kind"]) for c in lab["mgr"]] == [
+        (list(s), k) for s in (*cfg.mgr_shapes, *cfg.mgr_staged_shapes)
+        for k in ("latency", "clamp")]
+    assert all(c["mismatched_values"] == 0 for c in lab["mgr"])
+    shapes = [c["shape"] for c in lab["fold"]]
+    assert shapes == [list(s) for s in (*cfg.fold_shapes, *cfg.fold_check_shapes)] + [
+        [2, 3, 8192], [2, 3, 8192 + 13]]
+    assert all(c["mismatched_bytes"] == 0 for c in lab["fold"])
+    assert chip_smoke.phase_mgr_staged(cfg, "cpu")["cases"][0]["geometry"] == [1, 40, False]
 
 
 def test_chip_smoke_mgr_and_fold_bounds():
@@ -422,3 +453,23 @@ def test_chip_smoke_mgr_and_fold_bounds():
     assert round(small * 1e3, 3) == 0.024 and round(big * 1e3, 2) == 1.53
     assert chip_smoke.fold_bound_ms(2, 3, 524288) == (
         3 * 3 * 524288 / chip_smoke.PEAK_BYTES_PER_S * 1e3, "bytes")
+
+
+def test_chip_smoke_retakes_an_empty_trace(monkeypatch):
+    """A profiler trace that caught no device event lost its window: the
+    smoke takes it again (up to three times) instead of reading zero
+    launches; a trace with events is kept as it is."""
+    takes = []
+
+    def fake_traced(fn):
+        fn()
+        takes.append(1)
+        return 1.0, [] if len(takes) < 2 else [{"name": "k", "cat": "kernel", "dur": 2.0}]
+    monkeypatch.setattr(chip_smoke, "traced", fake_traced)
+    calls = []
+    wall, dev = chip_smoke.traced_calls(calls.append, 3)
+    assert len(takes) == 2 and dev == [{"name": "k", "cat": "kernel", "dur": 2.0}]
+    assert calls == [0, 1, 2] * 2
+    monkeypatch.setattr(chip_smoke, "traced", lambda fn: (fn(), (1.0, []))[1])
+    assert chip_smoke.traced_calls(lambda i: None, 2) == (1.0, [])
+
