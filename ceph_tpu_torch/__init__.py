@@ -2,8 +2,9 @@
 PyTorch and CUDA.
 
 The PyTorch/CUDA port of ``ceph_tpu``'s RS(k, m) write / recover /
-degraded-read / deep-scrub path and its whole-cluster PG remap, for one
-NVIDIA Hopper card (sm_90a).
+degraded-read / deep-scrub path, its whole-cluster PG remap and the
+host layers under the daemons (config, metrics, tracing, the kv and the
+object stores), for one NVIDIA Hopper card (sm_90a).
 Module paths and names follow the JAX package so each module's
 counterpart is easy to find:
 
@@ -22,8 +23,17 @@ counterpart is easy to find:
                  the upmap balancer.
 - ``parallel`` — the batched recovery-decode aggregator and deep-scrub
                  verifier.
-- ``common``   — perf counters and launch spans.
-- ``native``   — host crc32c and the scalar straw2 choose, built with g++.
+- ``common``   — the host foundation: typed config, perf counters and
+                 their prometheus exposition, span tracing, the fault
+                 injector, op tracking, reservers, admin sockets.
+- ``kv``       — the ordered key-value store (MemDB, FileDB).
+- ``store``    — the object stores: MemStore, KStore, FileStore and
+                 BlockStore (checksums at rest) with BlueFS; on-disk
+                 bytes are the JAX package's.
+- ``msg``      — denc, the versioned wire encoding.
+- ``compressor`` — the compressor registry.
+- ``native``   — host crc32c, the region XOR and the scalar straw2
+                 choose, built with g++.
 
 Entry points run on the card (``torch.device("cuda")``) unless the
 caller passes ``device="cpu"``; with no CUDA device they raise.

@@ -1,57 +1,199 @@
-"""Span tracing — the blkin/jaeger role (reference §5 aux).
+"""Span tracing — the blkin/jaeger/OpenTelemetry role (reference §5 aux).
 
-The part of the JAX package's tracer (ceph_tpu/common/tracing.py) that
-the device layer needs: named tracers holding a bounded ring of finished
-spans, each with a wall-clock start, a duration and free-form tags.  The
-recovery-decode aggregator wraps every kernel launch in a span on
-:func:`device_tracer`, tagged with the bucket shape, lane occupancy and
-upload-launch-download time.  Sampling, export and the wire context
-arrive with the daemons.
+The reference stacks three generations of tracing (LTTng tracepoints,
+blkin/Zipkin spans, jaeger/opentelemetry — src/common/tracer.h, the
+OSD's global ``tracing::Tracer`` at src/osd/osd_tracer.cc:9, EC
+sub-reads opening child spans per shard at src/osd/ECCommon.cc:440-445).
+This module is the port's twin of the JAX package's tracer
+(ceph_tpu/common/tracing.py), with the same wire context and sampling,
+and provides the same capability **cluster-wide**:
+
+- every span belongs to a ``trace_id``; a compact :class:`TraceContext`
+  (trace_id, parent span_id, sampled flag, reqid) rides the message
+  frame header (msg/messenger.py ``encode_message``), so one client op
+  yields ONE span tree spanning client, primary OSD, replica OSDs and
+  the store commit — the jaeger context-propagation role of
+  ``tracing::Tracer::add_span(name, parent_ctx)``;
+- spans carry a wall-clock start AND a monotonic start/end pair:
+  cross-daemon assembly orders spans by the monotonic stamps (shared
+  within a process, immune to wall-clock steps) and falls back to wall
+  time across processes — no clock-skew reordering artifacts;
+- **head sampling** (``trace_sample_rate``) decides at the root whether
+  a trace is exported; **tail capture** additionally exports any span
+  that ends slower than ``tail_slow_s`` even when unsampled, so slow
+  ops always leave forensics (the reference's osd_op_complaint_time
+  slow-op history role, fused into the tracing plane);
+- finished spans land in a bounded ring (``trace_ring_max``) for the
+  ``dump_traces`` admin command, and sampled/slow spans additionally
+  queue in an export buffer the daemon's MgrClient drains into
+  MMgrReport — the mgr's TraceCollector (mgr/tracer.py) assembles the
+  cluster-wide trees.
 
 Usage::
 
-    with device_tracer().span("cuda_launch", w=65536, b=8) as sp:
+    tracer = get_tracer("osd.3")
+    with tracer.span("do_op", ctx=msg.trace, reqid=msg.reqid) as sp:
         ...
+        with tracer.span("ec_sub_write", parent=sp, shard=2) as child:
+            sub_msg.trace = tracer.ctx_for(child)
+            ...
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import random
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 
-#: default ring capacity
+#: default ring capacity; per-tracer override via ``trace_ring_max``
+#: (config) -> Tracer(ring_max=...) — satellite of the observability PR
 DEFAULT_RING_MAX = 2048
 
+#: export-buffer bound (spans waiting for the next MMgrReport drain);
+#: overflow is counted in ``export_dropped``, never blocks the I/O path
+DEFAULT_EXPORT_MAX = 4096
+
+#: stage vocabulary for critical-path breakdowns (mgr/tracer.py): every
+#: span may tag ``stage`` with one of these; unknown stages fold into
+#: "other"
+STAGES = ("net", "queue", "device", "store", "other")
+
+# span/trace ids are unique per process by construction (counter) and
+# across processes with overwhelming probability (random 24-bit salt in
+# the high bits) — the mgr assembles spans from many daemons by id
+_ID_SALT = random.getrandbits(24) << 38
 _IDS = itertools.count(1)
+
+
+def _next_id() -> int:
+    return _ID_SALT | next(_IDS)
+
+
+@dataclass(frozen=True)
+class TraceContext:
+    """The compact wire context (the jaeger SpanContext role): enough
+    for a remote daemon to open a child span of a foreign parent."""
+
+    trace_id: int
+    span_id: int          # the PARENT span on the sending side
+    sampled: bool = True
+    reqid: str = ""
+
+    def encode(self, enc) -> None:
+        enc.u64(self.trace_id)
+        enc.u64(self.span_id)
+        enc.bool_(self.sampled)
+        enc.str_(self.reqid)
+
+    @classmethod
+    def decode(cls, dec) -> "TraceContext":
+        return cls(dec.u64(), dec.u64(), dec.bool_(), dec.str_())
 
 
 @dataclass
 class Span:
     name: str
     span_id: int
+    parent_id: int | None
     start: float                      # wall clock (time.time)
+    trace_id: int = 0
+    sampled: bool = True
     daemon: str = ""
+    start_mono: float = 0.0           # monotonic, for skew-free ordering
+    end_mono: float | None = None
     tags: dict = field(default_factory=dict)
     duration: float | None = None
 
+    def tag(self, **kv) -> None:
+        self.tags.update(kv)
+
+    def dump(self) -> dict:
+        return {
+            "name": self.name,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "daemon": self.daemon,
+            "start": self.start,
+            "start_mono": self.start_mono,
+            "end_mono": self.end_mono,
+            "sampled": self.sampled,
+            "duration_ms": (
+                round(self.duration * 1e3, 3)
+                if self.duration is not None else None
+            ),
+            "tags": dict(self.tags),
+        }
+
 
 class Tracer:
-    """One per daemon (the osd_tracer.cc global's role)."""
+    """One per daemon (the osd_tracer.cc global's role).
 
-    def __init__(self, name: str, *, ring_max: int = DEFAULT_RING_MAX):
+    ``sample_rate``: head-sampling probability for NEW traces started
+    here (joined traces inherit the context's verdict).
+    ``tail_slow_s``: spans slower than this export even when their
+    trace is unsampled (tail capture; None disables).
+    """
+
+    def __init__(self, name: str, *, ring_max: int | None = None,
+                 sample_rate: float = 1.0,
+                 tail_slow_s: float | None = 1.0):
         self.name = name
-        self._ring: deque[Span] = deque(maxlen=ring_max)
+        self.sample_rate = sample_rate
+        self.tail_slow_s = tail_slow_s
+        self._ring: deque[Span] = deque(
+            maxlen=ring_max if ring_max else DEFAULT_RING_MAX)
+        self._export: deque[Span] = deque()
+        self._export_max = DEFAULT_EXPORT_MAX
         self._lock = threading.Lock()
-        self.counters: dict[str, int] = {"spans_recorded": 0, "spans_dropped": 0}
+        self._rng = random.Random()
+        #: the tracing plane's own telemetry (exported by the
+        #: prometheus module: spans recorded/dropped, sampler verdicts)
+        self.counters: dict[str, int] = {
+            "spans_recorded": 0, "spans_dropped": 0,
+            "sampler_accept": 0, "sampler_reject": 0,
+            "spans_exported": 0, "export_dropped": 0,
+        }
+
+    def set_ring_max(self, n: int) -> None:
+        """Re-bound the ring (``trace_ring_max`` live update)."""
+        with self._lock:
+            self._ring = deque(self._ring, maxlen=max(int(n), 1))
+
+    # -- span construction ---------------------------------------------
+
+    def _head_sample(self) -> bool:
+        ok = self._rng.random() < self.sample_rate
+        self.counters["sampler_accept" if ok else "sampler_reject"] += 1
+        return ok
+
+    def _make_span(self, name: str, parent: Span | None,
+                   ctx: TraceContext | None, tags: dict) -> Span:
+        if parent is not None:
+            trace_id, parent_id, sampled = (
+                parent.trace_id, parent.span_id, parent.sampled)
+        elif ctx is not None:
+            trace_id, parent_id, sampled = (
+                ctx.trace_id, ctx.span_id, ctx.sampled)
+            if ctx.reqid and "reqid" not in tags:
+                tags["reqid"] = ctx.reqid
+        else:
+            trace_id, parent_id = _next_id(), None
+            sampled = self._head_sample()
+        return Span(
+            name=name, span_id=_next_id(), parent_id=parent_id,
+            trace_id=trace_id, sampled=sampled, daemon=self.name,
+            start=time.time(), start_mono=time.monotonic(), tags=tags,
+        )
 
     @contextlib.contextmanager
-    def span(self, name: str, **tags):
-        sp = Span(name=name, span_id=next(_IDS), start=time.time(),
-                  daemon=self.name, tags=dict(tags))
+    def span(self, name: str, parent: Span | None = None,
+             ctx: TraceContext | None = None, **tags):
+        sp = self._make_span(name, parent, ctx, dict(tags))
         t0 = time.perf_counter()
         try:
             yield sp
@@ -60,17 +202,66 @@ class Tracer:
             raise
         finally:
             sp.duration = time.perf_counter() - t0
+            sp.end_mono = time.monotonic()
             self.finish(sp)
 
+    def start_span(self, name: str, parent: Span | None = None,
+                   ctx: TraceContext | None = None, **tags) -> Span:
+        """Non-contextmanager form (spans closed by :meth:`finish_span`
+        — callers whose open/close straddle callbacks)."""
+        return self._make_span(name, parent, ctx, dict(tags))
+
+    def finish_span(self, sp: Span) -> None:
+        sp.end_mono = time.monotonic()
+        sp.duration = max(sp.end_mono - sp.start_mono, 0.0)
+        self.finish(sp)
+
+    def ctx_for(self, sp: Span) -> TraceContext:
+        """The wire context making ``sp`` the remote side's parent."""
+        return TraceContext(
+            trace_id=sp.trace_id, span_id=sp.span_id,
+            sampled=sp.sampled, reqid=str(sp.tags.get("reqid", "")),
+        )
+
+    # -- the sink ------------------------------------------------------
+
     def finish(self, sp: Span) -> None:
+        slow = (
+            self.tail_slow_s is not None
+            and sp.duration is not None
+            and sp.duration >= self.tail_slow_s
+        )
+        if slow:
+            sp.tags.setdefault("slow", True)
         with self._lock:
             if len(self._ring) == self._ring.maxlen:
                 self.counters["spans_dropped"] += 1
             self._ring.append(sp)
             self.counters["spans_recorded"] += 1
+            if sp.sampled or slow:
+                if len(self._export) >= self._export_max:
+                    self._export.popleft()
+                    self.counters["export_dropped"] += 1
+                self._export.append(sp)
+                self.counters["spans_exported"] += 1
+
+    def drain_export(self, limit: int = 512) -> list[dict]:
+        """Consume up to ``limit`` exported spans (the MgrClient's
+        MMgrReport feed); each is a ``Span.dump()`` dict."""
+        out: list[Span] = []
+        with self._lock:
+            while self._export and len(out) < limit:
+                out.append(self._export.popleft())
+        return [s.dump() for s in out]
+
+    def dump(self, limit: int = 200) -> list[dict]:
+        with self._lock:
+            spans = list(self._ring)[-limit:]
+        return [s.dump() for s in spans]
 
     def find(self, **tags) -> list[Span]:
-        """Spans whose tags contain all of ``tags``."""
+        """Test/forensics helper: spans whose tags contain all of
+        ``tags``."""
         with self._lock:
             return [
                 s for s in self._ring
@@ -91,8 +282,9 @@ def get_tracer(name: str) -> Tracer:
 
 
 def device_tracer() -> Tracer:
-    """The process-wide device-launch ring: the decode batcher wraps each
-    kernel launch in a span here, tagged with bucket shape, occupancy and
-    upload-launch-download duration, so batch padding and host<->device
-    copy waste are visible."""
+    """The process-wide device-launch profiling ring: the decode/scrub
+    batchers, the encode service and the mgr analytics engine wrap each
+    kernel launch in a span here, tagged with bucket shape, occupancy
+    and upload-launch-download duration, so batch padding and
+    host<->device copy waste are visible."""
     return get_tracer("device")

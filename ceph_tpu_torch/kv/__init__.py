@@ -1,0 +1,295 @@
+"""KeyValueDB: ordered kv store with column families + transactions.
+
+Behavioral twin of the reference's kv seam (src/kv/KeyValueDB.h, the
+RocksDBStore wrapper at src/kv/RocksDBStore.h:78): named column
+families ("prefixes"), atomic write batches (set/rmkey/rm_range),
+ordered iterators (seek/lower_bound/upper_bound), and a durable
+implementation.  BlueStore keeps its metadata here; our KStore keeps
+whole objects here (src/os/kstore), and MonStore can ride it too.
+
+Two engines:
+
+- :class:`MemDB` — ordered in-RAM store (the rocksdb memtable role;
+  also the test double);
+- :class:`FileDB` — MemDB + crc-framed WAL with checkpoint compaction
+  (the same durability contract FileStore provides for object data:
+  every batch is fsync'd before apply returns; kill -9 replays).
+
+The WAL, the checkpoint and :meth:`WriteBatch.encode` are byte for byte
+those of the JAX package's ceph_tpu/kv, so a FileDB directory written
+by one package opens in the other.
+"""
+
+from __future__ import annotations
+
+import bisect
+import os
+import struct
+import threading
+
+from ceph_tpu_torch.native import crc32c
+
+_MAGIC = 0x4B56
+
+
+class WriteBatch:
+    """KeyValueDB::Transaction (atomic batch of kv mutations)."""
+
+    def __init__(self):
+        self.ops: list[tuple] = []
+
+    def set(self, prefix: str, key: str, value: bytes) -> "WriteBatch":
+        self.ops.append(("set", prefix, key, bytes(value)))
+        return self
+
+    def rmkey(self, prefix: str, key: str) -> "WriteBatch":
+        self.ops.append(("rm", prefix, key))
+        return self
+
+    def rm_range(self, prefix: str, start: str, end: str) -> "WriteBatch":
+        """Remove keys in [start, end) (RocksDB DeleteRange)."""
+        self.ops.append(("rmrange", prefix, start, end))
+        return self
+
+    def rm_prefix(self, prefix: str) -> "WriteBatch":
+        self.ops.append(("rmprefix", prefix))
+        return self
+
+    # wal encoding ------------------------------------------------------
+
+    def encode(self) -> bytes:
+        out = [struct.pack("<I", len(self.ops))]
+        for op in self.ops:
+            kind = op[0]
+            out.append(struct.pack("<B", {"set": 1, "rm": 2, "rmrange": 3,
+                                          "rmprefix": 4}[kind]))
+            for field in op[1:]:
+                raw = field if isinstance(field, bytes) else field.encode()
+                out.append(struct.pack("<I", len(raw)) + raw)
+        return b"".join(out)
+
+    @classmethod
+    def decode(cls, raw: bytes) -> "WriteBatch":
+        b = cls()
+        (n,) = struct.unpack_from("<I", raw)
+        off = 4
+
+        def take():
+            nonlocal off
+            (ln,) = struct.unpack_from("<I", raw, off)
+            off += 4
+            v = raw[off : off + ln]
+            off += ln
+            return v
+
+        for _ in range(n):
+            kind = raw[off]
+            off += 1
+            if kind == 1:
+                b.set(take().decode(), take().decode(), take())
+            elif kind == 2:
+                b.rmkey(take().decode(), take().decode())
+            elif kind == 3:
+                b.rm_range(take().decode(), take().decode(), take().decode())
+            elif kind == 4:
+                b.rm_prefix(take().decode())
+        return b
+
+
+class Iterator:
+    """Ordered iterator over one prefix (KeyValueDB::WholeSpaceIterator
+    scoped to a column family)."""
+
+    def __init__(self, keys: list[str], data: dict[str, bytes]):
+        self._keys = keys
+        self._data = data
+        self._pos = 0
+
+    def seek_to_first(self) -> "Iterator":
+        self._pos = 0
+        return self
+
+    def lower_bound(self, key: str) -> "Iterator":
+        self._pos = bisect.bisect_left(self._keys, key)
+        return self
+
+    def upper_bound(self, key: str) -> "Iterator":
+        self._pos = bisect.bisect_right(self._keys, key)
+        return self
+
+    def valid(self) -> bool:
+        return 0 <= self._pos < len(self._keys)
+
+    def next(self) -> None:
+        self._pos += 1
+
+    def key(self) -> str:
+        return self._keys[self._pos]
+
+    def value(self) -> bytes:
+        return self._data[self._keys[self._pos]]
+
+
+class MemDB:
+    """Ordered in-RAM KeyValueDB."""
+
+    def __init__(self):
+        # prefix -> {key: value}; sorted key list derived on iteration
+        self._cf: dict[str, dict[str, bytes]] = {}
+        self._lock = threading.RLock()
+
+    def submit(self, batch: WriteBatch, sync: bool = True) -> None:
+        with self._lock:
+            self._apply(batch)
+
+    def _apply(self, batch: WriteBatch) -> None:
+        for op in batch.ops:
+            kind = op[0]
+            if kind == "set":
+                _, p, k, v = op
+                self._cf.setdefault(p, {})[k] = v
+            elif kind == "rm":
+                _, p, k = op
+                self._cf.get(p, {}).pop(k, None)
+            elif kind == "rmrange":
+                _, p, s, e = op
+                cf = self._cf.get(p, {})
+                for k in [k for k in cf if s <= k < e]:
+                    del cf[k]
+            elif kind == "rmprefix":
+                self._cf.pop(op[1], None)
+
+    def get(self, prefix: str, key: str) -> bytes | None:
+        with self._lock:
+            return self._cf.get(prefix, {}).get(key)
+
+    def get_iterator(self, prefix: str) -> Iterator:
+        with self._lock:
+            cf = self._cf.get(prefix, {})
+            return Iterator(sorted(cf), dict(cf))
+
+    def prefixes(self) -> list[str]:
+        with self._lock:
+            return sorted(self._cf)
+
+
+class FileDB(MemDB):
+    """Durable KeyValueDB: WAL of encoded batches + checkpoint
+    compaction (the rocksdb WAL+SST contract at FileStore fidelity)."""
+
+    def __init__(self, path: str, checkpoint_bytes: int = 64 * 1024 * 1024):
+        super().__init__()
+        self.path = path
+        self.checkpoint_bytes = checkpoint_bytes
+        self._wal = None
+        self._wal_size = 0
+        # serializes WAL append+fsync+checkpoint; the memtable lock
+        # (self._lock) is held only for _apply so readers on the event
+        # loop never wait out an fsync
+        self._commit_lock = threading.Lock()
+
+    blocking_commit = True
+
+    def mount(self) -> None:
+        os.makedirs(self.path, exist_ok=True)
+        cp = os.path.join(self.path, "checkpoint")
+        if os.path.exists(cp):
+            with open(cp, "rb") as f:
+                self._load_checkpoint(f.read())
+        walfn = os.path.join(self.path, "wal.log")
+        if os.path.exists(walfn):
+            raw = open(walfn, "rb").read()
+            off = 0
+            while off + 10 <= len(raw):
+                magic, ln = struct.unpack_from("<HI", raw, off)
+                if magic != _MAGIC or off + 10 + ln > len(raw):
+                    break  # torn tail
+                (crc,) = struct.unpack_from("<I", raw, off + 6)
+                body = raw[off + 10 : off + 10 + ln]
+                if crc32c(body) != crc:
+                    break
+                self._apply(WriteBatch.decode(body))
+                off += 10 + ln
+            self._wal_size = off
+        self._wal = open(walfn, "ab")
+        if self._wal.tell() != self._wal_size:
+            self._wal.close()
+            with open(walfn, "r+b") as f:
+                f.truncate(self._wal_size)
+            self._wal = open(walfn, "ab")
+
+    def umount(self) -> None:
+        if self._wal is not None:
+            self._checkpoint()
+            self._wal.close()
+            self._wal = None
+
+    def submit(self, batch: WriteBatch, sync: bool = True) -> None:
+        with self._commit_lock:
+            body = batch.encode()
+            rec = struct.pack("<HI", _MAGIC, len(body)) + struct.pack(
+                "<I", crc32c(body)
+            ) + body
+            self._wal.write(rec)
+            self._wal.flush()
+            if sync:
+                os.fsync(self._wal.fileno())
+            self._wal_size += len(rec)
+            with self._lock:
+                self._apply(batch)
+            if self._wal_size >= self.checkpoint_bytes:
+                self._checkpoint()
+
+    # checkpoint: the whole cf map as one framed blob ------------------
+
+    def _checkpoint(self) -> None:
+        out = [struct.pack("<I", len(self._cf))]
+        for p in sorted(self._cf):
+            cf = self._cf[p]
+            penc = p.encode()
+            out.append(struct.pack("<I", len(penc)) + penc)
+            out.append(struct.pack("<I", len(cf)))
+            for k in sorted(cf):
+                kenc = k.encode()
+                out.append(struct.pack("<I", len(kenc)) + kenc)
+                out.append(struct.pack("<I", len(cf[k])) + cf[k])
+        blob = b"".join(out)
+        tmp = os.path.join(self.path, "checkpoint.tmp")
+        with open(tmp, "wb") as f:
+            f.write(struct.pack("<I", crc32c(blob)) + blob)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(self.path, "checkpoint"))
+        walfn = os.path.join(self.path, "wal.log")
+        self._wal.close()
+        with open(walfn, "wb") as f:
+            f.flush()
+            os.fsync(f.fileno())
+        self._wal = open(walfn, "ab")
+        self._wal_size = 0
+
+    def _load_checkpoint(self, raw: bytes) -> None:
+        (crc,) = struct.unpack_from("<I", raw)
+        blob = raw[4:]
+        if crc32c(blob) != crc:
+            return  # torn checkpoint: WAL replay has everything
+        off = 0
+
+        def take():
+            nonlocal off
+            (ln,) = struct.unpack_from("<I", blob, off)
+            off += 4
+            v = blob[off : off + ln]
+            off += ln
+            return v
+
+        (ncf,) = struct.unpack_from("<I", blob, off)
+        off += 4
+        for _ in range(ncf):
+            p = take().decode()
+            (nk,) = struct.unpack_from("<I", blob, off)
+            off += 4
+            cf = self._cf.setdefault(p, {})
+            for _ in range(nk):
+                k = take().decode()
+                cf[k] = bytes(take())

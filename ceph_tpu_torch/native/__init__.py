@@ -1,12 +1,13 @@
-"""Native C++ host helpers, loaded via ctypes: crc32c and the scalar
-CRUSH straw2 choose.
+"""Native C++ host helpers, loaded via ctypes: crc32c, the region XOR
+and the scalar CRUSH straw2 choose.
 
-The reference keeps its data-plane checksums native (crc32c:
-src/common/crc32c.cc + sctp_crc32.c).  The port does the same: a small
+The reference keeps its data-plane utilities native (crc32c:
+src/common/crc32c.cc + sctp_crc32.c; region XOR:
+src/erasure-code/isa/xor_op.cc).  The port does the same: a small
 C++ library compiled on first use with g++ (no pip deps) into this
 directory, rebuilt when a source is newer than the library.  A
-pure-Python table loop computes the same crc values where no toolchain
-is present (it is slow: a few MB/s).  ``crush_hash.cc`` holds the
+pure-Python table loop computes the same crc values, and numpy the same
+XOR, where no toolchain is present (the crc loop is slow: a few MB/s).  ``crush_hash.cc`` holds the
 rjenkins1 hashes and a whole straw2 bucket choose for the scalar CRUSH
 interpreter (``crush/mapper.py``); the crush_ln tables are injected
 from ``crush/_ln_tables.py`` at load.
@@ -14,6 +15,7 @@ from ``crush/_ln_tables.py`` at load.
 Public API:
   crc32c(data, seed=-1)          -- reference ceph_crc32c semantics
   crc32c_zeros(length, seed=-1)  -- crc32c of ``length`` zero bytes
+  xor_region(dst, src)           -- dst ^= src in place (uint8 arrays)
   straw2_lib()                   -- the library for the scalar mapper, or None
   available()                    -- True when the .so is loaded
 """
@@ -63,6 +65,10 @@ def _load():
         lib.ceph_tpu_torch_crc32c.restype = ctypes.c_uint32
         lib.ceph_tpu_torch_crc32c.argtypes = [
             ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t,
+        ]
+        lib.ceph_tpu_torch_xor_region.restype = None
+        lib.ceph_tpu_torch_xor_region.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
         ]
         u32 = ctypes.c_uint32
         lib.ceph_tpu_torch_straw2_choose.restype = ctypes.c_int32
@@ -155,3 +161,18 @@ def straw2_lib():
     if lib is not None and lib.ceph_tpu_torch_ln_tables_ready():
         return lib
     return None
+
+
+def xor_region(dst: np.ndarray, src: np.ndarray) -> None:
+    """dst ^= src in place (both uint8, same length).  ``dst`` must be
+    C-contiguous: a strided view would XOR into a copy."""
+    assert dst.dtype == np.uint8 and src.dtype == np.uint8
+    assert dst.flags.c_contiguous, "xor_region dst must be contiguous"
+    assert dst.nbytes == src.nbytes
+    lib = _load()
+    if lib is not None:
+        src = np.ascontiguousarray(src)
+        lib.ceph_tpu_torch_xor_region(
+            dst.ctypes.data, src.ctypes.data, dst.nbytes)
+    else:
+        np.bitwise_xor(dst, src, out=dst)

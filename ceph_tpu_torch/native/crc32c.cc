@@ -1,4 +1,5 @@
-// crc32c host kernel (Castagnoli, reflected poly 0x82F63B78).
+// crc32c host kernel (Castagnoli, reflected poly 0x82F63B78) and the
+// host region XOR.
 //
 // Behavioral twin of the reference's ceph_crc32c family
 // (reference src/common/sctp_crc32.c:update_crc32 — plain reflected
@@ -89,6 +90,20 @@ uint32_t ceph_tpu_torch_crc32c(uint32_t crc, const uint8_t* data, size_t len) {
   }
   while (len--) crc = kT.t[0][(crc ^ *data++) & 0xff] ^ (crc >> 8);
   return crc;
+}
+
+// dst ^= src over len bytes (region parity; reference
+// src/erasure-code/isa/xor_op.cc semantics), eight bytes a step.
+void ceph_tpu_torch_xor_region(uint8_t* dst, const uint8_t* src, size_t len) {
+  size_t i = 0;
+  for (; i + 8 <= len; i += 8) {
+    uint64_t a, b;
+    std::memcpy(&a, dst + i, 8);
+    std::memcpy(&b, src + i, 8);
+    a ^= b;
+    std::memcpy(dst + i, &a, 8);
+  }
+  for (; i < len; i++) dst[i] ^= src[i];
 }
 
 }  // extern "C"

@@ -1,0 +1,460 @@
+"""KStore: an ObjectStore that keeps whole objects in a KeyValueDB.
+
+Behavioral twin of the reference's kv-only store (src/os/kstore/
+KStore.cc): object data is chunked into fixed stripes stored as kv
+values, xattrs/omap ride dedicated column families, and every
+ObjectStore transaction commits as ONE atomic WriteBatch — giving the
+OSD the same all-or-nothing contract as MemStore/FileStore but with
+the metadata layout BlueStore-family engines use (RocksDB column
+families; here ceph_tpu_torch.kv.FileDB's WAL+checkpoint provides the
+durability).
+
+Column families: C (collections), O (object sizes), D (data stripes),
+X (xattrs), M (omap).  Keys join components with \\x01 so collection
+scans are ordered prefix ranges; object names are escaped so a name
+containing the separator cannot inject into another object's key space
+(the reference KStore's append_escaped, src/os/kstore/KStore.cc).
+"""
+
+from __future__ import annotations
+
+import struct
+import threading
+
+from ceph_tpu_torch.kv import MemDB, WriteBatch
+from ceph_tpu_torch.store.objectstore import (
+    ObjectStore,
+    Transaction,
+    TxOp,
+    coll_t,
+    ghobject_t,
+)
+
+SEP = "\x01"
+ESC = "\x02"
+STRIPE = 65536
+
+
+def _esc(s: str) -> str:
+    """Escape SEP/ESC out of a key component (reversible, SEP-free)."""
+    return s.replace(ESC, ESC + "e").replace(SEP, ESC + "s")
+
+
+def _unesc(s: str) -> str:
+    return s.replace(ESC + "s", SEP).replace(ESC + "e", ESC)
+
+
+def _prefix_end(prefix: str) -> str:
+    """Exclusive upper bound covering every key that starts with
+    ``prefix`` (bump the last non-maximal code point)."""
+    i = len(prefix) - 1
+    while i >= 0 and ord(prefix[i]) >= 0x10FFFF:
+        i -= 1
+    assert i >= 0, "degenerate prefix"
+    return prefix[:i] + chr(ord(prefix[i]) + 1)
+
+
+def _ckey(c: coll_t) -> str:
+    return f"{c.pool}.{c.ps}.{c.shard}"
+
+
+def _okey(c: coll_t, o: ghobject_t) -> str:
+    return _ckey(c) + SEP + f"{_esc(o.name)}{SEP}{o.snap}{SEP}{o.gen}{SEP}{o.shard}"
+
+
+def _parse_okey(key: str) -> tuple[str, ghobject_t]:
+    ck, name, snap, gen, shard = key.split(SEP)
+    return ck, ghobject_t(_unesc(name), int(snap), int(gen), int(shard))
+
+
+class _TxnView:
+    """One transaction's mutations mirrored over the committed db.
+
+    Every mutation goes into the WriteBatch (the atomic commit unit)
+    AND an in-memory overlay, so later ops in the same transaction read
+    their predecessors' effects across ALL column families: a REMOVE
+    hides committed keys from a following re-create, and CLONE sees
+    same-txn writes of data, xattrs and omap alike.
+    """
+
+    def __init__(self, db, batch: WriteBatch):
+        self.db = db
+        self.batch = batch
+        self._over: dict[str, dict[str, bytes | None]] = {}  # None = deleted
+        self._dead: dict[str, list[tuple[str, str]]] = {}    # range tombstones
+
+    def set(self, p: str, k: str, v: bytes) -> None:
+        self.batch.set(p, k, v)
+        self._over.setdefault(p, {})[k] = bytes(v)
+
+    def rmkey(self, p: str, k: str) -> None:
+        self.batch.rmkey(p, k)
+        self._over.setdefault(p, {})[k] = None
+
+    def rm_range(self, p: str, start: str, end: str) -> None:
+        self.batch.rm_range(p, start, end)
+        over = self._over.setdefault(p, {})
+        for k in [k for k in over if start <= k < end]:
+            del over[k]
+        self._dead.setdefault(p, []).append((start, end))
+
+    def get(self, p: str, k: str) -> bytes | None:
+        over = self._over.get(p, {})
+        if k in over:
+            return over[k]
+        if any(s <= k < e for s, e in self._dead.get(p, ())):
+            return None
+        return self.db.get(p, k)
+
+    def items(self, p: str, prefix: str) -> list[tuple[str, bytes]]:
+        """Sorted (key, value) pairs under ``prefix``, txn effects
+        included (committed minus tombstones, then overlay wins)."""
+        out: dict[str, bytes] = {}
+        it = self.db.get_iterator(p).lower_bound(prefix)
+        while it.valid() and it.key().startswith(prefix):
+            out[it.key()] = it.value()
+            it.next()
+        for s, e in self._dead.get(p, ()):
+            for k in [k for k in out if s <= k < e]:
+                del out[k]
+        for k, v in self._over.get(p, {}).items():
+            if k.startswith(prefix):
+                if v is None:
+                    out.pop(k, None)
+                else:
+                    out[k] = v
+        return sorted(out.items())
+
+
+class KStore(ObjectStore):
+    def __init__(self, db=None):
+        self.db = db if db is not None else MemDB()
+        # one txn translates+submits at a time: queue_transaction may run
+        # on a worker thread (blocking_commit) while reads stay on the
+        # event loop
+        self._txn_lock = threading.Lock()
+
+    @property
+    def blocking_commit(self) -> bool:
+        """Forward the backing DB's fsync behavior so the OSD/mon move
+        commits off the event loop (FileDB fsyncs per batch)."""
+        return bool(getattr(self.db, "blocking_commit", False))
+
+    def statfs(self) -> dict:
+        """Backing-fs truth when the kv store lives on disk (FileDB
+        with a path), else a large virtual device."""
+        import os as _os
+
+        path = getattr(self.db, "path", None)
+        if path and _os.path.isdir(_os.path.dirname(path) or path):
+            st = _os.statvfs(_os.path.dirname(path) or path)
+            total = st.f_frsize * st.f_blocks
+            avail = st.f_frsize * st.f_bavail
+            return {"total": total, "used": max(0, total - avail),
+                    "available": avail}
+        return {"total": 1 << 40, "used": 0, "available": 1 << 40}
+
+    def mount(self) -> None:
+        if hasattr(self.db, "mount"):
+            self.db.mount()
+
+    def umount(self) -> None:
+        if hasattr(self.db, "umount"):
+            self.db.umount()
+
+    # -- reads ---------------------------------------------------------
+
+    def _size_of(self, c: coll_t, o: ghobject_t) -> int | None:
+        raw = self.db.get("O", _okey(c, o))
+        return None if raw is None else struct.unpack("<Q", raw)[0]
+
+    def _require(self, c: coll_t, o: ghobject_t) -> int:
+        if not self.collection_exists(c):
+            raise FileNotFoundError(f"collection {c}")
+        size = self._size_of(c, o)
+        if size is None:
+            raise FileNotFoundError(f"{c}/{o}")
+        return size
+
+    def read(self, c, o, off=0, length=None):
+        size = self._require(c, o)
+        end = size if length is None else min(off + length, size)
+        if off >= end:
+            return b""
+        out = bytearray(end - off)
+        base = _okey(c, o) + SEP
+        s0, s1 = off // STRIPE, (end - 1) // STRIPE
+        for s in range(s0, s1 + 1):
+            stripe = self.db.get("D", base + f"{s:08x}") or b""
+            lo = max(off, s * STRIPE)
+            hi = min(end, s * STRIPE + STRIPE)
+            seg = stripe[lo - s * STRIPE : hi - s * STRIPE]
+            out[lo - off : lo - off + len(seg)] = seg
+        return bytes(out)
+
+    def stat(self, c, o):
+        return self._require(c, o)
+
+    def exists(self, c, o):
+        return self.collection_exists(c) and self._size_of(c, o) is not None
+
+    def getattr(self, c, o, name):
+        self._require(c, o)
+        raw = self.db.get("X", _okey(c, o) + SEP + name)
+        if raw is None:
+            raise KeyError(name)
+        return raw
+
+    def getattrs(self, c, o):
+        self._require(c, o)
+        base = _okey(c, o) + SEP
+        it = self.db.get_iterator("X").lower_bound(base)
+        out = {}
+        while it.valid() and it.key().startswith(base):
+            out[it.key()[len(base):]] = it.value()
+            it.next()
+        return out
+
+    def omap_get(self, c, o):
+        self._require(c, o)
+        base = _okey(c, o) + SEP
+        it = self.db.get_iterator("M").lower_bound(base)
+        out = {}
+        while it.valid() and it.key().startswith(base):
+            out[it.key()[len(base):]] = it.value()
+            it.next()
+        return out
+
+    def omap_get_values(self, c, o, keys):
+        self._require(c, o)
+        base = _okey(c, o) + SEP
+        out = {}
+        for k in keys:
+            v = self.db.get("M", base + k)
+            if v is not None:
+                out[k] = v
+        return out
+
+    def list_collections(self):
+        it = self.db.get_iterator("C").seek_to_first()
+        out = []
+        while it.valid():
+            pool, ps, shard = it.key().split(".")
+            out.append(coll_t(int(pool), int(ps), int(shard)))
+            it.next()
+        return sorted(out)
+
+    def collection_exists(self, c):
+        return self.db.get("C", _ckey(c)) is not None
+
+    def collection_list(self, c):
+        if not self.collection_exists(c):
+            raise FileNotFoundError(f"collection {c}")
+        base = _ckey(c) + SEP
+        it = self.db.get_iterator("O").lower_bound(base)
+        out = []
+        while it.valid() and it.key().startswith(base):
+            out.append(_parse_okey(it.key())[1])
+            it.next()
+        return sorted(out)
+
+    # -- transactions --------------------------------------------------
+
+    def queue_transaction(self, txn: Transaction) -> None:
+        # validate against a shadow of existence state, then translate
+        # to ONE atomic WriteBatch (the all-or-nothing contract); a
+        # _TxnView overlays the batch's own mutations so later ops in
+        # the same txn read their predecessors' effects
+        with self._txn_lock:
+            self._validate(txn)
+            batch = WriteBatch()
+            view = _TxnView(self.db, batch)
+            for op in txn.ops:
+                self._translate(op, view)
+            self.db.submit(batch)
+        for cb in txn.on_applied:
+            cb()
+        for cb in txn.on_commit:
+            cb()
+
+    @staticmethod
+    def _size_of_view(view: "_TxnView", c: coll_t, o: ghobject_t) -> int | None:
+        raw = view.get("O", _okey(c, o))
+        return None if raw is None else struct.unpack("<Q", raw)[0]
+
+    def _translate(self, op, view: "_TxnView") -> None:
+        def size_of(c, o):
+            return self._size_of_view(view, c, o)
+
+        def set_size(c, o, n):
+            view.set("O", _okey(c, o), struct.pack("<Q", n))
+
+        def write_span(c, o, off, data):
+            base = _okey(c, o) + SEP
+            pos = 0
+            while pos < len(data):
+                s = (off + pos) // STRIPE
+                s_off = (off + pos) % STRIPE
+                n = min(STRIPE - s_off, len(data) - pos)
+                old = view.get("D", base + f"{s:08x}") or b""
+                buf = bytearray(max(len(old), s_off + n))
+                buf[: len(old)] = old
+                buf[s_off : s_off + n] = data[pos : pos + n]
+                view.set("D", base + f"{s:08x}", bytes(buf))
+                pos += n
+
+        kind = op[0]
+        if kind == TxOp.MKCOLL:
+            view.set("C", _ckey(op[1]), b"1")
+        elif kind == TxOp.RMCOLL:
+            view.rmkey("C", _ckey(op[1]))
+        elif kind == TxOp.TOUCH:
+            _, c, o = op
+            if size_of(c, o) is None:
+                set_size(c, o, 0)
+        elif kind == TxOp.WRITE:
+            _, c, o, off, data = op
+            cur = size_of(c, o) or 0
+            write_span(c, o, off, data)
+            if off + len(data) > cur or size_of(c, o) is None:
+                set_size(c, o, max(cur, off + len(data)))
+        elif kind == TxOp.ZERO:
+            _, c, o, off, length = op
+            cur = size_of(c, o) or 0
+            write_span(c, o, off, b"\0" * length)
+            set_size(c, o, max(cur, off + length))
+        elif kind == TxOp.TRUNCATE:
+            _, c, o, size = op
+            cur = size_of(c, o) or 0
+            if size < cur:
+                base = _okey(c, o) + SEP
+                last_keep = (size - 1) // STRIPE if size else -1
+                for s in range(max(last_keep, 0), cur // STRIPE + 1):
+                    if s > last_keep:
+                        view.rmkey("D", base + f"{s:08x}")
+                if size % STRIPE and size:
+                    s = size // STRIPE
+                    old = view.get("D", base + f"{s:08x}") or b""
+                    view.set("D", base + f"{s:08x}", old[: size % STRIPE])
+            set_size(c, o, size)
+        elif kind == TxOp.REMOVE:
+            _, c, o = op
+            self._rm_object(view, c, o)
+        elif kind == TxOp.SETATTRS:
+            _, c, o, attrs = op
+            if size_of(c, o) is None:
+                set_size(c, o, 0)
+            for k, v in attrs.items():
+                view.set("X", _okey(c, o) + SEP + k, v)
+        elif kind == TxOp.RMATTR:
+            _, c, o, name = op
+            view.rmkey("X", _okey(c, o) + SEP + name)
+        elif kind == TxOp.OMAP_SETKEYS:
+            _, c, o, kv = op
+            if size_of(c, o) is None:
+                set_size(c, o, 0)
+            for k, v in kv.items():
+                view.set("M", _okey(c, o) + SEP + k, v)
+        elif kind == TxOp.OMAP_RMKEYS:
+            _, c, o, keys = op
+            if size_of(c, o) is None:
+                set_size(c, o, 0)
+            for k in keys:
+                view.rmkey("M", _okey(c, o) + SEP + k)
+        elif kind == TxOp.OMAP_CLEAR:
+            _, c, o = op
+            base = _okey(c, o) + SEP
+            view.rm_range("M", base, _prefix_end(base))
+            if size_of(c, o) is None:
+                set_size(c, o, 0)
+        elif kind == TxOp.CLONE:
+            _, c, src, dst = op
+            size = size_of(c, src)
+            set_size(c, dst, size or 0)
+            self._copy_object_keys(view, _okey(c, src) + SEP,
+                                   _okey(c, dst) + SEP)
+        elif kind == TxOp.COLL_MOVE_RENAME:
+            _, src_c, src_o, dst_c, dst_o = op
+            size = size_of(src_c, src_o)
+            self._copy_object_keys(view, _okey(src_c, src_o) + SEP,
+                                   _okey(dst_c, dst_o) + SEP)
+            set_size(dst_c, dst_o, size or 0)
+            self._rm_object(view, src_c, src_o)
+        else:  # pragma: no cover
+            raise ValueError(f"unknown op {kind}")
+
+    @staticmethod
+    def _copy_object_keys(view: "_TxnView", sbase: str, dbase: str) -> None:
+        for prefix in ("D", "X", "M"):
+            for key, val in view.items(prefix, sbase):
+                view.set(prefix, dbase + key[len(sbase):], val)
+
+    @staticmethod
+    def _rm_object(view: "_TxnView", c: coll_t, o: ghobject_t) -> None:
+        view.rmkey("O", _okey(c, o))
+        base = _okey(c, o) + SEP
+        for prefix in ("D", "X", "M"):
+            view.rm_range(prefix, base, _prefix_end(base))
+
+    # -- validation (MemStore-grade structural checks) -----------------
+
+    def _validate(self, txn: Transaction) -> None:
+        have_coll = {c for c in self.list_collections()}
+        objs: dict[tuple, bool] = {}
+
+        def obj_exists(c, o):
+            key = (c, o)
+            if key not in objs:
+                objs[key] = self.exists(c, o)
+            return objs[key]
+
+        for op in txn.ops:
+            kind = op[0]
+            if kind == TxOp.MKCOLL:
+                if op[1] in have_coll:
+                    raise FileExistsError(f"collection {op[1]} exists")
+                have_coll.add(op[1])
+            elif kind == TxOp.RMCOLL:
+                if op[1] not in have_coll:
+                    raise FileNotFoundError(f"collection {op[1]}")
+                # ENOTEMPTY semantics (MemStore parity): account for
+                # objects created/removed earlier in this same txn
+                residual = set()
+                if self.collection_exists(op[1]):
+                    residual = {(op[1], o) for o in self.collection_list(op[1])}
+                for (oc, oo), alive in objs.items():
+                    if oc == op[1]:
+                        (residual.add if alive else residual.discard)((oc, oo))
+                if residual:
+                    raise OSError(f"collection {op[1]} not empty")
+                have_coll.discard(op[1])
+            elif kind == TxOp.COLL_MOVE_RENAME:
+                _, src_c, src_o, dst_c, dst_o = op
+                if src_c not in have_coll or not obj_exists(src_c, src_o):
+                    raise FileNotFoundError(f"{src_c}/{src_o}")
+                if dst_c not in have_coll:
+                    raise FileNotFoundError(f"collection {dst_c}")
+                if obj_exists(dst_c, dst_o):
+                    raise FileExistsError(f"{dst_c}/{dst_o}")
+                objs[(src_c, src_o)] = False
+                objs[(dst_c, dst_o)] = True
+            else:
+                c = op[1]
+                if c not in have_coll:
+                    raise FileNotFoundError(f"collection {c}")
+                if kind == TxOp.CLONE:
+                    _, _, src, dst = op
+                    if not obj_exists(c, src):
+                        raise FileNotFoundError(f"{c}/{src}")
+                    objs[(c, dst)] = True
+                elif kind == TxOp.REMOVE:
+                    _, _, o = op
+                    if not obj_exists(c, o):
+                        raise FileNotFoundError(f"{c}/{o}")
+                    objs[(c, o)] = False
+                elif kind == TxOp.RMATTR:
+                    _, _, o, _name = op
+                    if not obj_exists(c, o):
+                        raise FileNotFoundError(f"{c}/{o}")
+                else:
+                    objs[(op[1], op[2])] = True

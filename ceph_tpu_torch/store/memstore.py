@@ -1,0 +1,279 @@
+"""MemStore: in-RAM ObjectStore with all-or-nothing transactions.
+
+Behavioral twin of the reference test/dev engine
+(src/os/memstore/MemStore.{h,cc}): a dict of collections of objects,
+each object = data buffer + xattrs + omap.  Like the reference MemStore
+(and unlike BlueStore), apply == commit, so both callback sets fire
+synchronously at queue_transaction.
+
+Atomicity: the reference applies ops in order and asserts mid-txn
+failures in debug; here a transaction validates against a shadow state
+first and raises before mutating anything, so a failed transaction
+leaves the store untouched (the stronger contract the OSD relies on).
+"""
+
+from __future__ import annotations
+
+import threading
+
+from ceph_tpu_torch.common.fault_injector import (
+    store_data_fault,
+    store_fault_check,
+)
+from ceph_tpu_torch.store.objectstore import (
+    ObjectStore,
+    Transaction,
+    TxOp,
+    coll_t,
+    ghobject_t,
+)
+
+
+class _Obj:
+    __slots__ = ("data", "xattrs", "omap")
+
+    def __init__(self) -> None:
+        self.data = bytearray()
+        self.xattrs: dict[str, bytes] = {}
+        self.omap: dict[str, bytes] = {}
+
+    def clone(self) -> "_Obj":
+        o = _Obj()
+        o.data = bytearray(self.data)
+        o.xattrs = dict(self.xattrs)
+        o.omap = dict(self.omap)
+        return o
+
+
+class MemStore(ObjectStore):
+    def __init__(self, quota_bytes: int = 1 << 40) -> None:
+        self._colls: dict[coll_t, dict[ghobject_t, _Obj]] = {}
+        self._lock = threading.RLock()
+        # virtual device size for the statfs/fullness plane (tests set
+        # it small to drive FULL states; reference MemStore reports
+        # memstore_device_bytes the same way)
+        self.quota_bytes = quota_bytes
+
+    def statfs(self) -> dict:
+        with self._lock:
+            used = sum(
+                len(o.data)
+                for objs in self._colls.values() for o in objs.values()
+            )
+        return {
+            "total": self.quota_bytes,
+            "used": used,
+            "available": max(0, self.quota_bytes - used),
+        }
+
+    def mount(self) -> None:
+        store_fault_check("mount", self.fault_domain)
+
+    # -- transactions --------------------------------------------------
+
+    def queue_transaction(self, txn: Transaction) -> None:
+        store_fault_check("write", self.fault_domain)
+        with self._lock:
+            self._validate(txn)
+            tear = store_data_fault("write", self.fault_domain)
+            if tear is not None and tear.get("torn"):
+                # torn write: a prefix of the transaction lands, then
+                # the "disk" dies mid-commit — deliberately violating
+                # the all-or-nothing contract the OSD relies on, which
+                # is exactly what scrub/recovery must then absorb
+                for op in txn.ops[: len(txn.ops) // 2]:
+                    self._apply(op)
+                from ceph_tpu_torch.common.fault_injector import InjectedError
+
+                raise InjectedError(5, "injected torn write (memstore)")
+            for op in txn.ops:
+                self._apply(op)
+        # commit point: an error here means state applied but the
+        # caller never learns (the lost-ack flavor of a dying disk)
+        store_fault_check("commit", self.fault_domain)
+        for cb in txn.on_applied:
+            cb()
+        for cb in txn.on_commit:
+            cb()
+
+    def validate(self, txn: Transaction) -> None:
+        """Raise (mutating nothing) if the transaction cannot apply —
+        journaling backends check this before persisting."""
+        with self._lock:
+            self._validate(txn)
+
+    def _validate(self, txn: Transaction) -> None:
+        """Dry-run structural checks so apply can't fail halfway."""
+        # simulated collection/object existence (cheap: sets of keys)
+        colls = {c: set(objs) for c, objs in self._colls.items()}
+        for op in txn.ops:
+            kind = op[0]
+            if kind == TxOp.MKCOLL:
+                if op[1] in colls:
+                    raise FileExistsError(f"collection {op[1]} exists")
+                colls[op[1]] = set()
+                continue
+            if kind == TxOp.RMCOLL:
+                if op[1] not in colls:
+                    raise FileNotFoundError(f"collection {op[1]}")
+                if colls[op[1]]:
+                    raise OSError(f"collection {op[1]} not empty")
+                del colls[op[1]]
+                continue
+            if kind == TxOp.COLL_MOVE_RENAME:
+                _, src_c, src_o, dst_c, dst_o = op
+                if src_c not in colls or src_o not in colls[src_c]:
+                    raise FileNotFoundError(f"{src_c}/{src_o}")
+                if dst_c not in colls:
+                    raise FileNotFoundError(f"collection {dst_c}")
+                if dst_o in colls[dst_c]:
+                    # reference MemStore::_collection_move_rename -EEXIST
+                    raise FileExistsError(f"{dst_c}/{dst_o}")
+                colls[src_c].discard(src_o)
+                colls[dst_c].add(dst_o)
+                continue
+            c = op[1]
+            if c not in colls:
+                raise FileNotFoundError(f"collection {c}")
+            if kind == TxOp.CLONE:
+                _, _, src, dst = op
+                if src not in colls[c]:
+                    raise FileNotFoundError(f"{c}/{src}")
+                colls[c].add(dst)
+            elif kind == TxOp.REMOVE:
+                _, _, o = op
+                if o not in colls[c]:
+                    raise FileNotFoundError(f"{c}/{o}")
+                colls[c].discard(o)
+            elif kind in (TxOp.TOUCH, TxOp.WRITE, TxOp.ZERO, TxOp.TRUNCATE,
+                          TxOp.SETATTRS, TxOp.OMAP_SETKEYS, TxOp.OMAP_RMKEYS,
+                          TxOp.OMAP_CLEAR):
+                # create-on-write semantics
+                colls[c].add(op[2])
+            elif kind == TxOp.RMATTR:
+                _, _, o, _name = op
+                if o not in colls[c]:
+                    raise FileNotFoundError(f"{c}/{o}")
+
+    def _obj(self, c: coll_t, o: ghobject_t, create: bool = False) -> _Obj:
+        coll = self._colls.get(c)
+        if coll is None:
+            raise FileNotFoundError(f"collection {c}")
+        if o not in coll:
+            if not create:
+                raise FileNotFoundError(f"{c}/{o}")
+            coll[o] = _Obj()
+        return coll[o]
+
+    def _apply(self, op: tuple) -> None:
+        kind = op[0]
+        if kind == TxOp.TOUCH:
+            self._obj(op[1], op[2], create=True)
+        elif kind == TxOp.WRITE:
+            _, c, o, off, data = op
+            obj = self._obj(c, o, create=True)
+            if len(obj.data) < off + len(data):
+                obj.data.extend(b"\0" * (off + len(data) - len(obj.data)))
+            obj.data[off : off + len(data)] = data
+        elif kind == TxOp.ZERO:
+            _, c, o, off, length = op
+            obj = self._obj(c, o, create=True)
+            if len(obj.data) < off + length:
+                obj.data.extend(b"\0" * (off + length - len(obj.data)))
+            obj.data[off : off + length] = b"\0" * length
+        elif kind == TxOp.TRUNCATE:
+            _, c, o, size = op
+            obj = self._obj(c, o, create=True)
+            if len(obj.data) > size:
+                del obj.data[size:]
+            else:
+                obj.data.extend(b"\0" * (size - len(obj.data)))
+        elif kind == TxOp.REMOVE:
+            _, c, o = op
+            del self._colls[c][o]
+        elif kind == TxOp.SETATTRS:
+            _, c, o, attrs = op
+            self._obj(c, o, create=True).xattrs.update(attrs)
+        elif kind == TxOp.RMATTR:
+            _, c, o, name = op
+            self._obj(c, o).xattrs.pop(name, None)
+        elif kind == TxOp.OMAP_SETKEYS:
+            _, c, o, kv = op
+            self._obj(c, o, create=True).omap.update(kv)
+        elif kind == TxOp.OMAP_RMKEYS:
+            _, c, o, keys = op
+            omap = self._obj(c, o, create=True).omap
+            for key in keys:
+                omap.pop(key, None)
+        elif kind == TxOp.OMAP_CLEAR:
+            _, c, o = op
+            self._obj(c, o, create=True).omap.clear()
+        elif kind == TxOp.CLONE:
+            _, c, src, dst = op
+            self._colls[c][dst] = self._obj(c, src).clone()
+        elif kind == TxOp.MKCOLL:
+            self._colls[op[1]] = {}
+        elif kind == TxOp.RMCOLL:
+            del self._colls[op[1]]
+        elif kind == TxOp.COLL_MOVE_RENAME:
+            _, src_c, src_o, dst_c, dst_o = op
+            self._colls[dst_c][dst_o] = self._colls[src_c].pop(src_o)
+        else:  # pragma: no cover
+            raise ValueError(f"unknown op {kind}")
+
+    # -- reads ---------------------------------------------------------
+
+    def read(self, c, o, off=0, length=None):
+        store_fault_check("read", self.fault_domain)
+        with self._lock:
+            data = self._obj(c, o).data
+            if data and store_data_fault(
+                    "read", self.fault_domain, peek=True):
+                spec = store_data_fault("read", self.fault_domain)
+                if spec is not None and spec.get("bitflip"):
+                    # silent bit rot AT REST: MemStore has no checksums
+                    # (the no-csum store class), so the corruption rides
+                    # out to the caller — only deep scrub's cross-member
+                    # crc comparison can catch it (and repair heal it)
+                    data[len(data) // 2] ^= 0x40
+            end = len(data) if length is None else min(off + length, len(data))
+            return bytes(data[off:end])
+
+    def stat(self, c, o):
+        with self._lock:
+            return len(self._obj(c, o).data)
+
+    def exists(self, c, o):
+        with self._lock:
+            return c in self._colls and o in self._colls[c]
+
+    def getattr(self, c, o, name):
+        with self._lock:
+            return self._obj(c, o).xattrs[name]
+
+    def getattrs(self, c, o):
+        with self._lock:
+            return dict(self._obj(c, o).xattrs)
+
+    def omap_get(self, c, o):
+        with self._lock:
+            return dict(self._obj(c, o).omap)
+
+    def omap_get_values(self, c, o, keys):
+        with self._lock:
+            omap = self._obj(c, o).omap
+            return {key: omap[key] for key in keys if key in omap}
+
+    def list_collections(self):
+        with self._lock:
+            return sorted(self._colls)
+
+    def collection_exists(self, c):
+        with self._lock:
+            return c in self._colls
+
+    def collection_list(self, c):
+        with self._lock:
+            if c not in self._colls:
+                raise FileNotFoundError(f"collection {c}")
+            return sorted(self._colls[c])

@@ -1,0 +1,210 @@
+"""ObjectStore: collections, objects, atomic transactions.
+
+Behavioral twin of the reference's local-storage seam
+(src/os/ObjectStore.h; Transaction ops src/os/Transaction.h): the OSD
+writes per-PG-shard collections of named objects through all-or-nothing
+transactions that mix data writes, xattrs, omap and object lifecycle
+ops, and gets completion callbacks when a transaction commits.
+
+The op set is the subset the EC/replicated write paths and recovery
+actually generate (reference ECTransaction.cc:37-95 writes per-shard
+chunks + hinfo xattrs; PGLog persists via omap), plus clone for
+snap/recovery temp objects.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Any, Callable, Iterable
+
+
+@dataclass(frozen=True, order=True)
+class coll_t:
+    """Collection id: one per PG shard (reference coll_t(spg_t),
+    src/osd/osd_types.h; EC writes address coll_t(spg_t(pgid, shard)),
+    ECTransaction.cc:80-88).  ``shard=-1`` is NO_SHARD (replicated)."""
+
+    pool: int
+    ps: int
+    shard: int = -1
+
+    def __str__(self) -> str:
+        s = "" if self.shard < 0 else f"s{self.shard}"
+        return f"{self.pool}.{self.ps:x}{s}"
+
+
+META_COLL = coll_t(-1, 0)
+
+
+@dataclass(frozen=True, order=True)
+class ghobject_t:
+    """Object id within a collection (reference ghobject_t: hobject +
+    generation + shard; src/common/hobject.h)."""
+
+    name: str
+    snap: int = -2          # CEPH_NOSNAP analogue
+    gen: int = -1           # NO_GEN
+    shard: int = -1         # shard_id_t::NO_SHARD
+
+    def __str__(self) -> str:
+        return f"{self.name}:{self.snap}:{self.gen}:{self.shard}"
+
+
+class TxOp(enum.Enum):
+    TOUCH = "touch"
+    WRITE = "write"
+    ZERO = "zero"
+    TRUNCATE = "truncate"
+    REMOVE = "remove"
+    SETATTRS = "setattrs"
+    RMATTR = "rmattr"
+    OMAP_SETKEYS = "omap_setkeys"
+    OMAP_RMKEYS = "omap_rmkeys"
+    OMAP_CLEAR = "omap_clear"
+    CLONE = "clone"
+    MKCOLL = "mkcoll"
+    RMCOLL = "rmcoll"
+    COLL_MOVE_RENAME = "coll_move_rename"
+
+
+@dataclass
+class Transaction:
+    """Ordered op list applied atomically (ObjectStore::Transaction).
+
+    Callbacks mirror the reference's contexts: ``on_applied`` fires when
+    the transaction is readable, ``on_commit`` when durable (in MemStore
+    both fire at apply, as the reference MemStore does)."""
+
+    ops: list[tuple] = field(default_factory=list)
+    on_applied: list[Callable[[], None]] = field(default_factory=list)
+    on_commit: list[Callable[[], None]] = field(default_factory=list)
+
+    def touch(self, c: coll_t, o: ghobject_t) -> "Transaction":
+        self.ops.append((TxOp.TOUCH, c, o))
+        return self
+
+    def write(self, c: coll_t, o: ghobject_t, off: int, data: bytes) -> "Transaction":
+        self.ops.append((TxOp.WRITE, c, o, off, bytes(data)))
+        return self
+
+    def zero(self, c: coll_t, o: ghobject_t, off: int, length: int) -> "Transaction":
+        self.ops.append((TxOp.ZERO, c, o, off, length))
+        return self
+
+    def truncate(self, c: coll_t, o: ghobject_t, size: int) -> "Transaction":
+        self.ops.append((TxOp.TRUNCATE, c, o, size))
+        return self
+
+    def remove(self, c: coll_t, o: ghobject_t) -> "Transaction":
+        self.ops.append((TxOp.REMOVE, c, o))
+        return self
+
+    def setattrs(self, c: coll_t, o: ghobject_t, attrs: dict[str, bytes]) -> "Transaction":
+        self.ops.append((TxOp.SETATTRS, c, o, dict(attrs)))
+        return self
+
+    def rmattr(self, c: coll_t, o: ghobject_t, name: str) -> "Transaction":
+        self.ops.append((TxOp.RMATTR, c, o, name))
+        return self
+
+    def omap_setkeys(self, c: coll_t, o: ghobject_t, kv: dict[str, bytes]) -> "Transaction":
+        self.ops.append((TxOp.OMAP_SETKEYS, c, o, dict(kv)))
+        return self
+
+    def omap_rmkeys(self, c: coll_t, o: ghobject_t, keys: Iterable[str]) -> "Transaction":
+        self.ops.append((TxOp.OMAP_RMKEYS, c, o, list(keys)))
+        return self
+
+    def omap_clear(self, c: coll_t, o: ghobject_t) -> "Transaction":
+        self.ops.append((TxOp.OMAP_CLEAR, c, o))
+        return self
+
+    def clone(self, c: coll_t, src: ghobject_t, dst: ghobject_t) -> "Transaction":
+        self.ops.append((TxOp.CLONE, c, src, dst))
+        return self
+
+    def create_collection(self, c: coll_t) -> "Transaction":
+        self.ops.append((TxOp.MKCOLL, c))
+        return self
+
+    def remove_collection(self, c: coll_t) -> "Transaction":
+        self.ops.append((TxOp.RMCOLL, c))
+        return self
+
+    def collection_move_rename(
+        self, src_c: coll_t, src_o: ghobject_t, dst_c: coll_t, dst_o: ghobject_t
+    ) -> "Transaction":
+        self.ops.append((TxOp.COLL_MOVE_RENAME, src_c, src_o, dst_c, dst_o))
+        return self
+
+    def register_on_applied(self, cb: Callable[[], None]) -> None:
+        self.on_applied.append(cb)
+
+    def register_on_commit(self, cb: Callable[[], None]) -> None:
+        self.on_commit.append(cb)
+
+    def append(self, other: "Transaction") -> None:
+        self.ops.extend(other.ops)
+        self.on_applied.extend(other.on_applied)
+        self.on_commit.extend(other.on_commit)
+
+    def empty(self) -> bool:
+        return not self.ops
+
+
+class ObjectStore:
+    """Abstract store (reference src/os/ObjectStore.h:793 surface, the
+    slice the OSD uses)."""
+
+    #: fault-injection scope for this store's FAULTS points
+    #: (``store.<op>.<fault_domain>``); the owning OSD daemon sets it
+    #: to ``osd.<id>`` so tests and the chaos engine can fail ONE disk
+    fault_domain: str = ""
+
+    def mount(self) -> None: ...
+    def umount(self) -> None: ...
+
+    def statfs(self) -> dict:
+        """{"total": bytes, "used": bytes, "available": bytes} — the
+        ObjectStore::statfs surface the fullness plane consumes
+        (reference src/os/ObjectStore.h; consumed by
+        OSD.cc:773 recalc_full_state and `ceph osd df`).  Stores
+        report; admission control enforces."""
+        raise NotImplementedError
+
+    def queue_transaction(self, txn: Transaction) -> None:
+        raise NotImplementedError
+
+    # reads (never go through transactions)
+    def read(self, c: coll_t, o: ghobject_t, off: int = 0, length: int | None = None) -> bytes:
+        raise NotImplementedError
+
+    def stat(self, c: coll_t, o: ghobject_t) -> int:
+        """Returns object size; raises FileNotFoundError if the
+        collection or object is missing (all read methods do)."""
+        raise NotImplementedError
+
+    def exists(self, c: coll_t, o: ghobject_t) -> bool:
+        raise NotImplementedError
+
+    def getattr(self, c: coll_t, o: ghobject_t, name: str) -> bytes:
+        raise NotImplementedError
+
+    def getattrs(self, c: coll_t, o: ghobject_t) -> dict[str, bytes]:
+        raise NotImplementedError
+
+    def omap_get(self, c: coll_t, o: ghobject_t) -> dict[str, bytes]:
+        raise NotImplementedError
+
+    def omap_get_values(self, c: coll_t, o: ghobject_t, keys: Iterable[str]) -> dict[str, bytes]:
+        raise NotImplementedError
+
+    def list_collections(self) -> list[coll_t]:
+        raise NotImplementedError
+
+    def collection_exists(self, c: coll_t) -> bool:
+        raise NotImplementedError
+
+    def collection_list(self, c: coll_t) -> list[ghobject_t]:
+        raise NotImplementedError

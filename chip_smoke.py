@@ -91,7 +91,23 @@ through the port's entry points:
    request on a (2, 2) mesh of the one card, byte-equal to ``gf_matmul``;
    before it ``farm_fold.cu`` against its plain version at (2, 3, 524288),
    (4, 3, 524288), (8, 3, 524288), one partial, two ragged S, each also
-   on a view that starts one byte into its buffer.
+   on a view that starts one byte into its buffer;
+13. store — the card's shards persisted as an OSD persists them: 64
+   objects of 4 MiB encoded through ``registry.factory("cuda", ...)`` ->
+   ``ecutil.encode`` + ``HashInfo``, each of the 11 shards written with
+   one ``Transaction`` (``coll_t(pool, ps, shard)``,
+   ``ghobject_t(oid, shard=shard)``, the bytes and a ``hinfo`` xattr)
+   into the ``BlockStore`` of its OSD, each on its own ``FileDB``, in a
+   temporary directory removed at the end; every store unmounted and
+   mounted again with a clean ``fsck()``; every shard and hinfo read back
+   equal; the read-back shards deep-scrubbed through a prewarmed
+   ``ScrubVerifier`` in chunks of 25 (crc == the stored HashInfo, no
+   parity flagged); shard 2's store lost (unmounted, its directory
+   removed) and rebuilt with ``decode_shards_async`` through a prewarmed
+   ``DecodeAggregator`` into a fresh store, remounted and read back equal;
+   a ``bitflip`` data fault armed through ``FAULTS`` on ``osd.5``: the next
+   read of that object answers EIO, fsck finds the blob, and
+   ``decode_concat`` without that shard returns the object.
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -112,9 +128,14 @@ phase 10: ``row_copy``, the three stage cuts of ``gf_stage_cut``,
 ``repeat_variant`` and ``acc_encode`` must have been launched there
 (``cuobjdump -sass`` then counts the global loads of each instantiation
 of the bit-matrix kernel, the cuts' included); after each mgr shape's
-prewarm and again after its passes: ``mgr_analytics`` once a pass; and
-before and after phase 12: ``farm_fold`` and the bit-matrix kernel.
-Then a
+prewarm and again after its passes: ``mgr_analytics`` once a pass;
+before and after phase 12: ``farm_fold`` and the bit-matrix kernel; and
+before and after phase 13, and around each of its steps: the bit-matrix
+kernel at the encode and at the rebuild, the crc and the compare at the
+scrub, the scrub's and the decode's prewarms counted apart (the
+``store_path_launches`` line, with the launches of each step).  A
+``wall`` line gives the smoke's seconds from the build to the kernel
+rows and the store path's share of them.  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, the main path's memset µs, and the device time per launch at
 each kernel's main-path shape (and at each forced width of the launch
@@ -161,6 +182,7 @@ import asyncio
 import contextlib
 import ctypes
 import dataclasses
+import errno
 import hashlib
 import io
 import json
@@ -168,14 +190,17 @@ import os
 import pathlib
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from ceph_tpu_torch import native
+from ceph_tpu_torch.common.fault_injector import FAULTS
 from ceph_tpu_torch.crush import builder as crush_builder
 from ceph_tpu_torch.crush import cudamapper as cm
 from ceph_tpu_torch.crush import mapper as crush_mapper
@@ -186,6 +211,7 @@ from ceph_tpu_torch.crush.types import (
     Tunables,
 )
 from ceph_tpu_torch.ec import ECError, registry
+from ceph_tpu_torch.kv import FileDB
 from ceph_tpu_torch.ec.plugins import clay_cuda
 from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
 from ceph_tpu_torch.mgr import analytics as mgr_analytics
@@ -204,6 +230,8 @@ from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
 from ceph_tpu_torch.parallel.encode_farm import Mesh, batch_encode_dp, sharded_encode_tp
 from ceph_tpu_torch.parallel.encode_service import EncodeService
 from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
+from ceph_tpu_torch.store import Transaction, coll_t, ghobject_t
+from ceph_tpu_torch.store.blockstore import BlobError, BlockStore
 from ceph_tpu_torch.tools import bench as t_bench
 from ceph_tpu_torch.tools import bench_all as t_bench_all
 from ceph_tpu_torch.tools import ec_benchmark as t_ec_benchmark
@@ -413,6 +441,12 @@ class Config:
     #: global scratch): the check shapes past 2632 daemons and past a
     #: window of 701
     mgr_staged_shapes: tuple = ((3000, 2, 32), (16, 2, 1000))
+    #: the store path: objects of the write phase's size, each shard in the
+    #: BlockStore of its OSD; the profile's device-min-bytes where it is
+    #: not the plugin's
+    store_objects: int = 64
+    store_object_bytes: int = 4 * MiB
+    store_device_min_bytes: int | None = None
     iters: int = 32
     repeats: int = 5
     seed: int = 20261016
@@ -2748,6 +2782,281 @@ def run_tools_path(cfg: Config, device) -> dict:
     return {"tools": tools, "launches": tools_launches()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the store path, the card's EC shards persisted in BlockStores
+# ---------------------------------------------------------------------------
+
+#: the store pool's id and PG, and the xattr that carries HashInfo
+#: (osd/pgutil.py HINFO_ATTR)
+STORE_POOL = 1
+STORE_PS = 0
+HINFO_ATTR = "hinfo"
+#: the shard whose store is lost and rebuilt; the shard, and the object
+#: (the last one where there are fewer), whose bit flips at rest
+STORE_LOST_SHARD = 2
+STORE_FLIP_SHARD = 5
+STORE_FLIP_OBJECT = 7
+#: the kernels that each step of the store path must launch on the card
+STORE_STEP_KERNELS = (("encode", "gf_bitmatmul"), ("scrub", "batched_crc32c_device"),
+                      ("scrub", "gf_encode_compare"), ("rebuild", "gf_bitmatmul"))
+
+
+def store_counts() -> dict:
+    """The store path's kernel counts as they stand: the bit-matrix
+    kernel (every entry point), the crc and the compare."""
+    rc = rk.launch_counts()
+    return {"gf_bitmatmul": sum(c for name, c in rc.items() if name.startswith("gf_bitmatmul")),
+            "batched_crc32c_device": hashing.launch_counts()["batched_crc32c_device"],
+            "gf_encode_compare": rc["gf_encode_compare"]}
+
+
+def counts_since(before: dict) -> dict:
+    now = store_counts()
+    return {name: now[name] - before[name] for name in now}
+
+
+def store_profile(cfg: Config) -> dict:
+    prof = cfg.profile()
+    if cfg.store_device_min_bytes is not None:
+        prof["device-min-bytes"] = str(cfg.store_device_min_bytes)
+    return prof
+
+
+def open_store(path: str, osd: int) -> BlockStore:
+    """One OSD's BlockStore on its own FileDB, mounted; ``fault_domain``
+    is what the OSD daemon sets (``osd.<id>``)."""
+    store = BlockStore(path, db=FileDB(os.path.join(path, "kv")))
+    store.fault_domain = f"osd.{osd}"
+    store.mount()
+    return store
+
+
+def shard_coll(shard: int) -> coll_t:
+    return coll_t(STORE_POOL, STORE_PS, shard)
+
+
+def persist_shard(store: BlockStore, shard: int, oid: str, payload: np.ndarray,
+                  hinfo: bytes) -> None:
+    """One shard as the OSD's ECTransaction writes it: the collection on
+    first use, touch, write, truncate to the shard's length, the hinfo
+    xattr; one transaction."""
+    c, o = shard_coll(shard), ghobject_t(oid, shard=shard)
+    t = Transaction()
+    if not store.collection_exists(c):
+        t.create_collection(c)
+    t.touch(c, o)
+    t.write(c, o, 0, payload.tobytes())
+    t.truncate(c, o, payload.nbytes)
+    t.setattrs(c, o, {HINFO_ATTR: hinfo})
+    store.queue_transaction(t)
+
+
+def read_shard(store: BlockStore, shard: int, oid: str) -> tuple[np.ndarray, bytes]:
+    c, o = shard_coll(shard), ghobject_t(oid, shard=shard)
+    return (np.frombuffer(store.read(c, o), np.uint8),
+            store.getattr(c, o, HINFO_ATTR))
+
+
+def remount(stores: dict, paths: dict) -> dict:
+    """Unmount every store and mount it again from its directory."""
+    for s in sorted(stores):
+        stores[s].umount()
+    return {s: open_store(paths[s], s) for s in sorted(stores)}
+
+
+def phase_store(cfg: Config, device, root: str) -> dict:
+    """The store path under ``root``: ``cfg.store_objects`` objects of
+    ``cfg.store_object_bytes`` encoded on ``device``, each shard persisted
+    in the BlockStore of its OSD, remounted, fsck'd, read back, deep-
+    scrubbed, one store lost and rebuilt, one bit flipped at rest.
+    Returns the line with each step's kernel launches beside it (the
+    prewarms' apart from the steps'); raises on any mismatch or missing
+    EIO."""
+    ec = registry.factory("cuda", store_profile(cfg), device=device)
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    sinfo = ecutil.StripeInfo(k, k * ec.get_chunk_size(cfg.stripe_unit * k))
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 40)
+    objects = [_rand((cfg.store_object_bytes,), gen, device).cpu().numpy()
+               for _ in range(cfg.store_objects)]
+    oids = [f"rbd_data.{i:016x}" for i in range(cfg.store_objects)]
+    paths = {s: os.path.join(root, f"osd.{s}") for s in range(n)}
+    out = {"phase": "store", "objects": cfg.store_objects,
+           "object_bytes": cfg.store_object_bytes, "shards": n,
+           "chunk_size": sinfo.chunk_size, "seconds": {}, "launches_by_step": {}}
+    secs, steps = out["seconds"], out["launches_by_step"]
+    stores = {s: open_store(paths[s], s) for s in range(n)}
+    try:
+        # 1. encode on the card, one transaction a shard
+        c0, t0 = store_counts(), time.perf_counter()
+        written = []
+        for obj in objects:
+            shards = ecutil.encode(sinfo, ec, obj)
+            hinfo = ecutil.HashInfo(n)
+            hinfo.append(0, shards)
+            written.append((shards, hinfo))
+        secs["encode"] = time.perf_counter() - t0
+        steps["encode"] = counts_since(c0)
+        t0 = time.perf_counter()
+        for oid, (shards, hinfo) in zip(oids, written):
+            raw = hinfo.to_bytes()
+            for s in range(n):
+                persist_shard(stores[s], s, oid, shards[s], raw)
+        secs["persist"] = time.perf_counter() - t0
+
+        # 2. unmount, mount, fsck
+        t0 = time.perf_counter()
+        stores = remount(stores, paths)
+        fsck = {s: stores[s].fsck() for s in range(n)}
+        secs["remount_fsck"] = time.perf_counter() - t0
+        out["shard_bytes"] = sum(sh[s].nbytes for sh, _ in written for s in range(n))
+        out["bytes_at_rest"] = sum(stores[s].statfs()["used"] for s in range(n))
+        out["fsck_after_remount"] = sum(len(v) for v in fsck.values())
+
+        # 3. read every shard and its hinfo back
+        t0 = time.perf_counter()
+        readback, stored_hinfo, mismatches = [], [], 0
+        for oid, (shards, hinfo) in zip(oids, written):
+            got = {}
+            for s in range(n):
+                got[s], raw = read_shard(stores[s], s, oid)
+                mismatches += (not np.array_equal(got[s], shards[s])) + (raw != hinfo.to_bytes())
+            readback.append(got)
+            stored_hinfo.append(ecutil.HashInfo.from_bytes(raw))
+        secs["read"] = time.perf_counter() - t0
+        out["read_mismatches"] = mismatches
+
+        # 4. deep scrub of the read-back shards, against the stored hinfo
+        ver = ScrubVerifier(device=device, crc_lanes=cfg.crc_lanes)
+        c0 = store_counts()
+        out["scrub_prewarmed_shapes"] = ver.prewarm(ec)
+        steps["scrub_prewarm"] = counts_since(c0)
+
+        async def scrub():
+            res = []
+            for at in range(0, len(readback), cfg.scrub_chunk):
+                res += await asyncio.gather(*(
+                    ver.verify_object(ec, o) for o in readback[at:at + cfg.scrub_chunk]))
+            return res
+
+        c0, t0 = store_counts(), time.perf_counter()
+        checks = asyncio.run(scrub())
+        secs["scrub"] = time.perf_counter() - t0
+        steps["scrub"] = counts_since(c0)
+        scrub_bad = 0
+        for ch, hinfo in zip(checks, stored_hinfo):
+            scrub_bad += sum(ch.crcs[s] != hinfo.get_chunk_hash(s) for s in range(n))
+            scrub_bad += len(ch.parity_bad)
+        out["scrub_mismatches"] = scrub_bad
+        if ver.stats["cold_launches"] != 0:
+            raise AssertionError(f"scrub cold launches after prewarm: {dict(ver.stats)}")
+
+        # 5. lose the store of one shard, rebuild it on the card, persist it
+        lost = STORE_LOST_SHARD
+        stores.pop(lost).umount()
+        shutil.rmtree(paths[lost])
+        agg = DecodeAggregator(device=device)
+        c0 = store_counts()
+        out["decode_prewarmed_shapes"] = agg.prewarm(ec, erasure_counts=(1,))
+        steps["decode_prewarm"] = counts_since(c0)
+
+        async def rebuild():
+            return await asyncio.gather(*(
+                ecutil.decode_shards_async(
+                    sinfo, ec, {s: c for s, c in got.items() if s != lost}, {lost},
+                    aggregator=agg)
+                for got in readback))
+
+        c0, t0 = store_counts(), time.perf_counter()
+        rebuilt = asyncio.run(rebuild())
+        secs["rebuild"] = time.perf_counter() - t0
+        steps["rebuild"] = counts_since(c0)
+        if agg.stats["cold_launches"] != 0:
+            raise AssertionError(f"decode cold launches after prewarm: {dict(agg.stats)}")
+        t0 = time.perf_counter()
+        stores[lost] = open_store(paths[lost], lost)
+        for oid, got, (_, hinfo) in zip(oids, rebuilt, written):
+            persist_shard(stores[lost], lost, oid, got[lost], hinfo.to_bytes())
+        stores[lost].umount()
+        stores[lost] = open_store(paths[lost], lost)
+        rebuilt_bad = 0
+        for oid, (shards, _) in zip(oids, written):
+            rebuilt_bad += not np.array_equal(read_shard(stores[lost], lost, oid)[0],
+                                              shards[lost])
+        out["fsck_rebuilt_store"] = len(stores[lost].fsck())
+        secs["persist_rebuilt"] = time.perf_counter() - t0
+        out["lost_shard"] = lost
+        out["rebuilt_mismatches"] = rebuilt_bad
+        out["decode_launches"] = agg.stats["launches"]
+
+        # 6. a bit flipped at rest: EIO, then a degraded read without it
+        victim, at = STORE_FLIP_SHARD, min(STORE_FLIP_OBJECT, cfg.store_objects - 1)
+        key = f"store.read.osd.{victim}"
+        FAULTS.inject(key, bitflip=True, count=1)
+        c0, t0 = store_counts(), time.perf_counter()
+        try:
+            stores[victim].read(shard_coll(victim), ghobject_t(oids[at], shard=victim))
+            eio = None
+        except BlobError as e:
+            eio = e.errno
+        finally:
+            FAULTS.clear(key)
+        avail = {s: read_shard(stores[s], s, oids[at])[0] for s in range(n) if s != victim}
+        degraded_ok = bool(np.array_equal(ecutil.decode_concat(sinfo, ec, avail), objects[at]))
+        secs["bitflip_degraded_read"] = time.perf_counter() - t0
+        steps["degraded_read"] = counts_since(c0)
+        out["bitflip"] = {"shard": victim, "object": at, "read_errno": eio,
+                          "degraded_read_equal": degraded_ok,
+                          "fsck_after_flip": len(stores[victim].fsck())}
+    finally:
+        for store in stores.values():
+            store.umount()
+    out["mismatches"] = (out["read_mismatches"] + out["scrub_mismatches"]
+                         + out["rebuilt_mismatches"])
+    out["total_seconds"] = sum(secs.values())
+    return out
+
+
+def check_store(line: dict) -> None:
+    """What the store line must show: no mismatch, clean fsck after the
+    remount and after the rebuild, EIO on the planted bitflip and a
+    degraded read equal to the object without that shard."""
+    flip = line["bitflip"]
+    bad = {k: line[k] for k in ("mismatches", "fsck_after_remount", "fsck_rebuilt_store")
+           if line[k] != 0}
+    if bad or flip["read_errno"] != errno.EIO or not flip["degraded_read_equal"] \
+            or flip["fsck_after_flip"] != 1:
+        raise AssertionError(f"store path: {bad or flip}")
+
+
+def store_path_idle(steps: dict) -> list[str]:
+    """The store path's kernels that a step launched no time: the
+    bit-matrix kernel at the encode and at the rebuild, the crc and the
+    compare at the scrub (its prewarm's launches do not count)."""
+    return sorted(f"{kernel}:{step}" for step, kernel in STORE_STEP_KERNELS
+                  if steps[step][kernel] <= 0)
+
+
+def run_store_path(cfg: Config, device) -> dict:
+    """Phase 13 with its launches counted alone: reset just before, read
+    just after, in a temporary directory removed at the end.  On the card
+    each step must have launched its kernels (``STORE_STEP_KERNELS``)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    rk.reset_launch_counts()
+    hashing.reset_launch_counts()
+    try:
+        line = phase_store(cfg, device, root)
+        _sync(device)
+    finally:
+        shutil.rmtree(root)
+    launches = {**rk.launch_counts(), **hashing.launch_counts()}
+    emit(line)
+    check_store(line)
+    idle = store_path_idle(line["launches_by_step"])
+    if torch.device(device).type == "cuda" and idle:
+        raise AssertionError(f"kernels not launched on the store path: {idle}")
+    return {"store": line, "launches": launches, "idle": idle}
+
+
 def ptxas_lines(log: str) -> list[str]:
     """What ``ptxas -v`` says of each function: its name, then its stack
     frame and spills, then its registers."""
@@ -2836,6 +3145,13 @@ def main(argv: list[str] | None = None) -> int:
     farm = run_farm_path(cfg, device)
     emit({"phase": "farm_path_launches", **farm["launches"]})
 
+    # the store path: the card's shards persisted in BlockStores, counted alone
+    t_store = time.perf_counter()
+    store = run_store_path(cfg, device)
+    store_s = time.perf_counter() - t_store
+    emit({"phase": "store_path_launches", **store["launches"],
+          "by_step": store["store"]["launches_by_step"]})
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     for row in rows:
@@ -2848,6 +3164,9 @@ def main(argv: list[str] | None = None) -> int:
     emit(phase_crc_sweep(cfg, device))
     emit(phase_mgr_staged(cfg, device))
     emit(phase_fold_sweep(cfg, device))
+    wall = time.perf_counter() - t0
+    emit({"phase": "wall", "seconds": wall, "store_path_seconds": store_s,
+          "store_path_share": store_s / wall})
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,171 @@
+"""BlueFS-lite (store/bluefs.py): the KV living inside the
+BlockStore's device under the shared allocator — superblock
+generations, WAL replay after kill, checkpoint compaction, shared
+space accounting (reference src/os/bluestore/BlueFS.cc).
+
+The port's twin of tests/test_bluefs.py: the same cases over
+``ceph_tpu_torch``.
+"""
+
+import os
+
+from ceph_tpu_torch.store import Transaction, coll_t, ghobject_t
+from ceph_tpu_torch.store.blockstore import MIN_ALLOC, BlockStore
+from ceph_tpu_torch.store.bluefs import SUPER_UNITS, BlueFSLite
+
+C = coll_t(1, 0, 0)
+
+
+def _obj(name: str) -> ghobject_t:
+    return ghobject_t(name)
+
+
+def test_single_device_layout(tmp_path):
+    """kv + data share ONE device file: no sidecar kv directory."""
+    s = BlockStore(str(tmp_path / "bs"))
+    s.mount()
+    s.queue_transaction(Transaction().create_collection(C))
+    s.queue_transaction(Transaction().write(C, _obj("o"), 0, b"x" * 100))
+    s.umount()
+    entries = sorted(os.listdir(tmp_path / "bs"))
+    assert entries == ["block"], entries
+
+
+def test_kill_durability_kv_and_data_on_one_device(tmp_path):
+    """Die WITHOUT umount (no final checkpoint): remount must replay
+    the on-device WAL and serve every committed write."""
+    s = BlockStore(str(tmp_path / "bs"))
+    s.mount()
+    t = Transaction().create_collection(C)
+    for i in range(20):
+        t.write(C, _obj(f"o{i}"), 0, bytes([i]) * (1000 + i))
+    t.setattrs(C, _obj("o3"), {"k": b"v"})
+    t.omap_setkeys(C, _obj("o4"), {"a": b"1", "b": b"2"})
+    s.queue_transaction(t)
+    os.close(s._fd)  # simulated SIGKILL: no umount, no checkpoint
+    s2 = BlockStore(str(tmp_path / "bs"))
+    s2.mount()
+    for i in range(20):
+        assert s2.read(C, _obj(f"o{i}")) == bytes([i]) * (1000 + i)
+    assert s2.getattr(C, _obj("o3"), "k") == b"v"
+    assert s2.omap_get(C, _obj("o4")) == {"a": b"1", "b": b"2"}
+    assert s2.fsck() == []
+    s2.umount()
+
+
+def test_checkpoint_compaction_and_replay(tmp_path):
+    """Crossing checkpoint_bytes compacts WAL -> checkpoint extents;
+    a later kill replays checkpoint + fresh WAL; old extents recycle
+    (device usage stays bounded)."""
+    db = BlueFSLite(checkpoint_bytes=8 * 1024)
+    s = BlockStore(str(tmp_path / "bs"), db=db)
+    s.mount()
+    s.queue_transaction(Transaction().create_collection(C))
+    gen0 = db.gen
+    for round_ in range(30):
+        t = Transaction()
+        t.write(C, _obj("hot"), 0, os.urandom(512))
+        t.omap_setkeys(C, _obj("hot"), {f"k{round_}": b"v" * 100})
+        s.queue_transaction(t)
+    assert db.gen > gen0  # compactions flipped the superblock
+    assert db.cp_len > 0
+    os.close(s._fd)  # kill after compactions
+    s2 = BlockStore(str(tmp_path / "bs"))
+    s2.mount()
+    assert set(s2.omap_get(C, _obj("hot"))) == {
+        f"k{i}" for i in range(30)}
+    s2.umount()
+
+
+def test_shared_allocator_accounting(tmp_path):
+    """statfs covers the KV too: metadata growth consumes the same
+    device budget as data (the fullness plane sees both)."""
+    s = BlockStore(str(tmp_path / "bs"), capacity_bytes=256 * MIN_ALLOC)
+    s.mount()
+    s.queue_transaction(Transaction().create_collection(C))
+    used0 = s.statfs()["used"]
+    assert used0 >= len(SUPER_UNITS) * MIN_ALLOC  # superblocks + wal
+    s.queue_transaction(
+        Transaction().write(C, _obj("big"), 0, b"z" * (4 * MIN_ALLOC)))
+    st = s.statfs()
+    assert st["used"] >= used0 + 4 * MIN_ALLOC
+    assert st["total"] == 256 * MIN_ALLOC
+    s.umount()
+
+
+def test_fsck_reports_corrupt_stale_superblock_slot(tmp_path):
+    """Mount tolerates a rotten STALE superblock slot (the live
+    generation wins) — fsck must REPORT it instead: silent rot there
+    leaves the next torn live-slot write with no good fallback."""
+    db = BlueFSLite(checkpoint_bytes=1 << 30)
+    s = BlockStore(str(tmp_path / "bs"), db=db)
+    s.mount()
+    s.queue_transaction(Transaction().create_collection(C))
+    s.queue_transaction(Transaction().write(C, _obj("o"), 0, b"keep"))
+    # flip the superblock once more so BOTH slots hold a generation
+    db._checkpoint()
+    assert db.gen >= 2
+    assert s.fsck() == []  # both generations intact
+    stale_slot = SUPER_UNITS[(db.gen + 1) % 2]
+    os.pwrite(db._fd, b"\xff" * 16, stale_slot * MIN_ALLOC + 6)
+    bad = s.fsck()
+    assert {"kind": "bluefs-superblock", "slot": stale_slot} in bad, bad
+    # the damage is metadata-redundancy loss, not data loss: reads and
+    # a remount (kill; live slot intact) still serve everything
+    assert s.read(C, _obj("o")) == b"keep"
+    os.close(s._fd)
+    s2 = BlockStore(str(tmp_path / "bs"))
+    s2.mount()
+    assert s2.read(C, _obj("o")) == b"keep"
+    s2.umount()
+
+
+def test_fsck_reports_corrupt_wal_frame(tmp_path):
+    """Rot under an already-applied WAL record: replay-after-crash
+    would silently truncate history there — fsck must flag the frame."""
+    db = BlueFSLite(checkpoint_bytes=1 << 30)
+    s = BlockStore(str(tmp_path / "bs"), db=db)
+    s.mount()
+    s.queue_transaction(Transaction().create_collection(C))
+    for i in range(4):
+        s.queue_transaction(
+            Transaction().write(C, _obj(f"o{i}"), 0, bytes([i]) * 2000))
+    assert s.fsck() == []
+    assert db._wal_pos > 0
+    # corrupt the SECOND record's body so framing up to it stays valid
+    hdr = db._chain_read(db.wal_extents, 0, 18)
+    import struct as _struct
+
+    _m, ln, _crc, _seq = _struct.unpack("<HIIQ", hdr)
+    second = 18 + ln
+    wal_unit = db.wal_extents[0][0]
+    os.pwrite(db._fd, b"\xde\xad\xbe\xef",
+              wal_unit * MIN_ALLOC + second + 18 + 2)
+    bad = s.fsck()
+    assert any(b["kind"] == "bluefs-wal-frame" and b["pos"] == second
+               for b in bad), bad
+    s.umount()
+
+
+def test_torn_superblock_falls_back_to_previous_generation(tmp_path):
+    """A torn superblock write (crash mid-flip) must land on the
+    previous generation's complete state, never on garbage."""
+    db = BlueFSLite(checkpoint_bytes=1 << 30)
+    s = BlockStore(str(tmp_path / "bs"), db=db)
+    s.mount()
+    s.queue_transaction(Transaction().create_collection(C))
+    s.queue_transaction(Transaction().write(C, _obj("o"), 0, b"keep"))
+    # force a compaction: gen N (old cp+wal intact, nothing reused
+    # yet) -> gen N+1; a crash that tears the N+1 slot must land on N
+    db._checkpoint()
+    live_slot = SUPER_UNITS[db.gen % 2]
+    os.close(s._fd)
+    with open(tmp_path / "bs" / "block", "r+b") as f:
+        f.seek(live_slot * MIN_ALLOC + 2)
+        f.write(b"\xff" * 16)
+    s2 = BlockStore(str(tmp_path / "bs"))
+    s2.mount()
+    # the older generation's WAL still holds every committed batch
+    # (freed extents are not reused until a later allocation)
+    assert s2.read(C, _obj("o")) == b"keep"
+    s2.umount()

@@ -22,6 +22,10 @@ from ceph_tpu_torch.crush.tester import CrushTester
 from ceph_tpu_torch.crush.types import CrushMap
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
+import ceph_tpu_torch.common
+import ceph_tpu_torch.kv
+import ceph_tpu_torch.msg.denc
+import ceph_tpu_torch.store
 from ceph_tpu_torch.mgr.analytics import AnalyticsEngine
 from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
 from ceph_tpu_torch.ops import rs_kernels as rk
@@ -69,7 +73,13 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "tools.perf_lab", "tools.perf_lab2", "tools.perf_lab3", "tools.bench",
                  "tools.ec_benchmark", "tools.bench_all", "mgr", "mgr.analytics",
                  "mgr.daemon", "ops.analytics_kernels", "parallel.encode_farm",
-                 "parallel.encode_service"):
+                 "parallel.encode_service", "msg", "msg.denc", "compressor",
+                 "common", "common.config", "common.dout", "common.caps",
+                 "common.crash", "common.optracker", "common.metrics",
+                 "common.tracing", "common.fault_injector", "common.reserver",
+                 "common.admin_socket", "common.interleave", "kv", "store",
+                 "store.objectstore", "store.memstore", "store.kstore",
+                 "store.filestore", "store.bluefs", "store.blockstore"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -91,6 +101,40 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
 
 _JAX = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
 _REF = re.compile(r"\bceph_tpu(\.|\s|$)", re.M)
+
+
+def test_foundation_loads_without_messages():
+    """The host foundation (common/, kv/, store/, msg.denc) stands on its
+    own: ``ceph_tpu_torch.common`` exports the reference's names but the
+    cluster log's, and no ``msg.messages`` module is needed to load it."""
+    assert set(ceph_tpu_torch.common.__all__) == {
+        "AdminSocket", "DoutLogger", "OPTIONS", "OpTracker", "TrackedOp",
+        "admin_command", "ConfigProxy", "MetricsServer", "Option", "PerfCounters",
+        "all_collections", "declare", "get_perf_counters", "prometheus_text",
+        "record_crash", "scan_crashes"}
+    assert set(ceph_tpu_torch.store.__all__) == {
+        "FileStore", "META_COLL", "MemStore", "ObjectStore", "Transaction", "TxOp",
+        "coll_t", "ghobject_t"}
+    assert ceph_tpu_torch.kv.FileDB and ceph_tpu_torch.msg.denc.Encoder
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceph_tpu'] = None\n"
+        "sys.modules['ceph_tpu_torch.msg.messages'] = None\n"
+        "for name in ('ceph_tpu_torch.common', 'ceph_tpu_torch.kv',\n"
+        "             'ceph_tpu_torch.store', 'ceph_tpu_torch.store.blockstore',\n"
+        "             'ceph_tpu_torch.store.bluefs', 'ceph_tpu_torch.msg.denc',\n"
+        "             'ceph_tpu_torch.common.fault_injector'):\n"
+        "    importlib.import_module(name)\n"
+        "assert 'torch' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_static_scan_finds_no_forbidden_import():

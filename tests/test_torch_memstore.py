@@ -1,0 +1,155 @@
+"""MemStore tests — the store_test.cc slice the OSD paths rely on
+(reference src/test/objectstore/store_test.cc over MemStore).
+
+The port's twin of tests/test_memstore.py: the same cases over
+``ceph_tpu_torch``.
+"""
+
+import pytest
+
+from ceph_tpu_torch.store import MemStore, Transaction, coll_t, ghobject_t
+
+C = coll_t(1, 0, 2)
+O1 = ghobject_t("obj1", shard=2)
+O2 = ghobject_t("obj2", shard=2)
+
+
+@pytest.fixture
+def store():
+    s = MemStore()
+    t = Transaction().create_collection(C)
+    s.queue_transaction(t)
+    return s
+
+
+class TestBasics:
+    def test_write_read(self, store):
+        store.queue_transaction(Transaction().write(C, O1, 0, b"hello"))
+        assert store.read(C, O1) == b"hello"
+        assert store.stat(C, O1) == 5
+
+    def test_write_extends_with_zero_fill(self, store):
+        store.queue_transaction(Transaction().write(C, O1, 8, b"xy"))
+        assert store.read(C, O1) == b"\0" * 8 + b"xy"
+
+    def test_partial_read(self, store):
+        store.queue_transaction(Transaction().write(C, O1, 0, b"0123456789"))
+        assert store.read(C, O1, 2, 3) == b"234"
+        assert store.read(C, O1, 8, 100) == b"89"
+
+    def test_zero_truncate(self, store):
+        store.queue_transaction(Transaction().write(C, O1, 0, b"0123456789"))
+        store.queue_transaction(Transaction().zero(C, O1, 2, 3))
+        assert store.read(C, O1) == b"01\0\0\x0056789"
+        store.queue_transaction(Transaction().truncate(C, O1, 4))
+        assert store.read(C, O1) == b"01\0\0"
+        store.queue_transaction(Transaction().truncate(C, O1, 6))
+        assert store.read(C, O1) == b"01\0\0\0\0"
+
+    def test_touch_remove_exists(self, store):
+        store.queue_transaction(Transaction().touch(C, O1))
+        assert store.exists(C, O1)
+        assert store.read(C, O1) == b""
+        store.queue_transaction(Transaction().remove(C, O1))
+        assert not store.exists(C, O1)
+
+    def test_attrs_and_omap(self, store):
+        t = (
+            Transaction()
+            .write(C, O1, 0, b"d")
+            .setattrs(C, O1, {"hinfo": b"\x01\x02", "_": b"oi"})
+            .omap_setkeys(C, O1, {"k1": b"v1", "k2": b"v2"})
+        )
+        store.queue_transaction(t)
+        assert store.getattr(C, O1, "hinfo") == b"\x01\x02"
+        assert store.getattrs(C, O1) == {"hinfo": b"\x01\x02", "_": b"oi"}
+        assert store.omap_get(C, O1) == {"k1": b"v1", "k2": b"v2"}
+        store.queue_transaction(
+            Transaction().rmattr(C, O1, "hinfo").omap_rmkeys(C, O1, ["k1"])
+        )
+        assert store.getattrs(C, O1) == {"_": b"oi"}
+        assert store.omap_get_values(C, O1, ["k1", "k2"]) == {"k2": b"v2"}
+
+    def test_clone(self, store):
+        store.queue_transaction(
+            Transaction().write(C, O1, 0, b"src").setattrs(C, O1, {"a": b"1"})
+        )
+        store.queue_transaction(Transaction().clone(C, O1, O2))
+        store.queue_transaction(Transaction().write(C, O1, 0, b"XXX"))
+        assert store.read(C, O2) == b"src"
+        assert store.getattr(C, O2, "a") == b"1"
+
+    def test_collection_list(self, store):
+        store.queue_transaction(
+            Transaction().touch(C, O1).touch(C, O2)
+        )
+        assert store.collection_list(C) == sorted([O1, O2])
+        assert store.list_collections() == [C]
+
+    def test_collection_move_rename(self, store):
+        c2 = coll_t(1, 1, 2)
+        store.queue_transaction(Transaction().create_collection(c2))
+        store.queue_transaction(Transaction().write(C, O1, 0, b"mv"))
+        store.queue_transaction(
+            Transaction().collection_move_rename(C, O1, c2, O2)
+        )
+        assert not store.exists(C, O1)
+        assert store.read(c2, O2) == b"mv"
+
+
+class TestAtomicity:
+    def test_failed_txn_mutates_nothing(self, store):
+        store.queue_transaction(Transaction().write(C, O1, 0, b"keep"))
+        bad = (
+            Transaction()
+            .write(C, O1, 0, b"clobber")
+            .remove(C, ghobject_t("nope", shard=2))
+        )
+        with pytest.raises(FileNotFoundError):
+            store.queue_transaction(bad)
+        assert store.read(C, O1) == b"keep"
+
+    def test_missing_collection_rejected(self, store):
+        with pytest.raises(FileNotFoundError):
+            store.queue_transaction(
+                Transaction().write(coll_t(9, 9), O1, 0, b"x")
+            )
+
+    def test_rmcoll_nonempty_rejected(self, store):
+        store.queue_transaction(Transaction().touch(C, O1))
+        with pytest.raises(OSError):
+            store.queue_transaction(Transaction().remove_collection(C))
+
+    def test_txn_sequence_create_then_use(self, store):
+        """ops inside one txn see earlier ops' effects."""
+        c2 = coll_t(2, 0)
+        t = (
+            Transaction()
+            .create_collection(c2)
+            .write(c2, O1, 0, b"one-txn")
+            .clone(c2, O1, O2)
+            .remove(c2, O1)
+        )
+        store.queue_transaction(t)
+        assert store.read(c2, O2) == b"one-txn"
+        assert not store.exists(c2, O1)
+
+    def test_callbacks_fire_in_order(self, store):
+        events = []
+        t = Transaction().touch(C, O1)
+        t.register_on_applied(lambda: events.append("applied"))
+        t.register_on_commit(lambda: events.append("commit"))
+        store.queue_transaction(t)
+        assert events == ["applied", "commit"]
+
+    def test_move_rename_onto_existing_rejected(self, store):
+        c2 = coll_t(1, 1, 2)
+        store.queue_transaction(Transaction().create_collection(c2))
+        store.queue_transaction(Transaction().write(C, O1, 0, b"src"))
+        store.queue_transaction(Transaction().write(c2, O2, 0, b"live"))
+        with pytest.raises(FileExistsError):
+            store.queue_transaction(
+                Transaction().collection_move_rename(C, O1, c2, O2)
+            )
+        assert store.read(c2, O2) == b"live"  # untouched
+        assert store.read(C, O1) == b"src"

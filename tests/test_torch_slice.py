@@ -9,9 +9,12 @@ flow is exercised here before it meets the card.
 """
 
 import asyncio
+import os
+import tempfile
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 import chip_smoke
 from ceph_tpu.ec import registry as ref_registry
@@ -473,3 +476,107 @@ def test_chip_smoke_retakes_an_empty_trace(monkeypatch):
     monkeypatch.setattr(chip_smoke, "traced", lambda fn: (fn(), (1.0, []))[1])
     assert chip_smoke.traced_calls(lambda i: None, 2) == (1.0, [])
 
+
+
+#: chip_smoke's store path cut for the CPU: 4 objects of 64 KiB (8 KiB
+#: shards, one 64 KiB allocation unit a blob), every matmul on the
+#: device seam
+TINY_STORE = dict(store_objects=4, store_object_bytes=64 * 1024, store_device_min_bytes=0,
+                  scrub_chunk=3, crc_lanes=8)
+
+
+def test_chip_smoke_store_path_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke's phase 13 at a tiny size on the CPU: 44 shards persisted
+    in 11 BlockStores on FileDBs, remounted with a clean fsck, read back
+    and deep-scrubbed equal to what was encoded and to the stored hinfo;
+    shard 2's store lost and rebuilt equal; a planted bitflip answers EIO
+    (and fsck finds its blob) while a degraded read without that shard
+    returns the object.  On the CPU nothing launches, so the launch check
+    names every kernel of the path; the temporary directory is gone."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    cfg = chip_smoke.Config(**TINY_STORE)
+    run = chip_smoke.run_store_path(cfg, "cpu")
+    line = run["store"]
+    assert (line["objects"], line["shards"], line["chunk_size"]) == (4, 11, 4096)
+    assert line["mismatches"] == 0 and line["read_mismatches"] == 0
+    assert line["fsck_after_remount"] == 0 and line["fsck_rebuilt_store"] == 0
+    # each 8 KiB shard a blob of one 64 KiB allocation unit
+    assert line["shard_bytes"] == 4 * 11 * 8192
+    assert line["bytes_at_rest"] == 4 * 11 * 65536
+    assert line["lost_shard"] == 2 and line["rebuilt_mismatches"] == 0
+    assert line["decode_launches"] > 0
+    # the flipped object is the last where there are fewer than 8
+    assert line["bitflip"] == {"shard": 5, "object": 3, "read_errno": 5,
+                               "degraded_read_equal": True, "fsck_after_flip": 1}
+    assert set(line["seconds"]) == {"encode", "persist", "remount_fsck", "read", "scrub",
+                                    "rebuild", "persist_rebuilt", "bitflip_degraded_read"}
+    assert set(run["launches"].values()) == {0}
+    assert list(line["launches_by_step"]) == ["encode", "scrub_prewarm", "scrub",
+                                              "decode_prewarm", "rebuild", "degraded_read"]
+    assert all(set(c.values()) == {0} for c in line["launches_by_step"].values())
+    assert run["idle"] == ["batched_crc32c_device:scrub", "gf_bitmatmul:encode",
+                           "gf_bitmatmul:rebuild", "gf_encode_compare:scrub"]
+    assert os.listdir(tmp_path) == []
+    assert not chip_smoke.FAULTS.dump()
+
+
+def test_chip_smoke_store_checks_fail_loudly():
+    """A mismatch, a dirty fsck, a read that returns instead of EIO or a
+    degraded read that differs each fail the store line's check; and on
+    the card an idle kernel of the path is named."""
+    good = {"mismatches": 0, "fsck_after_remount": 0, "fsck_rebuilt_store": 0,
+            "bitflip": {"read_errno": 5, "degraded_read_equal": True, "fsck_after_flip": 1}}
+    chip_smoke.check_store(good)
+    bad_lines = [{**good, "mismatches": 1}, {**good, "fsck_after_remount": 2},
+                 {**good, "fsck_rebuilt_store": 1},
+                 {**good, "bitflip": {**good["bitflip"], "read_errno": None}},
+                 {**good, "bitflip": {**good["bitflip"], "degraded_read_equal": False}},
+                 {**good, "bitflip": {**good["bitflip"], "fsck_after_flip": 0}}]
+    for line in bad_lines:
+        with pytest.raises(AssertionError, match="store path"):
+            chip_smoke.check_store(line)
+    busy = {"gf_bitmatmul": 4, "batched_crc32c_device": 3, "gf_encode_compare": 2}
+    steps = {"encode": busy, "scrub": {**busy, "gf_encode_compare": 0}, "rebuild": busy}
+    assert chip_smoke.store_path_idle(steps) == ["gf_encode_compare:scrub"]
+    assert chip_smoke.store_path_idle({**steps, "scrub": busy}) == []
+
+
+@pytest.mark.parametrize("scrub_launches", [False, True], ids=["prewarm-only", "scrub"])
+def test_chip_smoke_store_scrub_counted_apart_from_its_prewarm(monkeypatch, tmp_path,
+                                                               scrub_launches):
+    """The crc and the compare count for the store path only where the
+    scrub itself launches them: launches in the ``ScrubVerifier``'s
+    prewarm (every bucket, batch 1 and max) land in ``scrub_prewarm`` and
+    leave both kernels named idle at the scrub.  The launches are stood in
+    for on the CPU by adding to the wrappers' counts."""
+    from ceph_tpu_torch.ops import hashing, rs_kernels
+
+    def launch():
+        hashing.batched_crc32c_device.launches += 1
+        rs_kernels.gf_encode_compare.launches += 1
+
+    prewarm, verify = chip_smoke.ScrubVerifier.prewarm, chip_smoke.ScrubVerifier.verify_object
+
+    def counted_prewarm(self, *a, **kw):
+        launch()
+        return prewarm(self, *a, **kw)
+
+    async def counted_verify(self, *a, **kw):
+        if scrub_launches:
+            launch()
+        return await verify(self, *a, **kw)
+
+    monkeypatch.setattr(chip_smoke.ScrubVerifier, "prewarm", counted_prewarm)
+    monkeypatch.setattr(chip_smoke.ScrubVerifier, "verify_object", counted_verify)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    run = chip_smoke.run_store_path(chip_smoke.Config(**TINY_STORE), "cpu")
+    steps = run["store"]["launches_by_step"]
+    scrub = 4 if scrub_launches else 0
+    assert steps["scrub_prewarm"] == {"gf_bitmatmul": 0, "batched_crc32c_device": 1,
+                                      "gf_encode_compare": 1}
+    assert steps["scrub"] == {"gf_bitmatmul": 0, "batched_crc32c_device": scrub,
+                              "gf_encode_compare": scrub}
+    assert run["launches"]["batched_crc32c_device"] == 1 + scrub
+    scrub_idle = [] if scrub_launches else ["batched_crc32c_device:scrub",
+                                            "gf_encode_compare:scrub"]
+    assert run["idle"] == sorted(scrub_idle + ["gf_bitmatmul:encode", "gf_bitmatmul:rebuild"])
