@@ -1,0 +1,1522 @@
+"""Typed wire messages — the src/messages/ analogue.
+
+One class per message, mirroring the reference's protocol surface for
+the mini-cluster slice: mon boot/beacon/failure/subscription + command
+(MOSDBoot, MOSDBeacon, MOSDFailure, MMonSubscribe, MMonCommand,
+src/messages/MOSDBoot.h etc.), map distribution (MOSDMap), the client
+op envelope (MOSDOp/MOSDOpReply), EC shard sub-ops
+(MOSDECSubOpWrite/Read + replies, src/messages/MOSDECSubOp*.h), the
+replication sub-op (MOSDRepOp), and recovery push (MOSDPGPush).
+
+Wire type ids follow the reference's message numbers where one exists
+(src/include/msgr.h / messages).
+"""
+
+from __future__ import annotations
+
+from ceph_tpu_torch.msg.denc import Decoder, Encoder
+from ceph_tpu_torch.msg.messenger import Message
+from ceph_tpu_torch.osd.types import pg_t
+
+
+def _enc_pg(enc: Encoder, pg: pg_t, shard: int = -1) -> None:
+    enc.i64(pg.pool)
+    enc.u32(pg.ps)
+    enc.i32(shard)
+
+
+def _dec_pg(dec: Decoder) -> tuple[pg_t, int]:
+    pool = dec.i64()
+    ps = dec.u32()
+    return pg_t(pool, ps), dec.i32()
+
+
+def _enc_map_str_bytes(enc: Encoder, d: dict[str, bytes]) -> None:
+    enc.u32(len(d))
+    for k in sorted(d):
+        enc.str_(k)
+        enc.bytes_(d[k])
+
+
+def _dec_map_str_bytes(dec: Decoder) -> dict[str, bytes]:
+    return {dec.str_(): dec.bytes_() for _ in range(dec.u32())}
+
+
+# -- mon <-> osd / client ---------------------------------------------------
+
+class MOSDBoot(Message):
+    """osd -> mon: I'm up at this address (src/messages/MOSDBoot.h)."""
+
+    TYPE = 71
+
+    def __init__(
+        self, osd: int = 0, host: str = "", port: int = 0,
+        weight: int = 0x10000, incarnation: int = 0,
+    ):
+        self.osd, self.host, self.port, self.weight = osd, host, port, weight
+        # fresh per daemon start (the reference's boot_epoch role):
+        # distinguishes a genuine fast restart from a paxos replay of
+        # the same boot command
+        self.incarnation = incarnation
+
+    def encode_payload(self, enc):
+        enc.i32(self.osd)
+        enc.str_(self.host)
+        enc.u32(self.port)
+        enc.u32(self.weight)
+        enc.u64(self.incarnation)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.i32(), dec.str_(), dec.u32(), dec.u32(), dec.u64())
+
+
+class MOSDBeacon(Message):
+    """osd -> mon liveness beacon (src/messages/MOSDBeacon.h), carrying
+    per-PG stats for the PGs this OSD leads — the MPGStats/DaemonServer
+    reporting plane (reference src/messages/MPGStats.h, src/mgr/
+    DaemonServer.cc) folded onto the beacon cadence."""
+
+    TYPE = 97
+
+    def __init__(self, osd: int = 0, epoch: int = 0, pg_stats: bytes = b"",
+                 statfs: bytes = b""):
+        self.osd, self.epoch = osd, epoch
+        self.pg_stats = pg_stats  # json: {"pool.ps": {state, objects}}
+        # json {"total", "used", "available"} from ObjectStore.statfs —
+        # the osd_stat_t usage block of the reference's MPGStats
+        self.statfs = statfs
+
+    def encode_payload(self, enc):
+        enc.i32(self.osd)
+        enc.u32(self.epoch)
+        enc.bytes_(self.pg_stats)
+        enc.bytes_(self.statfs)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.i32(), dec.u32(), dec.bytes_(), dec.bytes_())
+
+
+class MOSDFailure(Message):
+    """osd -> mon: peer looks dead (src/messages/MOSDFailure.h)."""
+
+    TYPE = 72
+
+    def __init__(self, reporter: int = 0, failed: int = 0, epoch: int = 0):
+        self.reporter, self.failed, self.epoch = reporter, failed, epoch
+
+    def encode_payload(self, enc):
+        enc.i32(self.reporter)
+        enc.i32(self.failed)
+        enc.u32(self.epoch)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.i32(), dec.i32(), dec.u32())
+
+
+class MMonSubscribe(Message):
+    """client/osd -> mon: send me maps from this epoch on
+    (src/messages/MMonSubscribe.h)."""
+
+    TYPE = 15
+
+    def __init__(self, start_epoch: int = 0):
+        self.start_epoch = start_epoch
+
+    def encode_payload(self, enc):
+        enc.u32(self.start_epoch)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u32())
+
+
+class MOSDMap(Message):
+    """mon -> *: encoded maps by epoch — full and/or incremental
+    (src/messages/MOSDMap.h carries both maps and incremental_maps)."""
+
+    TYPE = 41
+
+    def __init__(
+        self,
+        maps: dict[int, bytes] | None = None,
+        incs: dict[int, bytes] | None = None,
+    ):
+        self.maps = maps or {}
+        self.incs = incs or {}
+
+    def encode_payload(self, enc):
+        enc.u32(len(self.maps))
+        for epoch in sorted(self.maps):
+            enc.u32(epoch)
+            enc.bytes_(self.maps[epoch])
+        enc.u32(len(self.incs))
+        for epoch in sorted(self.incs):
+            enc.u32(epoch)
+            enc.bytes_(self.incs[epoch])
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(
+            {dec.u32(): dec.bytes_() for _ in range(dec.u32())},
+            {dec.u32(): dec.bytes_() for _ in range(dec.u32())},
+        )
+
+
+class MConfig(Message):
+    """mon -> daemons/clients: the centralized config database
+    (reference src/messages/MConfig.h, ConfigMonitor distribution).
+    Carries the full {section: {option: value}} map; receivers apply
+    the sections that address them at the 'mon' config source."""
+
+    TYPE = 62
+
+    def __init__(self, sections: dict[str, dict[str, str]] | None = None):
+        self.sections = sections or {}
+
+    def encode_payload(self, enc):
+        enc.u32(len(self.sections))
+        for who in sorted(self.sections):
+            enc.str_(who)
+            kv = self.sections[who]
+            enc.u32(len(kv))
+            for k in sorted(kv):
+                enc.str_(k)
+                enc.str_(kv[k])
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls({
+            dec.str_(): {
+                dec.str_(): dec.str_() for _ in range(dec.u32())
+            }
+            for _ in range(dec.u32())
+        })
+
+
+class MMonCommand(Message):
+    """CLI/admin command as json-ish kv (src/messages/MMonCommand.h)."""
+
+    TYPE = 50
+
+    def __init__(self, tid: int = 0, cmd: dict[str, str] | None = None):
+        self.tid = tid
+        self.cmd = cmd or {}
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        enc.u32(len(self.cmd))
+        for k in sorted(self.cmd):
+            enc.str_(k)
+            enc.str_(self.cmd[k])
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        return cls(tid, {dec.str_(): dec.str_() for _ in range(dec.u32())})
+
+
+class MMonCommandAck(Message):
+    TYPE = 51
+
+    def __init__(self, tid: int = 0, code: int = 0, rs: str = "", data: bytes = b""):
+        self.tid, self.code, self.rs, self.data = tid, code, rs, data
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        enc.i32(self.code)
+        enc.str_(self.rs)
+        enc.bytes_(self.data)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u64(), dec.i32(), dec.str_(), dec.bytes_())
+
+
+# -- client ops -------------------------------------------------------------
+
+# Read class
+OP_READ = 1
+OP_STAT = 4
+OP_GETXATTR = 11
+OP_GETXATTRS = 13
+OP_OMAP_GETKEYS = 15
+OP_OMAP_GETVALS = 16
+OP_OMAP_GETVALSBYKEYS = 19
+# Write class
+OP_WRITE_FULL = 2
+OP_DELETE = 3
+OP_WRITE = 5
+OP_APPEND = 6
+OP_ZERO = 7
+OP_TRUNCATE = 8
+OP_CREATE = 9        # exclusive create: EEXIST when the object exists
+OP_SETXATTR = 10
+OP_RMXATTR = 12
+OP_OMAP_SETKEYS = 14
+OP_OMAP_RMKEYS = 17
+OP_OMAP_CLEAR = 18
+# Watch/notify (PrimaryLogPG::do_osd_ops CEPH_OSD_OP_WATCH/NOTIFY)
+OP_WATCH = 20
+OP_UNWATCH = 21
+OP_NOTIFY = 22
+# Object-class call (cls dispatch, src/objclass/)
+OP_CALL = 23
+
+OP_ROLLBACK = 24     # CEPH_OSD_OP_ROLLBACK: restore head from a snap
+OP_LIST_SNAPS = 25   # CEPH_OSD_OP_LIST_SNAPS: dump the object's SnapSet
+# internal effect op (primary -> replica/shard): clone head -> clone
+# object before applying the rest of the vector (make_writeable COW);
+# off = clone id, data = json list of covered snaps
+OP_SNAP_CLONE = 26
+
+# cache tiering (CEPH_OSD_OP_CACHE_FLUSH/CACHE_EVICT/COPY_FROM,
+# src/osd/PrimaryLogPG.cc cache ops): flush writes a dirty cache
+# object back to the base pool; evict drops a clean one; copy-from
+# copies "srcpool:srcoid" (OSDOp.name) into the target object
+OP_CACHE_FLUSH = 27
+OP_CACHE_EVICT = 28
+OP_COPY_FROM = 29
+
+WRITE_OPS = frozenset({
+    OP_WRITE_FULL, OP_DELETE, OP_WRITE, OP_APPEND, OP_ZERO, OP_TRUNCATE,
+    OP_CREATE, OP_SETXATTR, OP_RMXATTR, OP_OMAP_SETKEYS, OP_OMAP_RMKEYS,
+    OP_OMAP_CLEAR, OP_ROLLBACK, OP_SNAP_CLONE,
+    OP_CACHE_FLUSH, OP_CACHE_EVICT, OP_COPY_FROM,
+})
+
+
+class OSDOp:
+    """One op of an MOSDOp vector (reference OSDOp, src/osd/osd_types.h:
+    op code + extent + name + indata; compound client operations are a
+    vector of these applied atomically, PrimaryLogPG::do_osd_ops)."""
+
+    __slots__ = ("op", "off", "length", "name", "data", "kv", "keys")
+
+    def __init__(
+        self, op: int, off: int = 0, length: int = 0, name: str = "",
+        data: bytes = b"", kv: dict[str, bytes] | None = None,
+        keys: list[str] | None = None,
+    ):
+        self.op, self.off, self.length, self.name = op, off, length, name
+        self.data = data
+        self.kv = kv or {}
+        self.keys = keys or []
+
+    def __repr__(self):
+        return (f"OSDOp(op={self.op}, off={self.off}, len={self.length}, "
+                f"name={self.name!r}, data={len(self.data)}B)")
+
+    def encode(self, enc: Encoder) -> None:
+        enc.u8(self.op)
+        enc.u64(self.off)
+        enc.u64(self.length)
+        enc.str_(self.name)
+        enc.bytes_(self.data)
+        _enc_map_str_bytes(enc, self.kv)
+        enc.u32(len(self.keys))
+        for k in self.keys:
+            enc.str_(k)
+
+    @classmethod
+    def decode(cls, dec: Decoder) -> "OSDOp":
+        return cls(
+            dec.u8(), dec.u64(), dec.u64(), dec.str_(), dec.bytes_(),
+            _dec_map_str_bytes(dec), [dec.str_() for _ in range(dec.u32())],
+        )
+
+    def is_write(self) -> bool:
+        if self.op == OP_CALL:
+            from ceph_tpu_torch.cls import method_is_write
+
+            c, _, m = self.name.partition(".")
+            return method_is_write(c, m)
+        return self.op in WRITE_OPS
+
+
+class MOSDOp(Message):
+    """client -> primary OSD (src/messages/MOSDOp.h): a vector of ops
+    on one object, applied atomically — the reference's compound-op
+    envelope dispatched by PrimaryLogPG::do_osd_ops
+    (PrimaryLogPG.cc:5979)."""
+
+    TYPE = 42
+
+    def __init__(
+        self, tid: int = 0, pool: int = 0, oid: str = "",
+        op: int | None = None, off: int = 0, length: int = 0,
+        data: bytes = b"", epoch: int = 0,
+        ops: list[OSDOp] | None = None, reqid: str = "",
+        snap_seq: int = 0, snaps: list[int] | None = None,
+        snapid: int | None = None, qos_class: str = "",
+    ):
+        self.tid, self.pool, self.oid = tid, pool, oid
+        self.epoch = epoch
+        # dmclock tenant tag: the OSD's mClock gate admits the op
+        # under this client class ('' = the built-in client class) —
+        # how multi-tenant QoS differentiation reaches the scheduler
+        self.qos_class = qos_class
+        # write SnapContext (MOSDOp snapc: seq + existing snaps,
+        # newest first) and read snap id (CEPH_NOSNAP = head)
+        from ceph_tpu_torch.osd.snaps import NOSNAP
+
+        self.snap_seq = snap_seq
+        self.snaps = snaps or []
+        self.snapid = NOSNAP if snapid is None else snapid
+        # stable across client resends (osd_reqid_t): the OSD's pg-log
+        # dup detection answers a retried non-idempotent op instead of
+        # re-applying it
+        self.reqid = reqid
+        if ops is not None:
+            self.ops = ops
+        elif op is not None:  # single-op convenience form
+            self.ops = [OSDOp(op, off=off, length=length, data=data)]
+        else:
+            self.ops = []
+
+    @property
+    def op(self) -> int:
+        """First op code (single-op convenience accessor)."""
+        return self.ops[0].op if self.ops else 0
+
+    @property
+    def data(self) -> bytes:
+        return self.ops[0].data if self.ops else b""
+
+    def is_write(self) -> bool:
+        return any(o.is_write() for o in self.ops)
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        enc.i64(self.pool)
+        enc.str_(self.oid)
+        enc.u32(len(self.ops))
+        for o in self.ops:
+            o.encode(enc)
+        enc.u32(self.epoch)
+        enc.str_(self.reqid)
+        enc.u64(self.snap_seq)
+        enc.u32(len(self.snaps))
+        for s in self.snaps:
+            enc.u64(s)
+        enc.u64(self.snapid)
+        enc.str_(self.qos_class)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid, pool, oid = dec.u64(), dec.i64(), dec.str_()
+        ops = [OSDOp.decode(dec) for _ in range(dec.u32())]
+        msg = cls(tid, pool, oid, epoch=dec.u32(), ops=ops, reqid=dec.str_())
+        msg.snap_seq = dec.u64()
+        msg.snaps = [dec.u64() for _ in range(dec.u32())]
+        msg.snapid = dec.u64()
+        msg.qos_class = dec.str_()
+        return msg
+
+
+class MOSDOpReply(Message):
+    """Per-op results mirror the reference's ops-vector echo with
+    outdata; ``result``/``data``/``size`` summarize op 0 for the
+    single-op common case."""
+
+    TYPE = 43
+
+    def __init__(
+        self, tid: int = 0, result: int = 0, data: bytes = b"",
+        epoch: int = 0, size: int = 0,
+        outs: list[tuple[int, bytes, dict[str, bytes]]] | None = None,
+    ):
+        self.tid, self.result, self.data = tid, result, data
+        self.epoch, self.size = epoch, size
+        # one (result, outdata, out_kv) per request op
+        self.outs = outs or []
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        enc.i32(self.result)
+        enc.bytes_(self.data)
+        enc.u32(self.epoch)
+        enc.u64(self.size)
+        enc.u32(len(self.outs))
+        for r, d, kv in self.outs:
+            enc.i32(r)
+            enc.bytes_(d)
+            _enc_map_str_bytes(enc, kv)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid, result, data, epoch, size = (
+            dec.u64(), dec.i32(), dec.bytes_(), dec.u32(), dec.u64()
+        )
+        outs = [
+            (dec.i32(), dec.bytes_(), _dec_map_str_bytes(dec))
+            for _ in range(dec.u32())
+        ]
+        return cls(tid, result, data, epoch, size, outs)
+
+
+# -- EC sub ops (src/messages/MOSDECSubOpWrite.h / MOSDECSubOpRead.h) -------
+
+class MOSDECSubOpWrite(Message):
+    """primary -> shard OSD: apply this shard chunk write."""
+
+    TYPE = 108
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), shard: int = 0,
+        from_osd: int = 0, oid: str = "", off: int = 0,
+        data: bytes = b"", attrs: dict[str, bytes] | None = None,
+        epoch: int = 0, truncate: int = -1, delete: bool = False,
+        version=None, guard=None, rmattrs: list[str] | None = None,
+        reqid: str = "", clone_snap: int = 0, clone_snaps: bytes = b"",
+        prev_version=None, guarded: bool = False,
+    ):
+        from ceph_tpu_torch.osd.pglog import ZERO
+
+        self.tid, self.pg, self.shard, self.from_osd = tid, pg, shard, from_osd
+        self.oid, self.off, self.data = oid, off, data
+        # COW directive: before applying the payload, clone the local
+        # head shard to (oid, snap=clone_snap); clone_snaps is the json
+        # covered-snaps list stored on the clone (make_writeable twin)
+        self.clone_snap = clone_snap
+        self.clone_snaps = clone_snaps
+        # stale-shard write guard: when ``guarded``, the shard applies
+        # only if its local object version equals ``prev_version`` (the
+        # primary's base) — a shard that missed earlier writes must be
+        # recovered first, not stamped current by a partial write (the
+        # reference blocks writes on missing objects until recovery,
+        # PrimaryLogPG::is_missing_object wait)
+        self.prev_version = prev_version if prev_version is not None else ZERO
+        self.guarded = guarded
+        self.attrs = attrs or {}
+        self.epoch, self.truncate, self.delete = epoch, truncate, delete
+        # attr names to remove (rmxattr; e.g. hinfo drop on RMW)
+        self.rmattrs = rmattrs or []
+        # client reqid carried into the shard's pg-log entry
+        self.reqid = reqid
+        from ceph_tpu_torch.osd.pglog import ZERO
+
+        # the pg-log eversion this write commits at (ZERO = unlogged,
+        # e.g. recovery pushes)
+        self.version = version if version is not None else ZERO
+        # recovery delete-replay guard: skip if the local object is
+        # newer than this (ZERO = unconditional)
+        self.guard = guard if guard is not None else ZERO
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        enc.str_(self.oid)
+        enc.u64(self.off)
+        enc.bytes_(self.data)
+        _enc_map_str_bytes(enc, self.attrs)
+        enc.u32(self.epoch)
+        enc.i64(self.truncate)
+        enc.bool_(self.delete)
+        _enc_ev(enc, self.version)
+        _enc_ev(enc, self.guard)
+        enc.u32(len(self.rmattrs))
+        for n in self.rmattrs:
+            enc.str_(n)
+        enc.str_(self.reqid)
+        enc.u64(self.clone_snap)
+        enc.bytes_(self.clone_snaps)
+        _enc_ev(enc, self.prev_version)
+        enc.bool_(self.guarded)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, shard = _dec_pg(dec)
+        msg = cls(
+            tid, pg, shard, dec.i32(), dec.str_(), dec.u64(),
+            dec.bytes_(), _dec_map_str_bytes(dec), dec.u32(),
+            dec.i64(), dec.bool_(), _dec_ev(dec), _dec_ev(dec),
+        )
+        msg.rmattrs = [dec.str_() for _ in range(dec.u32())]
+        msg.reqid = dec.str_()
+        msg.clone_snap = dec.u64()
+        msg.clone_snaps = dec.bytes_()
+        msg.prev_version = _dec_ev(dec)
+        msg.guarded = dec.bool_()
+        return msg
+
+
+class MOSDECSubOpWriteReply(Message):
+    TYPE = 109
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), shard: int = 0,
+        from_osd: int = 0, result: int = 0, epoch: int = 0,
+        floored: bool = False,
+    ):
+        self.tid, self.pg, self.shard = tid, pg, shard
+        self.from_osd, self.result, self.epoch = from_osd, result, epoch
+        # this apply pinned the replica's log-contiguity floor (it
+        # rejoined mid-traffic and skipped a version window): the
+        # primary must queue a recovery pass NOW — with no later map
+        # change there is no other trigger, and the member's earlier
+        # objects stay stale until scrub finds them
+        self.floored = floored
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        enc.i32(self.result)
+        enc.u32(self.epoch)
+        enc.bool_(self.floored)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, shard = _dec_pg(dec)
+        return cls(tid, pg, shard, dec.i32(), dec.i32(), dec.u32(),
+                   dec.bool_())
+
+
+class MOSDECSubOpRead(Message):
+    """primary -> shard OSD: read chunk extents (+ attrs on demand).
+
+    ``extents`` (list of (off, len) byte runs) is how CLAY sub-chunk
+    repair reads ride the wire: the reply carries the concatenation of
+    the runs, so a regenerating repair moves only sub_chunk_no/q of
+    each helper chunk (reference ECCommon.cc:262-299 passing
+    minimum_to_decode's runs down to shard reads)."""
+
+    TYPE = 110
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), shard: int = 0,
+        from_osd: int = 0, oid: str = "", off: int = 0, length: int = 0,
+        want_attrs: bool = False, epoch: int = 0,
+        extents: list[tuple[int, int]] | None = None,
+        snap: int | None = None,
+    ):
+        from ceph_tpu_torch.osd.snaps import NOSNAP
+
+        self.tid, self.pg, self.shard, self.from_osd = tid, pg, shard, from_osd
+        self.oid, self.off, self.length = oid, off, length
+        self.want_attrs, self.epoch = want_attrs, epoch
+        self.extents = extents or []
+        # which snap object of oid to read (NOSNAP = head shard)
+        self.snap = NOSNAP if snap is None else snap
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        enc.str_(self.oid)
+        enc.u64(self.off)
+        enc.u64(self.length)
+        enc.bool_(self.want_attrs)
+        enc.u32(self.epoch)
+        enc.u32(len(self.extents))
+        for o, ln in self.extents:
+            enc.u64(o)
+            enc.u64(ln)
+        enc.u64(self.snap)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, shard = _dec_pg(dec)
+        msg = cls(
+            tid, pg, shard, dec.i32(), dec.str_(), dec.u64(), dec.u64(),
+            dec.bool_(), dec.u32(),
+        )
+        msg.extents = [
+            (dec.u64(), dec.u64()) for _ in range(dec.u32())
+        ]
+        msg.snap = dec.u64()
+        return msg
+
+
+class MOSDECSubOpReadReply(Message):
+    TYPE = 111
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), shard: int = 0,
+        from_osd: int = 0, result: int = 0, data: bytes = b"",
+        attrs: dict[str, bytes] | None = None, epoch: int = 0,
+    ):
+        self.tid, self.pg, self.shard = tid, pg, shard
+        self.from_osd, self.result, self.data = from_osd, result, data
+        self.attrs = attrs or {}
+        self.epoch = epoch
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        enc.i32(self.result)
+        enc.bytes_(self.data)
+        _enc_map_str_bytes(enc, self.attrs)
+        enc.u32(self.epoch)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, shard = _dec_pg(dec)
+        return cls(
+            tid, pg, shard, dec.i32(), dec.i32(), dec.bytes_(),
+            _dec_map_str_bytes(dec), dec.u32(),
+        )
+
+
+# -- replicated sub op (src/messages/MOSDRepOp.h) ---------------------------
+
+class MOSDRepOp(Message):
+    """primary -> replica: the deterministic effect of one client write
+    vector (the reference ships the encoded ObjectStore::Transaction in
+    MOSDRepOp; here the primary resolves context-dependent ops like
+    append into deterministic ones and ships those)."""
+
+    TYPE = 112
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), from_osd: int = 0,
+        oid: str = "", data: bytes = b"", attrs: dict[str, bytes] | None = None,
+        delete: bool = False, epoch: int = 0, version=None,
+        ops: list[OSDOp] | None = None, reqid: str = "",
+    ):
+        self.tid, self.pg, self.from_osd = tid, pg, from_osd
+        self.oid, self.data = oid, data
+        self.attrs = attrs or {}
+        self.delete, self.epoch = delete, epoch
+        # effect vector (deterministic write ops); empty = legacy
+        # full-object payload in ``data``
+        self.ops = ops or []
+        self.reqid = reqid
+        from ceph_tpu_torch.osd.pglog import ZERO
+
+        self.version = version if version is not None else ZERO
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg)
+        enc.i32(self.from_osd)
+        enc.str_(self.oid)
+        enc.bytes_(self.data)
+        _enc_map_str_bytes(enc, self.attrs)
+        enc.bool_(self.delete)
+        enc.u32(self.epoch)
+        _enc_ev(enc, self.version)
+        enc.u32(len(self.ops))
+        for o in self.ops:
+            o.encode(enc)
+        enc.str_(self.reqid)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, _ = _dec_pg(dec)
+        msg = cls(
+            tid, pg, dec.i32(), dec.str_(), dec.bytes_(),
+            _dec_map_str_bytes(dec), dec.bool_(), dec.u32(), _dec_ev(dec),
+        )
+        msg.ops = [OSDOp.decode(dec) for _ in range(dec.u32())]
+        msg.reqid = dec.str_()
+        return msg
+
+
+class MOSDRepOpReply(Message):
+    TYPE = 113
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), from_osd: int = 0,
+        result: int = 0, epoch: int = 0, floored: bool = False,
+    ):
+        self.tid, self.pg, self.from_osd = tid, pg, from_osd
+        self.result, self.epoch = result, epoch
+        # see MOSDECSubOpWriteReply.floored — same contract for the
+        # replicated sub-op path
+        self.floored = floored
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg)
+        enc.i32(self.from_osd)
+        enc.i32(self.result)
+        enc.u32(self.epoch)
+        enc.bool_(self.floored)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, _ = _dec_pg(dec)
+        return cls(tid, pg, dec.i32(), dec.i32(), dec.u32(),
+                   dec.bool_())
+
+
+# -- recovery push (src/messages/MOSDPGPush.h) ------------------------------
+
+class MOSDPGPush(Message):
+    """primary -> peer: reconstructed shard/object payloads."""
+
+    TYPE = 105
+
+    def __init__(
+        self, pg: pg_t = pg_t(0, 0), shard: int = -1, from_osd: int = 0,
+        pushes: list[tuple[str, bytes, dict[str, bytes]]] | None = None,
+        epoch: int = 0, force: bool = False, tid: int = 0,
+    ):
+        self.pg, self.shard, self.from_osd = pg, shard, from_osd
+        self.pushes = pushes or []
+        self.epoch = epoch
+        # divergent rollback: overwrite even a newer local version (the
+        # newer write is being rolled back; its log entry is stripped)
+        self.force = force
+        # correlates the reply: concurrent pushes of different objects
+        # to the same (pg, shard, osd) are in flight at once under
+        # osd_recovery_max_active
+        self.tid = tid
+
+    def encode_payload(self, enc):
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        enc.u32(self.epoch)
+        enc.u32(len(self.pushes))
+        for oid, data, attrs in self.pushes:
+            enc.str_(oid)
+            enc.bytes_(data)
+            _enc_map_str_bytes(enc, attrs)
+        enc.bool_(self.force)
+        enc.u64(self.tid)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        pg, shard = _dec_pg(dec)
+        from_osd = dec.i32()
+        epoch = dec.u32()
+        pushes = [
+            (dec.str_(), dec.bytes_(), _dec_map_str_bytes(dec))
+            for _ in range(dec.u32())
+        ]
+        msg = cls(pg, shard, from_osd, pushes, epoch)
+        msg.force = dec.bool_()
+        msg.tid = dec.u64()
+        return msg
+
+
+class MOSDPGPushReply(Message):
+    TYPE = 106
+
+    def __init__(self, pg: pg_t = pg_t(0, 0), shard: int = -1,
+                 from_osd: int = 0, epoch: int = 0, tid: int = 0):
+        self.pg, self.shard, self.from_osd, self.epoch = pg, shard, from_osd, epoch
+        self.tid = tid
+
+    def encode_payload(self, enc):
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        enc.u32(self.epoch)
+        enc.u64(self.tid)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        pg, shard = _dec_pg(dec)
+        return cls(pg, shard, dec.i32(), dec.u32(), dec.u64())
+
+
+# -- peering / log exchange (src/messages/MOSDPGQuery.h, MOSDPGInfo.h,
+# MOSDPGLog.h — simplified to the primary-serialized model) -----------------
+
+def _enc_ev(enc: Encoder, ev) -> None:
+    enc.u32(ev[0] if isinstance(ev, tuple) else ev.epoch)
+    enc.u64(ev[1] if isinstance(ev, tuple) else ev.version)
+
+
+def _dec_ev(dec: Decoder):
+    from ceph_tpu_torch.osd.pglog import eversion_t
+
+    return eversion_t(dec.u32(), dec.u64())
+
+
+class MOSDPGQuery(Message):
+    """primary -> acting member: send me your pg_info (+ log entries
+    after ``since``, + your object list when ``want_objects``)."""
+
+    TYPE = 114
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), shard: int = -1,
+        from_osd: int = 0, since=None, want_objects: bool = False,
+        epoch: int = 0, clear_merge: bool = False,
+    ):
+        from ceph_tpu_torch.osd.pglog import ZERO
+
+        self.tid, self.pg, self.shard, self.from_osd = tid, pg, shard, from_osd
+        self.since = since if since is not None else ZERO
+        self.want_objects, self.epoch = want_objects, epoch
+        # primary finished the post-merge reconcile: drop your
+        # merge_pending marker (see RecoveryMixin._merge_pending)
+        self.clear_merge = clear_merge
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        _enc_ev(enc, self.since)
+        enc.bool_(self.want_objects)
+        enc.u32(self.epoch)
+        enc.bool_(self.clear_merge)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, shard = _dec_pg(dec)
+        return cls(
+            tid, pg, shard, dec.i32(), _dec_ev(dec), dec.bool_(),
+            dec.u32(), dec.bool_(),
+        )
+
+
+class MOSDPGInfo(Message):
+    """Reply to MOSDPGQuery: pg_info + optional log delta + objects."""
+
+    TYPE = 115
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), shard: int = -1,
+        from_osd: int = 0, last_update=None, log_tail=None,
+        entries: list[bytes] | None = None,
+        objects: list[tuple[str, bytes]] | None = None, epoch: int = 0,
+        past_acting: bytes = b"", merge_pending: bool = False,
+        missing: list[str] | None = None, contig_floor: bytes = b"",
+    ):
+        from ceph_tpu_torch.osd.pglog import ZERO
+
+        self.tid, self.pg, self.shard, self.from_osd = tid, pg, shard, from_osd
+        self.last_update = last_update if last_update is not None else ZERO
+        self.log_tail = log_tail if log_tail is not None else ZERO
+        self.entries = entries or []
+        self.objects = objects or []
+        self.epoch = epoch
+        # json chain of previous acting sets this member witnessed
+        # (PastIntervals sharing via pg info, newest last)
+        self.past_acting = past_acting
+        # this member's shard coll carries a not-yet-reconciled pg
+        # merge (its listing may include objects other members' logs
+        # cannot order) — the primary must not stray-reap this pass
+        self.merge_pending = merge_pending
+        # the member's SELF-AUDITED missing set (reference pg_missing_t
+        # via PGLog::rebuild_missing_set_with_repair): oids its own log
+        # names at versions its store does not serve.  last_update
+        # alone cannot carry this — log entries travel without data
+        # (adoption while briefly primary, MOSDPGLog sync), so a
+        # member can be log-current yet object-stale, invisible to the
+        # primary's missing_from() scoping (the stale-shard flake).
+        self.missing = missing or []
+        # encoded eversion key ("epoch.version") of this member's
+        # log-contiguity floor, empty when contiguous: a gapped log's
+        # last_update must not be trusted past this point (PGLog
+        # contig_floor — the missed-window marker)
+        self.contig_floor = contig_floor
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        _enc_ev(enc, self.last_update)
+        _enc_ev(enc, self.log_tail)
+        enc.u32(len(self.entries))
+        for e in self.entries:
+            enc.bytes_(e)
+        enc.u32(len(self.objects))
+        for oid, v in self.objects:
+            enc.str_(oid)
+            enc.bytes_(v)
+        enc.u32(self.epoch)
+        enc.bytes_(self.past_acting)
+        enc.bool_(self.merge_pending)
+        enc.u32(len(self.missing))
+        for oid in self.missing:
+            enc.str_(oid)
+        enc.bytes_(self.contig_floor)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, shard = _dec_pg(dec)
+        from_osd = dec.i32()
+        lu = _dec_ev(dec)
+        lt = _dec_ev(dec)
+        entries = [dec.bytes_() for _ in range(dec.u32())]
+        objects = [(dec.str_(), dec.bytes_()) for _ in range(dec.u32())]
+        epoch = dec.u32()
+        past_acting = dec.bytes_()
+        merge_pending = dec.bool_()
+        missing = [dec.str_() for _ in range(dec.u32())]
+        return cls(tid, pg, shard, from_osd, lu, lt, entries, objects,
+                   epoch, past_acting, merge_pending, missing,
+                   dec.bytes_())
+
+
+class MOSDPGLog(Message):
+    """primary -> recovered member: log entries beyond its last_update
+    so its pg_info catches up after object recovery."""
+
+    TYPE = 116
+
+    def __init__(
+        self, tid: int = 0, pg: pg_t = pg_t(0, 0), shard: int = -1,
+        from_osd: int = 0, entries: list[bytes] | None = None, epoch: int = 0,
+        tail=None, clear_floor: bool = False,
+    ):
+        from ceph_tpu_torch.osd.pglog import ZERO
+
+        self.tid, self.pg, self.shard, self.from_osd = tid, pg, shard, from_osd
+        self.entries = entries or []
+        self.epoch = epoch
+        # sender's log_tail: lets a backfilled peer know its own log has
+        # a gap below this point
+        self.tail = tail if tail is not None else ZERO
+        # primary-verified heal: every object through the receiver's
+        # contiguity gap was reconciled and the entries shipped here
+        # FILL its content holes — the receiver may clear its floor
+        self.clear_floor = clear_floor
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        enc.u32(len(self.entries))
+        for e in self.entries:
+            enc.bytes_(e)
+        enc.u32(self.epoch)
+        _enc_ev(enc, self.tail)
+        enc.bool_(self.clear_floor)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, shard = _dec_pg(dec)
+        from_osd = dec.i32()
+        entries = [dec.bytes_() for _ in range(dec.u32())]
+        return cls(tid, pg, shard, from_osd, entries, dec.u32(),
+                   _dec_ev(dec), dec.bool_())
+
+
+class MOSDPGLogAck(Message):
+    TYPE = 117
+
+    def __init__(self, tid: int = 0, pg: pg_t = pg_t(0, 0), shard: int = -1,
+                 from_osd: int = 0, result: int = 0, epoch: int = 0):
+        self.tid, self.pg, self.shard = tid, pg, shard
+        self.from_osd, self.result, self.epoch = from_osd, result, epoch
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        _enc_pg(enc, self.pg, self.shard)
+        enc.i32(self.from_osd)
+        enc.i32(self.result)
+        enc.u32(self.epoch)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        pg, shard = _dec_pg(dec)
+        return cls(tid, pg, shard, dec.i32(), dec.i32(), dec.u32())
+
+
+# -- watch/notify (src/messages/MWatchNotify.h) -----------------------------
+
+class MWatchNotify(Message):
+    """primary OSD -> watching client: a notify fired on an object the
+    client watches (reference MWatchNotify; the client acks with
+    MWatchNotifyAck and the notifier's OP_NOTIFY completes when every
+    watcher acked or timed out)."""
+
+    TYPE = 73
+
+    def __init__(
+        self, notify_id: int = 0, cookie: int = 0, oid: str = "",
+        pool: int = 0, payload: bytes = b"",
+    ):
+        self.notify_id, self.cookie = notify_id, cookie
+        self.oid, self.pool, self.payload = oid, pool, payload
+
+    def encode_payload(self, enc):
+        enc.u64(self.notify_id)
+        enc.u64(self.cookie)
+        enc.str_(self.oid)
+        enc.i64(self.pool)
+        enc.bytes_(self.payload)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u64(), dec.u64(), dec.str_(), dec.i64(), dec.bytes_())
+
+
+class MWatchNotifyAck(Message):
+    TYPE = 74
+
+    def __init__(
+        self, notify_id: int = 0, cookie: int = 0, reply: bytes = b"",
+    ):
+        self.notify_id, self.cookie, self.reply = notify_id, cookie, reply
+
+    def encode_payload(self, enc):
+        enc.u64(self.notify_id)
+        enc.u64(self.cookie)
+        enc.bytes_(self.reply)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u64(), dec.u64(), dec.bytes_())
+
+
+# -- heartbeats (src/messages/MOSDPing.h) -----------------------------------
+
+PING = 1
+PING_REPLY = 2
+
+
+class MOSDPing(Message):
+    """osd <-> osd liveness ping (reference MOSDPing over the front/back
+    heartbeat messengers, OSD::handle_osd_ping src/osd/OSD.cc:5735).
+    ``stamp`` echoes back so the sender can compute RTT."""
+
+    TYPE = 70
+
+    def __init__(
+        self, op: int = PING, from_osd: int = 0, epoch: int = 0,
+        stamp: int = 0,
+    ):
+        self.op, self.from_osd, self.epoch, self.stamp = (
+            op, from_osd, epoch, stamp,
+        )
+
+    def encode_payload(self, enc):
+        enc.u8(self.op)
+        enc.i32(self.from_osd)
+        enc.u32(self.epoch)
+        enc.u64(self.stamp)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u8(), dec.i32(), dec.u32(), dec.u64())
+
+
+# -- scrub (src/messages/MOSDScrub2.h) --------------------------------------
+
+class MOSDScrub(Message):
+    """mon -> primary OSD: scrub one PG (deep compares payload crcs vs
+    the HashInfo chains; repair reconstructs bad shards afterwards —
+    the `ceph pg repair` verb)."""
+
+    TYPE = 118
+
+    def __init__(self, tid: int = 0, pool: int = 0, ps: int = 0,
+                 deep: bool = False, repair: bool = False):
+        self.tid, self.pool, self.ps, self.deep = tid, pool, ps, deep
+        self.repair = repair
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        enc.i64(self.pool)
+        enc.u32(self.ps)
+        enc.bool_(self.deep)
+        enc.bool_(self.repair)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u64(), dec.i64(), dec.u32(), dec.bool_(), dec.bool_())
+
+
+class MOSDScrubReply(Message):
+    TYPE = 119
+
+    def __init__(self, tid: int = 0, result: int = 0, report: bytes = b""):
+        self.tid, self.result, self.report = tid, result, report
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        enc.i32(self.result)
+        enc.bytes_(self.report)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u64(), dec.i32(), dec.bytes_())
+
+
+class MBackfillReserve(Message):
+    """Backfill-reservation handshake between a recovering primary and
+    its acting-set replicas (src/messages/MBackfillReserve.h): REQUEST
+    asks the replica for one of its osd_max_backfills remote slots;
+    the replica answers GRANT or REJECT_TOOFULL (non-blocking — the
+    primary retries after osd_backfill_retry_interval); RELEASE frees
+    the slot when the PG goes clean."""
+
+    TYPE = 99  # MSG_OSD_BACKFILL_RESERVE (src/include/msgr.h)
+
+    REQUEST = 0
+    GRANT = 1
+    REJECT_TOOFULL = 2
+    RELEASE = 3
+
+    def __init__(self, tid: int = 0, op: int = 0, pool: int = 0,
+                 ps: int = 0, from_osd: int = 0, priority: int = 0):
+        self.tid, self.op = tid, op
+        self.pool, self.ps = pool, ps
+        self.from_osd, self.priority = from_osd, priority
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        enc.u8(self.op)
+        enc.i64(self.pool)
+        enc.u32(self.ps)
+        enc.i32(self.from_osd)
+        enc.i32(self.priority)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u64(), dec.u8(), dec.i64(), dec.u32(), dec.i32(),
+                   dec.i32())
+
+
+# -- mgr plane (src/messages/MMgrBeacon.h, MMgrMap.h, MMgrOpen.h,
+# MMgrReport.h, MMgrConfigure.h, MMonMgrReport.h) ---------------------------
+
+def _enc_map_str_f64(enc: Encoder, d: dict[str, float]) -> None:
+    """Float maps ride as repr strings (the denc layer is int/bytes
+    only; repr round-trips doubles exactly)."""
+    enc.u32(len(d))
+    for k in sorted(d):
+        enc.str_(k)
+        enc.str_(repr(float(d[k])))
+
+
+def _dec_map_str_f64(dec: Decoder) -> dict[str, float]:
+    return {dec.str_(): float(dec.str_()) for _ in range(dec.u32())}
+
+
+class MMgrBeacon(Message):
+    """mgr -> mon: I exist (active or standby is the MON's call —
+    reference MMgrBeacon / MgrMonitor::prepare_beacon).  ``gid`` is
+    fresh per daemon start, so the mon can tell a restarted mgr from a
+    paxos replay of the same beacon."""
+
+    TYPE = 120
+
+    def __init__(self, name: str = "", gid: int = 0, host: str = "",
+                 port: int = 0):
+        self.name, self.gid, self.host, self.port = name, gid, host, port
+
+    def encode_payload(self, enc):
+        enc.str_(self.name)
+        enc.u64(self.gid)
+        enc.str_(self.host)
+        enc.u32(self.port)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.str_(), dec.u64(), dec.str_(), dec.u32())
+
+
+class MMgrMap(Message):
+    """mon -> subscribers: the MgrMap (reference MMgrMap) — who is the
+    active mgr, the standbys, and the enabled-module set.  ``blob`` is
+    the json map; ``epoch`` is the MgrMap's own epoch (NOT an osdmap
+    epoch)."""
+
+    TYPE = 121
+
+    def __init__(self, epoch: int = 0, blob: bytes = b""):
+        self.epoch, self.blob = epoch, blob
+
+    def encode_payload(self, enc):
+        enc.u32(self.epoch)
+        enc.bytes_(self.blob)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u32(), dec.bytes_())
+
+
+class MMgrOpen(Message):
+    """daemon -> active mgr: open a report session (reference
+    MMgrOpen).  The mgr answers with MMgrConfigure."""
+
+    TYPE = 122
+
+    def __init__(self, daemon: str = "", metadata: bytes = b""):
+        self.daemon = daemon  # "osd.0", "mon.1", "mds.0", "rgw.main"
+        self.metadata = metadata  # json daemon metadata
+
+    def encode_payload(self, enc):
+        enc.str_(self.daemon)
+        enc.bytes_(self.metadata)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.str_(), dec.bytes_())
+
+
+class MMgrConfigure(Message):
+    """active mgr -> daemon: report-stream tuning (reference
+    MMgrConfigure: stats_period).  ``scrub_deprioritize`` closes the
+    analytics loop: the active mgr's outlier detection flags a slow
+    OSD and tells it to defer background scrubs (the slow-OSD-aware
+    scrub scheduling hook)."""
+
+    TYPE = 123
+
+    def __init__(self, period: float = 1.0,
+                 scrub_deprioritize: bool = False):
+        self.period = period
+        self.scrub_deprioritize = scrub_deprioritize
+
+    def encode_payload(self, enc):
+        enc.str_(repr(float(self.period)))
+        enc.bool_(self.scrub_deprioritize)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(float(dec.str_()), dec.bool_())
+
+
+class MMgrReport(Message):
+    """daemon -> active mgr: one telemetry report (reference
+    MMgrReport carrying packed PerfCounterInstances).
+
+    - ``counters``: perf-counter DELTAS since the previous report
+      (the mgr accumulates them back into cumulative series);
+    - ``gauges``: instantaneous values (also the per-interval latency
+      means the time-series ring buffers ingest);
+    - ``histograms``: cumulative fixed-bucket log2 latency histograms
+      (common/optracker.py LatencyHistogram), mergeable as arrays;
+    - ``status``: json side-channel (pg-state summary, the disk
+      read-error ledger, daemon health bits);
+    - ``spans``: json list of finished trace spans drained from the
+      daemon's tracer export buffers — the side channel the mgr's
+      TraceCollector assembles cluster-wide traces from.
+    """
+
+    TYPE = 124
+
+    def __init__(self, daemon: str = "", counters: dict | None = None,
+                 gauges: dict | None = None,
+                 histograms: dict[str, list[int]] | None = None,
+                 status: bytes = b"", spans: bytes = b""):
+        self.daemon = daemon
+        self.counters = counters or {}
+        self.gauges = gauges or {}
+        self.histograms = histograms or {}
+        self.status = status
+        self.spans = spans
+
+    def encode_payload(self, enc):
+        enc.str_(self.daemon)
+        _enc_map_str_f64(enc, self.counters)
+        _enc_map_str_f64(enc, self.gauges)
+        enc.u32(len(self.histograms))
+        for k in sorted(self.histograms):
+            enc.str_(k)
+            buckets = self.histograms[k]
+            enc.u32(len(buckets))
+            for b in buckets:
+                enc.u64(int(b))
+        enc.bytes_(self.status)
+        enc.bytes_(self.spans)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        daemon = dec.str_()
+        counters = _dec_map_str_f64(dec)
+        gauges = _dec_map_str_f64(dec)
+        histograms = {
+            dec.str_(): [dec.u64() for _ in range(dec.u32())]
+            for _ in range(dec.u32())
+        }
+        return cls(daemon, counters, gauges, histograms, dec.bytes_(),
+                   dec.bytes_())
+
+
+class MMonMgrReport(Message):
+    """active mgr -> mon: the cluster digest (reference MMonMgrReport:
+    health + service digest).  ``blob`` is json — per-OSD perf rows
+    for `ceph osd perf`, the analytics summary (percentiles, outlier
+    OSDs, top-slow list), module health checks, and optionally the
+    rendered prometheus exposition the dashboard serves."""
+
+    TYPE = 125
+
+    def __init__(self, blob: bytes = b""):
+        self.blob = blob
+
+    def encode_payload(self, enc):
+        enc.bytes_(self.blob)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.bytes_())
+
+
+# -- cluster log (src/messages/MLog.h, MLogAck.h) ---------------------------
+
+class MLog(Message):
+    """daemon -> mon: a batch of cluster-log entries from one daemon's
+    LogClient (reference MLog carrying LogEntry vectors).  ``entity``
+    identifies the sender once for the whole batch; each entry carries
+    its per-entity ``seq`` so the mon's LogMonitor twin can dedup
+    resends across flushes and mon failovers.  Entries are dicts
+    {"seq", "stamp", "channel", "level", "message"}."""
+
+    TYPE = 126
+
+    def __init__(self, entity: str = "", entries: list[dict] | None = None):
+        self.entity = entity
+        self.entries = entries or []
+
+    def encode_payload(self, enc):
+        enc.str_(self.entity)
+        enc.u32(len(self.entries))
+        for e in self.entries:
+            enc.u64(int(e["seq"]))
+            enc.str_(repr(float(e["stamp"])))
+            enc.str_(e["channel"])
+            enc.u8(int(e["level"]))
+            enc.str_(e["message"])
+
+    @classmethod
+    def decode_payload(cls, dec):
+        entity = dec.str_()
+        entries = [
+            {
+                "seq": dec.u64(),
+                "stamp": float(dec.str_()),
+                "channel": dec.str_(),
+                "level": dec.u8(),
+                "message": dec.str_(),
+            }
+            for _ in range(dec.u32())
+        ]
+        return cls(entity, entries)
+
+
+class MLogAck(Message):
+    """mon -> daemon: entries up to ``last_seq`` are committed in the
+    replicated cluster log (reference MLogAck); the LogClient drops
+    them from its resend buffer."""
+
+    TYPE = 127
+
+    def __init__(self, last_seq: int = 0):
+        self.last_seq = last_seq
+
+    def encode_payload(self, enc):
+        enc.u64(self.last_seq)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        return cls(dec.u64())
+
+
+# -- cephfs client <-> mds (src/messages/MClientRequest.h) ------------------
+
+class MClientRequest(Message):
+    """Filesystem metadata request (CEPH_MSG_CLIENT_REQUEST=24).  The
+    reference carries op-specific structs; the lite MDS takes the op
+    name + JSON args (paths resolve server-side, single-MDS v1)."""
+
+    TYPE = 24
+
+    def __init__(self, tid: int = 0, op: str = "", args: dict | None = None):
+        self.tid, self.op, self.args = tid, op, args or {}
+
+    def encode_payload(self, enc):
+        import json
+
+        enc.u64(self.tid)
+        enc.str_(self.op)
+        enc.bytes_(json.dumps(self.args).encode())
+
+    @classmethod
+    def decode_payload(cls, dec):
+        import json
+
+        tid = dec.u64()
+        op = dec.str_()
+        return cls(tid, op, json.loads(dec.bytes_() or b"{}"))
+
+
+class MClientCaps(Message):
+    """CEPH_MSG_CLIENT_CAPS=0x310 analogue: the cap traffic between
+    MDS (Locker) and fs clients.  ops:
+
+    - GRANT  (mds->client): you now hold ``caps`` on ``ino``;
+    - REVOKE (mds->client): give back everything above ``caps``; flush
+      buffered dirty state first;
+    - FLUSH  (client->mds): dirty size/mtime for ``path``/``ino`` (the
+      cap-flush that makes the MDS the size authority);
+    - ACK    (client->mds): revoke done (after any FLUSH);
+    - SNAPC  (mds->client): the data pool's snap context changed
+      (a .snap was created/removed) — update write snapc NOW.
+    """
+
+    TYPE = 25
+    GRANT, REVOKE, FLUSH, ACK, SNAPC = 0, 1, 2, 3, 4
+
+    def __init__(self, tid: int = 0, op: int = 0, ino: int = 0,
+                 caps: int = 0, path: str = "", size: int = -1,
+                 mtime: float = -1.0, snap_seq: int = 0,
+                 snaps: list[int] | None = None):
+        self.tid, self.op, self.ino, self.caps = tid, op, ino, caps
+        self.path, self.size, self.mtime = path, size, mtime
+        self.snap_seq = snap_seq
+        self.snaps = snaps or []
+
+    def encode_payload(self, enc):
+        enc.u64(self.tid)
+        enc.u8(self.op)
+        enc.u64(self.ino)
+        enc.u32(self.caps)
+        enc.str_(self.path)
+        enc.i64(self.size)
+        enc.str_(repr(self.mtime))
+        enc.u64(self.snap_seq)
+        enc.u32(len(self.snaps))
+        for s in self.snaps:
+            enc.u64(s)
+
+    @classmethod
+    def decode_payload(cls, dec):
+        tid = dec.u64()
+        op = dec.u8()
+        ino = dec.u64()
+        caps = dec.u32()
+        path = dec.str_()
+        size = dec.i64()
+        mtime = float(dec.str_())
+        seq = dec.u64()
+        snaps = [dec.u64() for _ in range(dec.u32())]
+        return cls(tid, op, ino, caps, path, size, mtime, seq, snaps)
+
+
+class MClientReply(Message):
+    """CEPH_MSG_CLIENT_REPLY=26: result code + JSON payload."""
+
+    TYPE = 26
+
+    def __init__(self, tid: int = 0, result: int = 0, out: dict | None = None):
+        self.tid, self.result, self.out = tid, result, out or {}
+
+    def encode_payload(self, enc):
+        import json
+
+        enc.u64(self.tid)
+        enc.i32(self.result)
+        enc.bytes_(json.dumps(self.out).encode())
+
+    @classmethod
+    def decode_payload(cls, dec):
+        import json
+
+        tid = dec.u64()
+        result = dec.i32()
+        return cls(tid, result, json.loads(dec.bytes_() or b"{}"))

@@ -10,6 +10,8 @@ numpy uint32 (with a plain-int fast path for the scalar mapper), and
 ``crush_hash32_2_torch`` / ``crush_hash32_3_torch`` on int32 tensors for
 the plain version of the batched CRUSH mapper.  Placement is a pure
 function of them, so they match the reference bit for bit.
+``ceph_str_hash_rjenkins`` is Jenkins' lookup2 over an object's name, on
+plain ints: the hash that places an object into its PG.
 
 crc32c is GF(2)-linear in (state, message), so over a width-W message
 
@@ -284,6 +286,51 @@ def crush_hash32_2_torch(a, b) -> torch.Tensor:
     x, a, h = _mix_torch(x, a, h)
     b, y, h = _mix_torch(b, y, h)
     return h
+
+
+def ceph_str_hash_rjenkins(data: bytes | str) -> int:
+    """Object-name hash (reference src/common/ceph_hash.cc
+    ceph_str_hash_rjenkins): Jenkins lookup2 over 12-byte blocks with
+    the length folded into c — the hash that places objects into PGs
+    (object_locator_to_pg, src/osd/osd_types.cc).  Pure-int (scalar
+    hot path: runs once per client op)."""
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    k = data
+    length = len(k)
+    a = 0x9E3779B9
+    b = 0x9E3779B9
+    c = 0
+    off = 0
+    ln = length
+    while ln >= 12:
+        a = (a + int.from_bytes(k[off : off + 4], "little")) & _M32
+        b = (b + int.from_bytes(k[off + 4 : off + 8], "little")) & _M32
+        c = (c + int.from_bytes(k[off + 8 : off + 12], "little")) & _M32
+        a, b, c = _mix_int(a, b, c)
+        off += 12
+        ln -= 12
+    c = (c + length) & _M32
+    tail = k[off:]
+    t = tail + b"\0" * (11 - len(tail))
+    if ln >= 9:
+        # the first byte of c is reserved for the length
+        c = (c + (
+            (t[8] << 8) | (t[9] << 16 if ln >= 10 else 0) | (t[10] << 24 if ln >= 11 else 0)
+        )) & _M32
+    if ln >= 5:
+        b = (b + (
+            t[4] | (t[5] << 8 if ln >= 6 else 0) | (t[6] << 16 if ln >= 7 else 0)
+            | (t[7] << 24 if ln >= 8 else 0)
+        )) & _M32
+    if ln >= 1:
+        a = (a + (
+            t[0] | (t[1] << 8 if ln >= 2 else 0) | (t[2] << 16 if ln >= 3 else 0)
+            | (t[3] << 24 if ln >= 4 else 0)
+        )) & _M32
+    a, b, c = _mix_int(a, b, c)
+    return c
+
 
 # ---------------------------------------------------------------------------
 # Host-side GF(2) operators (numpy)

@@ -6,8 +6,7 @@ PG folding that lets pg_num grow without reshuffling every object, the
 pool-salted placement seed (``raw_pg_to_pps``,
 src/osd/osd_types.cc:1805-1827), and the replicated/erasure split that
 decides whether holes may shift left (``can_shift_osds``,
-src/osd/osd_types.h:1762).  ``get_snap_context`` comes with the OSD
-slice, with the snaps module it needs.
+src/osd/osd_types.h:1762).
 """
 
 from __future__ import annotations
@@ -117,6 +116,18 @@ class PgPool:
         """Read every available shard and decode from the first k to
         answer (pool fast_read flag; reference ECCommon.cc:531)."""
         return self.extra.get("fast_read") == "1"
+
+    def get_snap_context(self):
+        """Pool-snap SnapContext (pg_pool_t::get_snap_context): used for
+        writes from clients that did not set a self-managed context."""
+        from ceph_tpu_torch.osd.snaps import SnapContext
+
+        live = sorted(
+            (s for s in self.pool_snaps.values()
+             if s not in self.removed_snaps),
+            reverse=True,
+        )
+        return SnapContext(seq=self.snap_seq if live else 0, snaps=live)
 
     def is_erasure(self) -> bool:
         return self.type == PoolType.ERASURE

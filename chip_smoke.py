@@ -107,7 +107,33 @@ through the port's entry points:
    ``DecodeAggregator`` into a fresh store, remounted and read back equal;
    a ``bitflip`` data fault armed through ``FAULTS`` on ``osd.5``: the next
    read of that object answers EIO, fsck finds the blob, and
-   ``decode_concat`` without that shard returns the object.
+   ``decode_concat`` without that shard returns the object;
+14. sub-op — the card's shards carried over the messenger into PG-logged
+   BlockStores, with no daemon: the remap phase's map goes from a mon
+   messenger to a follower, epoch 1 whole in an ``MOSDMap`` and each later
+   epoch as ``encode_incremental(diff_osdmap(...))`` applied with
+   ``apply_map_message``; at every epoch the follower's map re-encodes to
+   the sender's bytes, its ``BatchedClusterMapper`` rows equal the
+   sender's for every PG, and only the first epoch uploads the compiled
+   map.  Then an RS(8,3) pool (``pg_num`` 32) on 12 OSDs on 12 hosts, each
+   OSD a ``Messenger`` on 127.0.0.1 in crc mode, an ``MClockGate`` with the
+   config's weights and a ``BlockStore`` on its own ``FileDB``: the map
+   sent to every OSD; 64 objects of 4 MiB placed (``object_to_pg``, then
+   the pool's acting sets on the card, each equal to the scalar
+   pipeline), encoded on the card, and each shard sent as an
+   ``MOSDECSubOpWrite`` (hinfo, ``_v``, ``_size``, a version counted per
+   PG, a reqid), all 704 at once; each OSD admits it as a client op and
+   applies the new object's shard write with its ``PGLog.append`` in one
+   transaction.  OSD 5 goes down and out as an incremental; the pool is
+   remapped on the card (no upload: CRUSH did not change); each shard on
+   it is rebuilt on the card from k survivors' ``MOSDECSubOpRead``s
+   through a prewarmed ``DecodeAggregator`` (crc32c == HashInfo) and
+   pushed unlogged to its new OSD, and each shard the remap moved off a
+   live OSD is copied there.  Every messenger shut down (no task left),
+   every store remounted with a clean ``fsck()``, every PG log loaded and
+   equal to what was sent to it (pushed collections hold none), and each
+   object read back from the stores without shard 2 and decoded on the
+   card equal to what was written.
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -133,9 +159,12 @@ before and after phase 12: ``farm_fold`` and the bit-matrix kernel; and
 before and after phase 13, and around each of its steps: the bit-matrix
 kernel at the encode and at the rebuild, the crc and the compare at the
 scrub, the scrub's and the decode's prewarms counted apart (the
-``store_path_launches`` line, with the launches of each step).  A
-``wall`` line gives the smoke's seconds from the build to the kernel
-rows and the store path's share of them.  Then a
+``store_path_launches`` line, with the launches of each step); and
+before and after phase 14, and around each of its steps: CRUSH at the
+wire remap, the placement and the loss, the bit-matrix kernel at the
+encode, the rebuild and the read-back (the ``subop_path_launches``
+line).  A ``wall`` line gives the smoke's seconds from the build to the
+kernel rows and the store and sub-op paths' shares of them.  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, the main path's memset µs, and the device time per launch at
 each kernel's main-path shape (and at each forced width of the launch
@@ -200,6 +229,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import native
+from ceph_tpu_torch.common.config import ConfigProxy
 from ceph_tpu_torch.common.fault_injector import FAULTS
 from ceph_tpu_torch.crush import builder as crush_builder
 from ceph_tpu_torch.crush import cudamapper as cm
@@ -217,14 +247,25 @@ from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
 from ceph_tpu_torch.mgr import analytics as mgr_analytics
 from ceph_tpu_torch.mgr import daemon as mgr_daemon
 from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
+from ceph_tpu_torch.msg.messages import (
+    MOSDECSubOpRead,
+    MOSDECSubOpReadReply,
+    MOSDECSubOpWrite,
+    MOSDECSubOpWriteReply,
+    MOSDMap,
+)
+from ceph_tpu_torch.msg.messenger import Messenger
 from ceph_tpu_torch.ops import analytics_kernels as ak
 from ceph_tpu_torch.ops import hashing
 from ceph_tpu_torch.ops import lab_kernels as lk
 from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.ops.gf256 import gf_matmul, gf_matrix_to_bitmatrix
-from ceph_tpu_torch.osd import ecutil, remap
+from ceph_tpu_torch.osd import ecutil, mapenc, pgutil, remap
 from ceph_tpu_torch.osd.balancer import UpmapBalancer
+from ceph_tpu_torch.osd.opqueue import MClockGate
 from ceph_tpu_torch.osd.osdmap import OSDMap
+from ceph_tpu_torch.osd.pglog import MODIFY, ZERO, PGLog, eversion_t, pg_log_entry_t
+from ceph_tpu_torch.osd.scheduler import ClientProfile
 from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL, PgPool, PoolType, pg_t
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
 from ceph_tpu_torch.parallel.encode_farm import Mesh, batch_encode_dp, sharded_encode_tp
@@ -441,9 +482,9 @@ class Config:
     #: global scratch): the check shapes past 2632 daemons and past a
     #: window of 701
     mgr_staged_shapes: tuple = ((3000, 2, 32), (16, 2, 1000))
-    #: the store path: objects of the write phase's size, each shard in the
-    #: BlockStore of its OSD; the profile's device-min-bytes where it is
-    #: not the plugin's
+    #: the store and sub-op paths: objects of the write phase's size, each
+    #: shard in the BlockStore of its OSD; the profile's device-min-bytes
+    #: where it is not the plugin's
     store_objects: int = 64
     store_object_bytes: int = 4 * MiB
     store_device_min_bytes: int | None = None
@@ -899,18 +940,24 @@ def make_pool(cfg: Config, device):
     return ec, sinfo
 
 
+def encode_objects(sinfo, ec, objects: list) -> list:
+    """Each object's shards encoded on the plugin's device and its
+    ``HashInfo`` over them: a (shards, hinfo) pair an object."""
+    written = []
+    for obj in objects:
+        shards = ecutil.encode(sinfo, ec, obj)
+        hinfo = ecutil.HashInfo(len(shards))
+        hinfo.append(0, shards)
+        written.append((shards, hinfo))
+    return written
+
+
 def phase_write(cfg: Config, device, ec, sinfo):
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     sizes = [cfg.object_bytes] * cfg.objects + [cfg.small_object_bytes] * cfg.small_objects
     objects = [_rand((n,), gen, device).cpu().numpy() for n in sizes]
-    n = ec.get_chunk_count()
-    written = []
     t0 = time.perf_counter()
-    for obj in objects:
-        shards = ecutil.encode(sinfo, ec, obj)
-        hinfo = ecutil.HashInfo(n)
-        hinfo.append(0, shards)
-        written.append((shards, hinfo))
+    written = encode_objects(sinfo, ec, objects)
     dt = time.perf_counter() - t0
     total = sum(sizes)
     emit({"phase": "write", "objects": len(objects), "logical_bytes": total,
@@ -2801,18 +2848,28 @@ STORE_STEP_KERNELS = (("encode", "gf_bitmatmul"), ("scrub", "batched_crc32c_devi
                       ("scrub", "gf_encode_compare"), ("rebuild", "gf_bitmatmul"))
 
 
-def store_counts() -> dict:
-    """The store path's kernel counts as they stand: the bit-matrix
-    kernel (every entry point), the crc and the compare."""
+def kernel_counts(table: tuple) -> dict:
+    """The counts as they stand of the kernels that a (step, kernel)
+    table names: ``gf_bitmatmul`` sums every entry point of the
+    bit-matrix kernel, ``crush_rule`` every rule kind."""
     rc = rk.launch_counts()
-    return {"gf_bitmatmul": sum(c for name, c in rc.items() if name.startswith("gf_bitmatmul")),
-            "batched_crc32c_device": hashing.launch_counts()["batched_crc32c_device"],
-            "gf_encode_compare": rc["gf_encode_compare"]}
+    now = {"gf_bitmatmul": sum(c for name, c in rc.items() if name.startswith("gf_bitmatmul")),
+           "gf_encode_compare": rc["gf_encode_compare"],
+           "batched_crc32c_device": hashing.launch_counts()["batched_crc32c_device"],
+           "crush_rule": sum(cm.launch_counts().values())}
+    return {kernel: now[kernel] for _, kernel in table}
 
 
 def counts_since(before: dict) -> dict:
-    now = store_counts()
-    return {name: now[name] - before[name] for name in now}
+    """Launches of each kernel of ``before`` since it was read."""
+    now = kernel_counts(tuple((None, kernel) for kernel in before))
+    return {name: now[name] - before[name] for name in before}
+
+
+def path_idle(steps: dict, table: tuple) -> list[str]:
+    """The (step, kernel) pairs of ``table`` where the step launched the
+    kernel no time, as ``kernel:step``."""
+    return sorted(f"{kernel}:{step}" for step, kernel in table if steps[step][kernel] <= 0)
 
 
 def store_profile(cfg: Config) -> dict:
@@ -2887,13 +2944,8 @@ def phase_store(cfg: Config, device, root: str) -> dict:
     stores = {s: open_store(paths[s], s) for s in range(n)}
     try:
         # 1. encode on the card, one transaction a shard
-        c0, t0 = store_counts(), time.perf_counter()
-        written = []
-        for obj in objects:
-            shards = ecutil.encode(sinfo, ec, obj)
-            hinfo = ecutil.HashInfo(n)
-            hinfo.append(0, shards)
-            written.append((shards, hinfo))
+        c0, t0 = kernel_counts(STORE_STEP_KERNELS), time.perf_counter()
+        written = encode_objects(sinfo, ec, objects)
         secs["encode"] = time.perf_counter() - t0
         steps["encode"] = counts_since(c0)
         t0 = time.perf_counter()
@@ -2927,7 +2979,7 @@ def phase_store(cfg: Config, device, root: str) -> dict:
 
         # 4. deep scrub of the read-back shards, against the stored hinfo
         ver = ScrubVerifier(device=device, crc_lanes=cfg.crc_lanes)
-        c0 = store_counts()
+        c0 = kernel_counts(STORE_STEP_KERNELS)
         out["scrub_prewarmed_shapes"] = ver.prewarm(ec)
         steps["scrub_prewarm"] = counts_since(c0)
 
@@ -2938,7 +2990,7 @@ def phase_store(cfg: Config, device, root: str) -> dict:
                     ver.verify_object(ec, o) for o in readback[at:at + cfg.scrub_chunk]))
             return res
 
-        c0, t0 = store_counts(), time.perf_counter()
+        c0, t0 = kernel_counts(STORE_STEP_KERNELS), time.perf_counter()
         checks = asyncio.run(scrub())
         secs["scrub"] = time.perf_counter() - t0
         steps["scrub"] = counts_since(c0)
@@ -2955,7 +3007,7 @@ def phase_store(cfg: Config, device, root: str) -> dict:
         stores.pop(lost).umount()
         shutil.rmtree(paths[lost])
         agg = DecodeAggregator(device=device)
-        c0 = store_counts()
+        c0 = kernel_counts(STORE_STEP_KERNELS)
         out["decode_prewarmed_shapes"] = agg.prewarm(ec, erasure_counts=(1,))
         steps["decode_prewarm"] = counts_since(c0)
 
@@ -2966,7 +3018,7 @@ def phase_store(cfg: Config, device, root: str) -> dict:
                     aggregator=agg)
                 for got in readback))
 
-        c0, t0 = store_counts(), time.perf_counter()
+        c0, t0 = kernel_counts(STORE_STEP_KERNELS), time.perf_counter()
         rebuilt = asyncio.run(rebuild())
         secs["rebuild"] = time.perf_counter() - t0
         steps["rebuild"] = counts_since(c0)
@@ -2992,7 +3044,7 @@ def phase_store(cfg: Config, device, root: str) -> dict:
         victim, at = STORE_FLIP_SHARD, min(STORE_FLIP_OBJECT, cfg.store_objects - 1)
         key = f"store.read.osd.{victim}"
         FAULTS.inject(key, bitflip=True, count=1)
-        c0, t0 = store_counts(), time.perf_counter()
+        c0, t0 = kernel_counts(STORE_STEP_KERNELS), time.perf_counter()
         try:
             stores[victim].read(shard_coll(victim), ghobject_t(oids[at], shard=victim))
             eio = None
@@ -3028,14 +3080,6 @@ def check_store(line: dict) -> None:
         raise AssertionError(f"store path: {bad or flip}")
 
 
-def store_path_idle(steps: dict) -> list[str]:
-    """The store path's kernels that a step launched no time: the
-    bit-matrix kernel at the encode and at the rebuild, the crc and the
-    compare at the scrub (its prewarm's launches do not count)."""
-    return sorted(f"{kernel}:{step}" for step, kernel in STORE_STEP_KERNELS
-                  if steps[step][kernel] <= 0)
-
-
 def run_store_path(cfg: Config, device) -> dict:
     """Phase 13 with its launches counted alone: reset just before, read
     just after, in a temporary directory removed at the end.  On the card
@@ -3051,10 +3095,595 @@ def run_store_path(cfg: Config, device) -> dict:
     launches = {**rk.launch_counts(), **hashing.launch_counts()}
     emit(line)
     check_store(line)
-    idle = store_path_idle(line["launches_by_step"])
+    idle = path_idle(line["launches_by_step"], STORE_STEP_KERNELS)
     if torch.device(device).type == "cuda" and idle:
         raise AssertionError(f"kernels not launched on the store path: {idle}")
     return {"store": line, "launches": launches, "idle": idle}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the sub-op path, the card's EC shards over the messenger into
+# PG-logged BlockStores
+# ---------------------------------------------------------------------------
+
+#: the sub-op pool's id and its profile's name; its cluster: 12 OSDs on
+#: 12 hosts, osd_pool_default_pg_num PGs; the OSD lost, the shard the
+#: read-back goes without, and the seconds a reply may take
+SUBOP_POOL = 1
+SUBOP_PROFILE = "subop"
+SUBOP_OSDS = 12
+SUBOP_PG_NUM = 32
+SUBOP_LOST_OSD = 5
+SUBOP_READ_MISSING = 2
+SUBOP_TIMEOUT = 120.0
+#: the kernels that each step of the sub-op path must launch on the card
+SUBOP_STEP_KERNELS = (("mapenc_scale", "crush_rule"), ("place", "crush_rule"),
+                      ("lose", "crush_rule"), ("encode", "gf_bitmatmul"),
+                      ("lose", "gf_bitmatmul"), ("readback", "gf_bitmatmul"))
+
+
+def map_uploads() -> int:
+    return remap.counters()["map_uploads"]
+
+
+def copy_map(om: OSDMap) -> OSDMap:
+    """A copy of ``om`` through its own encoding (the mon's committed map)."""
+    return mapenc.decode_osdmap(mapenc.encode_osdmap(om))
+
+
+def subop_map(cfg: Config, ec, addrs: dict) -> OSDMap:
+    """The sub-op pool's map, epoch 1: ``SUBOP_OSDS`` OSDs on as many
+    hosts (straw2, all up and in, each at its messenger's address), and
+    one EC pool of ``SUBOP_PG_NUM`` PGs on the indep rule the profile
+    creates (``crush-failure-domain=host``), min_size k+1."""
+    crush = CrushMap()
+    crush_builder.build_hierarchy(crush, osds_per_host=1, n_hosts=SUBOP_OSDS)
+    om = OSDMap(crush=crush, epoch=1)
+    for osd in range(SUBOP_OSDS):
+        om.new_osd(osd, weight=0x10000, up=True)
+        om.osd_addrs[osd] = addrs[osd]
+    rule = ec.create_rule(SUBOP_PROFILE, crush)
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    om.pools[SUBOP_POOL] = PgPool(id=SUBOP_POOL, type=PoolType.ERASURE, size=n, min_size=k + 1,
+                                  crush_rule=rule, pg_num=SUBOP_PG_NUM,
+                                  pgp_num=SUBOP_PG_NUM, erasure_code_profile=SUBOP_PROFILE)
+    om.pool_names[SUBOP_POOL] = "ecpool"
+    om.erasure_code_profiles[SUBOP_PROFILE] = {**subop_profile(cfg), "plugin": "cuda"}
+    return om
+
+
+def subop_profile(cfg: Config) -> dict:
+    return {**store_profile(cfg), "crush-failure-domain": "host"}
+
+
+class MapFollower:
+    """A messenger that follows the mon's maps: each ``MOSDMap`` is
+    applied with ``apply_map_message`` (a new map object on every
+    change) and its epoch put on ``applied``."""
+
+    def __init__(self, entity: tuple[str, int], conf: ConfigProxy):
+        self.entity = entity
+        self.msgr = Messenger(entity, self.dispatch, compress_mode=conf["ms_compress_mode"])
+        self.osdmap: OSDMap | None = None
+        self.applied: asyncio.Queue = asyncio.Queue()
+        self.apply_s = 0.0
+        self.gaps = 0
+
+    async def dispatch(self, msg) -> None:
+        if isinstance(msg, MOSDMap):
+            t0 = time.perf_counter()
+            self.osdmap, gap = mapenc.apply_map_message(self.osdmap, msg.maps, msg.incs)
+            self.apply_s += time.perf_counter() - t0
+            self.gaps += gap
+            self.applied.put_nowait(self.osdmap.epoch)
+
+
+class SubOpOSD(MapFollower):
+    """One OSD of the sub-op path, without the daemon: its messenger (crc
+    mode), an mClock gate with the config's weights, a BlockStore on its
+    own FileDB and its PG logs.  The dispatcher applies maps, EC shard
+    writes (admitted through the gate; logged when they carry a version,
+    as a new object's shard write logs: touch, write, truncate, setattrs,
+    ``PGLog.append``) and EC shard reads."""
+
+    def __init__(self, osd: int, path: str, conf: ConfigProxy):
+        super().__init__(("osd", osd), conf)
+        self.id, self.path, self.conf = osd, path, conf
+        self.store = open_store(path, osd)
+        self.gate = MClockGate(
+            max_inflight=conf["osd_op_queue_max_inflight"],
+            profiles={
+                "client": ClientProfile(weight=conf["osd_mclock_scheduler_client_wgt"]),
+                "recovery": ClientProfile(
+                    weight=conf["osd_mclock_scheduler_background_recovery_wgt"]),
+                "best_effort": ClientProfile(
+                    weight=conf["osd_mclock_scheduler_background_best_effort_wgt"]),
+            })
+        self.logs: dict[coll_t, PGLog] = {}
+
+    def pg_log(self, c: coll_t) -> PGLog:
+        lg = self.logs.get(c)
+        if lg is None:
+            lg = self.logs[c] = PGLog(c)
+            lg.load(self.store)
+        return lg
+
+    def object_version(self, c: coll_t, o: ghobject_t) -> eversion_t:
+        try:
+            return pgutil._v_parse(self.store.getattr(c, o, pgutil.VERSION_ATTR))
+        except (FileNotFoundError, KeyError):
+            return ZERO
+
+    def shard_write_txn(self, msg: MOSDECSubOpWrite) -> Transaction:
+        """A whole-shard write of a new object (no rollback sidecar, no
+        clone: nothing was there, and the pool has no snaps), logged at
+        ``msg.version`` unless that is ZERO (a recovery push)."""
+        c, o = coll_t(msg.pg.pool, msg.pg.ps, msg.shard), ghobject_t(msg.oid, shard=msg.shard)
+        t = Transaction()
+        if not self.store.collection_exists(c):
+            t.create_collection(c)
+        t.touch(c, o)
+        t.write(c, o, msg.off, msg.data)
+        t.truncate(c, o, len(msg.data))
+        t.setattrs(c, o, msg.attrs)
+        if msg.version > ZERO:
+            lg = self.pg_log(c)
+            entry = pg_log_entry_t(MODIFY, msg.oid, msg.version, self.object_version(c, o),
+                                   msg.reqid)
+            if msg.version > lg.info.last_update:
+                lg.append(t, entry)
+            else:
+                lg.fill(t, entry)
+            if len(lg.entries) > self.conf["osd_max_pg_log_entries"]:
+                lg.trim(t, self.conf["osd_min_pg_log_entries"])
+        return t
+
+    async def dispatch(self, msg) -> None:
+        if isinstance(msg, MOSDECSubOpWrite):
+            klass = "client" if msg.version > ZERO else "recovery"
+            try:
+                async with self.gate.admit(klass, cost=1.0 + len(msg.data) / 65536.0):
+                    self.store.queue_transaction(self.shard_write_txn(msg))
+                result = 0
+            except OSError as e:
+                result = -(e.errno or errno.EIO)
+            await msg.conn.send_message(MOSDECSubOpWriteReply(
+                tid=msg.tid, pg=msg.pg, shard=msg.shard, from_osd=self.id, result=result,
+                epoch=self.osdmap.epoch))
+        elif isinstance(msg, MOSDECSubOpRead):
+            c, o = coll_t(msg.pg.pool, msg.pg.ps, msg.shard), ghobject_t(msg.oid, shard=msg.shard)
+            try:
+                data = self.store.read(c, o, msg.off, msg.length or None)
+                attrs = self.store.getattrs(c, o) if msg.want_attrs else {}
+                reply = MOSDECSubOpReadReply(tid=msg.tid, pg=msg.pg, shard=msg.shard,
+                                             from_osd=self.id, result=0, data=data, attrs=attrs,
+                                             epoch=self.osdmap.epoch)
+            except (OSError, KeyError) as e:
+                reply = MOSDECSubOpReadReply(tid=msg.tid, pg=msg.pg, shard=msg.shard,
+                                             from_osd=self.id,
+                                             result=-(getattr(e, "errno", None) or errno.ENOENT),
+                                             epoch=self.osdmap.epoch)
+            await msg.conn.send_message(reply)
+        else:
+            await super().dispatch(msg)
+
+
+class SubOpDriver:
+    """The primaries' side of the sub-ops, with no daemon: one messenger
+    that sends each shard write and read to the OSD the map names for it
+    and matches the replies to the requests by tid."""
+
+    def __init__(self, conf: ConfigProxy, timeout: float):
+        self.msgr = Messenger(("client", 0), self.dispatch,
+                              compress_mode=conf["ms_compress_mode"])
+        self.timeout = timeout
+        self.pending: dict[int, asyncio.Future] = {}
+        self.tid = 0
+        self.frames = 0
+        self.shard_bytes = 0
+
+    async def dispatch(self, msg) -> None:
+        fut = self.pending.pop(msg.tid, None)
+        if fut is not None and not fut.done():
+            fut.set_result(msg)
+
+    async def call(self, om: OSDMap, osd: int, msg):
+        """Send ``msg`` to ``osd`` at its address in ``om``; its reply."""
+        self.tid += 1
+        msg.tid = self.tid
+        fut = asyncio.get_running_loop().create_future()
+        self.pending[msg.tid] = fut
+        conn = await self.msgr.connect_to(("osd", osd), *om.osd_addrs[osd])
+        await conn.send_message(msg)
+        self.frames += 1
+        self.shard_bytes += len(getattr(msg, "data", b""))
+        return await asyncio.wait_for(fut, self.timeout)
+
+
+async def send_map(mon: Messenger, followers: list, msg: MOSDMap, epoch: int,
+                   timeout: float) -> None:
+    """``msg`` from the mon to every follower; returns once each has applied ``epoch``."""
+    async def one(f):
+        conn = await mon.connect_to(f.entity, *f.msgr.addr)
+        await conn.send_message(msg)
+        got = await asyncio.wait_for(f.applied.get(), timeout)
+        if got != epoch:
+            raise AssertionError(f"{f.entity} applied epoch {got}, not {epoch}")
+
+    await asyncio.gather(*(one(f) for f in followers))
+
+
+def _mapping_rows_differ(a: dict, b: dict) -> tuple[int, int]:
+    """(rows compared, rows that differ) between two map_cluster results."""
+    rows = bad = 0
+    for pid, pa in a.items():
+        pb = b[pid]
+        diff = np.zeros(len(pa.up_cnt), bool)
+        for x, y in zip(pa, pb):
+            x, y = np.asarray(x), np.asarray(y)
+            diff |= (x != y) if x.ndim == 1 else (x != y).any(axis=1)
+        rows += len(diff)
+        bad += int(diff.sum())
+    return rows, bad
+
+
+async def subop_mapenc_scale(cfg: Config, device, mon: Messenger, conf: ConfigProxy) -> dict:
+    """The remap phase's map sent to a follower: epoch 1 whole, each
+    later epoch as an incremental; at every epoch the follower's map
+    re-encodes to the sender's bytes and its ``BatchedClusterMapper``
+    rows equal the sender's for every PG of the three pools."""
+    follower = MapFollower(("client", 1), conf)
+    await follower.msgr.bind()
+    try:
+        om = remap_map(cfg, device)
+        conn = await mon.connect_to(follower.entity, *follower.msgr.addr)
+        epochs, res = [], None
+        for e in range(1 + cfg.remap_epochs):
+            t0 = time.perf_counter()
+            if e == 0:
+                blob = mapenc.encode_osdmap(om)
+                msg = MOSDMap(maps={om.epoch: blob})
+            else:
+                prev = copy_map(om)
+                _change_epoch(om, res, e)
+                blob = mapenc.encode_incremental(mapenc.diff_osdmap(prev, om))
+                msg = MOSDMap(incs={om.epoch: blob})
+            encode_s = time.perf_counter() - t0
+            apply0, t0 = follower.apply_s, time.perf_counter()
+            await conn.send_message(msg)
+            got = await asyncio.wait_for(follower.applied.get(), SUBOP_TIMEOUT)
+            send_s = time.perf_counter() - t0
+            u0 = map_uploads()
+            res = remap.BatchedClusterMapper(om, device=device).map_cluster()
+            theirs = remap.BatchedClusterMapper(follower.osdmap, device=device).map_cluster()
+            rows, bad = _mapping_rows_differ(res, theirs)
+            epochs.append({"epoch": got, "kind": "full" if e == 0 else "incremental",
+                           "bytes": len(blob), "encode_s": encode_s,
+                           "send_apply_s": send_s, "decode_apply_s": follower.apply_s - apply0,
+                           "map_equal": mapenc.encode_osdmap(follower.osdmap)
+                           == mapenc.encode_osdmap(om),
+                           "rows": rows, "rows_mismatched": bad,
+                           "map_uploads": map_uploads() - u0})
+    finally:
+        await follower.msgr.shutdown()
+    return {"osds": om.max_osd, "pgs": sum(p.pg_num for p in om.pools.values()),
+            "gaps": follower.gaps, "epochs": epochs}
+
+
+def _acting(pm, ps: int) -> list[int]:
+    return [int(v) for v in pm.acting[ps, :pm.acting_cnt[ps]]]
+
+
+async def subop_cluster(cfg: Config, device, osds: list, conf: ConfigProxy,
+                        out: dict) -> dict:
+    """Steps 1-6 and the messengers' shutdown, in one event loop; fills
+    ``out`` and returns what the remount and the read-back need."""
+    secs, steps = out["seconds"], out["launches_by_step"]
+    mon = Messenger(("mon", 0), compress_mode=conf["ms_compress_mode"])
+    driver = SubOpDriver(conf, SUBOP_TIMEOUT)
+    state = {}
+    try:
+        # 1. the remap map over the wire
+        c0, u0, t0 = kernel_counts(SUBOP_STEP_KERNELS), map_uploads(), time.perf_counter()
+        out["mapenc_scale"] = await subop_mapenc_scale(cfg, device, mon, conf)
+        secs["mapenc_scale"] = time.perf_counter() - t0
+        steps["mapenc_scale"] = counts_since(c0)
+        out["map_uploads"] = {"mapenc_scale": map_uploads() - u0}
+
+        # 2. the sub-op pool's map to every OSD
+        for o in osds:
+            await o.msgr.bind()
+        ec = registry.factory("cuda", subop_profile(cfg), device=device)
+        k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+        sinfo = ecutil.StripeInfo(k, k * ec.get_chunk_size(cfg.stripe_unit * k))
+        state.update(ec=ec, sinfo=sinfo)
+        om = subop_map(cfg, ec, {o.id: o.msgr.addr for o in osds})
+        c0, u0, t0 = kernel_counts(SUBOP_STEP_KERNELS), map_uploads(), time.perf_counter()
+        blob = mapenc.encode_osdmap(om)
+        await send_map(mon, osds, MOSDMap(maps={om.epoch: blob}), om.epoch, SUBOP_TIMEOUT)
+        secs["map"] = time.perf_counter() - t0
+        steps["map"] = counts_since(c0)
+        out["map_uploads"]["map"] = map_uploads() - u0
+        out["map_bytes"] = len(blob)
+        out["map_unequal_osds"] = sum(mapenc.encode_osdmap(o.osdmap) != blob for o in osds)
+
+        # 3. objects to PGs (rjenkins), PGs to acting sets on the card
+        c0, u0, t0 = kernel_counts(SUBOP_STEP_KERNELS), map_uploads(), time.perf_counter()
+        pool = om.pools[SUBOP_POOL]
+        oids = [f"rbd_data.{i:016x}" for i in range(cfg.store_objects)]
+        pgs = [pool.raw_pg_to_pg(pgutil.object_to_pg(pool, oid)) for oid in oids]
+        pm = remap.BatchedClusterMapper(om, device=device).map_pool(SUBOP_POOL)
+        acting = {ps: _acting(pm, ps) for ps in range(pool.pg_num)}
+        secs["place"] = time.perf_counter() - t0
+        steps["place"] = counts_since(c0)
+        out["map_uploads"]["place"] = map_uploads() - u0
+        out["place_mismatches"] = sum(
+            pm.rows(ps) != om.pg_to_up_acting_osds(pg_t(SUBOP_POOL, ps), folded=True)
+            for ps in range(pool.pg_num))
+        out["pgs_with_objects"] = len({pg.ps for pg in pgs})
+        holes = [ps for ps, a in acting.items() if len(a) != n or CRUSH_ITEM_NONE in a]
+        if holes:
+            raise AssertionError(f"sub-op pool: PGs {holes} have no full acting set")
+
+        # 4. encode on the card, as phase 13 does
+        gen = torch.Generator(device=device).manual_seed(cfg.seed + 50)
+        objects = [_rand((cfg.store_object_bytes,), gen, device).cpu().numpy()
+                   for _ in range(cfg.store_objects)]
+        c0, t0 = kernel_counts(SUBOP_STEP_KERNELS), time.perf_counter()
+        written = encode_objects(sinfo, ec, objects)
+        secs["encode"] = time.perf_counter() - t0
+        steps["encode"] = counts_since(c0)
+        state.update(objects=objects, oids=oids, pgs=pgs, written=written)
+
+        # 5. every shard to its OSD as a logged sub-write, all at once
+        c0, t0 = kernel_counts(SUBOP_STEP_KERNELS), time.perf_counter()
+        counter: dict[int, int] = {}
+        sent: dict[tuple, list] = {}
+        calls = []
+        for i, (oid, pg, (shards, hinfo)) in enumerate(zip(oids, pgs, written)):
+            counter[pg.ps] = counter.get(pg.ps, 0) + 1
+            version = eversion_t(om.epoch, counter[pg.ps])
+            reqid = f"client.0.0:{i + 1}"
+            attrs = {pgutil.HINFO_ATTR: hinfo.to_bytes(),
+                     pgutil.VERSION_ATTR: pgutil._v_bytes(version),
+                     pgutil.SIZE_ATTR: str(cfg.store_object_bytes).encode()}
+            a = acting[pg.ps]
+            for s in range(n):
+                sent.setdefault((a[s], pg.ps, s), []).append((oid, version, reqid))
+                calls.append(driver.call(om, a[s], MOSDECSubOpWrite(
+                    pg=pg, shard=s, from_osd=a[0], oid=oid, data=shards[s].tobytes(),
+                    attrs=attrs, epoch=om.epoch, version=version, reqid=reqid)))
+        replies = await asyncio.gather(*calls)
+        secs["subwrite"] = time.perf_counter() - t0
+        steps["subwrite"] = counts_since(c0)
+        out["subwrites"] = len(calls)
+        out["subwrite_acked"] = sum(r.result == 0 for r in replies)
+        out["subwrite_frames"] = driver.frames
+        out["subwrite_shard_bytes"] = driver.shard_bytes
+        out["gate_admitted"] = sum(o.gate.stats["admitted"].get("client", 0) for o in osds)
+        state.update(sent=sent, last={ps: eversion_t(om.epoch, v) for ps, v in counter.items()})
+
+        # 6. one OSD down and out; remap, read k survivors, rebuild, push
+        lost = SUBOP_LOST_OSD
+        agg = DecodeAggregator(device=device)
+        c0 = kernel_counts(SUBOP_STEP_KERNELS)
+        # a rebuild reads k shards, so up to m are missing from its decode
+        out["decode_prewarmed_shapes"] = agg.prewarm(ec, erasure_counts=tuple(range(1, n - k + 1)))
+        steps["decode_prewarm"] = counts_since(c0)
+        c0, u0, t0 = kernel_counts(SUBOP_STEP_KERNELS), map_uploads(), time.perf_counter()
+        prev = copy_map(om)
+        om.epoch += 1
+        om.mark_down(lost)
+        om.mark_out(lost)
+        inc = mapenc.encode_incremental(mapenc.diff_osdmap(prev, om))
+        live = [o for o in osds if o.id != lost]
+        await send_map(mon, live, MOSDMap(incs={om.epoch: inc}), om.epoch, SUBOP_TIMEOUT)
+        out["lose_inc_bytes"] = len(inc)
+        full = mapenc.encode_osdmap(om)
+        out["lose_map_unequal_osds"] = sum(mapenc.encode_osdmap(o.osdmap) != full for o in live)
+        pm2 = remap.BatchedClusterMapper(om, device=device).map_pool(SUBOP_POOL)
+        acting2 = {ps: _acting(pm2, ps) for ps in range(pool.pg_num)}
+        out["map_uploads"]["lose"] = map_uploads() - u0
+        out["lose_place_mismatches"] = sum(
+            pm2.rows(ps) != om.pg_to_up_acting_osds(pg_t(SUBOP_POOL, ps), folded=True)
+            for ps in range(pool.pg_num))
+        # indep keeps each surviving shard where it is unless a retry's
+        # collision moves it (few hosts over many positions): a shard on
+        # the lost OSD is rebuilt, a shard that moved is copied
+        moved = {(ps, s): (acting[ps][s], acting2[ps][s]) for ps in acting for s in range(n)
+                 if acting[ps][s] != acting2[ps][s]}
+        out["lose_moved_positions"] = {
+            "on_lost": sum(old == lost for old, _ in moved.values()),
+            "other": sum(old != lost for old, _ in moved.values())}
+        out["lose_holes"] = sum(lost in a or len(a) != n or CRUSH_ITEM_NONE in a
+                                for a in acting2.values())
+        todo = [(i, s) for i, pg in enumerate(pgs) for s in range(n) if (pg.ps, s) in moved]
+
+        async def read(i: int, s: int):
+            pg = pgs[i]
+            reply = await driver.call(om, acting[pg.ps][s], MOSDECSubOpRead(
+                pg=pg, shard=s, from_osd=acting2[pg.ps][0], oid=oids[i], want_attrs=True,
+                epoch=om.epoch))
+            if reply.result != 0:
+                raise AssertionError(f"{oids[i]} shard {s}: read answered {reply.result}")
+            return reply
+
+        async def recover(i: int, shard: int):
+            """Shard ``shard`` of object ``i`` onto its new OSD: rebuilt on
+            the card from k survivors' reads where its OSD was lost,
+            copied from its old OSD where it only moved."""
+            pg = pgs[i]
+            old, new = moved[(pg.ps, shard)]
+            if old == lost:
+                reads = await asyncio.gather(*(
+                    read(i, s) for s in [s for s in range(n) if acting[pg.ps][s] != lost][:k]))
+                got = await ecutil.decode_shards_async(
+                    sinfo, ec, {r.shard: np.frombuffer(r.data, np.uint8) for r in reads},
+                    {shard}, aggregator=agg)
+                data, attrs = got[shard], reads[0].attrs
+                hinfo = ecutil.HashInfo.from_bytes(attrs[pgutil.HINFO_ATTR])
+                crc_ok = native.crc32c(data) == hinfo.get_chunk_hash(shard)
+            else:
+                reply = await read(i, shard)
+                data, attrs, crc_ok = np.frombuffer(reply.data, np.uint8), reply.attrs, True
+            push = await driver.call(om, new, MOSDECSubOpWrite(
+                pg=pg, shard=shard, from_osd=acting2[pg.ps][0], oid=oids[i],
+                data=data.tobytes(), attrs=attrs, epoch=om.epoch))
+            return old == lost, crc_ok, push.result, (new, pg.ps, shard)
+
+        frames0 = driver.frames
+        rec = await asyncio.gather(*(recover(i, s) for i, s in todo))
+        secs["lose"] = time.perf_counter() - t0
+        steps["lose"] = counts_since(c0)
+        out["lost_osd"] = lost
+        out["rebuilt"] = sum(rebuilt for rebuilt, *_ in rec)
+        out["backfilled"] = sum(not rebuilt for rebuilt, *_ in rec)
+        out["rebuilt_crc_mismatches"] = sum(not ok for _, ok, _, _ in rec)
+        out["pushes"] = len(rec)
+        out["pushes_acked"] = sum(res == 0 for _, _, res, _ in rec)
+        out["lose_frames"] = driver.frames - frames0
+        out["decode_launches"] = agg.stats["launches"]
+        if agg.stats["cold_launches"] != 0:
+            raise AssertionError(f"decode cold launches after prewarm: {dict(agg.stats)}")
+        state.update(acting2=acting2, pushed={key for *_, key in rec})
+    finally:
+        # 7 (first half). every messenger down; no task left behind
+        t0 = time.perf_counter()
+        for m in [driver.msgr, mon] + [o.msgr for o in osds]:
+            await m.shutdown()
+        await asyncio.sleep(0)
+        out["tasks_left"] = len([t for t in asyncio.all_tasks()
+                                 if t is not asyncio.current_task() and not t.done()])
+        secs["shutdown"] = time.perf_counter() - t0
+    return state
+
+
+def subop_log_mismatches(stores: dict, sent: dict, last: dict, pushed: set) -> dict:
+    """Every (pg, shard) collection's PG log as loaded from its store
+    against what was sent to it: the same oids, versions and reqids in
+    order, ``info.last_update`` the PG's last version; collections filled
+    by pushes hold no entry."""
+    found, bad, pushed_logged = set(), 0, 0
+    for osd, st in stores.items():
+        for c in st.list_collections():
+            lg = PGLog(c)
+            lg.load(st)
+            key = (osd, c.ps, c.shard)
+            entries = [(e.op, e.oid, e.version, e.prior_version, e.reqid)
+                       for _, e in sorted(lg.entries.items())]
+            if key in pushed:
+                pushed_logged += bool(entries) or lg.info.last_update != ZERO
+                continue
+            found.add(key)
+            want = [(MODIFY, oid, v, ZERO, reqid) for oid, v, reqid in sent.get(key, [])]
+            bad += entries != want or lg.info.last_update != last.get(c.ps)
+    return {"logs": len(found), "log_mismatches": bad + len(set(sent) - found),
+            "pushed_collections": len(pushed), "pushed_logged": pushed_logged}
+
+
+def phase_subop(cfg: Config, device, root: str) -> dict:
+    """The sub-op path under ``root``: ``cfg.store_objects`` objects of
+    ``cfg.store_object_bytes`` placed by rjenkins and CRUSH on the card,
+    encoded on ``device``, each shard sent as an ``MOSDECSubOpWrite`` to
+    its OSD (a messenger, an mClock gate, a PG-logged BlockStore); one OSD
+    lost and its shards rebuilt from sub-op reads and pushed; every store
+    remounted, fsck'd and its PG logs held against what was sent; each
+    object read back without one shard.  Before it, the remap phase's map
+    goes over the wire epoch by epoch.  Returns the line with each step's
+    seconds and kernel launches beside it."""
+    remap.reset_counters()
+    out = {"phase": "subop", "objects": cfg.store_objects,
+           "object_bytes": cfg.store_object_bytes, "osds": SUBOP_OSDS,
+           "pg_num": SUBOP_PG_NUM, "seconds": {}, "launches_by_step": {}}
+    secs, steps = out["seconds"], out["launches_by_step"]
+    conf = ConfigProxy({"ms_compress_mode": "none"})
+    osds = [SubOpOSD(i, os.path.join(root, f"osd.{i}"), conf) for i in range(SUBOP_OSDS)]
+    try:
+        state = asyncio.run(subop_cluster(cfg, device, osds, conf, out))
+        # 7 (second half). unmount and mount every store, fsck, the PG logs
+        t0 = time.perf_counter()
+        for o in osds:
+            old, o.store = o.store, None
+            old.umount()
+            o.store = open_store(o.path, o.id)
+        stores = {o.id: o.store for o in osds}
+        out["fsck"] = sum(len(st.fsck()) for st in stores.values())
+        out.update(subop_log_mismatches(stores, state["sent"], state["last"], state["pushed"]))
+        secs["remount"] = time.perf_counter() - t0
+
+        # 8. every object back from the stores without one shard, decoded on the card
+        c0, t0 = kernel_counts(SUBOP_STEP_KERNELS), time.perf_counter()
+        ec, sinfo, n = state["ec"], state["sinfo"], cfg.k + cfg.m
+        bad = 0
+        for oid, pg, obj in zip(state["oids"], state["pgs"], state["objects"]):
+            a = state["acting2"][pg.ps]
+            avail = {s: np.frombuffer(stores[a[s]].read(coll_t(pg.pool, pg.ps, s),
+                                                        ghobject_t(oid, shard=s)), np.uint8)
+                     for s in range(n) if s != SUBOP_READ_MISSING}
+            bad += not np.array_equal(ecutil.decode_concat(sinfo, ec, avail), obj)
+        secs["readback"] = time.perf_counter() - t0
+        steps["readback"] = counts_since(c0)
+        out["readback_mismatches"] = bad
+    finally:
+        for o in osds:
+            if o.store is not None:
+                o.store.umount()
+    out["total_seconds"] = sum(secs.values())
+    return out
+
+
+def check_subop(line: dict) -> None:
+    """What the subop line must show: every sub-write admitted through its
+    OSD's gate and acked with 0, every push acked, every map equal to the
+    mon's and every remap row to the sender's, one map upload for each
+    new CRUSH section and none for a decoded map whose CRUSH section did
+    not change (nor for the OSDs' decodes), each rebuilt shard's crc equal
+    to HashInfo, a clean fsck, every PG log equal to what was sent, and
+    the read-back equal to the objects."""
+    scale, uploads = line["mapenc_scale"]["epochs"], line["map_uploads"]
+    faults = {
+        "subwrite_acked": line["subwrite_acked"] != line["subwrites"],
+        "gate": line["gate_admitted"] != line["subwrites"],
+        "pushes_acked": line["pushes_acked"] != line["pushes"],
+        "maps": (line["map_unequal_osds"] or line["lose_map_unequal_osds"]
+                 or not all(e["map_equal"] for e in scale)),
+        "remap_rows": any(e["rows_mismatched"] for e in scale),
+        "map_uploads": (scale[0]["map_uploads"] != 1 or any(e["map_uploads"] for e in scale[1:])
+                        or uploads["map"] != 0 or uploads["place"] != 1
+                        or uploads["lose"] != 0),
+        "gaps": bool(line["mapenc_scale"]["gaps"]),
+        "placement": line["place_mismatches"] or line["lose_place_mismatches"]
+                     or line["lose_holes"],
+        "rebuilt": line["rebuilt_crc_mismatches"] or not line["rebuilt"],
+        "fsck": bool(line["fsck"]),
+        "pg_logs": line["log_mismatches"] or line["pushed_logged"],
+        "readback": bool(line["readback_mismatches"]),
+        "tasks_left": bool(line["tasks_left"]),
+    }
+    bad = sorted(k for k, v in faults.items() if v)
+    if bad:
+        raise AssertionError(f"sub-op path: {bad}")
+
+
+def run_subop_path(cfg: Config, device) -> dict:
+    """Phase 14 with its launches counted alone: reset just before, read
+    just after, in a temporary directory removed at the end.  On the card
+    each step must have launched its kernels (``SUBOP_STEP_KERNELS``)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_subop_")
+    rk.reset_launch_counts()
+    cm.reset_launch_counts()
+    try:
+        line = phase_subop(cfg, device, root)
+        _sync(device)
+    finally:
+        shutil.rmtree(root)
+    launches = {**rk.launch_counts(), **cm.launch_counts()}
+    emit(line)
+    check_subop(line)
+    idle = path_idle(line["launches_by_step"], SUBOP_STEP_KERNELS)
+    if torch.device(device).type == "cuda" and idle:
+        raise AssertionError(f"kernels not launched on the sub-op path: {idle}")
+    return {"subop": line, "launches": launches, "idle": idle}
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -3152,6 +3781,14 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "store_path_launches", **store["launches"],
           "by_step": store["store"]["launches_by_step"]})
 
+    # the sub-op path: the shards over the messenger into PG-logged stores,
+    # counted alone
+    t_subop = time.perf_counter()
+    subop = run_subop_path(cfg, device)
+    subop_s = time.perf_counter() - t_subop
+    emit({"phase": "subop_path_launches", **subop["launches"],
+          "by_step": subop["subop"]["launches_by_step"]})
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     for row in rows:
@@ -3166,7 +3803,8 @@ def main(argv: list[str] | None = None) -> int:
     emit(phase_fold_sweep(cfg, device))
     wall = time.perf_counter() - t0
     emit({"phase": "wall", "seconds": wall, "store_path_seconds": store_s,
-          "store_path_share": store_s / wall})
+          "store_path_share": store_s / wall, "subop_path_seconds": subop_s,
+          "subop_path_share": subop_s / wall})
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
 """Import gate of the port.
 
 ``ceph_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the
-JAX package ``ceph_tpu``: a subprocess blocks both in ``sys.modules``
-and imports every module; a static scan finds no such import in any
+JAX package ``ceph_tpu``: a subprocess blocks both in ``sys.modules``,
+with ``cryptography`` (absent where the card is), and imports every
+module; a static scan finds no such import in any
 port file; and with CUDA reported unavailable the default-device entry
 points raise instead of running elsewhere.
 """
@@ -79,12 +80,16 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "common.tracing", "common.fault_injector", "common.reserver",
                  "common.admin_socket", "common.interleave", "kv", "store",
                  "store.objectstore", "store.memstore", "store.kstore",
-                 "store.filestore", "store.bluefs", "store.blockstore"):
+                 "store.filestore", "store.bluefs", "store.blockstore",
+                 "msg.frames", "msg.auth", "msg.messenger", "msg.messages", "cls",
+                 "cls.rgw", "osd.snaps", "osd.pglog", "osd.pgutil", "osd.scheduler",
+                 "osd.opqueue", "osd.mapenc"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['ceph_tpu'] = None\n"
+        "sys.modules['cryptography'] = None\n"
         f"for name in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ceph_tpu.'))\n"
@@ -127,6 +132,42 @@ def test_foundation_loads_without_messages():
         "             'ceph_tpu_torch.common.fault_injector'):\n"
         "    importlib.import_module(name)\n"
         "assert 'torch' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_auth_imports_without_cryptography():
+    """On a machine without the ``cryptography`` wheel (the card's) the
+    transport still imports and crc-mode messengers need nothing of it,
+    but sealing, tickets and secure frames raise ``RuntimeError`` at use:
+    there is no authenticate-only fallback."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceph_tpu'] = None\n"
+        "sys.modules['cryptography'] = None\n"
+        "import ceph_tpu_torch.msg, ceph_tpu_torch.msg.messages\n"
+        "from ceph_tpu_torch.msg import auth\n"
+        "assert auth.HAVE_AESGCM is False\n"
+        "for call in (lambda: auth.seal(auth.make_secret(), b'x'),\n"
+        "             lambda: auth.unseal(auth.make_secret(), bytes(40)),\n"
+        "             lambda: auth.mint_ticket(auth.make_secret(), 'osd.1', b'k'),\n"
+        "             lambda: auth.FrameCrypto.from_session(\n"
+        "                 auth.make_secret(), bytes(12), bytes(12), connector=True)):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'cryptography' in str(e)\n"
+        "    else:\n"
+        "        raise AssertionError('sealed without AES-GCM')\n"
+        "assert not any(m.startswith('cryptography') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

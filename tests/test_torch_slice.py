@@ -537,8 +537,9 @@ def test_chip_smoke_store_checks_fail_loudly():
             chip_smoke.check_store(line)
     busy = {"gf_bitmatmul": 4, "batched_crc32c_device": 3, "gf_encode_compare": 2}
     steps = {"encode": busy, "scrub": {**busy, "gf_encode_compare": 0}, "rebuild": busy}
-    assert chip_smoke.store_path_idle(steps) == ["gf_encode_compare:scrub"]
-    assert chip_smoke.store_path_idle({**steps, "scrub": busy}) == []
+    table = chip_smoke.STORE_STEP_KERNELS
+    assert chip_smoke.path_idle(steps, table) == ["gf_encode_compare:scrub"]
+    assert chip_smoke.path_idle({**steps, "scrub": busy}, table) == []
 
 
 @pytest.mark.parametrize("scrub_launches", [False, True], ids=["prewarm-only", "scrub"])
@@ -580,3 +581,108 @@ def test_chip_smoke_store_scrub_counted_apart_from_its_prewarm(monkeypatch, tmp_
     scrub_idle = [] if scrub_launches else ["batched_crc32c_device:scrub",
                                             "gf_encode_compare:scrub"]
     assert run["idle"] == sorted(scrub_idle + ["gf_bitmatmul:encode", "gf_bitmatmul:rebuild"])
+
+
+#: chip_smoke's sub-op path cut for the CPU: 4 objects of 64 KiB (the
+#: store path's) on the 12 OSDs, every matmul on the device seam; a 64-OSD
+#: map (16 hosts of 4) with 128 + 64 + 64 PGs for the wire remap
+TINY_SUBOP = dict(store_objects=4, store_object_bytes=64 * 1024, store_device_min_bytes=0,
+                  remap_hosts=16, remap_osds_per_host=4, remap_rep_pgs=128, remap_ec_pgs=64)
+
+
+def test_chip_smoke_subop_path_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke's phase 14 at a tiny size on the CPU: the 64-OSD map goes
+    over the wire epoch by epoch (re-encoded equal, remap rows equal, one
+    map upload); the sub-op pool's map reaches all 12 OSDs; 44 shard writes
+    through the messenger are acked with 0 and logged; OSD 5 lost, its
+    shards rebuilt from sub-op reads (crc == HashInfo) and every moved
+    shard pushed; every messenger shut down with no task left, every store
+    remounted with a clean fsck and every PG log equal to what was sent;
+    the read-back equal.  On the CPU nothing launches, so the launch check
+    names every kernel of the path; the temporary directory is gone."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    run = chip_smoke.run_subop_path(chip_smoke.Config(**TINY_SUBOP), "cpu")
+    line = run["subop"]
+    scale = line["mapenc_scale"]
+    assert (scale["osds"], scale["pgs"], scale["gaps"]) == (64, 256, 0)
+    assert [e["kind"] for e in scale["epochs"]] == ["full"] + ["incremental"] * 3
+    assert all(e["map_equal"] and e["rows"] == 256 and e["rows_mismatched"] == 0
+               for e in scale["epochs"])
+    assert [e["map_uploads"] for e in scale["epochs"]] == [1, 0, 0, 0]
+    assert line["map_uploads"] == {"mapenc_scale": 1, "map": 0, "place": 1, "lose": 0}
+    assert line["map_unequal_osds"] == 0 and line["lose_map_unequal_osds"] == 0
+    assert line["place_mismatches"] == 0 and line["lose_place_mismatches"] == 0
+    assert (line["subwrites"], line["subwrite_acked"], line["subwrite_frames"]) == (44, 44, 44)
+    assert line["subwrite_shard_bytes"] == 44 * 8192 and line["gate_admitted"] == 44
+    moved = line["lose_moved_positions"]
+    assert moved["on_lost"] > 0 and line["lose_holes"] == 0
+    assert line["rebuilt"] > 0 and line["rebuilt_crc_mismatches"] == 0
+    assert line["pushes"] == line["rebuilt"] + line["backfilled"] == line["pushes_acked"]
+    assert line["decode_launches"] > 0 and line["tasks_left"] == 0
+    assert line["fsck"] == 0 and line["log_mismatches"] == 0 and line["pushed_logged"] == 0
+    assert line["logs"] == 44 and line["pushed_collections"] == line["pushes"]
+    assert line["readback_mismatches"] == 0
+    assert list(line["launches_by_step"]) == ["mapenc_scale", "map", "place", "encode",
+                                              "subwrite", "decode_prewarm", "lose", "readback"]
+    assert set(line["seconds"]) == {"mapenc_scale", "map", "place", "encode", "subwrite",
+                                    "lose", "shutdown", "remount", "readback"}
+    assert set(run["launches"].values()) == {0}
+    assert run["idle"] == ["crush_rule:lose", "crush_rule:mapenc_scale", "crush_rule:place",
+                           "gf_bitmatmul:encode", "gf_bitmatmul:lose", "gf_bitmatmul:readback"]
+    assert os.listdir(tmp_path) == []
+
+
+def test_chip_smoke_subop_map_reupload_is_a_fault(monkeypatch, tmp_path):
+    """A decoded map whose CRUSH section did not change must reuse the
+    compiled map: were the program cache keyed by the map object and not
+    its CRUSH content, every decoded epoch would upload again, and the
+    sub-op line's check names it."""
+    from ceph_tpu_torch.osd import remap
+
+    keys = iter(range(10**6))
+    monkeypatch.setattr(remap, "_crush_fingerprint", lambda crush, ca: next(keys))
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    cfg = chip_smoke.Config(**{**TINY_SUBOP, "store_objects": 1})
+    with pytest.raises(AssertionError, match="map_uploads"):
+        chip_smoke.run_subop_path(cfg, "cpu")
+    assert os.listdir(tmp_path) == []
+
+
+def test_chip_smoke_subop_checks_fail_loudly():
+    """Each fault the sub-op line can show fails its check, and on the
+    card an idle kernel of the path is named."""
+    epoch = {"map_equal": True, "rows_mismatched": 0, "map_uploads": 0}
+    good = {"subwrites": 704, "subwrite_acked": 704, "gate_admitted": 704,
+            "pushes": 70, "pushes_acked": 70,
+            "rebuilt": 59, "map_unequal_osds": 0, "lose_map_unequal_osds": 0,
+            "mapenc_scale": {"gaps": 0, "epochs": [{**epoch, "map_uploads": 1}, epoch]},
+            "map_uploads": {"mapenc_scale": 1, "map": 0, "place": 1, "lose": 0},
+            "place_mismatches": 0, "lose_place_mismatches": 0,
+            "lose_holes": 0, "rebuilt_crc_mismatches": 0, "fsck": 0, "log_mismatches": 0,
+            "pushed_logged": 0, "readback_mismatches": 0, "tasks_left": 0}
+    chip_smoke.check_subop(good)
+    scale, uploads = good["mapenc_scale"], good["map_uploads"]
+    bad_lines = [
+        ("subwrite_acked", {"subwrite_acked": 703}), ("pushes_acked", {"pushes_acked": 69}),
+        # a sub-write that went round its OSD's mClock gate
+        ("gate", {"gate_admitted": 703}),
+        ("maps", {"lose_map_unequal_osds": 1}),
+        ("remap_rows", {"mapenc_scale": {**scale, "epochs": [
+            scale["epochs"][0], {**epoch, "rows_mismatched": 3}]}}),
+        ("map_uploads", {"map_uploads": {**uploads, "lose": 1}}),
+        # an OSD's decode that uploaded, and a new CRUSH section that did not
+        ("map_uploads", {"map_uploads": {**uploads, "map": 1}}),
+        ("map_uploads", {"map_uploads": {**uploads, "place": 0}}),
+        ("gaps", {"mapenc_scale": {**scale, "gaps": 1}}),
+        ("placement", {"lose_holes": 1}), ("rebuilt", {"rebuilt_crc_mismatches": 1}),
+        ("fsck", {"fsck": 2}), ("pg_logs", {"pushed_logged": 1}),
+        ("readback", {"readback_mismatches": 1}), ("tasks_left", {"tasks_left": 1})]
+    for fault, change in bad_lines:
+        with pytest.raises(AssertionError, match=f"'{fault}'"):
+            chip_smoke.check_subop({**good, **change})
+    table = chip_smoke.SUBOP_STEP_KERNELS
+    busy = {"gf_bitmatmul": 3, "crush_rule": 2}
+    steps = {s: busy for s in ("mapenc_scale", "place", "encode", "lose", "readback")}
+    assert chip_smoke.path_idle(steps, table) == []
+    steps["lose"] = {"gf_bitmatmul": 0, "crush_rule": 1}
+    assert chip_smoke.path_idle(steps, table) == ["gf_bitmatmul:lose"]

@@ -10,7 +10,10 @@ zero, truncate, xattrs, omap, a remove and a collection move), unmounted,
 and mounted by the other package: listings, data, xattrs, omap and
 ``fsck()`` are equal; the reader then writes more and the writer's
 package mounts it again.  The same workload written by each package
-leaves byte-identical directories (tolerance 0).
+leaves byte-identical directories (tolerance 0).  A ``PGLog`` appended,
+trimmed and split by one package into a ``BlockStore`` on a ``FileDB``
+loads in the other's ``PGLog`` with the same entries, info and
+contiguity floor, both ways.
 """
 
 from __future__ import annotations
@@ -23,21 +26,26 @@ import numpy as np
 import pytest
 
 import ceph_tpu.kv as ref_kv
+import ceph_tpu.osd.pglog as ref_pglog
 import ceph_tpu.store.blockstore as ref_blockstore
 import ceph_tpu.store.filestore as ref_filestore
 import ceph_tpu.store.kstore as ref_kstore
 import ceph_tpu.store.objectstore as ref_objectstore
 import ceph_tpu_torch.kv as kv
+import ceph_tpu_torch.osd.pglog as pglog
 import ceph_tpu_torch.store.blockstore as blockstore
 import ceph_tpu_torch.store.filestore as filestore
 import ceph_tpu_torch.store.kstore as kstore
 import ceph_tpu_torch.store.objectstore as objectstore
+from tests.xla_private import _private_xla_compiles  # noqa: F401
 
 PKGS = {
     "ceph_tpu": types.SimpleNamespace(kv=ref_kv, os=ref_objectstore, kstore=ref_kstore,
-                                      filestore=ref_filestore, blockstore=ref_blockstore),
+                                      filestore=ref_filestore, blockstore=ref_blockstore,
+                                      pglog=ref_pglog),
     "ceph_tpu_torch": types.SimpleNamespace(kv=kv, os=objectstore, kstore=kstore,
-                                            filestore=filestore, blockstore=blockstore),
+                                            filestore=filestore, blockstore=blockstore,
+                                            pglog=pglog),
 }
 DIRECTIONS = [("ceph_tpu", "ceph_tpu_torch"), ("ceph_tpu_torch", "ceph_tpu")]
 
@@ -211,3 +219,78 @@ def test_same_workload_same_bytes_on_disk(tmp_path, kind):
     differing = {f: int((np.frombuffer(ours[f], np.uint8) != np.frombuffer(ref[f], np.uint8)).sum())
                  if len(ours[f]) == len(ref[f]) else abs(len(ours[f]) - len(ref[f])) for f in ref}
     assert differing == dict.fromkeys(ref, 0)
+
+
+PGLOG_STORE = "blockstore:first-fit:none:filedb"
+
+
+def _pglog_round(pkg, store, rng: np.random.Generator, round_: int) -> None:
+    """Appends with a skipped counter (the floor pins), a trim and a
+    split of shard 0's log into a child PG, from ``rng``; logs are
+    loaded from the store first, as the OSD loads them."""
+    P, T, C = pkg.pglog, pkg.os.Transaction, pkg.os.coll_t
+    for shard in (0, 1):
+        c = C(3, 5, shard)
+        if not store.collection_exists(c):
+            store.queue_transaction(T().create_collection(c))
+        lg = P.PGLog(c)
+        lg.load(store)
+        v = lg.info.last_update.version
+        for i in range(int(rng.integers(10, 30))):
+            v += int(rng.choice([1, 1, 1, 2]))
+            t = T()
+            lg.append(t, P.pg_log_entry_t(int(rng.choice([P.MODIFY, P.DELETE])),
+                                          f"rbd_data.{int(rng.integers(0, 40)):04x}",
+                                          P.eversion_t(7 + round_, v),
+                                          P.eversion_t(7, max(v - 1, 0)),
+                                          f"client.{round_}:{shard}.{i}"))
+            store.queue_transaction(t)
+        t = T()
+        lg.trim(t, int(rng.integers(6, 12)))
+        store.queue_transaction(t)
+        if shard == 0:
+            child_c = C(3, 5 + 32 * (round_ + 1), 0)
+            store.queue_transaction(T().create_collection(child_c))
+            t = T()
+            lg.split_into(t, P.PGLog(child_c), lambda oid: int(oid[-1], 16) % 2 == 1)
+            store.queue_transaction(t)
+
+
+def _pglog_snapshot(pkg, store) -> dict:
+    """Every collection's log as loaded: entries, info, floor (plain tuples)."""
+    def ev(v):
+        return None if v is None else (v.epoch, v.version)
+
+    out = {}
+    for c in store.list_collections():
+        lg = pkg.pglog.PGLog(c)
+        lg.load(store)
+        out[(c.pool, c.ps, c.shard)] = (
+            [(e.op, e.oid, ev(e.version), ev(e.prior_version), e.reqid)
+             for _, e in sorted(lg.entries.items())],
+            ev(lg.info.last_update), ev(lg.info.log_tail), ev(lg.contig_floor))
+    return out
+
+
+@pytest.mark.parametrize("writer,reader", DIRECTIONS)
+def test_pglog_cross_mount(tmp_path, writer, reader):
+    path = str(tmp_path / "store")
+    rng = np.random.default_rng([len(KINDS), DIRECTIONS.index((writer, reader))])
+    first = _open(PKGS[writer], PGLOG_STORE, path)
+    _pglog_round(PKGS[writer], first, rng, 0)
+    want = _pglog_snapshot(PKGS[writer], first)
+    assert len(want) == 3 and all(entries for entries, *_ in want.values())
+    assert any(floor is not None for *_, floor in want.values())
+    first.umount()
+
+    second = _open(PKGS[reader], PGLOG_STORE, path)
+    assert _pglog_snapshot(PKGS[reader], second) == want
+    assert second.fsck() == []
+    # the reader's package appends on, and the writer's loads that
+    _pglog_round(PKGS[reader], second, rng, 1)
+    want = _pglog_snapshot(PKGS[reader], second)
+    second.umount()
+    third = _open(PKGS[writer], PGLOG_STORE, path)
+    assert _pglog_snapshot(PKGS[writer], third) == want and len(want) == 4
+    assert third.fsck() == []
+    third.umount()
