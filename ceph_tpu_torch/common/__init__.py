@@ -4,16 +4,15 @@ wire context, op tracking, admin sockets, leveled dout logging, crash
 dumps, caps, the fault injector, the reservers and the interleaving
 scheduler.
 
-The port's twin of ceph_tpu/common/ with the same exports, except the
-cluster log's ``LogClient`` and ``format_entry``: common/logclient.py
-sends ``MLog`` messages, so it waits for the port's messages and
-daemons.  ``cpumesh`` and ``transfer_guard`` drive JAX devices and
-have no twin here."""
+The port's twin of ceph_tpu/common/ with the same exports, the cluster
+log's ``LogClient`` and ``format_entry`` included.  ``cpumesh`` and
+``transfer_guard`` drive JAX devices and have no twin here."""
 
 from ceph_tpu_torch.common.admin_socket import AdminSocket, admin_command
 from ceph_tpu_torch.common.config import OPTIONS, ConfigProxy, Option, declare
 from ceph_tpu_torch.common.crash import record_crash, scan_crashes
 from ceph_tpu_torch.common.dout import DoutLogger
+from ceph_tpu_torch.common.logclient import LogClient, format_entry
 from ceph_tpu_torch.common.optracker import OpTracker, TrackedOp
 from ceph_tpu_torch.common.metrics import (
     MetricsServer,
@@ -26,6 +25,7 @@ from ceph_tpu_torch.common.metrics import (
 __all__ = [
     "AdminSocket",
     "DoutLogger",
+    "LogClient",
     "OPTIONS",
     "OpTracker",
     "TrackedOp",
@@ -36,6 +36,7 @@ __all__ = [
     "PerfCounters",
     "all_collections",
     "declare",
+    "format_entry",
     "get_perf_counters",
     "prometheus_text",
     "record_crash",

@@ -222,9 +222,10 @@ declare(
            "the reference's ms_inject_socket_failures "
            "(src/common/options/global.yaml.in:1242)"),
     Option("osd_ec_encode_farm", str, "auto", LEVEL_ADVANCED,
-           "route EC encode/decode matmuls through the multi-device "
-           "encode farm (ceph_tpu_torch/parallel/encode_service.py): "
-           "auto = when the process sees >1 device, on, off",
+           "route EC encode/decode matmuls through the process encode "
+           "service (ceph_tpu_torch/parallel/encode_service.py) on the "
+           "OSD's device: auto = when that device is a card, on = on any "
+           "device, off = never",
            enum=("auto", "on", "off")),
     Option("osd_ec_farm_min_bytes", int, 32768, LEVEL_ADVANCED,
            "payloads below this stay on the single-device path even "

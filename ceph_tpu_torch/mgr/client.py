@@ -1,0 +1,191 @@
+"""MgrClient: the report stream every daemon embeds.
+
+Behavioral twin of the reference MgrClient (src/mgr/MgrClient.cc):
+each daemon (OSD, mon, MDS, RGW frontend) owns one; it watches the
+MgrMap the mon publishes, keeps a session open to the ACTIVE mgr
+(MMgrOpen once per active-gid, re-opened automatically after a
+failover), and ships an MMgrReport every ``mgr_report_interval``
+seconds carrying:
+
+- perf-counter **deltas** since the previous report (computed here by
+  diffing cumulative ``perf dump`` snapshots, the reference's packed
+  PerfCounterInstance deltas);
+- instantaneous gauges, including per-interval latency means derived
+  from the op tracker's cumulative log2 histograms (diffed exactly —
+  integer sums/counts);
+- the cumulative fixed-bucket latency histograms themselves;
+- a json status side-channel (pg summary, read-error ledger, health
+  bits) supplied by the owner's ``collect`` callback.
+
+The mgr is NEVER in the data path: every send is fire-and-forget, any
+connection error just waits for the next tick (or the next MgrMap).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import time
+
+from ceph_tpu_torch.msg.messages import MMgrOpen, MMgrReport
+
+log = logging.getLogger("ceph_tpu_torch.mgr")
+
+
+class MgrClient:
+    """``entity`` is this daemon's report name ("osd.0", "mon.1", ...);
+    ``messenger`` the daemon's own messenger (the mgr session rides it);
+    ``collect()`` returns the report raw material::
+
+        {
+          "counters":   {key: cumulative float},   # deltas derived here
+          "gauges":     {key: float},              # shipped as-is
+          "histograms": {cls: LatencyHistogram},   # cumulative, diffed
+          "status":     {...},                     # json side channel
+        }
+
+    Every key is optional.  Latency gauges ``<cls>_lat_us`` (interval
+    mean per histogram class) are derived automatically.
+    """
+
+    def __init__(self, entity: str, messenger, conf, collect,
+                 tracers=()):
+        self.entity = entity
+        self.messenger = messenger
+        self.conf = conf
+        self.collect = collect
+        # tracers whose export buffers this client drains into each
+        # report (the daemon's own + shared rings like the device-
+        # launch profiler); drained spans ride MMgrReport.spans to the
+        # mgr's TraceCollector
+        self.tracers = tuple(tracers)
+        # set by MMgrConfigure from the active mgr: outlier detection
+        # flagged this daemon slow — its scrub scheduler defers
+        # background scrubs while the flag holds
+        self.scrub_deprioritized = False
+        self.mgrmap: dict | None = None
+        self._conn = None
+        self._opened_gid: int | None = None
+        self._task: asyncio.Task | None = None
+        self._last_counters: dict[str, float] = {}
+        self._last_hist: dict[str, tuple[int, int]] = {}  # cls -> (sum, n)
+        self.reports_sent = 0
+        self.opens_sent = 0
+        self.last_report_at: float = 0.0
+        self._stopping = False
+
+    # -- lifecycle -----------------------------------------------------
+
+    def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.ensure_future(self._report_loop())
+
+    async def stop(self) -> None:
+        self._stopping = True
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+
+    # -- MgrMap intake -------------------------------------------------
+
+    def handle_mgr_map(self, msg) -> None:
+        """MMgrMap from the mon: note the active mgr; if it changed
+        (failover or restart), drop the session so the report loop
+        re-opens against the new active — the stream RESUMES without
+        operator action."""
+        try:
+            m = json.loads(msg.blob or b"{}")
+        except ValueError:
+            return
+        old = self.mgrmap
+        self.mgrmap = m
+        new_gid = (m.get("active") or {}).get("gid")
+        old_gid = ((old or {}).get("active") or {}).get("gid")
+        if new_gid != old_gid:
+            self._conn = None  # lazily re-dialed by the next tick
+
+    def handle_configure(self, msg) -> None:
+        """MMgrConfigure from the active mgr: report-period tuning +
+        the slow-OSD scrub-deprioritization flag (the analytics
+        feedback loop)."""
+        self.scrub_deprioritized = bool(
+            getattr(msg, "scrub_deprioritize", False))
+
+    def _active_addr(self) -> tuple[int, tuple[str, int]] | None:
+        act = (self.mgrmap or {}).get("active")
+        if not act or not act.get("addr"):
+            return None
+        return act["gid"], (act["addr"][0], int(act["addr"][1]))
+
+    # -- the report loop -----------------------------------------------
+
+    async def _report_loop(self) -> None:
+        interval = self.conf["mgr_report_interval"]
+        while not self._stopping:
+            await asyncio.sleep(interval)
+            try:
+                await self._report_once()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # the mgr is observability, not the data path: never
+                # let a report failure ripple into the daemon
+                log.debug("%s: mgr report failed", self.entity,
+                          exc_info=True)
+                self._conn = None
+
+    async def _report_once(self) -> None:
+        target = self._active_addr()
+        if target is None:
+            return
+        gid, addr = target
+        if self._conn is None or self._conn._closed \
+                or self._opened_gid != gid:
+            self._conn = await self.messenger.connect_to(
+                ("mgr", gid), *addr)
+            await self._conn.send_message(MMgrOpen(
+                daemon=self.entity,
+                metadata=json.dumps({"entity": self.entity}).encode(),
+            ))
+            self._opened_gid = gid
+            self.opens_sent += 1
+        await self._conn.send_message(self._build_report())
+        self.reports_sent += 1
+        self.last_report_at = time.monotonic()
+
+    def _build_report(self) -> MMgrReport:
+        raw = self.collect() or {}
+        cum = dict(raw.get("counters") or {})
+        deltas = {
+            k: v - self._last_counters.get(k, 0.0)
+            for k, v in cum.items()
+            if v != self._last_counters.get(k, 0.0)
+        }
+        self._last_counters = cum
+        gauges = dict(raw.get("gauges") or {})
+        hists = raw.get("histograms") or {}
+        wire_h: dict[str, list[int]] = {}
+        for cls, h in hists.items():
+            wire_h[cls] = list(h.counts)
+            psum, pn = self._last_hist.get(cls, (0, 0))
+            dsum, dn = h.sum_us - psum, h.total - pn
+            self._last_hist[cls] = (h.sum_us, h.total)
+            if dn > 0:
+                # per-interval mean latency: the scalar sample the
+                # mgr's ring buffers ingest for this class
+                gauges[f"{cls}_lat_us"] = dsum / dn
+        status = raw.get("status")
+        spans: list[dict] = []
+        for t in self.tracers:
+            if len(spans) >= 512:
+                break
+            spans.extend(t.drain_export(limit=512 - len(spans)))
+        return MMgrReport(
+            daemon=self.entity,
+            counters=deltas,
+            gauges=gauges,
+            histograms=wire_h,
+            status=json.dumps(status).encode() if status else b"",
+            spans=json.dumps(spans).encode() if spans else b"",
+        )

@@ -1,0 +1,685 @@
+"""Monitor: the cluster-map authority.
+
+Mini-cluster twin of the reference monitor's OSDMonitor role
+(src/mon/OSDMonitor.cc): owns the OSDMap, advances epochs on osd
+boot/failure/out, serves map subscriptions, and executes admin commands
+— EC profile set, pool create (profile -> plugin factory -> CRUSH rule,
+the seam OSDMonitor::prepare_new_pool / crush_rule_create_erasure
+drives, OSDMonitor.cc:7339,7466-7523), osd down/out.
+
+Every mutation is committed through the Paxos quorum (mon/paxos.py)
+before it takes effect, and the MonitorDBStore twin (mon/store.py)
+makes the committed state durable; mutating
+commands are leader-only and peons forward (PaxosService semantics).
+The monitor also aggregates the OSDs' per-PG stat reports (beacons
+carry them — the MPGStats/DaemonServer plane) and serves status /
+health / pg stat with real checks (OSD_DOWN, MON_DOWN, PG_DEGRADED;
+reference src/mon/HealthMonitor.cc, src/mon/MgrStatMonitor.cc).
+
+Failure handling: failure reports (MOSDFailure) mark the target down
+immediately (reference grace logic OSDMonitor::check_failure collapses
+to one report in a mini cluster), and a beacon-liveness sweep marks
+OSDs down/out when beacons stop — both produce new map epochs that are
+pushed to every subscriber, which is what triggers peer OSDs to
+re-peer and recover.
+
+Counterpart of ``ceph_tpu/mon/monitor.py``: the same commands, messages
+and committed state.  ``Monitor(..., device=None)`` takes the device of
+its EC profile validation and of ``osd balance``'s batched placement
+(the card unless the caller passes ``device="cpu"``); a profile without
+``plugin`` gets ``cuda``; there is no ``dump_chaos`` admin command.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import itertools
+import logging
+import time
+
+from ceph_tpu_torch.crush.types import CrushMap
+from ceph_tpu_torch.msg.messages import (
+    MConfig,
+    MLog,
+    MMgrBeacon,
+    MMonCommand,
+    MMonCommandAck,
+    MMonMgrReport,
+    MMonSubscribe,
+    MOSDBeacon,
+    MOSDBoot,
+    MOSDFailure,
+    MOSDScrubReply,
+)
+from ceph_tpu_torch.msg.messenger import Connection, Message, Messenger
+from ceph_tpu_torch.osd.mapenc import decode_osdmap, encode_osdmap
+from ceph_tpu_torch.ops.rs_kernels import resolve_device
+from ceph_tpu_torch.osd.osdmap import OSDMap
+
+log = logging.getLogger("ceph_tpu_torch.mon")
+
+
+from ceph_tpu_torch.mon.auth_service import AuthServiceMixin  # noqa: E402
+from ceph_tpu_torch.mon.commands import CommandMixin  # noqa: E402
+from ceph_tpu_torch.mon.config_service import ConfigServiceMixin  # noqa: E402
+from ceph_tpu_torch.mon.log_service import LogServiceMixin  # noqa: E402
+from ceph_tpu_torch.mon.mgr_service import MgrServiceMixin  # noqa: E402
+from ceph_tpu_torch.mon.osd_service import OSDMonitorMixin  # noqa: E402
+from ceph_tpu_torch.mon.stats_service import StatsServiceMixin  # noqa: E402
+
+
+class Monitor(OSDMonitorMixin, StatsServiceMixin, MgrServiceMixin,
+              LogServiceMixin, AuthServiceMixin, ConfigServiceMixin,
+              CommandMixin):
+    def __init__(
+        self,
+        crush: CrushMap | None = None,
+        beacon_grace: float | None = None,
+        out_interval: float | None = None,
+        rank: int = 0,
+        n_mons: int = 1,
+        store=None,
+        min_down_reporters: int | None = None,
+        paxos_trim_max: int = 500,
+        paxos_trim_keep: int = 250,
+        conf=None,
+        auth=None,
+        device=None,
+    ):
+        """``beacon_grace``/``out_interval``: seconds without a beacon
+        before an OSD is marked down / out; 0 disables the sweep (tests
+        drive failure via MOSDFailure or commands).
+
+        ``store``: an ObjectStore giving the monitor MonitorDBStore-like
+        durability — paxos promises/commits persist there and a restart
+        replays snapshot + committed tail (pass a FileStore for a
+        monitor that survives kill -9).  None = volatile.
+
+        Multi-monitor quorums: construct each member with its ``rank``
+        and the total ``n_mons``, ``start()`` them all, then call
+        ``open_quorum(monmap)`` with every member's address — the
+        rank-based election picks a leader and all state mutations
+        replicate through Paxos (mon/paxos.py).
+
+        ``device``: where the monitor's EC plugins validate profiles
+        and ``osd balance`` maps placements — the card unless the
+        caller passes ``device="cpu"``."""
+        from ceph_tpu_torch.mon.paxos import Paxos
+        from ceph_tpu_torch.mon.store import MonStore
+
+        self.rank = rank
+        self.device = resolve_device(device)
+        self.n_mons = n_mons
+        self.monmap: list[tuple[str, int]] = []
+        self.osdmap = OSDMap(crush=crush or CrushMap())
+        conf0 = conf
+        if conf0 is None:
+            from ceph_tpu_torch.common import ConfigProxy as _CP
+
+            conf0 = _CP()
+        self.messenger = Messenger(
+            ("mon", rank), self._dispatch, on_reset=self._on_reset,
+            auth=auth,
+            compress_mode=conf0["ms_compress_mode"],
+            compress_algorithm=conf0["ms_compress_algorithm"],
+            compress_min_size=conf0["ms_compress_min_size"],
+            handshake_timeout=conf0["ms_connection_ready_timeout"],
+        )
+        self.store = MonStore(store) if store is not None else None
+        self.paxos = Paxos(
+            rank, n_mons, self._send_mon, self._apply_committed,
+            store=self.store,
+            get_snapshot=self._state_snapshot,
+            install_snapshot=self._install_snapshot,
+        )
+        self._state_version = 0
+        if conf is None:
+            from ceph_tpu_torch.common import ConfigProxy
+
+            conf = ConfigProxy()
+        self.conf = conf
+        self.min_down_reporters = (
+            min_down_reporters if min_down_reporters is not None
+            else conf["mon_osd_min_down_reporters"]
+        )
+        self.paxos_trim_max = paxos_trim_max
+        self.paxos_trim_keep = paxos_trim_keep
+        # failed osd -> {reporter: report time} (OSDMonitor failure_info)
+        self._failure_reports: dict[int, dict[int, float]] = {}
+        # None = take the declared option defaults (both 0.0 = sweep
+        # disabled); an explicit constructor arg wins, matching the
+        # conf precedence tests rely on
+        self.beacon_grace = (
+            conf["mon_osd_beacon_grace"] if beacon_grace is None
+            else beacon_grace)
+        self.out_interval = (
+            conf["mon_osd_down_out_interval"] if out_interval is None
+            else out_interval)
+        # per-subsystem gated debug logging (debug_mon), live-updatable
+        # via the config observer like the reference's
+        # `ceph tell mon.* config set debug_mon N`
+        from ceph_tpu_torch.common.dout import DoutLogger
+
+        self.dlog = DoutLogger("mon", conf, name_suffix=str(rank))
+        self._epoch_blobs: dict[int, bytes] = {}
+        self._epoch_incs: dict[int, bytes] = {}
+        self._subscribers: dict[tuple[str, int], Connection] = {}
+        self._last_beacon: dict[int, float] = {}
+        self._down_at: dict[int, float] = {}
+        # derived replicated state: last boot incarnation per osd
+        # (applied deterministically by every member in _apply_op)
+        self._osd_incarnation: dict[int, int] = {}
+        # epoch at which each osd was last marked up (up_from): failure
+        # reports older than this are from before the reboot
+        self._up_from: dict[int, int] = {}
+        self._pool_ids: dict[str, int] = {}
+        # ConfigMonitor database: section ('global', 'osd', 'osd.3',
+        # 'mon', 'client') -> {option: value}; replicated via paxos and
+        # pushed to every subscriber as MConfig
+        self._config_db: dict[str, dict[str, str]] = {}
+        # AuthMonitor database: entity -> {"key": hex, "caps": {...}},
+        # paxos-replicated, mirrored into the live AuthContext keyring
+        self._auth_db: dict[str, dict] = {}
+        # construction-keyring identities: the root of trust the
+        # command plane may never rebind, clobber, or delete
+        self._bootstrap_entities: set[str] = (
+            set(auth.keyring) if auth is not None else set()
+        )
+        self._next_pool = 1
+        # MgrMap state (mon/mgr_service.py) — must predate replay
+        self._init_mgr_service()
+        # cluster log + health history/mute state (mon/log_service.py)
+        # — replicated, must predate replay too
+        self._init_log_service()
+        # the mon's own report stream to the active mgr (every daemon
+        # carries one); fed the map directly on publish — the mon is
+        # its own MgrMap source
+        from ceph_tpu_torch.common import get_perf_counters
+        from ceph_tpu_torch.mgr.client import MgrClient
+
+        self.perf = get_perf_counters(f"mon.{rank}")
+        from ceph_tpu_torch.common.tracing import Tracer
+
+        self.tracer = Tracer(
+            f"mon.{rank}",
+            ring_max=conf0["trace_ring_max"],
+            sample_rate=conf0["trace_sample_rate"],
+            tail_slow_s=(conf0["trace_tail_slow_s"] or None),
+        )
+        self.messenger.tracer = self.tracer
+        self.mgr_client = MgrClient(
+            f"mon.{rank}", self.messenger, conf0, self._mgr_collect,
+            tracers=(self.tracer,))
+        self._tids = itertools.count(1)
+        self._scrub_waiters: dict[int, asyncio.Future] = {}
+        self._tick_task: asyncio.Task | None = None
+        self._probe_task = None
+        self._admin = None
+        self.addr: tuple[str, int] | None = None
+        self._snapshot()
+
+    # -- lifecycle -----------------------------------------------------
+
+    async def start(self, host: str = "127.0.0.1", port: int = 0) -> tuple[str, int]:
+        self.addr = await self.messenger.bind(host, port)
+        sock_path = self.conf["admin_socket"]
+        if sock_path:
+            from ceph_tpu_torch.common import AdminSocket
+
+            self._admin = AdminSocket(
+                sock_path.replace("$id", f"mon{self.rank}")
+            )
+            self._admin.register(
+                "config show", "effective configuration",
+                lambda cmd: self.conf.show(),
+            )
+            self._admin.register(
+                "quorum_status", "election/quorum state",
+                lambda cmd: {
+                    "rank": self.rank,
+                    "leader": self.paxos.leader,
+                    "election_epoch": self.paxos.election_epoch,
+                    "quorum": sorted(self.paxos.quorum),
+                    "last_committed": self.paxos.last_committed,
+                },
+            )
+            self._admin.register(
+                "status", "cluster status",
+                lambda cmd: {
+                    "epoch": self.osdmap.epoch,
+                    "num_pools": len(self.osdmap.pools),
+                },
+            )
+            self._admin.register(
+                "dump_traces", "recent spans (blkin/otel role)",
+                lambda cmd: self.tracer.dump(),
+            )
+            self._admin.register(
+                "dump_log", "cluster-log/health-history service state "
+                "(ring sizes, mute book, per-entity seqs)",
+                lambda cmd: self.dump_log_service(),
+            )
+            self._admin.register(
+                "perf dump", "dump perf counters",
+                lambda cmd: self.perf.dump(),
+            )
+            await self._admin.start()
+        await self._replay()
+        self._start_mgr_tick()
+        self._start_health_tick()
+        self.mgr_client.start()
+        if self.beacon_grace > 0:
+            self._tick_task = asyncio.ensure_future(self._tick())
+        if self.conf["mon_pg_autoscale_interval"] > 0:
+            self._autoscale_task = asyncio.ensure_future(
+                self._autoscale_tick())
+        return self.addr
+
+    async def _replay(self) -> None:
+        """Restart recovery: install the persisted snapshot (if any),
+        then re-apply the committed tail in paxos order — the
+        MonitorDBStore replay that makes a mon restart lossless."""
+        if self.store is None:
+            return
+        st = self.store.load()
+        self._replaying = True
+        try:
+            if st["snapshot"] is not None and st["snapshot"][0] > 0:
+                await self._install_snapshot(*st["snapshot"], publish=False)
+            for v in sorted(self.paxos.values):
+                if v > self._state_version and self.paxos.values[v]:
+                    await self._apply_committed(v, self.paxos.values[v])
+        finally:
+            self._replaying = False
+        await self._maybe_trim()
+
+    # -- state-machine snapshots (trim / full-sync / restart) ----------
+
+    def _state_snapshot(self) -> tuple[int, bytes]:
+        """(version, blob): everything _apply_op derives, captured
+        atomically at _state_version."""
+        import json
+
+        from ceph_tpu_torch.msg.denc import Encoder
+
+        enc = Encoder()
+        enc.u64(self._state_version)
+        enc.bytes_(encode_osdmap(self.osdmap))
+        enc.str_(json.dumps({
+            "pool_ids": self._pool_ids,
+            "next_pool": self._next_pool,
+            "incarnations": {
+                str(k): v for k, v in self._osd_incarnation.items()
+            },
+            "up_from": {str(k): v for k, v in self._up_from.items()},
+            "config_db": self._config_db,
+            "auth_db": self._auth_db,
+            "mgr_map": self._mgr_map,
+            "log_service": self._log_service_snapshot(),
+        }))
+        return self._state_version, enc.bytes()
+
+    async def _install_snapshot(
+        self, version: int, blob: bytes, publish: bool = True
+    ) -> None:
+        import json
+
+        from ceph_tpu_torch.msg.denc import Decoder
+
+        dec = Decoder(blob)
+        snap_version = dec.u64()
+        self.osdmap = decode_osdmap(dec.bytes_())
+        aux = json.loads(dec.str_())
+        self._pool_ids = dict(aux["pool_ids"])
+        self._next_pool = aux["next_pool"]
+        self._osd_incarnation = {
+            int(k): v for k, v in aux["incarnations"].items()
+        }
+        self._config_db = dict(aux.get("config_db", {}))
+        self._auth_db = dict(aux.get("auth_db", {}))
+        if aux.get("mgr_map"):
+            self._mgr_map = dict(aux["mgr_map"])
+        self._install_log_service(aux.get("log_service") or {})
+        self._sync_auth_keyring()
+        self._apply_config_locally()
+        self._up_from = {
+            int(k): v for k, v in aux.get("up_from", {}).items()
+        }
+        self._state_version = max(version, snap_version)
+        self._epoch_blobs = {}
+        self._epoch_incs = {}
+        self._prev_snapshot = None
+        self._snapshot()
+        if publish:
+            await self._publish()
+
+    async def _maybe_trim(self) -> None:
+        """Bound the committed log: snapshot the state machine, then
+        drop values older than the keep window (Paxos::trim)."""
+        if getattr(self, "_replaying", False):
+            # NEVER trim mid-replay: ``below`` derives from the final
+            # last_committed, so trimming here would delete committed
+            # ops the replay loop has not applied yet — both from RAM
+            # (KeyError on the next iteration) and, worse, durably
+            return
+        px = self.paxos
+        if len(px.values) <= self.paxos_trim_max:
+            return
+        below = px.last_committed - self.paxos_trim_keep + 1
+        if self.store is not None:
+            await self.store.put_snapshot(*self._state_snapshot())
+        px.values = {v: b for v, b in px.values.items() if v >= below}
+        px.first_committed = below
+        if self.store is not None:
+            await self.store.trim_values(below)
+
+    async def open_quorum(self, monmap: list[tuple[str, int]]) -> None:
+        """Join the quorum: learn everyone's address, run an election
+        (call on every member after all have start()ed — or, with the
+        probe below, merely *around* the same time)."""
+        assert len(monmap) == self.n_mons
+        self.monmap = list(monmap)
+        await self.paxos.start_election()
+        if self.n_mons > 1 and self._probe_task is None:
+            self._probe_task = asyncio.ensure_future(self._quorum_probe())
+
+    async def _quorum_probe(self) -> None:
+        """A member outside a stable quorum re-runs the election until
+        it joins (the reference's probe/join phase): a mon whose first
+        election raced its peers' boot — multi-process deployments bind
+        at slightly different times — missed VICTORY and would
+        otherwise wait forever."""
+        while True:
+            await asyncio.sleep(2.0)
+            if not self.paxos.stable.is_set():
+                try:
+                    await self.paxos.start_election()
+                except (ConnectionError, OSError):
+                    continue
+
+    async def wait_stable(self, timeout: float = 10.0) -> None:
+        await asyncio.wait_for(self.paxos.stable.wait(), timeout)
+
+    async def stop(self) -> None:
+        await self.mgr_client.stop()
+        if self._admin is not None:
+            await self._admin.stop()
+        if self._tick_task:
+            self._tick_task.cancel()
+        if self._mgr_tick_task:
+            self._mgr_tick_task.cancel()
+        if self._health_tick_task:
+            self._health_tick_task.cancel()
+        if self._probe_task:
+            self._probe_task.cancel()
+        if getattr(self, "_autoscale_task", None):
+            self._autoscale_task.cancel()
+        await self.messenger.shutdown()
+
+    # -- quorum plumbing ----------------------------------------------
+
+    async def _send_mon(self, rank: int, msg: Message) -> None:
+        if rank < len(self.monmap):
+            conn = await self.messenger.connect_to(
+                ("mon", rank), *self.monmap[rank]
+            )
+        else:
+            # a peer reached us before our own open_quorum(): reply over
+            # the connection it already established
+            conn = self.messenger.get_connection(("mon", rank))
+            if conn is None:
+                raise ConnectionError(f"mon.{rank} address unknown")
+        await conn.send_message(msg)
+
+    async def _on_reset(self, conn) -> None:
+        peer = conn.peer
+        if (
+            peer is not None
+            and peer[0] == "mon"
+            and self.n_mons > 1
+            and (
+                self.paxos.leader == peer[1]
+                # a leader losing ANY voting-quorum member must re-form
+                # the quorum, or BEGINs starve waiting on the dead vote
+                or (self.paxos.is_leader and peer[1] in self.paxos.quorum)
+            )
+        ):
+            if not self.paxos.stable.is_set():
+                return  # already electing: don't stack another round
+            # both sides dial each other, so duplicate-connection
+            # teardown is routine — only elect if the leader is truly
+            # unreachable (a false election churns accepted_pn under
+            # in-flight BEGINs and stalls proposes for their timeout)
+            try:
+                if peer[1] < len(self.monmap):
+                    await asyncio.wait_for(self.messenger.connect_to(
+                        ("mon", peer[1]), *self.monmap[peer[1]]
+                    ), 2.0)
+                    return  # reconnected: not a leader loss
+            except (ConnectionError, OSError, asyncio.TimeoutError):
+                pass
+            self.dlog.dout(
+                0, "mon.%d: quorum peer mon.%d lost; electing",
+                self.rank, peer[1],
+            )
+            await self.paxos.start_election()
+
+    async def _apply_committed(self, version: int, value: bytes) -> None:
+        import json
+
+        op = json.loads(value.decode())
+        await self._apply_op(op)
+        self._state_version = version
+        await self._maybe_trim()
+
+    async def _propose(self, op: dict) -> None:
+        """Replicate one state mutation through Paxos (leader only;
+        single-mon quorums commit immediately).  One retry after a
+        mid-propose election (quorum-member loss): every replicated op
+        is replay-idempotent, so a rare double-commit is harmless."""
+        import json
+
+        value = json.dumps(op).encode()
+        last: Exception | None = None
+        for _attempt in range(5):
+            try:
+                await self.paxos.propose(value)
+                return
+            except ConnectionError as e:
+                last = e
+                try:
+                    await asyncio.wait_for(self.paxos.stable.wait(), 10)
+                except asyncio.TimeoutError:
+                    raise e
+                if not self.is_leader:
+                    raise
+                await asyncio.sleep(0.05)
+        raise last
+
+    async def _apply_op(self, op: dict) -> None:
+        """Route one committed mutation to its owning service (the
+        PaxosService::update_from_paxos split, PaxosService.h:28)."""
+        kind = op["op"]
+        if kind in ("config_set", "config_rm"):
+            await self._apply_config_op(op)
+            return  # config changes don't mint osdmap epochs
+        if kind in ("auth_upsert", "auth_del"):
+            await self._apply_auth_op(op)
+            return  # auth changes don't mint osdmap epochs
+        if kind in ("mgr_beacon", "mgr_down", "mgr_module"):
+            await self._apply_mgr_op(op)
+            return  # MgrMap has its own epoch sequence
+        if kind == "clog":
+            self._apply_clog_op(op)
+            return  # log entries don't mint osdmap epochs
+        if kind == "health_history":
+            self._apply_health_history_op(op)
+            return
+        if kind in ("health_mute", "health_unmute"):
+            self._apply_health_mute_op(op)
+            return
+        if await self._apply_osd_op(op):
+            await self._new_epoch()
+
+    @property
+    def is_leader(self) -> bool:
+        return self.paxos.is_leader
+
+    def _mgr_collect(self) -> dict:
+        """This monitor's MMgrReport raw material."""
+        self.perf.set_gauge("osdmap_epoch", float(self.osdmap.epoch))
+        self.perf.set_gauge(
+            "paxos_last_committed", float(self.paxos.last_committed))
+        return {
+            "counters": {
+                k: v for k, v in self.perf.dump().items()
+                if k not in ("osdmap_epoch", "paxos_last_committed")
+            },
+            "gauges": {
+                "osdmap_epoch": float(self.osdmap.epoch),
+                "quorum_size": float(len(self.paxos.quorum)),
+            },
+            "status": {
+                "leader": self.paxos.leader,
+                "is_leader": self.is_leader,
+            },
+        }
+
+    # -- map publication ----------------------------------------------
+
+
+
+
+
+    # -- dispatch ------------------------------------------------------
+
+    async def _dispatch(self, msg: Message) -> None:
+        from ceph_tpu_torch.mon.paxos import MMonElection, MMonPaxos
+
+        if isinstance(msg, MMonElection):
+            await self.paxos.handle_election(msg, msg.src[1])
+        elif isinstance(msg, MMonPaxos):
+            await self.paxos.handle_paxos(msg, msg.src[1])
+        elif isinstance(msg, MOSDBoot):
+            await self._handle_boot(msg)
+        elif isinstance(msg, MOSDBeacon):
+            if self.is_leader:
+                self._last_beacon[msg.osd] = time.monotonic()
+                if msg.pg_stats:
+                    self._ingest_pg_stats(msg.osd, msg.epoch, msg.pg_stats)
+                if msg.statfs:
+                    await self._ingest_statfs(msg.osd, msg.statfs)
+                om = self.osdmap
+                if (0 <= msg.osd < om.max_osd and om.exists(msg.osd)
+                        and (not om.is_up(msg.osd)
+                             or msg.epoch < om.epoch)):
+                    # a beacon from an OSD the map says is DOWN, or one
+                    # whose epoch lags the current map: it is alive but
+                    # never saw the newer epochs (publish raced its
+                    # reboot, a false failure report landed while its
+                    # subscription was being re-established, or a netem
+                    # fault on the mon link made a publish fail and
+                    # popped it from _subscribers).  Hand it the
+                    # catch-up payload so the "map says I'm down;
+                    # re-booting" defense can fire / the stale daemon
+                    # converges — without this the daemon beacons into
+                    # the void forever and its PGs wedge in peering or
+                    # report clean at a dead epoch (soak-chaos-found;
+                    # stale-epoch arm chaos-fuzz-found, control-net).
+                    if msg.src == ("osd", msg.osd):
+                        # the beacon proves this path is healthy again:
+                        # re-register the subscription a failed publish
+                        # dropped (peon-forwarded beacons carry the
+                        # peon's conn — don't register those)
+                        self._subscribers[msg.src] = msg.conn
+                    try:
+                        await msg.conn.send_message(
+                            self._maps_since(msg.epoch))
+                    except (ConnectionError, OSError):
+                        pass
+            else:
+                await self._forward_to_leader(msg)
+        elif isinstance(msg, MOSDFailure):
+            await self._handle_failure(msg)
+        elif isinstance(msg, MLog):
+            await self._handle_log(msg)
+        elif isinstance(msg, MMgrBeacon):
+            await self._handle_mgr_beacon(msg)
+        elif isinstance(msg, MMonMgrReport):
+            await self._handle_mgr_report(msg)
+        elif isinstance(msg, MMonSubscribe):
+            self._subscribers[msg.src] = msg.conn
+            await msg.conn.send_message(self._maps_since(msg.start_epoch))
+            await msg.conn.send_message(self._mgr_map_msg())
+            secs = self._config_sections_for(msg.src)
+            if secs:
+                await msg.conn.send_message(MConfig(sections=secs))
+        elif isinstance(msg, MOSDScrubReply):
+            fut = self._scrub_waiters.get(msg.tid)
+            if fut and not fut.done():
+                fut.set_result(msg)
+        elif isinstance(msg, MMonCommand):
+            code, rs, data = await self._command(
+                msg.cmd, caps=getattr(msg.conn, "peer_caps", None))
+            await msg.conn.send_message(
+                MMonCommandAck(tid=msg.tid, code=code, rs=rs, data=data)
+            )
+
+    async def _forward_to_leader(self, msg: Message) -> None:
+        """Peons forward state-changing daemon messages to the leader
+        (the reference's Monitor::forward_request_leader)."""
+        leader = self.paxos.leader
+        if leader is None or leader == self.rank or not self.monmap:
+            return
+        try:
+            await self._send_mon(leader, msg)
+        except (ConnectionError, OSError):
+            pass
+
+
+
+    # -- the replicated state machine ----------------------------------
+
+
+
+
+
+
+
+
+
+
+
+
+
+
+
+
+
+
+
+
+    # -- commands (the MonCommands.h slice) ----------------------------
+
+    WRITE_PREFIXES = frozenset({
+        "osd erasure-code-profile set", "osd pool create",
+        "osd down", "osd out", "osd balance",
+        "osd pool selfmanaged-snap create",
+        "osd pool selfmanaged-snap rm",
+        "osd pool mksnap", "osd pool rmsnap",
+        "config set", "config rm", "osd crush reweight",
+        "osd crush add-bucket", "osd crush move", "osd crush add",
+        "osd crush rm",
+        "osd pg-upmap-items",
+        "auth add", "auth get-or-create", "auth del", "auth caps",
+        "osd pool set", "osd pool rm", "osd in",
+        "osd tier add", "osd tier remove", "osd tier cache-mode",
+        "osd tier set-overlay", "osd tier remove-overlay",
+        "mgr module enable", "mgr module disable", "mgr fail",
+        "health mute", "health unmute",
+        "crash archive", "crash archive-all",
+    })
+
+
+
+

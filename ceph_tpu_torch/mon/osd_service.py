@@ -1,0 +1,695 @@
+"""OSDMonitor service: the osdmap's PaxosService.
+
+The reference splits the monitor into per-map PaxosService subclasses
+(src/mon/PaxosService.h:28; OSDMonitor.cc owns the osdmap) because
+each plane grows independently; this mixin carries the osdmap plane —
+epoch minting + publication, boot/failure handling, the committed-op
+state machine, beacon-grace ticks, pool/tier/autoscaler admin — over
+the core Monitor's paxos substrate (mon/monitor.py).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+
+from ceph_tpu_torch.ec import registry as ec_registry
+from ceph_tpu_torch.msg.messages import (
+    MOSDBoot,
+    MOSDFailure,
+    MOSDMap,
+)
+from ceph_tpu_torch.osd.mapenc import (
+    decode_osdmap,
+    diff_osdmap,
+    encode_incremental,
+    encode_osdmap,
+)
+from ceph_tpu_torch.osd.types import PgPool, PoolType
+
+log = logging.getLogger("ceph_tpu_torch.mon")
+
+
+class OSDMonitorMixin:
+    async def _apply_osd_op(self, op: dict) -> bool:
+        """Apply one committed osdmap mutation deterministically —
+        runs on every quorum member in paxos order.  Returns True when
+        the change mints a new map epoch (no-ops and replays don't)."""
+        kind = op["op"]
+        om = self.osdmap
+        if kind == "boot":
+            osd, addr = op["osd"], (op["host"], op["port"])
+            inc = op.get("incarnation", 0)
+            stored = self._osd_incarnation.get(osd, 0)
+            if inc and inc < stored:
+                # reordered boot from an EARLIER daemon start (e.g. a
+                # delayed peon-forwarded duplicate): drop it entirely so
+                # it can neither bump the epoch nor regress the address
+                return False
+            if (
+                om.is_up(osd)
+                and om.osd_addrs.get(osd) == addr
+                and om.osd_weight[osd] == op["weight"]
+                and inc == stored
+            ):
+                # paxos replay of the same boot: no epoch bump.  A
+                # genuine fast restart carries a NEW incarnation and
+                # must bump the epoch so peers re-peer/recover toward
+                # the fresh (empty) daemon.
+                return False
+            self._osd_incarnation[osd] = inc
+            om.new_osd(osd, weight=op["weight"], up=True)
+            om.osd_addrs[osd] = addr
+            self._up_from[osd] = om.epoch + 1  # the epoch this op creates
+        elif kind == "down":
+            if not (0 <= op["osd"] < om.max_osd) or not om.is_up(op["osd"]):
+                return False  # no-op: no epoch bump
+            om.mark_down(op["osd"])
+        elif kind == "out":
+            if not (0 <= op["osd"] < om.max_osd) or om.is_out(op["osd"]):
+                return False
+            om.mark_out(op["osd"])
+        elif kind == "full_state":
+            from ceph_tpu_torch.osd.osdmap import CEPH_OSD_FULL_MASK
+
+            osd = op["osd"]
+            if not om.exists(osd):
+                return False
+            cur = om.osd_state[osd]
+            new = (cur & ~CEPH_OSD_FULL_MASK) | (
+                op["bits"] & CEPH_OSD_FULL_MASK)
+            if new == cur:
+                return False  # replay: no epoch
+            om.osd_state[osd] = new
+        elif kind == "profile":
+            om.erasure_code_profiles[op["name"]] = dict(op["profile"])
+        elif kind == "pool_create":
+            self._apply_pool_create(op)
+        elif kind == "crush_reweight":
+            from ceph_tpu_torch.crush import builder as _builder
+
+            if not _builder.reweight_item(
+                    om.crush, op["item"], op["weight"]):
+                return False  # unknown item: no epoch
+        elif kind == "crush_add_bucket":
+            from ceph_tpu_torch.crush import builder as _builder
+
+            if op["name"] in om.crush.bucket_names:
+                return False  # replay
+            _builder.add_bucket(om.crush, op["name"], op["type"])
+        elif kind == "crush_move":
+            from ceph_tpu_torch.crush import builder as _builder
+
+            name = op["item_name"]
+            if name.startswith("osd."):
+                item = int(name[4:])
+            elif name in om.crush.bucket_names:
+                item = om.crush.bucket_names[name]
+            else:
+                return False
+            parent = om.crush.bucket_names.get(op["loc"])
+            if parent is None:
+                return False
+            if not _builder.move_item(
+                    om.crush, item, parent, op.get("weight")):
+                return False  # cycle: no epoch
+        elif kind == "crush_rm":
+            from ceph_tpu_torch.crush import builder as _builder
+
+            name = op["item_name"]
+            if name.startswith("osd."):
+                item = int(name[4:])
+            elif name in om.crush.bucket_names:
+                item = om.crush.bucket_names[name]
+            else:
+                return False
+            if item < 0 and om.crush.buckets.get(item, None) is not None \
+                    and om.crush.buckets[item].items:
+                return False  # became non-empty since validation: refuse
+            if not _builder.remove_item(om.crush, item):
+                return False
+        elif kind == "snap_alloc":
+            pool = om.pools[op["pool"]]
+            pool.snap_seq = max(pool.snap_seq, op["snapid"])
+            if op.get("name"):
+                pool.pool_snaps[op["name"]] = op["snapid"]
+        elif kind == "snap_rm":
+            pool = om.pools[op["pool"]]
+            pool.removed_snaps.add(op["snapid"])
+            if op.get("name"):
+                pool.pool_snaps.pop(op["name"], None)
+        elif kind == "upmap":
+            from ceph_tpu_torch.osd.types import pg_t
+
+            for pool, ps, pairs in op["items"]:
+                om.pg_upmap_items[pg_t(pool, ps)] = [
+                    (f, t) for f, t in pairs
+                ]
+        elif kind == "pool_set":
+            pool = om.pools.get(op["pool"])
+            if pool is None:
+                return False
+            var, val = op["var"], op["val"]
+            if var == "pg_num":
+                n = int(val)
+                if n == pool.pg_num or n < 1:
+                    return False  # replay / stale
+                # pgp_num follows pg_num in one step: on growth,
+                # children place independently at once and recovery
+                # pulls from the parent's prior interval
+                # (ancestor-aware); on shrink, OSDs fold dissolving
+                # children into their targets (PG::merge_from) and
+                # targets pull from the children's prior homes
+                pool.pg_num = n
+                pool.pgp_num = n
+                om.invalidate_mapping_cache()
+                # reports for dissolved children are meaningless now
+                book = getattr(self, "_pg_stats", {}) or {}
+                for pgid in [
+                    k for k in book
+                    if int(k.split(".")[0]) == op["pool"]
+                    and int(k.split(".")[1]) >= n
+                ]:
+                    del book[pgid]
+            elif var == "size":
+                pool.size = int(val)
+            elif var == "min_size":
+                pool.min_size = int(val)
+            else:
+                pool.extra[var] = val
+        elif kind == "pool_rm":
+            pid = op["pool"]
+            if pid not in om.pools:
+                return False
+            name = om.pool_names.pop(pid, None)
+            om.pools.pop(pid, None)
+            if name is not None:
+                self._pool_ids.pop(name, None)
+            # dead placement overrides must not haunt the map forever
+            # (the reference clears upmap/pg_temp on pool deletion)
+            for d in (om.pg_upmap, om.pg_upmap_items, om.pg_temp):
+                for key in [k for k in d if k.pool == pid]:
+                    del d[key]
+        elif kind == "in":
+            osd = op["osd"]
+            if not om.exists(osd) or not om.is_out(osd):
+                return False
+            om.osd_weight[osd] = 0x10000
+        elif kind == "tier_add":
+            tier = om.pools.get(op["tier"])
+            if tier is None or op["base"] not in om.pools:
+                return False
+            tier.extra["tier_of"] = str(op["base"])
+            tier.extra.setdefault("cache_mode", "none")
+        elif kind == "tier_rm":
+            tier = om.pools.get(op["tier"])
+            if tier is None:
+                return False
+            tier.extra.pop("tier_of", None)
+            tier.extra.pop("cache_mode", None)
+        elif kind == "tier_mode":
+            tier = om.pools.get(op["tier"])
+            if tier is None:
+                return False
+            tier.extra["cache_mode"] = op["mode"]
+        elif kind == "tier_overlay":
+            base = om.pools.get(op["base"])
+            if base is None:
+                return False
+            if op["tier"] < 0:
+                base.extra.pop("read_tier", None)
+                base.extra.pop("write_tier", None)
+            else:
+                base.extra["read_tier"] = str(op["tier"])
+                base.extra["write_tier"] = str(op["tier"])
+        else:
+            log.error("mon.%d: unknown committed op %r", self.rank, kind)
+            return False
+        return True
+
+    def _snapshot(self) -> None:
+        from ceph_tpu_torch.osd.mapenc import crush_sections
+
+        epoch = self.osdmap.epoch
+        blob = self._epoch_blobs[epoch] = encode_osdmap(self.osdmap)
+        # delta vs the previous epoch (OSDMap::Incremental): cheap
+        # publication; subscribers land bit-identical to the full map.
+        # The previous epoch's decoded map and crush encodes are cached
+        # so an epoch tick costs one diff, not two decodes + four
+        # crush encodes.
+        sections = crush_sections(self.osdmap)
+        prev = getattr(self, "_prev_snapshot", None)
+        if prev is not None and prev[0] == epoch - 1:
+            inc = diff_osdmap(
+                prev[1], self.osdmap,
+                old_sections=prev[2], new_sections=sections,
+            )
+            self._epoch_incs[epoch] = encode_incremental(inc)
+        self._prev_snapshot = (epoch, decode_osdmap(blob), sections)
+        # bound history
+        for e in sorted(self._epoch_blobs)[:-500]:
+            del self._epoch_blobs[e]
+        for e in sorted(self._epoch_incs)[:-500]:
+            del self._epoch_incs[e]
+
+    async def _new_epoch(self) -> None:
+        self.osdmap.epoch += 1
+        self._snapshot()
+        await self._publish()
+
+    async def _publish(self) -> None:
+        epoch = self.osdmap.epoch
+        inc = self._epoch_incs.get(epoch)
+        if inc is not None:
+            msg = MOSDMap(incs={epoch: inc})
+        else:
+            msg = MOSDMap(maps={epoch: self._epoch_blobs[epoch]})
+        for peer, conn in list(self._subscribers.items()):
+            try:
+                await conn.send_message(msg)
+            except ConnectionError:
+                self._subscribers.pop(peer, None)
+
+    def _maps_since(self, start_epoch: int) -> "MOSDMap":
+        """Catch-up payload for a subscriber at ``start_epoch``:
+        incrementals when the whole (start, current] range is on hand,
+        else the latest full map (OSDMonitor::send_incremental)."""
+        epoch = self.osdmap.epoch
+        if 0 < start_epoch <= epoch:
+            want = range(start_epoch + 1, epoch + 1)
+            if all(e in self._epoch_incs for e in want):
+                return MOSDMap(incs={e: self._epoch_incs[e] for e in want})
+        return MOSDMap(maps={epoch: self._epoch_blobs[epoch]})
+
+    async def _handle_boot(self, m: MOSDBoot) -> None:
+        if not self.is_leader:
+            await self._forward_to_leader(m)
+            return
+        log.info("mon: osd.%d booted at %s:%d", m.osd, m.host, m.port)
+        self._last_beacon[m.osd] = time.monotonic()
+        self._down_at.pop(m.osd, None)
+        self._failure_reports.pop(m.osd, None)
+        await self._propose({
+            "op": "boot", "osd": m.osd, "host": m.host, "port": m.port,
+            "weight": m.weight, "incarnation": m.incarnation,
+        })
+
+    async def _handle_failure(self, m: MOSDFailure) -> None:
+        if not self.is_leader:
+            await self._forward_to_leader(m)
+            return
+        om = self.osdmap
+        if 0 <= m.failed < om.max_osd and om.is_up(m.failed):
+            if m.epoch < self._up_from.get(m.failed, 0):
+                # the report predates the target's latest boot: a
+                # straggler from before the reboot, not fresh evidence
+                # (OSDMonitor::check_failure vs up_from)
+                return
+            now = time.monotonic()
+            reporters = self._failure_reports.setdefault(m.failed, {})
+            reporters[m.reporter] = now
+            # expire stale reports (the reference ages failure_info by
+            # grace; 60 s here)
+            for r, t0 in list(reporters.items()):
+                if now - t0 > 60.0:
+                    del reporters[r]
+            if len(reporters) < self.min_down_reporters:
+                log.info(
+                    "mon: osd.%d failure report %d/%d (from osd.%d)",
+                    m.failed, len(reporters), self.min_down_reporters,
+                    m.reporter,
+                )
+                return
+            log.info(
+                "mon: osd.%d reported failed by %s", m.failed,
+                sorted(reporters),
+            )
+            self._failure_reports.pop(m.failed, None)
+            self._down_at[m.failed] = now
+            await self._propose({"op": "down", "osd": m.failed})
+
+    async def _tick(self) -> None:
+        was_leader = False
+        last_tick = time.monotonic()
+        while True:
+            await asyncio.sleep(self.beacon_grace / 4)
+            now = time.monotonic()
+            starved = now - last_tick > self.beacon_grace
+            last_tick = now
+            if not self.is_leader:
+                was_leader = False
+                continue
+            if starved:
+                # the event loop stalled (big computation, GC, swap):
+                # beacons queued but undelivered are not missing OSDs —
+                # re-seed rather than mass-mark the cluster down
+                was_leader = False
+            om = self.osdmap
+            if not was_leader:
+                # fresh leadership: beacons were landing on the old
+                # leader, so give every up OSD one full grace period to
+                # re-home before judging it (the reference's equivalent
+                # is last_beacon reset on win_election)
+                was_leader = True
+                for osd in range(om.max_osd):
+                    if om.is_up(osd):
+                        self._last_beacon[osd] = now
+                continue
+            try:
+                for osd, last in list(self._last_beacon.items()):
+                    if om.is_up(osd) and now - last > self.beacon_grace:
+                        self.dlog.dout(
+                            0, "mon: osd.%d beacon timeout -> down", osd)
+                        self._down_at[osd] = now
+                        await self._propose({"op": "down", "osd": osd})
+                if self.out_interval > 0:
+                    for osd, when in list(self._down_at.items()):
+                        if not om.is_out(osd) and now - when > self.out_interval:
+                            self.dlog.dout(
+                                0, "mon: osd.%d down too long -> out", osd)
+                            await self._propose({"op": "out", "osd": osd})
+            except ConnectionError:
+                continue  # lost quorum mid-sweep; retry next tick
+
+    def _autoscale_rows(self) -> list[dict]:
+        """pg_autoscaler sizing math: ideal pg count ~ eligible osds *
+        mon_target_pg_per_osd / size, rounded to a power of two."""
+        om2 = self.osdmap
+        target = self.conf["mon_target_pg_per_osd"]
+
+        def _eligible(pool) -> int:
+            rule = om2.crush.rules.get(pool.crush_rule)
+            cls = getattr(rule, "device_class", None)
+            n = sum(
+                1 for o in range(om2.max_osd)
+                if om2.exists(o) and not om2.is_out(o)
+                and (cls is None
+                     or om2.crush.device_classes.get(o) == cls)
+            )
+            return n or 1
+
+        rows = []
+        for pid, pool in sorted(om2.pools.items()):
+            n_in = _eligible(pool)
+            ideal = max(1, n_in * target // max(1, pool.size))
+            # nearest power of two, min 1
+            p2 = 1 << max(0, ideal.bit_length() - 1)
+            if ideal - p2 > (p2 * 2) - ideal:
+                p2 *= 2
+            rows.append({
+                "pool": om2.pool_names.get(pid, str(pid)),
+                "pool_id": pid,
+                "size": pool.size,
+                "pg_num": pool.pg_num,
+                "new_pg_num": p2,
+                "autoscale_mode": pool.extra.get(
+                    "pg_autoscale_mode", "off"),
+                "would_adjust": p2 != pool.pg_num,
+            })
+        return rows
+
+    async def _autoscale_tick(self) -> None:
+        """The acting half of the pg_autoscaler: pools that opted in
+        (pg_autoscale_mode=on) get their advised pg_num APPLIED through
+        paxos — reference src/pybind/mgr/pg_autoscaler/module.py
+        _maybe_adjust.  Shrinks as well as grows (pg merge); like the
+        reference's threshold, a shrink only fires when the advised
+        count is under half the current one, so the scaler can't
+        oscillate around a boundary."""
+        interval = self.conf["mon_pg_autoscale_interval"]
+        while True:
+            await asyncio.sleep(interval)
+            if not self.is_leader:
+                continue
+            try:
+                for row in self._autoscale_rows():
+                    pool = self.osdmap.pools.get(row["pool_id"])
+                    if pool is None or pool.extra.get(
+                            "pg_autoscale_mode") != "on":
+                        continue
+                    new = row["new_pg_num"]
+                    if new == pool.pg_num or (
+                        new < pool.pg_num and new * 2 > pool.pg_num
+                    ):
+                        continue
+                    log.info("mon.%d: autoscaler resizing pool %d "
+                             "pg_num %d -> %d", self.rank,
+                             row["pool_id"], pool.pg_num,
+                             row["new_pg_num"])
+                    await self._propose({
+                        "op": "pool_set", "pool": row["pool_id"],
+                        "var": "pg_num",
+                        "val": str(row["new_pg_num"]),
+                    })
+            except Exception:
+                log.exception("mon.%d: autoscale tick failed", self.rank)
+
+    def _pool_by_name(self, name: str):
+        import errno
+
+        pid = self.osdmap.lookup_pg_pool_name(name)
+        if pid < 0:
+            raise OSError(errno.ENOENT, f"no pool {name!r}")
+        return pid, self.osdmap.pools[pid]
+
+    async def _pool_set(self, cmd: dict[str, str]) -> tuple[int, str, bytes]:
+        """osd pool set <pool> <var> <val> (OSDMonitor::prepare_command
+        pool ops, src/mon/OSDMonitor.cc:7339+).  pg_num increases split
+        PGs on the OSDs; decreases merge them (PG::merge_from,
+        src/osd/PG.cc:563)."""
+        import errno
+
+        pid, pool = self._pool_by_name(cmd["pool"])
+        var, val = cmd["var"], cmd["val"]
+        if var == "pg_num":
+            n = int(val)
+            if n == pool.pg_num:
+                return 0, "no change", b""
+            if n < 1:
+                return -errno.EINVAL, "pg_num must be >= 1", b""
+            if n > 65536:
+                return -errno.ERANGE, "pg_num too large", b""
+            if n < pool.pg_num:
+                # merge only commits on a CLEAN pool (the reference's
+                # ready_to_merge gate, OSDMonitor pg_num_pending
+                # machinery): the dissolving children's logs fold into
+                # targets with incomparable version sequences, which
+                # is only safe when nothing is degraded or pending
+                book = getattr(self, "_pg_stats", {}) or {}
+                for ps in range(pool.pg_num):
+                    st = book.get(f"{pid}.{ps}")
+                    if (
+                        st is None
+                        or st.get("state") != "active+clean"
+                        or not self.osdmap.is_up(st.get("primary", -1))
+                    ):
+                        return (-errno.EBUSY,
+                                "pool not clean; merge requires every "
+                                "pg active+clean", b"")
+        elif var in ("size", "min_size"):
+            n = int(val)
+            if not 1 <= n <= 16:
+                return -errno.EINVAL, f"bad {var}", b""
+            if var == "size" and pool.type != 1:  # replicated only
+                return -errno.EPERM, "size is fixed for EC pools", b""
+            if var == "size" and n < pool.min_size:
+                return -errno.EINVAL, "size < min_size", b""
+            if var == "min_size" and n > pool.size:
+                return -errno.EINVAL, "min_size > size", b""
+        elif var == "pg_autoscale_mode":
+            if val not in ("on", "off"):
+                return -errno.EINVAL, "pg_autoscale_mode: on|off", b""
+        elif var == "target_max_bytes":
+            if int(val) < 0:
+                return -errno.EINVAL, "target_max_bytes >= 0", b""
+        elif var == "fast_read":
+            if val not in ("0", "1"):
+                return -errno.EINVAL, "fast_read: 0|1", b""
+        else:
+            return -errno.EINVAL, f"unsettable var {var!r}", b""
+        await self._propose({
+            "op": "pool_set", "pool": pid, "var": var, "val": str(val),
+        })
+        return 0, f"set pool {cmd['pool']} {var} to {val}", b""
+
+    async def _pool_rm(self, cmd: dict[str, str]) -> tuple[int, str, bytes]:
+        """osd pool rm <pool> <pool-again> --yes-i-really-really-mean-it
+        (the reference's double-confirmation)."""
+        import errno
+
+        pid, _pool = self._pool_by_name(cmd["pool"])
+        if cmd.get("pool2") != cmd["pool"] or cmd.get(
+                "sure") != "--yes-i-really-really-mean-it":
+            return (-errno.EPERM,
+                    "pass the pool name twice and "
+                    "--yes-i-really-really-mean-it", b"")
+        await self._propose({"op": "pool_rm", "pool": pid})
+        return 0, f"pool {cmd['pool']} removed", b""
+
+    async def _tier_command(
+        self, prefix: str, cmd: dict[str, str],
+    ) -> tuple[int, str, bytes]:
+        """Cache-tier admin (OSDMonitor::prepare_command tier verbs,
+        src/mon/OSDMonitor.cc 'osd tier add/remove/cache-mode/
+        set-overlay/remove-overlay')."""
+        import errno
+
+        _bpid, base = self._pool_by_name(cmd["pool"])
+        if prefix in ("osd tier add", "osd tier remove",
+                      "osd tier cache-mode", "osd tier set-overlay"):
+            tier_name = cmd.get("tierpool") or cmd.get("pool2", "")
+            if prefix == "osd tier cache-mode":
+                tier_name = cmd["pool"]
+        if prefix == "osd tier add":
+            tpid, tier = self._pool_by_name(tier_name)
+            if tpid == _bpid:
+                return -errno.EINVAL, "a pool cannot tier itself", b""
+            if tier.extra.get("tier_of"):
+                return -errno.EINVAL, "already a tier", b""
+            if base.extra.get("tier_of"):
+                return (-errno.EINVAL,
+                        "base is itself a tier (no tier chains)", b"")
+            if tier.type != 1:
+                return (-errno.EINVAL,
+                        "cache tier must be replicated (omap)", b"")
+            await self._propose({
+                "op": "tier_add", "base": _bpid, "tier": tpid,
+            })
+            return 0, f"{tier_name} is now a tier of {cmd['pool']}", b""
+        if prefix == "osd tier remove":
+            tpid, tier = self._pool_by_name(tier_name)
+            if tier.extra.get("tier_of") != str(_bpid):
+                return (-errno.ENOENT,
+                        f"{tier_name} is not a tier of {cmd['pool']}", b"")
+            if base.extra.get("read_tier") == str(tpid):
+                return -errno.EBUSY, "remove the overlay first", b""
+            await self._propose({
+                "op": "tier_rm", "base": _bpid, "tier": tpid,
+            })
+            return 0, "tier removed", b""
+        if prefix == "osd tier cache-mode":
+            mode = cmd["mode"]
+            if mode not in ("writeback", "none"):
+                return -errno.EINVAL, "mode: writeback|none", b""
+            if not base.extra.get("tier_of"):
+                return -errno.EINVAL, f"{cmd['pool']} is not a tier", b""
+            await self._propose({
+                "op": "tier_mode", "tier": _bpid, "mode": mode,
+            })
+            return 0, f"cache-mode {mode}", b""
+        if prefix == "osd tier set-overlay":
+            tpid, tier = self._pool_by_name(tier_name)
+            if tier.extra.get("tier_of") != str(_bpid):
+                return -errno.EINVAL, "not a tier of that pool", b""
+            await self._propose({
+                "op": "tier_overlay", "base": _bpid, "tier": tpid,
+            })
+            return 0, "overlay set", b""
+        if prefix == "osd tier remove-overlay":
+            await self._propose({"op": "tier_overlay", "base": _bpid,
+                                 "tier": -1})
+            return 0, "overlay removed", b""
+        return -errno.EOPNOTSUPP, prefix, b""
+
+    def _snap_alloc_lock(self, pool_id: int):
+        locks = getattr(self, "_snap_locks", None)
+        if locks is None:
+            locks = self._snap_locks = {}
+        if pool_id not in locks:
+            import asyncio as _asyncio
+
+            locks[pool_id] = _asyncio.Lock()
+        return locks[pool_id]
+
+    async def _pool_create(self, cmd: dict[str, str]) -> tuple[int, str, bytes]:
+        """OSDMonitor::prepare_new_pool (OSDMonitor.cc:7339): leader
+        validates, then the creation replicates through paxos and
+        applies deterministically on every member."""
+        import errno
+        import json
+
+        name = cmd["name"]
+        if name in self._pool_ids:
+            pid = self._pool_ids[name]
+            return 0, f"pool {name!r} already exists", json.dumps({"pool_id": pid}).encode()
+        pool_type = cmd.get("pool_type", "replicated")
+        om = self.osdmap
+        if pool_type == "erasure":
+            profile_name = cmd.get("erasure_code_profile", "default")
+            profile = om.erasure_code_profiles.get(profile_name)
+            if profile is None:
+                return -errno.ENOENT, f"no profile {profile_name!r}", b""
+            ec_registry.factory(profile["plugin"], dict(profile),
+                                device=self.device)  # validate
+        elif om.crush.bucket_names.get("default") is None and (
+            cmd.get("rule", "replicated_rule") not in om.crush.rule_names
+        ):
+            return -errno.ENOENT, "no default crush root", b""
+        await self._propose({
+            "op": "pool_create", "name": name,
+            "pg_num": int(cmd.get("pg_num")
+                          or self.conf["osd_pool_default_pg_num"]),
+            "pool_type": pool_type,
+            "size": int(cmd.get("size")
+                        or self.conf["osd_pool_default_size"]),
+            "rule": cmd.get("rule", ""),
+            "erasure_code_profile": cmd.get("erasure_code_profile", "default"),
+            "fast_read": cmd.get("fast_read", "") in ("1", "true", "yes"),
+        })
+        pid = self._pool_ids[name]
+        return 0, f"pool {name!r} created", json.dumps({"pool_id": pid}).encode()
+
+    def _apply_pool_create(self, op: dict) -> None:
+        """Deterministic half of pool creation (same inputs + same map
+        state -> same pool id, rule id and crush mutation on every
+        quorum member)."""
+        name = op["name"]
+        if name in self._pool_ids:
+            return
+        om = self.osdmap
+        pid = self._next_pool
+        if op["pool_type"] == "erasure":
+            profile_name = op["erasure_code_profile"]
+            profile = om.erasure_code_profiles[profile_name]
+            ec = ec_registry.factory(profile["plugin"], dict(profile),
+                                     device=self.device)
+            rule_name = op["rule"] or name
+            if rule_name in om.crush.rule_names:
+                rule = om.crush.rule_names[rule_name]
+            else:
+                rule = ec.create_rule(rule_name, om.crush)
+            k = ec.get_data_chunk_count()
+            m = ec.get_coding_chunk_count()
+            pool = PgPool(
+                id=pid, type=PoolType.ERASURE, size=k + m, min_size=k,
+                crush_rule=rule, pg_num=op["pg_num"], pgp_num=op["pg_num"],
+                erasure_code_profile=profile_name,
+            )
+        else:
+            rule_name = op["rule"] or "replicated_rule"
+            if rule_name in om.crush.rule_names:
+                rule = om.crush.rule_names[rule_name]
+            else:
+                from ceph_tpu_torch.crush import builder
+
+                root = om.crush.bucket_names["default"]
+                try:
+                    fd = om.crush.type_id("host")
+                except KeyError:
+                    fd = 1
+                rule = builder.add_simple_rule(om.crush, root, fd, mode="firstn")
+                om.crush.rule_names[rule_name] = rule
+            pool = PgPool(
+                id=pid, type=PoolType.REPLICATED, size=op["size"],
+                min_size=max(1, op["size"] - 1), crush_rule=rule,
+                pg_num=op["pg_num"], pgp_num=op["pg_num"],
+            )
+        if op.get("fast_read"):
+            # pool fast_read flag (pg_pool_t FLAG_..., ECCommon.cc:531
+            # read-all-decode-first-k)
+            pool.extra["fast_read"] = "1"
+        om.pools[pid] = pool
+        om.pool_names[pid] = name
+        self._pool_ids[name] = pid
+        self._next_pool += 1

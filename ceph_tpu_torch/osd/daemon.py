@@ -1,0 +1,2900 @@
+"""OSD daemon: the object-service process of the mini-cluster.
+
+The asyncio twin of the reference OSD's op path (src/osd/OSD.cc
+dispatch -> PrimaryLogPG::do_op -> PGBackend submit, SURVEY.md §3.1):
+boots into the mon (MOSDBoot), subscribes to maps, serves client ops as
+primary, fans EC chunk writes/reads out to shard peers
+(MOSDECSubOpWrite/Read — ECBackend::submit_transaction/handle_sub_*,
+src/osd/ECBackend.cc:943,1022,1472), replicates full objects for
+replicated pools (MOSDRepOp), and reconstructs missing shards after map
+changes (RecoveryBackend::continue_recovery_op, ECBackend.cc:563 →
+decode via ECUtil + MOSDPGPush).
+
+Data layout matches the reference: one collection per PG shard
+(coll_t(pool, ps, shard), ECTransaction.cc:80-88), chunk payloads at
+chunk offsets, per-shard HashInfo crc chains in the ``hinfo`` xattr
+(ECUtil.cc:164-248) and the logical size in ``_size`` (the object_info
+analogue).
+
+Consistency is log-based (osd/pglog.py): every write commits
+a pg-log entry with the data; after a map change the primary runs
+peering-lite (_recover_pg): pg_info exchange, log adoption from
+newer members, per-peer missing sets from the log delta, and full
+backfill with authoritative-list stray removal when trimmed past a
+peer.  Reads verify object versions across chunks so revived members
+with stale shards cannot corrupt results.
+
+Deliberate simplifications vs the reference: the peering state machine
+is a linear pass rather than boost::statechart, there is no
+ObjectContext rw-locking (recovery races resolve by version guards and
+the next pass), and sub-chunk (CLAY) recovery I/O goes through full
+chunk reads.
+
+Counterpart of ``ceph_tpu/osd/daemon.py`` with the same names, messages
+and on-store bytes.  Where the port differs, on purpose:
+
+- ``OSDDaemon(..., device=None)`` takes the device its EC plugins, the
+  encode service and the two batchers run on: the card unless the caller
+  passes ``device="cpu"``;
+- a profile without ``plugin`` gets ``cuda`` (the reference's ``jax``);
+- ``osd_ec_encode_farm=auto`` attaches ``encode_service.shared(device)``
+  exactly when the daemon's device is a card;
+- a failed map-time warmup is logged and also kept in
+  ``warmup_failures`` (shown by ``dump_faults``);
+- no transfer guard is armed (``osd_transfer_guard`` is read by nothing
+  here), and there is no ``dump_chaos`` admin command.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import errno
+import itertools
+import logging
+import time
+
+import numpy as np
+
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+from ceph_tpu_torch.ec import registry as ec_registry
+from ceph_tpu_torch.msg.messages import (
+    PING,
+    PING_REPLY,
+    MLogAck,
+    MMgrConfigure,
+    MMgrMap,
+    MMonSubscribe,
+    MConfig,
+    MOSDBeacon,
+    MOSDBoot,
+    MOSDECSubOpRead,
+    MOSDECSubOpReadReply,
+    MOSDECSubOpWrite,
+    MOSDECSubOpWriteReply,
+    MOSDFailure,
+    MOSDMap,
+    MOSDPing,
+    MWatchNotify,
+    MWatchNotifyAck,
+    MOSDOp,
+    MOSDOpReply,
+    MOSDPGPush,
+    MOSDPGPushReply,
+    MOSDRepOp,
+    MOSDRepOpReply,
+    MOSDPGInfo,
+    MOSDPGLog,
+    MOSDPGLogAck,
+    MOSDPGQuery,
+    MBackfillReserve,
+    MOSDScrub,
+    MOSDScrubReply,
+    OP_APPEND,
+    OP_CALL,
+    OP_CREATE,
+    OP_DELETE,
+    OP_GETXATTR,
+    OP_GETXATTRS,
+    OP_OMAP_CLEAR,
+    OP_OMAP_GETKEYS,
+    OP_OMAP_GETVALS,
+    OP_OMAP_GETVALSBYKEYS,
+    OP_OMAP_RMKEYS,
+    OP_OMAP_SETKEYS,
+    OP_LIST_SNAPS,
+    OP_READ,
+    OP_RMXATTR,
+    OP_ROLLBACK,
+    OP_SNAP_CLONE,
+    OP_SETXATTR,
+    OP_STAT,
+    OP_TRUNCATE,
+    OP_NOTIFY,
+    OP_UNWATCH,
+    OP_WATCH,
+    OP_WRITE,
+    OP_WRITE_FULL,
+    OP_ZERO,
+)
+from ceph_tpu_torch.msg.messenger import Connection, Message, Messenger
+
+# space-freeing write ops stay admissible when FULL — they are how an
+# operator digs a cluster out (reference: deletes pass _check_full)
+_DELETE_OPS = frozenset(
+    {OP_DELETE, OP_OMAP_RMKEYS, OP_OMAP_CLEAR, OP_RMXATTR})
+from ceph_tpu_torch.ops.hashing import ceph_str_hash_rjenkins
+from ceph_tpu_torch.ops.rs_kernels import resolve_device
+from ceph_tpu_torch.osd import ecutil
+from ceph_tpu_torch.osd.mapenc import apply_map_message
+from ceph_tpu_torch.osd.osdmap import OSDMap
+from ceph_tpu_torch.osd.pglog import (
+    DELETE,
+    MODIFY,
+    PGMETA_OID,
+    ZERO,
+    PGLog,
+    eversion_t,
+    pg_log_entry_t,
+)
+from ceph_tpu_torch.osd.snaps import (
+    NOSNAP,
+    SNAPS_ATTR,
+    SS_ATTR,
+    WHITEOUT_ATTR,
+    SnapContext,
+    SnapSet,
+    decode_snaps,
+    encode_snaps,
+)
+from ceph_tpu_torch.osd.types import PgPool, pg_t
+from ceph_tpu_torch.store import MemStore, Transaction, coll_t, ghobject_t
+
+log = logging.getLogger("ceph_tpu_torch.osd")
+
+# shared constants/helpers moved to pgutil (re-exported here: external
+# users import object_to_pg/VERSION_ATTR/_v_parse from this module)
+from ceph_tpu_torch.osd.pgutil import (  # noqa: E402,F401
+    ECConnErrors,
+    ECFetchError,
+    HINFO_ATTR,
+    NO_SHARD,
+    SIZE_ATTR,
+    STRIPE_UNIT,
+    SUBOP_TIMEOUT,
+    USER_XATTR_PREFIX,
+    VERSION_ATTR,
+    _read_extents,
+    _v_bytes,
+    _v_parse,
+    object_to_pg,
+)
+from ceph_tpu_torch.osd.ec_backend import ECBackendMixin  # noqa: E402
+from ceph_tpu_torch.osd.recovery import RecoveryMixin  # noqa: E402
+from ceph_tpu_torch.osd.scrubber import ScrubMixin  # noqa: E402
+from ceph_tpu_torch.osd.tiering import TieringMixin  # noqa: E402
+
+
+class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
+    def __init__(
+        self,
+        osd_id: int,
+        mon_addr: tuple[str, int],
+        store: MemStore | None = None,
+        beacon_interval: float | None = None,
+        conf=None,
+        auth=None,
+        encode_service=None,
+        device=None,
+    ):
+        from ceph_tpu_torch.common import ConfigProxy, get_perf_counters
+
+        self.id = osd_id
+        self.device = resolve_device(device)
+        # one address or a monmap; the daemon hunts for a live monitor
+        self.mon_addrs: list[tuple[str, int]] = (
+            list(mon_addr) if isinstance(mon_addr, list) else [mon_addr]
+        )
+        self.mon_addr = self.mon_addrs[0]
+        self.conf = conf if conf is not None else ConfigProxy()
+        # daemon-start plugin preload (ErasureCodePlugin.cc:180-196,
+        # driven by osd_erasure_code_plugins): load failures surface at
+        # boot, not on the first EC pool op; already-loaded plugins are
+        # skipped so repeated daemon constructions are free
+        ec_registry.preload(self.conf["osd_erasure_code_plugins"])
+        self.store = store or MemStore()
+        # scope this store's fault-injection points to this daemon
+        # (store.read.osd.<id> etc — see common/fault_injector.py)
+        self.store.fault_domain = f"osd.{osd_id}"
+        # read-error ledger (the reference's osd_max_object_read_errors
+        # escalation): oid -> local medium-error count.  Enough DISTINCT
+        # damaged objects means the medium, not the object, is dying —
+        # the osd marks itself failed so peering re-places its data.
+        self._read_error_ledger: dict[str, int] = {}
+        self._disk_escalated = False
+        self._death_task: asyncio.Task | None = None
+        # encode service (the ECSubWrite fan-out seam); resolved lazily
+        # so daemons without EC pools never touch the device at boot
+        self._encode_service = encode_service
+        self._encode_service_resolved = encode_service is not None
+        # recovery-decode batching aggregator (parallel/decode_batcher):
+        # per-object recovery decodes coalesce into fixed-shape batched
+        # launches; resolved lazily like the farm
+        self._decode_aggregator = None
+        self._decode_aggregator_resolved = False
+        # deep-scrub verification batcher (parallel/scrub_batcher):
+        # per-object crc32c + parity re-encode checks coalesce into
+        # fixed-shape batched launches; resolved lazily like the farm
+        self._scrub_verifier = None
+        self._scrub_verifier_resolved = False
+        # EC profiles whose fixed-bucket shapes have been prewarmed (the
+        # no-compile-in-the-I/O-path discipline; see _warm_ec_profiles)
+        self._warmed_profiles: set[str] = set()
+        self._warm_tasks: set = set()
+        #: (profile name, exception) of every failed map-time warmup
+        self.warmup_failures: list[tuple[str, BaseException]] = []
+        self.messenger = Messenger(
+            ("osd", osd_id), self._dispatch, on_reset=self._on_reset,
+            auth=auth,
+            compress_mode=self.conf["ms_compress_mode"],
+            compress_algorithm=self.conf["ms_compress_algorithm"],
+            compress_min_size=self.conf["ms_compress_min_size"],
+            handshake_timeout=self.conf["ms_connection_ready_timeout"],
+        )
+        self.messenger.inject_socket_failures = self.conf[
+            "ms_inject_socket_failures"
+        ]
+        self.perf = get_perf_counters(f"osd.{osd_id}")
+        from ceph_tpu_torch.common import DoutLogger, OpTracker
+        from ceph_tpu_torch.common.tracing import Tracer
+
+        # per-incarnation tracer: a restarted daemon must not inherit a
+        # dead daemon's span ring.  Ring size, head-sampling rate and
+        # tail capture come from config (trace_* options); the
+        # messenger shares it so traced messages grow msg_send/recv
+        # net-stage spans
+        self.tracer = Tracer(
+            f"osd.{osd_id}",
+            ring_max=self.conf["trace_ring_max"],
+            sample_rate=self.conf["trace_sample_rate"],
+            tail_slow_s=(self.conf["trace_tail_slow_s"] or None),
+        )
+        self.messenger.tracer = self.tracer
+
+        # slow-op forensics (TrackedOp.h:121) + per-subsystem dout
+        self.op_tracker = OpTracker(
+            history_size=self.conf["osd_op_history_size"],
+            slow_threshold=self.conf["osd_op_complaint_time"],
+        )
+        # eager per-class latency histograms, shared with the local
+        # prometheus exposition (proper _bucket/_sum/_count rendering)
+        from ceph_tpu_torch.common.optracker import LatencyHistogram
+
+        for cls_ in ("read", "write", "subop_w"):
+            h = self.op_tracker.histograms[cls_] = LatencyHistogram()
+            self.perf.register_histogram(f"{cls_}_latency", h)
+        # mgr report stream (mgr/client.py): watches the
+        # MgrMap from the mon, streams perf deltas + log2 latency
+        # histograms + pg/ledger status to the active mgr
+        from ceph_tpu_torch.mgr.client import MgrClient
+
+        from ceph_tpu_torch.common.tracing import device_tracer
+
+        self.mgr_client = MgrClient(
+            f"osd.{osd_id}", self.messenger, self.conf,
+            self._mgr_collect,
+            tracers=(self.tracer, device_tracer()))
+        # cluster-log channel (common/logclient.py): operator-relevant
+        # events (self-markdown, repair requeues) ship to the mon's
+        # replicated log; the local tail ring feeds crash dumps
+        from ceph_tpu_torch.common.logclient import LogClient
+
+        self.clog = LogClient(
+            f"osd.{osd_id}", self.conf, send=self._send_mon_log)
+        self.dlog = DoutLogger("osd", self.conf, name_suffix=str(osd_id))
+        self._admin: object | None = None
+        self.osdmap: OSDMap | None = None
+        self.beacon_interval = (
+            beacon_interval
+            if beacon_interval is not None
+            else self.conf["osd_beacon_report_interval"]
+        )
+        self.addr: tuple[str, int] | None = None
+        self._mon_conn: Connection | None = None
+        self._tids = itertools.count(1)
+        self._waiters: dict[int, asyncio.Future] = {}
+        self._push_waiters: dict[int, asyncio.Future] = {}  # by push tid
+        # per-object write serialization (the ObjectContext rw-lock
+        # analogue): RMW read/encode/fan-out must not interleave with
+        # another write to the same object
+        self._obj_locks: dict[tuple[int, str], asyncio.Lock] = {}
+        # watch/notify state (primary-local; the reference persists
+        # watchers in object_info and re-establishes via client linger —
+        # here clients re-watch after a primary change)
+        self._watchers: dict[tuple[int, str], dict[tuple, object]] = {}
+        self._notify_waiters: dict[tuple, asyncio.Future] = {}
+        self._trim_tasks: set = set()
+        import contextvars
+
+        # root span of the client op executing in THIS task (ops run as
+        # concurrent tasks, so a plain attribute would cross-parent)
+        self._op_span = contextvars.ContextVar(
+            f"osd{osd_id}_op_span", default=None)
+        self._recovering_pgs: set[tuple[int, int]] = set()
+        # (pool, ps) -> newest epoch whose recovery pass completed for
+        # that pg: a pg is only reported clean once the pass has
+        # verified it under the current map (completeness, not just
+        # map up-ness)
+        self._clean_epoch: dict[tuple[int, int], int] = {}
+        # (pool, ps) -> (epoch, acting tuple) of the last PRIMED
+        # interval: a primary must adopt the acting set's log state
+        # before serving ops in a new interval (peering-before-active,
+        # see _prime_interval)
+        self._primed_intervals: dict[tuple[int, int], tuple] = {}
+        self._prime_locks: dict[tuple[int, int], asyncio.Lock] = {}
+        # past_intervals-lite (reference src/osd/osd_types.h:3270
+        # PastIntervals): per local PG, the acting sets of recent map
+        # intervals since the pg was last clean — recovery consults
+        # their still-up members as data SOURCES, so a fully-remapped
+        # PG can pull from its previous home.  Bounded; trimmed when
+        # the recovery pass completes clean.
+        self._past_acting: dict[tuple[int, int], list[list[int]]] = {}
+        self._past_acting_loaded = False
+        # (pool, ps) -> (last shallow stamp, last deep stamp), monotonic
+        self._scrub_stamps: dict[tuple[int, int], tuple[float, float]] = {}
+        self._scrub_task: asyncio.Task | None = None
+        # primary-side EC stripe cache: (pool, oid) -> (object version,
+        # logical lo, bytes) of the most recent write — hot RMW
+        # overwrites skip the shard read (ExtentCache role, reference
+        # src/osd/ExtentCache.h; entries are version-guarded, so a
+        # primary change or missed write can never serve stale bytes)
+        from collections import OrderedDict as _OD
+
+        self._extent_cache: "dict[tuple[int, str], tuple]" = _OD()
+        self._extent_cache_bytes = 0
+        self._ec_cache: dict[str, object] = {}
+        self._pg_logs: dict[coll_t, PGLog] = {}
+        self._beacon_task: asyncio.Task | None = None
+        self._hb_task: asyncio.Task | None = None
+        # peer heartbeat state (handle_osd_ping analogue)
+        self._hb_last_reply: dict[int, float] = {}
+        self._hb_first_ping: dict[int, float] = {}
+        self._hb_reported: dict[int, float] = {}
+        self.drop_pings = False  # test hook: simulate a silent partition
+        self._recovery_task: asyncio.Task | None = None
+        # backfill admission control (AsyncReserver twin, reference
+        # src/common/AsyncReserver.h + MBackfillReserve handshake):
+        # local slots gate PGs WE lead into recovery; remote slots gate
+        # how many foreign primaries may backfill onto us at once
+        from ceph_tpu_torch.common.reserver import AsyncReserver
+
+        _mb = self.conf["osd_max_backfills"]
+        self.local_reserver = AsyncReserver(max_allowed=_mb)
+        self.remote_reserver = AsyncReserver(max_allowed=_mb)
+        self._remote_grants: dict[tuple[int, int, int], object] = {}
+        # in-flight object-reconciliation budget within granted PGs
+        # (osd_recovery_max_active role)
+        self._recovery_budget = asyncio.Semaphore(
+            self.conf["osd_recovery_max_active"])
+        self.recovery_stats = {
+            "reservation_rejects": 0, "pgs_recovered": 0,
+            "peak_local": 0, "peak_remote": 0, "grants_swept": 0,
+        }
+        self._grant_sweep_task: asyncio.Task | None = None
+        self.conf.add_observer(
+            ("osd_max_backfills",),
+            lambda ch: (
+                self.local_reserver.set_max(ch["osd_max_backfills"]),
+                self.remote_reserver.set_max(ch["osd_max_backfills"]),
+            ),
+        )
+        # mClock admission gate (OpScheduler seam): top-level work —
+        # client ops, recovery reconciliations, scrub chunks — admits
+        # here; under saturation dequeue order follows dmclock tags so
+        # clients outrank background work.  Sub-op service never
+        # admits (see opqueue.py deadlock rule).
+        from ceph_tpu_torch.osd.opqueue import MClockGate, parse_qos_profiles
+        from ceph_tpu_torch.osd.scheduler import ClientProfile
+
+        self.op_gate = MClockGate(
+            max_inflight=self.conf["osd_op_queue_max_inflight"],
+            profiles={
+                "client": ClientProfile(
+                    weight=self.conf["osd_mclock_scheduler_client_wgt"]),
+                "recovery": ClientProfile(weight=self.conf[
+                    "osd_mclock_scheduler_background_recovery_wgt"]),
+                "best_effort": ClientProfile(weight=self.conf[
+                    "osd_mclock_scheduler_background_best_effort_wgt"]),
+            },
+            # per-class qos_* fairness counters land in this OSD's
+            # perf collection: `perf dump`, the prometheus exposition
+            # and MgrClient report deltas all see them for free
+            perf=self.perf,
+            tenant_profiles=parse_qos_profiles(
+                self.conf["osd_mclock_client_profiles"]),
+        )
+        self.conf.add_observer(
+            ("osd_op_queue_max_inflight",),
+            lambda ch: self.op_gate.set_max_inflight(
+                ch["osd_op_queue_max_inflight"]),
+        )
+        self.conf.add_observer(
+            ("osd_mclock_client_profiles",),
+            lambda ch: self.op_gate.set_tenant_profiles(
+                parse_qos_profiles(ch["osd_mclock_client_profiles"])),
+        )
+        self._map_event = asyncio.Event()
+        self.stopping = False
+        # fresh per daemon start: lets the mon distinguish a fast
+        # restart (new incarnation -> epoch bump, peers re-peer) from a
+        # paxos replay of the same boot (no-op)
+        self.incarnation = time.time_ns()
+
+    # -- lifecycle -----------------------------------------------------
+
+    async def start(self, host: str = "127.0.0.1", port: int = 0) -> None:
+        self.addr = await self.messenger.bind(host, port)
+        sock_path = self.conf["admin_socket"]
+        if sock_path:
+            from ceph_tpu_torch.common import AdminSocket
+
+            self._admin = AdminSocket(sock_path.replace("$id", str(self.id)))
+            self._register_admin_commands(self._admin)
+            await self._admin.start()
+        await self._mon_hunt()
+        self.mgr_client.start()
+        self.clog.start()
+        if self.beacon_interval > 0:
+            self._beacon_task = asyncio.ensure_future(self._beacon())
+        if self.conf["osd_heartbeat_interval"] > 0:
+            self._hb_task = asyncio.ensure_future(self._heartbeat())
+        if self.conf["osd_scrub_interval"] > 0:
+            self._scrub_task = asyncio.ensure_future(self._scrub_scheduler())
+        if self.conf["osd_tier_agent_interval"] > 0:
+            self._tier_task = asyncio.ensure_future(self._tier_agent())
+        self._grant_sweep_task = asyncio.ensure_future(self._grant_sweep())
+        # wait for the first map so ops can be served
+        await asyncio.wait_for(self._map_event.wait(), 10)
+
+    async def _mon_hunt(self) -> None:
+        """Find a live monitor, (re)boot and (re)subscribe — the
+        MonClient hunting behavior on monitor loss."""
+        last: Exception | None = None
+        for mhost, mport in self.mon_addrs:
+            try:
+                conn = await self.messenger.connect(mhost, mport)
+                await conn.send_message(MOSDBoot(
+                    osd=self.id, host=self.addr[0], port=self.addr[1],
+                    incarnation=self.incarnation,
+                ))
+                await conn.send_message(MMonSubscribe(
+                    start_epoch=self.osdmap.epoch if self.osdmap else 0
+                ))
+                self._mon_conn = conn
+                return
+            except (ConnectionError, OSError) as e:
+                last = e
+        raise ConnectionError(f"osd.{self.id}: no monitor reachable: {last}")
+
+    def _register_admin_commands(self, sock) -> None:
+        """The reference OSD's admin-socket surface
+        (src/osd/OSD.cc::asok_command slice)."""
+        sock.register(
+            "perf dump", "dump perf counters",
+            lambda cmd: self.perf.dump(),
+        )
+        sock.register(
+            "dump_ops_in_flight", "in-flight client ops",
+            lambda cmd: self.op_tracker.dump_ops_in_flight(),
+        )
+        sock.register(
+            "dump_historic_ops", "recently completed ops",
+            lambda cmd: self.op_tracker.dump_historic_ops(),
+        )
+        sock.register(
+            "dump_historic_slow_ops", "ops over the complaint threshold",
+            lambda cmd: self.op_tracker.dump_historic_slow_ops(),
+        )
+        sock.register(
+            "perf histogram dump", "per-op-class log2 latency "
+            "histograms (fixed bucket count; the MMgrReport payload)",
+            lambda cmd: self.op_tracker.dump_histograms(),
+        )
+        sock.register(
+            "dump_traces", "recent spans (blkin/otel role)",
+            lambda cmd: self.tracer.dump(),
+        )
+        sock.register(
+            "dump_qos", "mClock per-class fairness: profiles, "
+            "admitted/queued counts, park time and served cost per "
+            "dmclock client class (the tenant-differentiation proof)",
+            lambda cmd: self.op_gate.qos_dump(),
+        )
+        sock.register(
+            "dump_decode_batch", "recovery-decode aggregator batching "
+            "efficiency (per-bucket occupancy/launch/compile counters)",
+            lambda cmd: self._dump_decode_batch(),
+        )
+        sock.register(
+            "dump_scrub_batch", "deep-scrub verification batcher "
+            "efficiency (batched crc32c + parity re-encode per-bucket "
+            "occupancy/launch/compile counters)",
+            lambda cmd: self._dump_scrub_batch(),
+        )
+        sock.register(
+            "dump_faults", "armed fault-injection points + fired "
+            "counters, this osd's read-error ledger, and the "
+            "process-wide disk-fault counters/spans",
+            lambda cmd: self._dump_faults(),
+        )
+        sock.register(
+            "config show", "effective configuration",
+            lambda cmd: self.conf.show(),
+        )
+        sock.register(
+            "config set", "set a config option at runtime",
+            lambda cmd: (
+                self.conf.apply_changes({cmd["var"]: cmd["val"]}),
+                {"success": cmd["var"]},
+            )[1],
+        )
+        sock.register(
+            "status", "daemon status",
+            lambda cmd: {
+                "osd": self.id,
+                "epoch": self.epoch,
+                "up": not self.stopping,
+                "num_pgs": len(self._pg_logs),
+            },
+        )
+
+    async def stop(self) -> None:
+        if getattr(self, "_stopped", False):
+            return  # a disk-escalated daemon stops itself; the
+            # harness's later stop() must be a no-op
+        self._stopped = True
+        self.stopping = True
+        await self.clog.stop()
+        await self.mgr_client.stop()
+        if self._admin is not None:
+            await self._admin.stop()
+        tasks = [t for t in (
+            self._beacon_task, self._hb_task, self._recovery_task,
+            self._scrub_task, getattr(self, "_rehome_task", None),
+            getattr(self, "_tier_task", None),
+            getattr(self, "_grant_sweep_task", None),
+            *getattr(self, "_repair_tasks", ()),
+        ) if t]
+        for t in tasks:
+            t.cancel()
+        await self.messenger.shutdown()
+        # leave nothing pending: the cancelled tasks unwind and the warm
+        # threads (which cannot be cancelled) finish before stop returns
+        me = asyncio.current_task()
+        pending = [t for t in (*tasks, *self._warm_tasks)
+                   if t is not me and not t.done()]
+        if pending:
+            await asyncio.wait(pending)
+
+    async def _send_mon_log(self, msg: Message) -> None:
+        """LogClient send hook: ship one MLog over the current mon
+        session (re-homed by the hunt task after mon failover, so
+        unacked entries resend to the new mon)."""
+        if self._mon_conn is None:
+            raise ConnectionError("no monitor session")
+        await self._mon_conn.send_message(msg)
+
+    def record_crash(self, reason: str = "",
+                     exc: BaseException | None = None) -> str | None:
+        """Persist a crash dump (common/crash.py) for an unhandled
+        exit or a fault-injector-induced death: entity, exception/
+        reason, config fingerprint and the in-memory log tail — the
+        mgr crash module collects it (`ceph crash ls`)."""
+        from ceph_tpu_torch.common.crash import record_crash
+
+        return record_crash(self.conf, f"osd.{self.id}", exc=exc,
+                            reason=reason, log_tail=self.clog.tail())
+
+    def _statfs(self) -> dict:
+        """This OSD's store usage; cached per beacon tick.  Also drives
+        the local failsafe write gate (_check_full role)."""
+        try:
+            sf = self.store.statfs()
+        except (NotImplementedError, OSError):
+            sf = {"total": 1 << 40, "used": 0, "available": 1 << 40}
+        self._last_statfs = sf
+        return sf
+
+    def _full_ratio(self) -> float:
+        sf = getattr(self, "_last_statfs", None)
+        if sf is None:
+            sf = self._statfs()
+        total = sf.get("total", 0)
+        return (sf.get("used", 0) / total) if total else 0.0
+
+    async def _beacon(self) -> None:
+        import json as _json
+
+        while not self.stopping:
+            await asyncio.sleep(self.beacon_interval)
+            try:
+                stats = b""
+                try:
+                    stats = self._collect_pg_stats()
+                except Exception:
+                    log.exception("osd.%d: pg-stat collection failed", self.id)
+                await self._mon_conn.send_message(
+                    MOSDBeacon(osd=self.id, epoch=self.epoch,
+                               pg_stats=stats,
+                               statfs=_json.dumps(self._statfs()).encode())
+                )
+            except ConnectionError:
+                continue  # mon died; the rehome task is hunting
+
+    def _collect_pg_stats(self) -> bytes:
+        """Per-PG state for the PGs this OSD leads — the MPGStats
+        report (reference src/mgr/DaemonServer.cc aggregation source).
+        States mirror the reference's pg_state_t vocabulary at the
+        granularity this OSD can see: active+clean, active+degraded
+        (acting set has holes or down members), active+recovering."""
+        import json as _json
+
+        om = self.osdmap
+        if om is None:
+            return b""
+        out = {}
+        for pid, pool in om.pools.items():
+            for ps in range(pool.pg_num):
+                pg = pg_t(pid, ps)
+                up, _up, acting, primary = om.pg_to_up_acting_osds(
+                    pg, folded=True)
+                if primary != self.id:
+                    continue
+                degraded = any(
+                    o == CRUSH_ITEM_NONE or not om.is_up(o) for o in acting
+                )
+                state = "active"
+                if (pid, ps) in self._recovering_pgs:
+                    state += "+recovering"
+                elif degraded:
+                    state += "+degraded"
+                elif self._clean_epoch.get((pid, ps), -1) < om.epoch:
+                    # the recovery pass has not verified this pg under
+                    # the current map yet: data completeness unknown
+                    state += "+peering"
+                else:
+                    state += "+clean"
+                my_shard = next(
+                    (s for s, o in enumerate(acting) if o == self.id),
+                    None,
+                )
+                n_obj = 0
+                n_bytes = 0
+                if my_shard is not None:
+                    shard = my_shard if pool.is_erasure() else NO_SHARD
+                    names = self._local_objects(pool, pg, shard)
+                    n_obj = len(names)
+                    c = self._shard_coll(pool, pg, shard)
+                    for nm in names:
+                        try:
+                            n_bytes += self.store.stat(c, ghobject_t(nm))
+                        except FileNotFoundError:
+                            continue
+                    if pool.is_erasure():
+                        # shard bytes -> logical bytes (k data shards)
+                        k = int(self.osdmap.erasure_code_profiles.get(
+                            pool.erasure_code_profile, {}).get("k", 1)
+                            or 1)
+                        n_bytes *= k
+                out[f"{pid}.{ps}"] = {
+                    "state": state, "objects": n_obj, "bytes": n_bytes,
+                    # upmap/reweight moved this pg off its CRUSH-ideal
+                    # home: objects are misplaced (not missing) — the
+                    # mgr progress module's rebalance-event source
+                    "misplaced": (not degraded and up != acting),
+                }
+        return _json.dumps(out).encode()
+
+    def _mgr_collect(self) -> dict:
+        """Raw material for this OSD's MMgrReport (mgr/client.py
+        derives counter deltas + interval latency means from it)."""
+        import json as _json
+
+        pg_states: dict[str, int] = {}
+        pgs_degraded = pgs_misplaced = 0
+        try:
+            for st in _json.loads(
+                    self._collect_pg_stats() or b"{}").values():
+                s = st.get("state", "unknown")
+                pg_states[s] = pg_states.get(s, 0) + 1
+                # the progress module's raw material: PGs this OSD
+                # leads that are missing data (degraded/recovering/
+                # peering) vs merely living off their CRUSH home
+                if ("degraded" in s or "recovering" in s
+                        or "peering" in s):
+                    pgs_degraded += 1
+                elif st.get("misplaced"):
+                    pgs_misplaced += 1
+        except ValueError:
+            pass
+        # ops currently in flight past the complaint threshold: the
+        # live half of the SLOW_OPS signal (complaints only move when
+        # a slow op COMPLETES; a wedged op must still raise the warning)
+        thresh = self.op_tracker.slow_threshold
+        slow_inflight = sum(
+            1 for op in self.op_tracker.inflight.values()
+            if op.duration >= thresh
+        )
+        counters = dict(self.perf.dump())
+        # the tracing plane's own telemetry (prometheus module exports
+        # these as counters: spans recorded/dropped, sampler verdicts)
+        counters.update({
+            f"trace_{k}": float(v)
+            for k, v in self.tracer.counters.items()
+        })
+        counters["slow_ops_total"] = float(self.op_tracker.complaints)
+        return {
+            "counters": counters,
+            "gauges": {
+                "num_pgs": float(len(self._pg_logs)),
+                "inflight_ops": float(len(self.op_tracker.inflight)),
+                "slow_ops": float(self.op_tracker.complaints),
+                "slow_ops_inflight": float(slow_inflight),
+                # event-plane columns (reserved in the analytics
+                # store; their integer-exact EWMAs drive progress ETAs)
+                "pgs_degraded": float(pgs_degraded),
+                "pgs_misplaced": float(pgs_misplaced),
+            },
+            "histograms": dict(self.op_tracker.histograms),
+            "status": {
+                "pg_states": pg_states,
+                # the disk-fault telemetry devicehealth consumes
+                "read_errors": len(self._read_error_ledger),
+                "disk_escalated": self._disk_escalated,
+                "slow_ops": self.op_tracker.complaints,
+                "slow_ops_inflight": slow_inflight,
+                "scrub_deprioritized": bool(
+                    self.mgr_client.scrub_deprioritized),
+            },
+        }
+
+    @property
+    def epoch(self) -> int:
+        return self.osdmap.epoch if self.osdmap else 0
+
+    # -- peer heartbeats (OSD::handle_osd_ping, src/osd/OSD.cc:5735) ---
+
+    async def _heartbeat(self) -> None:
+        """Ping every up peer; report peers whose replies stop to the
+        mon.  This catches OSD<->OSD partitions that mon beacons cannot
+        see (the peer's beacon keeps flowing while its data path is
+        dead) — the reference's front/back heartbeat role."""
+        interval = self.conf["osd_heartbeat_interval"]
+        grace = self.conf["osd_heartbeat_grace"]
+        last_iter = time.monotonic()
+        while not self.stopping:
+            await asyncio.sleep(interval)
+            om = self.osdmap
+            if om is None:
+                continue
+            now = time.monotonic()
+            starved = now - last_iter > grace
+            last_iter = now
+            if starved:
+                # the shared event loop stalled (big computation, GC):
+                # every peer's replies are "late" by exactly our own
+                # stall, not dead — re-seed the reply clocks instead of
+                # reporting the whole cluster failed at once (the mon's
+                # beacon tick has the same guard; the OSD<->OSD plane
+                # needs it too or one stall sprays N^2 failure reports
+                # and mass-downs live daemons — soak-chaos-found)
+                for peer in list(self._hb_first_ping):
+                    self._hb_first_ping[peer] = now
+                continue
+            peers = [
+                o for o in range(om.max_osd)
+                if o != self.id and om.is_up(o) and o in om.osd_addrs
+            ]
+            for gone in set(self._hb_first_ping) - set(peers):
+                self._hb_first_ping.pop(gone, None)
+                self._hb_last_reply.pop(gone, None)
+                self._hb_reported.pop(gone, None)
+            for peer in peers:
+                self._hb_first_ping.setdefault(peer, now)
+                try:
+                    conn = await self._osd_conn(peer)
+                    await conn.send_message(MOSDPing(
+                        op=PING, from_osd=self.id, epoch=self.epoch,
+                        stamp=time.monotonic_ns(),
+                    ))
+                except (ConnectionError, OSError, asyncio.TimeoutError):
+                    pass  # counts as silence; grace logic judges below
+                last_ok = max(
+                    self._hb_last_reply.get(peer, 0.0),
+                    self._hb_first_ping[peer],
+                )
+                if (
+                    now - last_ok > grace
+                    and now - self._hb_reported.get(peer, 0.0) > grace
+                ):
+                    self._hb_reported[peer] = now
+                    log.warning(
+                        "osd.%d: peer osd.%d silent for %.1fs; reporting",
+                        self.id, peer, now - last_ok,
+                    )
+                    try:
+                        await self._mon_conn.send_message(MOSDFailure(
+                            reporter=self.id, failed=peer, epoch=self.epoch,
+                        ))
+                    except (ConnectionError, OSError):
+                        pass
+
+    async def _handle_ping(self, msg: MOSDPing) -> None:
+        if msg.op == PING:
+            if self.drop_pings:
+                # test hook: peers cannot reach us (we still hear their
+                # replies to OUR pings, like a one-way-dead link)
+                return
+            await msg.conn.send_message(MOSDPing(
+                op=PING_REPLY, from_osd=self.id, epoch=self.epoch,
+                stamp=msg.stamp,
+            ))
+        elif msg.op == PING_REPLY:
+            self._hb_last_reply[msg.from_osd] = time.monotonic()
+
+    # -- plumbing ------------------------------------------------------
+
+    async def _on_reset(self, conn: Connection) -> None:
+        """Connection to a peer died: fail pending sub-ops and report
+        the peer (the OSD::ms_handle_reset + failure-report path)."""
+        if self.stopping or conn.peer is None:
+            return
+        kind, peer_id = conn.peer
+        if kind == "mon" and conn is self._mon_conn:
+            async def _rehome():
+                for _ in range(20):
+                    await asyncio.sleep(0.2)
+                    if self.stopping:
+                        return
+                    try:
+                        await self._mon_hunt()
+                        return
+                    except (ConnectionError, OSError):
+                        continue
+            self._rehome_task = asyncio.ensure_future(_rehome())
+            return
+        for tid, fut in list(self._waiters.items()):
+            if getattr(fut, "peer", None) == conn.peer and not fut.done():
+                fut.set_exception(ConnectionError(f"peer {conn.peer} reset"))
+        if kind == "osd" and self.osdmap and self.osdmap.is_up(peer_id):
+            try:
+                await self._mon_conn.send_message(
+                    MOSDFailure(
+                        reporter=self.id, failed=peer_id, epoch=self.epoch
+                    )
+                )
+            except ConnectionError:
+                pass
+
+    async def _osd_conn(self, osd: int) -> Connection:
+        addr = self.osdmap.osd_addrs.get(osd)
+        if addr is None:
+            raise ConnectionError(f"no address for osd.{osd}")
+        return await self.messenger.connect_to(("osd", osd), *addr)
+
+    async def _sub_op(self, osd: int, msg: Message, tid: int):
+        """Send a sub-op and await its reply future."""
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        fut.peer = ("osd", osd)
+        self._waiters[tid] = fut
+        try:
+            conn = await self._osd_conn(osd)
+            await conn.send_message(msg)
+            return await asyncio.wait_for(fut, SUBOP_TIMEOUT)
+        finally:
+            self._waiters.pop(tid, None)
+
+    def _ec_for(self, pool: PgPool):
+        prof_name = pool.erasure_code_profile
+        if prof_name not in self._ec_cache:
+            profile = dict(self.osdmap.erasure_code_profiles[prof_name])
+            ec = ec_registry.factory(profile.get("plugin", "cuda"), profile,
+                                     device=self.device)
+            self._ec_cache[prof_name] = ec
+        return self._ec_cache[prof_name]
+
+    def _sinfo(self, ec) -> ecutil.StripeInfo:
+        k = ec.get_data_chunk_count()
+        chunk = ec.get_chunk_size(STRIPE_UNIT * k)
+        return ecutil.StripeInfo(k, chunk * k)
+
+    def _acting(self, pool: PgPool, pg: pg_t) -> tuple[list[int], int]:
+        _, _, acting, primary = self.osdmap.pg_to_up_acting_osds(pg)
+        return acting, primary
+
+    @property
+    def encode_service(self):
+        """The process encode service on this daemon's device, per
+        osd_ec_encode_farm config: 'auto' = attach it when the device is
+        a card, 'on' = attach it on any device, 'off' = never.  Resolved
+        once, lazily."""
+        if not self._encode_service_resolved:
+            self._encode_service_resolved = True
+            mode = self.conf["osd_ec_encode_farm"]
+            if mode == "on" or (mode == "auto"
+                                and self.device.type == "cuda"):
+                from ceph_tpu_torch.parallel import encode_service as es
+
+                svc = es.shared(self.device)
+                svc.min_bytes = self.conf["osd_ec_farm_min_bytes"]
+                self._encode_service = svc
+        return self._encode_service
+
+    @property
+    def decode_aggregator(self):
+        """The process recovery-decode aggregator, per
+        osd_recovery_decode_batch config, on this daemon's device (the
+        batched kernel's plain version is bit-exact on the CPU), so
+        default on."""
+        if not self._decode_aggregator_resolved:
+            self._decode_aggregator_resolved = True
+            if self.conf["osd_recovery_decode_batch"] != "off":
+                from ceph_tpu_torch.parallel import decode_batcher as db
+
+                agg = db.shared(self.device)
+                agg.window_s = self.conf[
+                    "osd_recovery_decode_batch_window"]
+                self._decode_aggregator = agg
+        return self._decode_aggregator
+
+    @property
+    def scrub_verifier(self):
+        """The process deep-scrub verification batcher, per
+        osd_scrub_verify_batch config, on this daemon's device (batched
+        crc32c and re-encode-compare are bit-exact on the CPU too), so
+        default on."""
+        if not self._scrub_verifier_resolved:
+            self._scrub_verifier_resolved = True
+            if self.conf["osd_scrub_verify_batch"] != "off":
+                from ceph_tpu_torch.parallel import scrub_batcher as sb
+
+                ver = sb.shared(self.device)
+                ver.window_s = self.conf["osd_scrub_verify_batch_window"]
+                self._scrub_verifier = ver
+        return self._scrub_verifier
+
+    def _dump_scrub_batch(self) -> dict:
+        import os as _os
+
+        ver = self.scrub_verifier
+        if ver is None:
+            return {"active": False}
+        # pid lets multi-process harnesses dedupe the process-wide
+        # verifier across co-hosted daemons' sockets
+        return {"active": True, "pid": _os.getpid(),
+                "stats": dict(ver.stats),
+                "efficiency": ver.metrics.efficiency(),
+                "buckets": ver.metrics.dump()}
+
+    def _dump_decode_batch(self) -> dict:
+        import os as _os
+
+        agg = self.decode_aggregator
+        if agg is None:
+            return {"active": False}
+        # pid lets multi-process harnesses dedupe the process-wide
+        # aggregator across co-hosted daemons' sockets
+        out = {"active": True, "pid": _os.getpid(),
+               "stats": dict(agg.stats)}
+        out["efficiency"] = agg.metrics.efficiency()
+        out["buckets"] = agg.metrics.dump()
+        svc = self._encode_service
+        if svc is not None:
+            out["encode_farm"] = {
+                "stats": dict(svc.stats),
+                "efficiency": svc.metrics.efficiency(),
+            }
+        return out
+
+    def _warm_ec_profiles(self) -> None:
+        """Map-time warmup: launch the fixed-bucket batched
+        decode/encode/scrub shapes for every EC profile the new map
+        carries, in a background thread — so after a profile's warmup
+        completes, no kernel build or first-use cost can occur inside
+        the recovery/write I/O path (the discipline the batchers'
+        cold_launches counters verify).  Idempotent per profile name.
+        A failed warmup is logged and kept in ``warmup_failures``."""
+        om = self.osdmap
+        if om is None or self.conf["osd_ec_warmup"] == "off":
+            return
+        fresh = [
+            (name, dict(prof))
+            for name, prof in (om.erasure_code_profiles or {}).items()
+            if name not in self._warmed_profiles
+        ]
+        if not fresh:
+            return  # BEFORE resolving services: maps without EC
+            # profiles must not make replicated-only daemons touch the
+            # device
+        self._warmed_profiles.update(name for name, _ in fresh)
+        agg = self.decode_aggregator
+        svc = self.encode_service
+        ver = self.scrub_verifier
+        # the encode service's shapes are worth launching ahead of time
+        # on a card (where a first launch builds kernels and grows the
+        # allocator); on the CPU the plain versions need no warming
+        farm_warm = self.device.type == "cuda"
+
+        def _warm() -> None:
+            for name, prof in fresh:
+                try:
+                    # the thread builds its own plugin instance: the
+                    # daemon's cached one is not shared with the loop
+                    ec = ec_registry.factory(
+                        prof.get("plugin", "cuda"), dict(prof),
+                        device=self.device)
+                    sinfo = self._sinfo(ec)
+                    cs = sinfo.chunk_size
+                    widths = [max(cs >> 2, 1), cs, cs << 2]
+                    if agg is not None:
+                        agg.prewarm(ec, widths)
+                    if ver is not None:
+                        ver.prewarm(ec, widths)
+                    if (svc is not None and farm_warm
+                            and hasattr(ec, "coding_matrix")):
+                        svc.prewarm(ec.coding_matrix, widths)
+                except Exception as e:
+                    log.exception(
+                        "osd.%d: EC warmup for profile %r failed",
+                        self.id, name)
+                    self.warmup_failures.append((name, e))
+
+        task = asyncio.ensure_future(asyncio.to_thread(_warm))
+        self._warm_tasks.add(task)
+        task.add_done_callback(self._warm_tasks.discard)
+
+    def _extent_cache_get(self, pool_id, oid, version, lo, hi):
+        ent = self._extent_cache.get((pool_id, oid))
+        if ent is None:
+            return None
+        v, elo, arr = ent
+        if v != version or elo > lo or elo + len(arr) < hi:
+            return None
+        self._extent_cache.move_to_end((pool_id, oid))
+        self.perf.inc("ec_extent_cache_hit")
+        return arr[lo - elo : hi - elo]
+
+    def _extent_cache_put(self, pool_id, oid, version, lo, arr) -> None:
+        limit = self.conf["osd_ec_extent_cache_bytes"]
+        if limit <= 0 or len(arr) > limit:
+            return
+        old = self._extent_cache.pop((pool_id, oid), None)
+        if old is not None:
+            self._extent_cache_bytes -= len(old[2])
+        self._extent_cache[(pool_id, oid)] = (version, lo, arr)
+        self._extent_cache_bytes += len(arr)
+        while self._extent_cache_bytes > limit and self._extent_cache:
+            _k, ent = self._extent_cache.popitem(last=False)
+            self._extent_cache_bytes -= len(ent[2])
+
+    def _extent_cache_drop(self, pool_id, oid) -> None:
+        old = self._extent_cache.pop((pool_id, oid), None)
+        if old is not None:
+            self._extent_cache_bytes -= len(old[2])
+
+    async def _ecu_encode(self, sinfo, ec, logical):
+        """ecutil.encode via the farm (falls back inside).  Traced ops
+        get a device-stage span so the critical-path breakdown can
+        attribute encode time separately from net/queue/store."""
+        with self._maybe_span(
+            "ec_encode", parent=self._op_span.get(), stage="device",
+            nbytes=len(logical),
+        ):
+            return await ecutil.encode_async(
+                sinfo, ec, logical, service=self.encode_service)
+
+    async def _ecu_decode_concat(self, sinfo, ec, chunks):
+        with self._maybe_span(
+            "ec_decode", parent=self._op_span.get(), stage="device",
+            shards=len(chunks),
+        ):
+            return await ecutil.decode_concat_async(
+                sinfo, ec, chunks, service=self.encode_service)
+
+    def _pg_log(self, c: coll_t) -> PGLog:
+        lg = self._pg_logs.get(c)
+        if lg is None:
+            lg = PGLog(c)
+            lg.load(self.store)
+            self._pg_logs[c] = lg
+        return lg
+
+    def _pg_log_trim(self, t: Transaction, lg: PGLog) -> None:
+        """Hysteresis trim driven by the LIVE registered options (the
+        reference's PeeringState::calc_trim_to): once a shard's log
+        exceeds osd_max_pg_log_entries, cut it back down to
+        osd_min_pg_log_entries.  Reading conf here (not a cached ctor
+        snapshot) means `config set` takes effect on the next commit —
+        the soak scenarios lean on low values to force backfill."""
+        if len(lg.entries) > self.conf["osd_max_pg_log_entries"]:
+            lg.trim(t, self.conf["osd_min_pg_log_entries"])
+
+    async def _prime_interval(self, pool, pg, acting) -> bool:
+        """Adopt the acting peers' pg-log state before this primary
+        serves its first op of a NEW interval (the reference's
+        peering-before-active contract, PG::activate).
+
+        Without it, a revived primary whose log missed the degraded
+        window mints its next version from a stale last_update — the
+        counter re-use lands INSIDE the window its peers already hold
+        (e.g. peers at 10'6, stale primary mints 11'3), which
+        (a) re-bases the version stream, (b) looks contiguous to gap
+        detection, and (c) makes every log's last_update equal so
+        missing_from() scopes nothing: the stale shard survives until
+        scrub.  Adopting first makes the mint collision-free AND
+        leaves the adopted entries in the log, where the self-audit
+        (log-vs-store) flags the primary's own missing objects for
+        the next recovery pass.
+
+        Returns False (caller bounces EAGAIN) while an acting peer is
+        unreachable — serving ops without its log state is exactly
+        the hole being closed.  Re-primes only when the ACTING SET
+        changes; same-set epochs refresh for free."""
+        key = (pool.id, pool.raw_pg_to_pg(pg).ps)
+        cached = self._primed_intervals.get(key)
+        act = tuple(acting)
+        if cached is not None and cached[1] == act:
+            if cached[0] != self.epoch:
+                self._primed_intervals[key] = (self.epoch, act)
+            return True
+        lock = self._prime_locks.setdefault(key, asyncio.Lock())
+        async with lock:
+            cached = self._primed_intervals.get(key)
+            if cached is not None and cached[1] == act:
+                return True
+            epoch0 = self.epoch
+            pairs = self._pg_members(pool, acting)
+            mine = next((s for s, o in pairs if o == self.id), None)
+            if mine is None:
+                return False  # not a member under this view
+            c = self._shard_coll(pool, pg, mine)
+            lg = self._pg_log(c)
+            for s, o in pairs:
+                if o == self.id:
+                    continue
+                try:
+                    info = await self._pg_query(
+                        pool, pg, s, o, since=lg.info.last_update)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    return False  # unseen peer state: stay inactive
+                if info.last_update > lg.info.last_update:
+                    t = Transaction()
+                    self._ensure_coll(t, c)
+                    for raw in info.entries:
+                        e = pg_log_entry_t.decode(raw)
+                        if e.version > lg.info.last_update:
+                            lg.append(t, e)
+                    self._pg_log_trim(t, lg)
+                    if not t.empty():
+                        if getattr(self.store, "blocking_commit", False):
+                            await asyncio.to_thread(
+                                self.store.queue_transaction, t)
+                        else:
+                            self.store.queue_transaction(t)
+            if self.epoch == epoch0:
+                self._primed_intervals[key] = (epoch0, act)
+            return self.epoch == epoch0
+
+    def _next_version(
+        self, c: coll_t, epoch: int | None = None
+    ) -> eversion_t | None:
+        """``epoch`` must be the op's ADMISSION epoch (captured when the
+        primary check passed): maps can advance mid-op, and minting with
+        the then-current epoch would let two daemons that were each
+        primary under different maps stamp the SAME eversion onto
+        different payloads — an undetectable mixed-content write.
+
+        Returns None when the pg log already holds an entry from a
+        NEWER epoch (e.g. adopted from the next interval's primary):
+        this op must be re-admitted under the newer map (caller replies
+        EAGAIN) — minting into a foreign epoch could collide with that
+        primary's versions.
+
+        The counter is RESERVED at mint time (PGLog.reserved_version):
+        concurrent ops to different objects must never mint the same
+        eversion — the second append would silently swallow the
+        first's log entry (its object then has no log evidence and no
+        recovery pass can ever scope it).  An in-flight mint that dies
+        with the daemon just skips a counter — a detectable gap."""
+        lg = self._pg_log(c)
+        lu = lg.info.last_update
+        e = self.epoch if epoch is None else epoch
+        if lu.epoch > e or lg.reserved_version.epoch > e:
+            return None
+        v = eversion_t(e, max(lu.version, lg.reserved_version.version) + 1)
+        lg.reserved_version = v
+        return v
+
+    def _object_version(self, c: coll_t, o: ghobject_t) -> eversion_t:
+        try:
+            return _v_parse(self.store.getattr(c, o, VERSION_ATTR))
+        except (FileNotFoundError, KeyError):
+            return ZERO
+
+    def _maybe_span(self, name: str, parent=None, ctx=None, **tags):
+        """A tracer span joined to an existing trace, or a no-op when
+        there is none — background work (recovery, repair sweeps) must
+        not mint fresh root traces per shard write."""
+        import contextlib as _ctx
+
+        if parent is None and ctx is None:
+            return _ctx.nullcontext(None)
+        return self.tracer.span(name, parent=parent, ctx=ctx, **tags)
+
+    async def _store_latency_gate(self) -> None:
+        """Async injected-store-latency point (chaos degraded-disk
+        scenario: ``FAULTS.inject("store.latency.osd.<id>", delay=...,
+        count=None)``).  Unlike the sync store_fault_check delay this
+        sleeps on the event loop, so ONE slow disk slows only its own
+        commits — not every daemon co-hosted in the process."""
+        from ceph_tpu_torch.common.fault_injector import FAULTS
+
+        if FAULTS._points:
+            await FAULTS.check(f"store.latency.osd.{self.id}")
+
+    def _obj_lock(self, pool_id: int, oid: str) -> asyncio.Lock:
+        key = (pool_id, oid)
+        lk = self._obj_locks.get(key)
+        if lk is None:
+            if len(self._obj_locks) > 4096:  # prune idle locks
+                # a lock is only disposable when nothing holds it AND
+                # nothing waits on it: between release and a waiter's
+                # wakeup, locked() is False while the waiter still
+                # references the old Lock object — pruning then would
+                # hand the next writer a fresh lock and break mutual
+                # exclusion
+                for k in [
+                    k for k, v in self._obj_locks.items()
+                    if not v.locked() and not getattr(v, "_waiters", None)
+                ]:
+                    del self._obj_locks[k]
+            lk = self._obj_locks[key] = asyncio.Lock()
+        return lk
+
+    # -- disk-fault tolerance (read-error ledger + escalation) ---------
+
+    def _dump_faults(self) -> dict:
+        """`dump_faults` admin command: the disk-fault observability
+        plane (armed injection points are process-global; the ledger
+        and escalation flag are this daemon's)."""
+        from ceph_tpu_torch.common.fault_injector import (
+            FAULTS,
+            disk_fault_counters,
+            disk_fault_tracer,
+        )
+
+        return {
+            "armed": FAULTS.dump(),
+            "read_error_ledger": dict(self._read_error_ledger),
+            "escalated": self._disk_escalated,
+            "counters": disk_fault_counters().dump(),
+            "recent": disk_fault_tracer().dump(limit=50),
+            "warmup_failures": [
+                {"profile": name, "error": repr(e)}
+                for name, e in self.warmup_failures
+            ],
+        }
+
+    def _note_medium_error(
+        self, pool, pg, shard, oid: str, *, op: str = "read",
+        snap: int = NOSNAP,
+    ) -> None:
+        """A LOCAL store access returned a medium error (checksum-at-
+        rest EIO, injected disk fault).  Responses mirror the
+        reference's chain: count it (perf + disk_fault span), and for
+        reads spawn the verify-quarantine-repair pass
+        (:meth:`_quarantine_shard`) whose CONFIRMED damage feeds the
+        read-error ledger and, past osd_max_object_read_errors
+        distinct objects, escalates to self-markdown.  Write errors
+        only count — clients retry them, and a disk that can no longer
+        write also fails the constant read traffic, which is where the
+        dying-disk verdict belongs."""
+        from ceph_tpu_torch.common.fault_injector import (
+            disk_fault_counters,
+            disk_fault_tracer,
+        )
+
+        self.perf.inc(f"{op}_errors")
+        disk_fault_counters().inc("medium_errors", op=op)
+        with disk_fault_tracer().span(
+            "medium_error", osd=self.id, pg=str(pg), oid=oid, op=op,
+        ):
+            pass
+        log.warning(
+            "osd.%d: medium error (%s) on %s/%s", self.id, op, pg, oid)
+        if op == "read" and self.conf["osd_read_error_repair"]:
+            self._spawn_repair_task(
+                self._quarantine_shard(pool, pg, shard, oid, snap))
+
+    async def _quarantine_shard(self, pool, pg, shard, oid, snap) -> None:
+        """Verify-then-quarantine a shard whose read returned a medium
+        error.
+
+        1. RE-READ: a transient EIO (loose cabling, an injected
+           one-shot) must not cost a healthy shard — only damage that
+           reproduces counts (the bluestore_retry_disk_reads
+           discipline).  Confirmed damage enters the read-error ledger
+           and can escalate to self-markdown.
+        2. Require a HEALTHY ALTERNATIVE (replicated: another member
+           serving >= our version; EC: >= k other readable shards)
+           before dropping the local object — quarantine repairs
+           redundancy, it must never delete the last copy.  Bit rot
+           keeps the kv-side version attrs intact, so without the
+           removal every probe reports the shard healthy and no repair
+           would ever target it.  (Replicated omap is not restored by
+           a push — acceptable for a shard whose data plane already
+           returned EIO.)
+        3. Requeue the background repair when this OSD leads the pg; a
+           replica's hole is found by its primary's next
+           reconcile/scrub pass."""
+        from ceph_tpu_torch.common.fault_injector import disk_fault_counters
+
+        try:
+            async with self._obj_lock(pool.id, oid):
+                c = self._shard_coll(pool, pg, shard)
+                o = (ghobject_t(oid, shard=shard) if snap == NOSNAP
+                     else ghobject_t(oid, snap=snap, shard=shard))
+                if not self.store.exists(c, o):
+                    return
+                try:
+                    if getattr(self.store, "blocking_commit", False):
+                        await asyncio.to_thread(self.store.read, c, o)
+                    else:
+                        self.store.read(c, o)
+                    return  # re-read clean: transient error, keep shard
+                except OSError as e:
+                    if (e.errno or errno.EIO) != errno.EIO:
+                        return
+                # persistent damage confirmed: ledger + escalation
+                ledger = self._read_error_ledger
+                ledger[oid] = ledger.get(oid, 0) + 1
+                disk_fault_counters().inc("persistent_damage")
+                log.warning(
+                    "osd.%d: persistent medium error on %s/%s (%d "
+                    "damaged objects on this disk)", self.id, pg, oid,
+                    len(ledger))
+                thresh = self.conf["osd_max_object_read_errors"]
+                if thresh > 0 and len(ledger) >= thresh:
+                    self._escalate_disk_failure()
+                if not await self._has_healthy_alternative(
+                        pool, pg, shard, oid, snap, c, o):
+                    log.warning(
+                        "osd.%d: NOT quarantining %s/%s: no healthy "
+                        "alternative copy reachable", self.id, pg, oid)
+                    return
+                t = Transaction()
+                t.remove(c, o)
+                if getattr(self.store, "blocking_commit", False):
+                    await asyncio.to_thread(self.store.queue_transaction, t)
+                else:
+                    self.store.queue_transaction(t)
+                disk_fault_counters().inc("quarantined")
+        except OSError:
+            # a dying disk can refuse the removal too; escalation is
+            # the backstop for that state
+            log.exception(
+                "osd.%d: quarantine of %s/%s failed", self.id, pg, oid)
+            return
+        if snap == NOSNAP or not pool.is_erasure():
+            self._queue_object_repair(pool, pg, oid)
+
+    async def _has_healthy_alternative(
+        self, pool, pg, shard, oid, snap, c, o
+    ) -> bool:
+        """True when the damaged shard is reconstructible without us:
+        replicated needs one other member serving >= our version; EC
+        needs >= k other shards answering a data read.  (A 1-byte read
+        verifies the data plane answers, not every blob — the same
+        approximation authoritative-copy selection makes.)"""
+        local_v = self._object_version(c, o)
+        acting, _primary = self._acting(pool, pg)
+        ok = 0
+        need = (self._ec_for(pool).get_data_chunk_count()
+                if pool.is_erasure() else 1)
+        for s, osd in self._pg_members(pool, acting):
+            if osd == self.id and s == shard:
+                continue
+            if osd == CRUSH_ITEM_NONE or not self.osdmap.is_up(osd):
+                continue
+            payload, attrs, _e = await self._read_shard_quiet(
+                pool, pg, s, osd, oid, off=0, length=1, snap=snap)
+            if payload is None:
+                continue
+            if _v_parse((attrs or {}).get(VERSION_ATTR)) >= local_v:
+                ok += 1
+                if ok >= need:
+                    return True
+        return False
+
+    def _spawn_repair_task(self, coro) -> None:
+        t = asyncio.ensure_future(coro)
+        hold = getattr(self, "_repair_tasks", None)
+        if hold is None:
+            hold = self._repair_tasks = set()
+        hold.add(t)
+        t.add_done_callback(hold.discard)
+
+    def _escalate_disk_failure(self) -> None:
+        """Too many distinct objects with medium errors: the disk is
+        dying.  Self-report failure to the mon and stop — peering
+        re-replicates onto healthy OSDs (the reference OSD aborts on
+        repeated EIO and the mon's down/out machinery re-places it)."""
+        if self._disk_escalated:
+            return
+        self._disk_escalated = True
+        from ceph_tpu_torch.common.fault_injector import disk_fault_counters
+
+        self.perf.inc("disk_fault_escalations")
+        disk_fault_counters().inc("escalations")
+        log.error(
+            "osd.%d: %d objects with medium errors >= "
+            "osd_max_object_read_errors; marking self failed and "
+            "shutting down", self.id, len(self._read_error_ledger),
+        )
+        # the self-markdown is an operator-visible cluster event AND a
+        # fault-induced death: one line in the replicated cluster log,
+        # one crash dump for `ceph crash ls` / RECENT_CRASH
+        self.clog.cluster.error(
+            f"osd.{self.id} marking self down: "
+            f"{len(self._read_error_ledger)} objects with verified "
+            "medium errors (read-error ledger escalation)")
+        self.record_crash(
+            reason="read-error ledger escalation: "
+            f"{len(self._read_error_ledger)} damaged objects >= "
+            "osd_max_object_read_errors; daemon self-terminated")
+
+        async def _die() -> None:
+            try:
+                await self._mon_conn.send_message(MOSDFailure(
+                    reporter=self.id, failed=self.id, epoch=self.epoch,
+                ))
+            except (ConnectionError, OSError, AttributeError):
+                pass  # peers' connection resets will report us instead
+            # last flush: the markdown log entry must beat the stop
+            # (stop() cancels the flush loop)
+            await self.clog.flush()
+            await self.stop()
+
+        # held OUTSIDE _repair_tasks: stop() cancels those, and the
+        # death task must survive to run stop() itself
+        self._death_task = asyncio.ensure_future(_die())
+
+    async def _rep_degraded_read(
+        self, pool, pg, acting, msg, snap: int
+    ) -> "MOSDOpReply | None":
+        """Serve a read-class vector from the first replica holding the
+        object (primary-local copy quarantined away): READ/STAT/xattr
+        ops answer from the replica's payload+attrs; vectors needing
+        more (omap, class calls) fall back to the caller's ENOENT.
+        Requeues the background repair that restores the local copy."""
+        for osd in acting:
+            if osd in (self.id, CRUSH_ITEM_NONE) or not self.osdmap.is_up(osd):
+                continue
+            payload, attrs, _e = await self._read_shard_quiet(
+                pool, pg, NO_SHARD, osd, msg.oid, snap=snap)
+            if payload is None or (attrs or {}).get(WHITEOUT_ATTR) == b"1":
+                continue
+            attrs = attrs or {}
+            size = int(attrs.get(SIZE_ATTR, len(payload)) or len(payload))
+            outs: list[tuple[int, bytes, dict[str, bytes]]] = []
+            first_read: bytes | None = None
+            for op in msg.ops:
+                r, d, kv = 0, b"", {}
+                if op.op == OP_READ:
+                    end = size if not op.length else min(
+                        op.off + op.length, size)
+                    d = payload[op.off:end]
+                    if first_read is None:
+                        first_read = d
+                elif op.op == OP_STAT:
+                    pass
+                elif op.op == OP_GETXATTR:
+                    v = attrs.get(USER_XATTR_PREFIX + op.name)
+                    if v is None:
+                        r = -errno.ENODATA
+                    else:
+                        d = v
+                elif op.op == OP_GETXATTRS:
+                    kv = {
+                        n[len(USER_XATTR_PREFIX):]: v
+                        for n, v in attrs.items()
+                        if n.startswith(USER_XATTR_PREFIX)
+                    }
+                else:
+                    return None  # vector needs local state we lack
+                outs.append((r, d, kv))
+            self.perf.inc("rep_degraded_read")
+            self._queue_object_repair(pool, pg, msg.oid)
+            result = next((r for r, _d, _kv in outs if r != 0), 0)
+            return MOSDOpReply(
+                tid=msg.tid, result=result, epoch=self.epoch, size=size,
+                data=first_read or b"", outs=outs,
+            )
+        return None
+
+    async def _rep_read_failover(
+        self, pool, pg, acting, o: ghobject_t, off: int, length: int
+    ) -> bytes | None:
+        """Primary-local medium error on a replicated read: serve the
+        bytes from a healthy replica instead of bouncing EIO to the
+        client (the reference primary reads a replica copy and repairs
+        in the background on read errors)."""
+        snap = o.snap if o.snap >= 0 else NOSNAP
+        for osd in acting:
+            if osd in (self.id, CRUSH_ITEM_NONE) or not self.osdmap.is_up(osd):
+                continue
+            payload, _attrs, _e = await self._read_shard_quiet(
+                pool, pg, NO_SHARD, osd, o.name, off=off, length=length,
+                snap=snap,
+            )
+            if payload is not None:
+                self.perf.inc("rep_read_failover")
+                from ceph_tpu_torch.common.fault_injector import (
+                    disk_fault_counters,
+                )
+
+                disk_fault_counters().inc("rep_read_failover")
+                return payload
+        return None
+
+    # -- dispatch ------------------------------------------------------
+
+    async def _dispatch(self, msg: Message) -> None:
+        try:
+            if isinstance(msg, MOSDMap):
+                await self._handle_map(msg)
+            elif isinstance(msg, MMgrMap):
+                self.mgr_client.handle_mgr_map(msg)
+            elif isinstance(msg, MMgrConfigure):
+                self.mgr_client.handle_configure(msg)
+            elif isinstance(msg, MLogAck):
+                self.clog.handle_ack(msg)
+            elif isinstance(msg, MConfig):
+                self._apply_mon_config(msg)
+            elif isinstance(msg, MOSDPing):
+                await self._handle_ping(msg)
+            elif isinstance(msg, MWatchNotifyAck):
+                self._handle_notify_ack(msg)
+            elif isinstance(msg, MOSDOp):
+                asyncio.ensure_future(self._handle_client_op(msg))
+            elif isinstance(msg, MOSDECSubOpWrite):
+                t0 = time.monotonic()
+                await self._handle_sub_write(msg)
+                # shard apply latency — the `ceph osd perf`
+                # apply_latency source (never a TrackedOp: sub-op
+                # service must stay admission-free)
+                self.op_tracker.record_latency(
+                    "subop_w", time.monotonic() - t0)
+            elif isinstance(msg, MOSDECSubOpRead):
+                await self._handle_sub_read(msg)
+            elif isinstance(msg, MOSDRepOp):
+                t0 = time.monotonic()
+                await self._handle_rep_op(msg)
+                self.op_tracker.record_latency(
+                    "subop_w", time.monotonic() - t0)
+            elif isinstance(msg, MOSDPGPush):
+                await self._handle_push(msg)
+            elif isinstance(msg, MOSDPGQuery):
+                # peering messages may wait for map catch-up
+                # (_wait_for_epoch): run off the connection's dispatch
+                # loop so in-flight client sub-ops on the same pipe
+                # don't queue behind the wait (the reference parks
+                # these on a waiting_for_map queue the same way)
+                self._spawn_peering(self._handle_pg_query(msg))
+            elif isinstance(msg, MOSDPGLog):
+                self._spawn_peering(self._handle_pg_log(msg))
+            elif isinstance(msg, MOSDScrub):
+                asyncio.ensure_future(self._handle_scrub(msg))
+            elif isinstance(msg, MBackfillReserve):
+                await self._handle_backfill_reserve(msg)
+            elif isinstance(
+                msg,
+                (
+                    MOSDECSubOpWriteReply, MOSDECSubOpReadReply,
+                    MOSDRepOpReply, MOSDPGInfo, MOSDPGLogAck,
+                    MOSDOpReply,  # tiering: we client other pools
+                ),
+            ):
+                fut = self._waiters.get(msg.tid)
+                if fut and not fut.done():
+                    fut.set_result(msg)
+            elif isinstance(msg, MOSDPGPushReply):
+                fut = self._push_waiters.get(msg.tid)
+                if fut and not fut.done():
+                    fut.set_result(msg)
+        except Exception:
+            log.exception("osd.%d: dispatch failed for %r", self.id, msg)
+
+    async def _handle_map(self, msg: MOSDMap) -> None:
+        # copy-on-write swap: code that captured self.osdmap mid-pass
+        # keeps a stable snapshot (recovery, in-flight ops)
+        old_map = self.osdmap
+        new_map, gap = apply_map_message(self.osdmap, msg.maps, msg.incs)
+        if new_map is not None:
+            self.osdmap = new_map
+            self._maybe_snap_trim(old_map, new_map)
+            self._track_intervals(old_map, new_map)
+            self._maybe_split_pgs(old_map, new_map)
+            self._gc_removed_pools(old_map, new_map)
+            self._warm_ec_profiles()
+        if gap:
+            # ask the mon for the missing range (or a full map)
+            await self._request_map_fill()
+        self._map_event.set()
+        log.info("osd.%d: map epoch %d", self.id, self.epoch)
+        if self.osdmap.max_osd > self.id and self.osdmap.is_up(self.id):
+            self._seen_up = True
+        if (
+            not self.stopping
+            and getattr(self, "_seen_up", False)
+            and self.osdmap.max_osd > self.id
+            and self.osdmap.exists(self.id)
+            and not self.osdmap.is_up(self.id)
+        ):
+            # the map says we are down but we are alive (false failure
+            # report, or a mon that hasn't seen our boot): re-assert
+            # with a fresh incarnation (OSD::_committed_osd_maps ->
+            # start_boot in the reference)
+            log.warning("osd.%d: map says I'm down; re-booting", self.id)
+            self.incarnation = time.time_ns()
+            try:
+                await self._mon_conn.send_message(MOSDBoot(
+                    osd=self.id, host=self.addr[0], port=self.addr[1],
+                    incarnation=self.incarnation,
+                ))
+            except (ConnectionError, OSError):
+                pass  # mon hunt will re-boot us
+        if self._recovery_task is None or self._recovery_task.done():
+            self._recovery_task = asyncio.ensure_future(self._recover_all())
+
+    def _apply_mon_config(self, msg: MConfig) -> None:
+        """Centralized config distribution (MConfig/ConfigMonitor):
+        apply the sections addressing this daemon at the 'mon' source —
+        below env/cmdline overrides, above file/defaults."""
+        for sec in ("global", "osd", f"osd.{self.id}"):
+            for name, value in msg.sections.get(sec, {}).items():
+                try:
+                    # apply_changes (not bare set) so live observers —
+                    # backfill reserver caps, mClock knobs — re-read
+                    self.conf.apply_changes({name: value}, source="mon")
+                except (KeyError, ValueError):
+                    log.warning(
+                        "osd.%d: ignoring mon config %s=%r", self.id,
+                        name, value)
+
+    def _track_intervals(self, old_map, new_map) -> None:
+        """Record acting-set interval changes for PGs this OSD touches
+        (the PastIntervals bookkeeping): the PREVIOUS map is in hand at
+        map-change time, so even a member that just JOINED the acting
+        set learns where the PG lived before — the prior set a full
+        remap must pull from."""
+        if old_map is None:
+            return
+        # placement-inputs precheck: epochs minted by non-placement
+        # changes (pool create, profiles, config) can't move any pg —
+        # skip the per-pg mapping work entirely.  CRUSH weights are a
+        # placement input too (osd crush reweight!), compared via the
+        # per-bucket item weights.
+        if (
+            old_map.osd_state == new_map.osd_state
+            and old_map.osd_weight == new_map.osd_weight
+            and old_map.osd_primary_affinity == new_map.osd_primary_affinity
+            and old_map.pg_upmap == new_map.pg_upmap
+            and old_map.pg_upmap_items == new_map.pg_upmap_items
+            and old_map.pg_temp == new_map.pg_temp
+            and len(old_map.crush.buckets) == len(new_map.crush.buckets)
+            and all(
+                bid in new_map.crush.buckets
+                and b.items == new_map.crush.buckets[bid].items
+                and b.item_weights == new_map.crush.buckets[bid].item_weights
+                for bid, b in old_map.crush.buckets.items()
+            )
+            and old_map.crush.rules == new_map.crush.rules
+            and old_map.crush.device_classes == new_map.crush.device_classes
+            and all(
+                p.pg_num == new_map.pools[pid].pg_num
+                and p.crush_rule == new_map.pools[pid].crush_rule
+                for pid, p in old_map.pools.items()
+                if pid in new_map.pools
+            )
+        ):
+            return
+        changed = False
+        if not self._past_acting_loaded:
+            self._load_past_acting()
+        for pid, pool in new_map.pools.items():
+            old_pool = old_map.pools.get(pid)
+            if old_pool is None:
+                continue
+            for ps in range(pool.pg_num):
+                pg = pg_t(pid, ps)
+                _u, _up, acting, _p = new_map.pg_to_up_acting_osds(
+                    pg, folded=True)
+                if ps >= old_pool.pg_num:
+                    # a split child did not exist under the old map:
+                    # its history starts at its ANCESTOR's home (the
+                    # reference's pg_t::get_ancestor in
+                    # PastIntervals::check_new_interval) — that's where
+                    # the refiled objects physically sit
+                    anc = old_pool.raw_pg_to_pg(pg_t(pid, ps))
+                    _u2, _up2, acting_old, _p2 = (
+                        old_map.pg_to_up_acting_osds(anc, folded=True))
+                else:
+                    _u2, _up2, acting_old, _p2 = (
+                        old_map.pg_to_up_acting_osds(pg, folded=True))
+                if old_pool.pg_num > pool.pg_num:
+                    # merge: the dissolving children's members hold
+                    # refiled target objects — their old homes are
+                    # prior intervals of the TARGET (inverse of the
+                    # split-ancestor rule above)
+                    for cps in range(pool.pg_num, old_pool.pg_num):
+                        if pool.raw_pg_to_pg(pg_t(pid, cps)).ps != ps:
+                            continue
+                        _u3, _up3, acting_child, _p3 = (
+                            old_map.pg_to_up_acting_osds(
+                                pg_t(pid, cps), folded=True))
+                        if (
+                            acting_child
+                            and acting_child != acting
+                            and (self.id in acting
+                                 or self.id in acting_child)
+                        ):
+                            hist = self._past_acting.setdefault(
+                                (pid, ps), [])
+                            if acting_child not in hist:
+                                hist.append(list(acting_child))
+                                del hist[:-16]
+                                changed = True
+                if acting_old == acting:
+                    continue
+                if self.id not in acting and self.id not in acting_old:
+                    continue
+                hist = self._past_acting.setdefault((pid, ps), [])
+                if not hist or hist[-1] != acting_old:
+                    hist.append(list(acting_old))
+                    del hist[:-16]  # bounded
+                    changed = True
+        if changed:
+            self._save_past_acting()
+
+    # the store layer's reserved meta collection (objectstore.py:37,
+    # pool -1 can never collide with a real pool)
+    from ceph_tpu_torch.store.objectstore import META_COLL as _META_COLL
+    _META_OID = "osd_past_intervals"
+
+    def _load_past_acting(self) -> None:
+        """Restart path: reload the recorded intervals so a primary
+        that reboots across a remap still knows the prior homes (the
+        reference persists PastIntervals in pg info the same way)."""
+        self._past_acting_loaded = True
+        import json as _json
+
+        try:
+            raw = self.store.read(
+                self._META_COLL, ghobject_t(self._META_OID))
+        except (FileNotFoundError, OSError):
+            return
+        try:
+            data = _json.loads(raw)
+        except ValueError:
+            return
+        for k, hist in data.items():
+            pid, ps = k.split(".")
+            self._past_acting[(int(pid), int(ps))] = hist
+
+    def _save_past_acting(self) -> None:
+        import json as _json
+
+        t = Transaction()
+        self._ensure_coll(t, self._META_COLL)
+        blob = _json.dumps({
+            f"{pid}.{ps}": hist
+            for (pid, ps), hist in self._past_acting.items()
+        }).encode()
+        t.touch(self._META_COLL, ghobject_t(self._META_OID))
+        t.truncate(self._META_COLL, ghobject_t(self._META_OID), len(blob))
+        t.write(self._META_COLL, ghobject_t(self._META_OID), 0, blob)
+        try:
+            self.store.queue_transaction(t)
+        except OSError:
+            log.exception("osd.%d: persisting past intervals failed", self.id)
+
+    def _prior_pairs(
+        self, pool, pg: pg_t, pairs: list[tuple[int, int]]
+    ) -> list[tuple[int, int]]:
+        """(shard, osd) candidates from past intervals: members not in
+        the current acting set — potential data sources (the prior_set
+        role of PastIntervals).  DOWN members stay listed while the map
+        still counts them in (not out, not removed): their store
+        survives the kill and may hold the newest ACKED shard, so the
+        reconcile pass must know they exist to defer destructive
+        verdicts until they answer (the reference blocks peering on
+        down_osds_we_would_probe the same way; chaos-fuzz-found:
+        a write acked degraded on exactly k shards, one holder killed,
+        and the rollback fired in the 400ms before it rebooted)."""
+        if not self._past_acting_loaded:
+            self._load_past_acting()
+        key = (pg.pool, pg.ps)
+        current = {(s, o) for s, o in pairs}
+        om = self.osdmap
+        out: list[tuple[int, int]] = []
+        seen = set()
+        for past in reversed(self._past_acting.get(key, [])):
+            for s, o in self._pg_members(pool, past):
+                if (s, o) in current or (s, o) in seen:
+                    continue
+                if o == CRUSH_ITEM_NONE:
+                    continue
+                if not om.is_up(o) and (
+                        not (0 <= o < om.max_osd) or not om.exists(o)
+                        or om.is_out(o)):
+                    # written off: out (data forfeited to the remap)
+                    # or removed — no veto, no probe
+                    continue
+                seen.add((s, o))
+                out.append((s, o))
+        return out
+
+    def _maybe_split_pgs(self, old_map, new_map) -> None:
+        """PG splitting AND merging, local half (the reference's
+        PG::split_colls / OSD::split_pgs and PG::merge_from,
+        src/osd/OSD.cc + PG.cc:563): when a pool's pg_num grows, every
+        local object whose name now folds to a child ps moves into the
+        child's collection via collection_move_rename; when it
+        shrinks, dissolving children fold their objects AND pg log
+        into the merge target.  The cluster half (children/targets
+        placing onto new OSDs) is ordinary recovery: _track_intervals
+        records the prior homes (the parent's for split children, the
+        children's for merge targets), so the primary pulls from the
+        members holding the refiled data.
+
+        Runs on EVERY first map after boot too (old_map None): a crash
+        mid-split/merge leaves misfolded objects behind, and the
+        reconcile pass refiles them from persistent stores."""
+        pools = new_map.pools.items()
+        if old_map is not None:
+            pools = [
+                (pid, p) for pid, p in pools
+                if pid in old_map.pools
+                and p.pg_num != old_map.pools[pid].pg_num
+            ]
+        for _pid, pool in pools:
+            try:
+                merged = self._refile_merge_collections(pool)
+                moved = self._refile_split_collections(pool)
+            except Exception:
+                log.exception("osd.%d: pg resize refile failed", self.id)
+                continue
+            if moved or merged:
+                log.info(
+                    "osd.%d: pg resize pool %d: refiled %d objects "
+                    "(split) + %d (merge)",
+                    self.id, pool.id, moved, merged)
+                # resize invalidates the pool's clean verdicts
+                for key in list(self._clean_epoch):
+                    if key[0] == pool.id:
+                        del self._clean_epoch[key]
+
+    def _refile_merge_collections(self, pool) -> int:
+        """Fold collections of dissolved PGs (ps >= pg_num) into their
+        merge targets: objects move, the child's log merges
+        (PGLog.merge_from), and the child collection dies — one
+        transaction per child, so a crash leaves the child whole and
+        the boot reconcile re-runs it."""
+        from ceph_tpu_torch.store.objectstore import META_COLL
+
+        moved = 0
+        for c in list(self.store.list_collections()):
+            if c.pool != pool.id or c == META_COLL:
+                continue
+            if c.ps < pool.pg_num:
+                continue  # survivor
+            target_ps = pool.raw_pg_to_pg(pg_t(pool.id, c.ps)).ps
+            dst = coll_t(pool.id, target_ps, c.shard)
+            t = Transaction()
+            if not self.store.collection_exists(dst):
+                t.create_collection(dst)
+            try:
+                objs = list(self.store.collection_list(c))
+            except FileNotFoundError:
+                continue
+            meta_objs = []
+            for o in objs:
+                if o.name == PGMETA_OID:
+                    meta_objs.append(o)
+                    continue
+                t.collection_move_rename(c, o, dst, o)
+                moved += 1
+            child_lg = self._pg_log(c)
+            target_lg = self._pg_log(dst)
+            target_lg.merge_from(t, child_lg)
+            # per-child version sequences are incomparable: the first
+            # post-merge recovery pass must backfill-reconcile without
+            # listing-based stray reaping (the mon only merges CLEAN
+            # pools, so nothing legitimate is pending deletion) — the
+            # marker rides the merge transaction and the primary
+            # clears it after its first complete pass
+            t.omap_setkeys(dst, target_lg.meta, {"merge_pending": b"1"})
+            for o in meta_objs:
+                t.remove(c, o)
+            t.remove_collection(c)
+            self.store.queue_transaction(t)
+            self._pg_logs.pop(c, None)
+            self._clean_epoch.pop((pool.id, c.ps), None)
+        return moved
+
+    def _refile_split_collections(self, pool) -> int:
+        from ceph_tpu_torch.store.objectstore import META_COLL
+
+        moved = 0
+        for c in list(self.store.list_collections()):
+            if c.pool != pool.id or c == META_COLL:
+                continue
+            if c.ps >= pool.pg_num:
+                continue  # stale collection beyond the map (merge-only)
+            try:
+                objs = list(self.store.collection_list(c))
+            except FileNotFoundError:
+                continue
+            t = Transaction()
+            made: set = set()
+            children: set[int] = set()
+            for o in objs:
+                if o.name == PGMETA_OID:
+                    continue
+                newps = pool.raw_pg_to_pg(object_to_pg(pool, o.name)).ps
+                if newps == c.ps:
+                    continue
+                dst = coll_t(pool.id, newps, c.shard)
+                if dst not in made and not self.store.collection_exists(dst):
+                    t.create_collection(dst)
+                    made.add(dst)
+                # clones (snap != head) ride along with the same id
+                t.collection_move_rename(c, o, dst, o)
+                children.add(newps)
+                moved += 1
+            # the log splits with the data (PGLog::split_into): each
+            # child inherits the entries for its objects AND the
+            # parent's version bounds, in the SAME transaction
+            parent_lg = self._pg_log(c)
+            for ps in sorted(children):
+                dst = coll_t(pool.id, ps, c.shard)
+                parent_lg.split_into(
+                    t, self._pg_log(dst),
+                    lambda oid, _ps=ps: pool.raw_pg_to_pg(
+                        object_to_pg(pool, oid)).ps == _ps,
+                )
+            if not t.empty():
+                self.store.queue_transaction(t)
+        return moved
+
+    def _gc_removed_pools(self, old_map, new_map) -> None:
+        """Deleted pools leave orphan collections (the reference's
+        pg-removal on pool deletion): drop them locally."""
+        if old_map is None:
+            gone = {
+                c.pool for c in self.store.list_collections()
+                if c.pool >= 0 and c.pool not in new_map.pools
+            }
+        else:
+            gone = set(old_map.pools) - set(new_map.pools)
+        if not gone:
+            return
+        try:
+            t = Transaction()
+            for c in list(self.store.list_collections()):
+                if c.pool in gone:
+                    try:
+                        objs = list(self.store.collection_list(c))
+                    except FileNotFoundError:
+                        continue
+                    for o in objs:
+                        t.remove(c, o)
+                    t.remove_collection(c)
+                    self._pg_logs.pop(c, None)
+            if not t.empty():
+                self.store.queue_transaction(t)
+                log.info("osd.%d: removed collections of deleted pools %s",
+                         self.id, sorted(gone))
+        except Exception:
+            # gc must never abort map handling (the map swap already
+            # happened; waiters and recovery still need their kicks)
+            log.exception("osd.%d: pool gc failed", self.id)
+
+    def _maybe_snap_trim(self, old_map, new_map) -> None:
+        """Schedule the snap trimmer for pools whose removed_snaps grew
+        (the reference's SnapTrimmer/SnapMapper worker role)."""
+        for pid, pool in new_map.pools.items():
+            old_pool = old_map.pools.get(pid) if old_map else None
+            old_removed = old_pool.removed_snaps if old_pool else set()
+            if pool.removed_snaps - old_removed:
+                task = asyncio.ensure_future(self._snap_trim(pool))
+                # the loop keeps only weak refs to tasks: hold one so a
+                # half-finished trim can't be garbage-collected
+                self._trim_tasks.add(task)
+                task.add_done_callback(self._trim_tasks.discard)
+
+    async def _snap_trim(self, pool) -> None:
+        """Purge clones whose every covered snap is removed; update or
+        drop the head SnapSet; reap whiteout heads with no clones left.
+        Runs on every OSD against its local store — replicas hold the
+        same objects, so local deterministic trimming converges."""
+        import dataclasses
+
+        removed = pool.removed_snaps
+        try:
+            colls = [
+                c for c in self.store.list_collections() if c.pool == pool.id
+            ]
+        except Exception:
+            return
+        for c in colls:
+            try:
+                objs = self.store.collection_list(c)
+            except FileNotFoundError:
+                continue
+            for o in objs:
+                if o.snap < 0:  # head (ghobject default snap = -2)
+                    continue
+                async with self._obj_lock(pool.id, o.name):
+                    try:
+                        raw = self.store.getattr(c, o, SNAPS_ATTR)
+                    except (KeyError, FileNotFoundError):
+                        continue
+                    snaps = decode_snaps(raw)
+                    live = [sn for sn in snaps if sn not in removed]
+                    if live == snaps:
+                        continue
+                    t = Transaction()
+                    head = dataclasses.replace(o, snap=ghobject_t("").snap)
+                    if live:
+                        t.setattrs(c, o, {SNAPS_ATTR: encode_snaps(live)})
+                        # keep the head SnapSet's covered list in step
+                        ss = SnapSet.from_bytes(
+                            self._getattr_quiet(c, head, SS_ATTR))
+                        cl = ss.clone_by_id(o.snap)
+                        if cl is not None and cl.snaps != live:
+                            cl.snaps = list(live)
+                            t.setattrs(c, head, {SS_ATTR: ss.to_bytes()})
+                    else:
+                        t.remove(c, o)
+                        ss = SnapSet.from_bytes(
+                            self._getattr_quiet(c, head, SS_ATTR))
+                        ss.drop_clone(o.snap)
+                        if self.store.exists(c, head):
+                            if not ss.clones and self._is_whiteout(c, head):
+                                t.remove(c, head)
+                            else:
+                                t.setattrs(c, head, {SS_ATTR: ss.to_bytes()})
+                    try:
+                        if getattr(self.store, "blocking_commit", False):
+                            await asyncio.to_thread(
+                                self.store.queue_transaction, t)
+                        else:
+                            self.store.queue_transaction(t)
+                    except (FileNotFoundError, FileExistsError):
+                        pass  # raced a concurrent op; next trim rescans
+                await asyncio.sleep(0)
+
+    def _getattr_quiet(self, c, o, name) -> bytes | None:
+        try:
+            return self.store.getattr(c, o, name)
+        except (KeyError, FileNotFoundError):
+            return None
+
+    async def _request_map_fill(self) -> None:
+        try:
+            if self._mon_conn is not None:
+                await self._mon_conn.send_message(MMonSubscribe(
+                    start_epoch=self.osdmap.epoch if self.osdmap else 0
+                ))
+        except ConnectionError:
+            pass  # mon hunt will re-subscribe
+
+    # -- client ops (the PrimaryLogPG::do_op slice) --------------------
+
+    async def _handle_client_op(self, msg: MOSDOp) -> None:
+        tracked = self.op_tracker.create(
+            f"osd_op({msg.oid} pool={msg.pool} "
+            f"ops={[o.op for o in msg.ops]} tid={msg.tid})",
+            op_class="write" if msg.is_write() else "read",
+        )
+        try:
+            self.perf.inc("op")
+            if msg.is_write():
+                self.perf.inc("op_w")
+                self.perf.inc(
+                    "op_in_bytes", sum(len(o.data) for o in msg.ops)
+                )
+            else:
+                self.perf.inc("op_r")
+            self.dlog.dout(4, "osd.%d: op %s", self.id, tracked.description)
+            tracked.mark_event("queued")
+            # the queue leg of the cluster trace (stage=queue): joined
+            # to the client's trace context when the op carries one, so
+            # mClock admission wait is attributable per op
+            # tenant tag -> dmclock class (untagged ops ride the
+            # built-in client class); cost grows with payload so
+            # byte-heavy tenants charge their dmclock tags — and the
+            # qos_cost_* fairness counters — proportionally
+            klass = msg.qos_class or "client"
+            cost = 1.0 + sum(len(o.data) for o in msg.ops) / 65536.0
+            q_sp = self.tracer.start_span(
+                "op_queue", ctx=msg.trace, stage="queue", oid=msg.oid,
+                klass=klass)
+            async with self.op_gate.admit(klass, cost=cost):
+                self.tracer.finish_span(q_sp)
+                tracked.mark_event("executing")
+                with self.tracer.span(
+                    "do_op", ctx=msg.trace,
+                    reqid=msg.reqid, oid=msg.oid, pool=msg.pool,
+                    ops=len(msg.ops),
+                ) as _sp:
+                    token = self._op_span.set(_sp)
+                    try:
+                        reply = await self._execute_op(msg)
+                    finally:
+                        try:
+                            self._op_span.reset(token)
+                        except ValueError:
+                            # a task garbage-collected at loop teardown
+                            # runs this finally in a foreign Context;
+                            # the var dies with the task either way
+                            pass
+                    _sp.tag(result=reply.result)
+            tracked.mark_event("replying")
+            if reply.result == 0 and reply.data:
+                self.perf.inc("op_out_bytes", len(reply.data))
+        except ECConnErrors as e:
+            log.warning("osd.%d: op tid %d failed: %r", self.id, msg.tid, e)
+            reply = MOSDOpReply(
+                tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch
+            )
+        except Exception:
+            log.exception("osd.%d: op tid %d crashed", self.id, msg.tid)
+            reply = MOSDOpReply(tid=msg.tid, result=-errno.EIO, epoch=self.epoch)
+        try:
+            await msg.conn.send_message(reply)
+        except ConnectionError:
+            pass
+        finally:
+            tracked.finish()
+
+    async def _execute_op(self, msg: MOSDOp) -> MOSDOpReply:
+        """do_op/do_osd_ops dispatch: route the op vector to the pool's
+        backend; write vectors serialize per object (the reference's
+        ObjectContext write lock, PrimaryLogPG::find_object_context)."""
+        pool = self.osdmap.get_pg_pool(msg.pool) if self.osdmap else None
+        if pool is None:
+            return MOSDOpReply(tid=msg.tid, result=-errno.ENOENT, epoch=self.epoch)
+        if not msg.ops:
+            return MOSDOpReply(tid=msg.tid, result=-errno.EINVAL, epoch=self.epoch)
+        caps = getattr(msg.conn, "peer_caps", None)
+        if caps is not None:
+            # OSDCap admission (PrimaryLogPG::do_op op_has_sufficient_caps):
+            # the need is the UNION over sub-ops — a write-only cap
+            # must not smuggle a read by bundling it with a write —
+            # with class calls additionally requiring x; scoped to
+            # this pool.  A denial is EPERM, not a retry.
+            from ceph_tpu_torch.common.caps import capable
+            from ceph_tpu_torch.msg.messages import OP_CALL
+
+            need = set()
+            for o in msg.ops:
+                if o.op == OP_CALL:
+                    need.add("x")
+                    from ceph_tpu_torch import cls as _cls
+
+                    cname, _, mname = (o.name or "").partition(".")
+                    need.add("w" if _cls.method_is_write(cname, mname)
+                             else "r")
+                elif o.is_write():
+                    need.add("w")
+                else:
+                    need.add("r")
+            pool_name = self.osdmap.pool_names.get(msg.pool, "")
+            if not capable(caps, "osd", "".join(sorted(need)),
+                           pool=pool_name):
+                return MOSDOpReply(
+                    tid=msg.tid, result=-errno.EPERM, epoch=self.epoch)
+        pg = object_to_pg(pool, msg.oid)
+        acting, primary = self._acting(pool, pg)
+        if primary != self.id:
+            # client raced a map change; tell it to retry on a newer map
+            return MOSDOpReply(tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        # peering-before-active: a primary serving its first op of a
+        # new interval must adopt the acting set's log state first —
+        # else a revived primary mints versions from its STALE
+        # last_update, re-basing the version stream over the
+        # degraded-window writes its peers hold (counter collision:
+        # undetectable as a gap, invisible to missing_from — the
+        # stale-shard flake's deepest root).  Bounce until primed.
+        if not await self._prime_interval(pool, pg, acting):
+            return MOSDOpReply(
+                tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        # versions mint under the epoch primacy was verified at, even
+        # if the map advances mid-op (see _next_version)
+        admit_epoch = self.epoch
+        if msg.is_write():
+            # fullness gate (reference OSD::_check_full, OSD.cc:890):
+            # a write to a PG any of whose acting members the map marks
+            # FULL — or whose primary's own store is past the local
+            # failsafe — bounces with ENOSPC rather than corrupting a
+            # store that has nowhere to put it.  Deletes must pass: they
+            # are how an operator recovers from FULL.
+            only_deletes = all(
+                (not o.is_write()) or o.op in _DELETE_OPS
+                for o in msg.ops)
+            if not only_deletes:
+                om = self.osdmap
+                if (
+                    self._full_ratio()
+                    >= self.conf["osd_failsafe_full_ratio"]
+                    or any(o != CRUSH_ITEM_NONE and om.is_full(o)
+                           for o in acting)
+                ):
+                    return MOSDOpReply(
+                        tid=msg.tid, result=-errno.ENOSPC,
+                        epoch=self.epoch)
+        if any(o.op in (OP_WATCH, OP_UNWATCH, OP_NOTIFY) for o in msg.ops):
+            return await self._watch_notify_vector(pool, pg, msg)
+        tiered = (
+            pool.extra.get("tier_of")
+            and pool.extra.get("cache_mode") == "writeback"
+            and not getattr(msg, "_tier_internal", False)
+        )
+        # the object lock covers tier admission (present/dirty checks,
+        # promote) AND the op itself, so the agent's flush/evict can't
+        # interleave with a client op's check-then-act; internal tier
+        # ops carry _have_obj_lock and skip re-acquisition
+        if (tiered or msg.is_write()) and not getattr(
+                msg, "_have_obj_lock", False):
+            async with self._obj_lock(pool.id, msg.oid):
+                return await self._execute_op_locked(
+                    pool, pg, acting, msg, admit_epoch, tiered)
+        return await self._execute_op_locked(
+            pool, pg, acting, msg, admit_epoch, tiered)
+
+    async def _execute_op_locked(
+        self, pool, pg, acting, msg, admit_epoch, tiered,
+    ) -> MOSDOpReply:
+        if tiered:
+            reply = await self._tier_prepare(pool, pg, msg)
+            if reply is not None:
+                return reply
+        if msg.is_write():
+            if msg.snapid != NOSNAP:
+                return MOSDOpReply(
+                    tid=msg.tid, result=-errno.EROFS, epoch=self.epoch)
+            if pool.is_erasure():
+                ec = self._ec_for(pool)
+                return await self._ec_write_vector(
+                    pool, pg, acting, msg, ec, self._sinfo(ec),
+                    admit_epoch,
+                )
+            return await self._rep_write_vector(
+                pool, pg, acting, msg, admit_epoch)
+        if pool.is_erasure():
+            ec = self._ec_for(pool)
+            return await self._ec_read_vector(
+                pool, pg, acting, msg, ec, self._sinfo(ec)
+            )
+        return await self._rep_read_vector(pool, pg, acting, msg)
+
+    # -- watch/notify (PrimaryLogPG watch/notify + MWatchNotify) -------
+
+    async def _watch_notify_vector(self, pool, pg, msg) -> MOSDOpReply:
+        import base64
+        import json
+
+        outs = []
+        for o in msg.ops:
+            r, d, kv = 0, b"", {}
+            key = (pool.id, msg.oid)
+            if o.op not in (OP_WATCH, OP_UNWATCH, OP_NOTIFY):
+                # watch vectors are control-only; silently "succeeding"
+                # a data op here would drop it
+                outs.append((-errno.EOPNOTSUPP, b"", {}))
+                continue
+            if o.op == OP_WATCH:
+                self._watchers.setdefault(key, {})[
+                    (msg.src, o.off)
+                ] = msg.conn
+            elif o.op == OP_UNWATCH:
+                self._watchers.get(key, {}).pop((msg.src, o.off), None)
+            elif o.op == OP_NOTIFY:
+                notify_id = next(self._tids)
+                timeout = (o.length or 5000) / 1000.0
+                watchers = dict(self._watchers.get(key, {}))
+                acks: list[tuple] = []
+                missed: list[tuple] = []
+                waits = []
+                for (entity, cookie), conn in watchers.items():
+                    fut = asyncio.get_running_loop().create_future()
+                    self._notify_waiters[(notify_id, entity, cookie)] = fut
+                    try:
+                        await conn.send_message(MWatchNotify(
+                            notify_id=notify_id, cookie=cookie,
+                            oid=msg.oid, pool=pool.id, payload=o.data,
+                        ))
+                        waits.append((entity, cookie, fut))
+                    except (ConnectionError, OSError):
+                        # dead watcher: drop it (client linger would
+                        # re-establish in the reference)
+                        self._watchers.get(key, {}).pop((entity, cookie), None)
+                        self._notify_waiters.pop((notify_id, entity, cookie), None)
+                deadline = asyncio.get_running_loop().time() + timeout
+                for entity, cookie, fut in waits:
+                    remaining = deadline - asyncio.get_running_loop().time()
+                    try:
+                        ack = await asyncio.wait_for(
+                            fut, max(0.001, remaining)
+                        )
+                        acks.append((entity, cookie, ack.reply))
+                    except asyncio.TimeoutError:
+                        missed.append((entity, cookie))
+                    finally:
+                        self._notify_waiters.pop((notify_id, entity, cookie), None)
+                d = json.dumps({
+                    "acks": [
+                        [list(e), c, base64.b64encode(rep).decode()]
+                        for e, c, rep in acks
+                    ],
+                    "timeouts": [[list(e), c] for e, c in missed],
+                }).encode()
+            outs.append((r, d, kv))
+        data = next((d for _r, d, _kv in outs if d), b"")
+        result = next((r for r, _d, _kv in outs if r != 0), 0)
+        return MOSDOpReply(
+            tid=msg.tid, result=result, epoch=self.epoch, data=data,
+            outs=outs,
+        )
+
+    def _handle_notify_ack(self, msg: MWatchNotifyAck) -> None:
+        fut = self._notify_waiters.get((msg.notify_id, msg.src, msg.cookie))
+        if fut and not fut.done():
+            fut.set_result(msg)
+
+    # -- replicated backend -------------------------------------------
+
+    # -- snapshots (make_writeable / find_object_context twins) --------
+
+    def _load_snapset(self, c: coll_t, oid: str) -> SnapSet:
+        try:
+            return SnapSet.from_bytes(
+                self.store.getattr(c, ghobject_t(oid), SS_ATTR))
+        except (KeyError, FileNotFoundError):
+            return SnapSet()
+
+    def _is_whiteout(self, c: coll_t, o: ghobject_t) -> bool:
+        try:
+            return self.store.getattr(c, o, WHITEOUT_ATTR) == b"1"
+        except (KeyError, FileNotFoundError):
+            return False
+
+    @staticmethod
+    def _effective_snapc(pool, msg) -> SnapContext:
+        """Client self-managed context, else the pool-snap context
+        (pg_pool_t::get_snap_context fallback)."""
+        if msg.snaps:
+            return SnapContext(msg.snap_seq, list(msg.snaps))
+        return pool.get_snap_context()
+
+    def _resolve_read_object(
+        self, c: coll_t, oid: str, snapid: int
+    ) -> tuple[ghobject_t, int] | int:
+        """find_object_context: map (oid, snapid) to the store object
+        serving that snap.  Returns (ghobject, errno 0) or an errno."""
+        head = ghobject_t(oid)
+        if snapid == NOSNAP:
+            if not self.store.exists(c, head) or self._is_whiteout(c, head):
+                return errno.ENOENT
+            return head, 0
+        ss = self._load_snapset(c, oid)
+        target = ss.resolve(snapid)
+        if target is None:
+            return errno.ENOENT  # no clone covers it: absent at that snap
+        if target == NOSNAP:
+            # no clone covers it: the head serves the read only if no
+            # write happened since the snap (snapid > seq); otherwise
+            # the snap's content is gone (trimmed or never existed)
+            if snapid <= ss.seq:
+                return errno.ENOENT
+            if not self.store.exists(c, head) or self._is_whiteout(c, head):
+                return errno.ENOENT
+            return head, 0
+        clone = ghobject_t(oid, snap=target)
+        if not self.store.exists(c, clone):
+            return errno.ENOENT
+        return clone, 0
+
+    async def _rep_read_vector(self, pool, pg, acting, msg) -> MOSDOpReply:
+        c = self._shard_coll(pool, pg, NO_SHARD)
+        if any(o.op == OP_LIST_SNAPS for o in msg.ops):
+            ss = self._load_snapset(c, msg.oid)
+            return MOSDOpReply(
+                tid=msg.tid, result=0, epoch=self.epoch, data=ss.to_bytes())
+        resolved = self._resolve_read_object(c, msg.oid, msg.snapid)
+        if isinstance(resolved, int):
+            if resolved == errno.ENOENT and msg.oid in self._read_error_ledger:
+                # the hole is OURS: a medium-error quarantine removed
+                # the local copy and its repair hasn't landed yet —
+                # serve the read degraded from a replica instead of
+                # returning ENOENT for an object the cluster still has
+                snap = NOSNAP
+                serve = msg.snapid == NOSNAP
+                if not serve:
+                    tgt = self._load_snapset(c, msg.oid).resolve(msg.snapid)
+                    if tgt is not None and tgt != NOSNAP:
+                        snap, serve = tgt, True
+                if serve:
+                    reply = await self._rep_degraded_read(
+                        pool, pg, acting, msg, snap)
+                    if reply is not None:
+                        return reply
+            return MOSDOpReply(
+                tid=msg.tid, result=-resolved, epoch=self.epoch)
+        o, _ = resolved
+        size = self.store.stat(c, o)
+        outs: list[tuple[int, bytes, dict[str, bytes]]] = []
+        first_read: bytes | None = None
+        for op in msg.ops:
+            r, d, kv = 0, b"", {}
+            if op.op == OP_READ:
+                try:
+                    d = self.store.read(c, o, op.off, op.length or None)
+                except OSError as e:
+                    if (e.errno or errno.EIO) != errno.EIO:
+                        raise
+                    # local medium error: fail over to a healthy
+                    # replica instead of returning EIO to the client;
+                    # the ledger/quarantine machinery repairs the local
+                    # copy in the background
+                    self._note_medium_error(
+                        pool, pg, NO_SHARD, msg.oid,
+                        snap=o.snap if o.snap >= 0 else NOSNAP)
+                    d = await self._rep_read_failover(
+                        pool, pg, acting, o, op.off, op.length or 0)
+                    if d is None:
+                        r, d = -errno.EIO, b""
+                if first_read is None:
+                    first_read = d
+            elif op.op == OP_STAT:
+                pass
+            elif op.op == OP_GETXATTR:
+                try:
+                    d = self.store.getattr(c, o, USER_XATTR_PREFIX + op.name)
+                except KeyError:
+                    r = -errno.ENODATA
+            elif op.op == OP_GETXATTRS:
+                kv = {
+                    name[len(USER_XATTR_PREFIX):]: v
+                    for name, v in self.store.getattrs(c, o).items()
+                    if name.startswith(USER_XATTR_PREFIX)
+                }
+            elif op.op == OP_OMAP_GETKEYS:
+                kv = {k: b"" for k in self.store.omap_get(c, o)}
+            elif op.op == OP_OMAP_GETVALS:
+                kv = self.store.omap_get(c, o)
+            elif op.op == OP_OMAP_GETVALSBYKEYS:
+                kv = self.store.omap_get_values(c, o, op.keys)
+            elif op.op == OP_CALL:
+                from ceph_tpu_torch import cls as _cls
+
+                cname, _, meth = op.name.partition(".")
+                ctx = _cls.MethodContext(self.store, c, o)
+                r, d = _cls.call(cname, meth, ctx, op.data)
+            else:
+                r = -errno.EOPNOTSUPP
+            outs.append((r, d, kv))
+        result = next((r for r, _d, _kv in outs if r != 0), 0)
+        return MOSDOpReply(
+            tid=msg.tid, result=result, epoch=self.epoch, size=size,
+            data=first_read or b"", outs=outs,
+        )
+
+    def _rep_effects(
+        self, c: coll_t, o: ghobject_t, ops, ss: SnapSet | None = None
+    ) -> tuple[list, int, bool] | int:
+        """Resolve a client write vector into a deterministic effect
+        vector + final size (the primary's role before MOSDRepOp ships
+        the transaction in the reference).  Returns an errno on guard
+        failure.  ``ss`` (the object's SnapSet) serves ROLLBACK."""
+        from ceph_tpu_torch.msg.messages import OSDOp
+
+        exists = self.store.exists(c, o) and not self._is_whiteout(c, o)
+        size = self.store.stat(c, o) if exists else 0
+        effects: list[OSDOp] = []
+        outs: list[tuple[int, bytes, dict]] = []
+        expanded: list[OSDOp] = []
+        for op in ops:
+            if op.op == OP_CALL:
+                # run the object-class method on the primary; its
+                # recorded mutations splice into the effect vector so
+                # class side effects replicate atomically (objclass
+                # dispatch, src/osd/PrimaryLogPG.cc CEPH_OSD_OP_CALL)
+                from ceph_tpu_torch import cls as _cls
+
+                cname, _, meth = op.name.partition(".")
+                ctx = _cls.MethodContext(self.store, c, o)
+                rc, outdata = _cls.call(cname, meth, ctx, op.data)
+                outs.append((rc, outdata, {}))
+                if rc < 0:
+                    return -rc
+                expanded.extend(ctx.effects)
+            else:
+                outs.append((0, b"", {}))
+                expanded.append(op)
+        for op in expanded:
+            if op.op == OP_CREATE:
+                if op.off and exists:
+                    return errno.EEXIST
+                exists = True
+                effects.append(OSDOp(OP_CREATE))
+            elif op.op == OP_WRITE_FULL:
+                effects.append(OSDOp(OP_WRITE_FULL, data=op.data))
+                size, exists = len(op.data), True
+            elif op.op == OP_WRITE:
+                effects.append(OSDOp(OP_WRITE, off=op.off, data=op.data))
+                size, exists = max(size, op.off + len(op.data)), True
+            elif op.op == OP_APPEND:
+                effects.append(OSDOp(OP_WRITE, off=size, data=op.data))
+                size, exists = size + len(op.data), True
+            elif op.op == OP_ZERO:
+                end = min(size, op.off + op.length)
+                if op.off < end:
+                    effects.append(OSDOp(OP_ZERO, off=op.off, length=end - op.off))
+                exists = True
+            elif op.op == OP_TRUNCATE:
+                effects.append(OSDOp(OP_TRUNCATE, off=op.off))
+                size, exists = op.off, True
+            elif op.op == OP_SETXATTR:
+                effects.append(OSDOp(OP_SETXATTR, name=op.name, data=op.data))
+                exists = True
+            elif op.op == OP_RMXATTR:
+                effects.append(OSDOp(OP_RMXATTR, name=op.name))
+                exists = True
+            elif op.op == OP_OMAP_SETKEYS:
+                effects.append(OSDOp(OP_OMAP_SETKEYS, kv=op.kv))
+                exists = True
+            elif op.op == OP_OMAP_RMKEYS:
+                effects.append(OSDOp(OP_OMAP_RMKEYS, keys=op.keys))
+                exists = True
+            elif op.op == OP_OMAP_CLEAR:
+                effects.append(OSDOp(OP_OMAP_CLEAR))
+                exists = True
+            elif op.op == OP_DELETE:
+                if not exists:
+                    # absent or whiteout head: nothing to delete (a
+                    # second delete must not remove the snapdir anchor)
+                    return errno.ENOENT
+                effects.append(OSDOp(OP_DELETE))
+                exists, size = False, 0
+            elif op.op == OP_ROLLBACK:
+                # CEPH_OSD_OP_ROLLBACK (PrimaryLogPG::_rollback_to):
+                # restore head content from the clone serving op.off
+                target = ss.resolve(op.off) if ss is not None else NOSNAP
+                if target is None:
+                    return errno.ENOENT
+                if target == NOSNAP:
+                    if not exists:
+                        return errno.ENOENT
+                    continue  # head already serves that snap: no-op
+                clone = ghobject_t(o.name, snap=target)
+                if not self.store.exists(c, clone):
+                    return errno.ENOENT
+                data = bytes(self.store.read(c, clone))
+                effects.append(OSDOp(OP_WRITE_FULL, data=data))
+                effects.append(OSDOp(OP_OMAP_CLEAR))
+                kv = self.store.omap_get(c, clone)
+                if kv:
+                    effects.append(OSDOp(OP_OMAP_SETKEYS, kv=kv))
+                for name, v in self.store.getattrs(c, clone).items():
+                    if name.startswith(USER_XATTR_PREFIX):
+                        effects.append(OSDOp(
+                            OP_SETXATTR,
+                            name=name[len(USER_XATTR_PREFIX):], data=v))
+                size, exists = len(data), True
+            else:
+                return errno.EOPNOTSUPP
+        # an object deleted mid-vector and rewritten afterwards is not a
+        # delete; only the final state counts for the log entry
+        return effects, size, not exists, outs
+
+    def _rep_effect_txn(
+        self, pool, pg, oid, effects, attrs, version: eversion_t,
+        delete_final: bool, reqid: str = "",
+    ) -> Transaction:
+        """Build the store transaction for an effect vector + its
+        pg-log entry (primary and replicas run the identical code)."""
+        c = self._shard_coll(pool, pg, NO_SHARD)
+        o = ghobject_t(oid)
+        t = Transaction()
+        self._ensure_coll(t, c)
+        # track existence through the vector: an earlier op in this SAME
+        # transaction may create the object, so a build-time store.exists
+        # check alone would drop a later remove
+        obj_exists = self.store.exists(c, o)
+        for op in effects:
+            if op.op in (OP_CREATE,):
+                t.touch(c, o)
+            elif op.op == OP_WRITE_FULL:
+                t.touch(c, o).truncate(c, o, len(op.data)).write(c, o, 0, op.data)
+            elif op.op == OP_WRITE:
+                t.touch(c, o).write(c, o, op.off, op.data)
+            elif op.op == OP_ZERO:
+                t.zero(c, o, op.off, op.length)
+            elif op.op == OP_TRUNCATE:
+                t.touch(c, o).truncate(c, o, op.off)
+            elif op.op == OP_SETXATTR:
+                t.setattrs(c, o, {USER_XATTR_PREFIX + op.name: op.data})
+            elif op.op == OP_RMXATTR:
+                t.touch(c, o).rmattr(c, o, USER_XATTR_PREFIX + op.name)
+            elif op.op == OP_OMAP_SETKEYS:
+                t.omap_setkeys(c, o, op.kv)
+            elif op.op == OP_OMAP_RMKEYS:
+                t.omap_rmkeys(c, o, op.keys)
+            elif op.op == OP_OMAP_CLEAR:
+                t.omap_clear(c, o)
+            elif op.op == OP_SNAP_CLONE:
+                # make_writeable COW: snapshot the head into its clone
+                # before the rest of the vector mutates it
+                clone = ghobject_t(oid, snap=op.off)
+                if obj_exists and not self.store.exists(c, clone):
+                    t.clone(c, o, clone)
+                    t.setattrs(c, clone, {SNAPS_ATTR: op.data})
+                continue
+            elif op.op == OP_DELETE:
+                if obj_exists:
+                    t.remove(c, o)
+                obj_exists = False
+                continue
+            obj_exists = True
+        if not delete_final:
+            t.setattrs(c, o, attrs)
+        if version > ZERO:
+            lg = self._pg_log(c)
+            if version > lg.info.last_update:
+                prior = self._object_version(c, o)
+                lg.append(t, pg_log_entry_t(
+                    DELETE if delete_final else MODIFY, oid, version, prior,
+                    reqid,
+                ))
+                self._pg_log_trim(t, lg)
+        return t
+
+    async def _rep_replicated_at(
+        self, pool, pg, pairs, oid: str, logged_v, lg,
+    ) -> bool:
+        """True when every acting member verifiably serves ``oid`` at
+        >= ``logged_v`` — or verifiably lacks it while the newest
+        logged op for the oid is a DELETE (absence is then the
+        replicated state, not a hole).  An unreachable member is
+        UNVERIFIED, never vouched for: the dup reply's 0 is a commit
+        claim, and claiming it for redundancy nobody can see is how
+        acked writes end up one-copy on a size-2 pool."""
+        latest_op = None
+        for v in sorted(lg.entries, reverse=True):
+            if lg.entries[v].oid == oid:
+                latest_op = lg.entries[v].op
+                break
+        for s, o2 in pairs:
+            if o2 == self.id:
+                c = self._shard_coll(pool, pg, s)
+                go = ghobject_t(oid)
+                present = self.store.exists(c, go)
+                ver = self._object_version(c, go) if present else ZERO
+            else:
+                try:
+                    payload, attrs = await self._probe_shard(
+                        pool, pg, s, o2, oid)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    return False
+                present = payload is not None
+                ver = (_v_parse((attrs or {}).get(VERSION_ATTR))
+                       if present else ZERO)
+            if present:
+                if ver < logged_v:
+                    return False
+            elif latest_op != DELETE:
+                return False
+        return True
+
+    async def _rep_write_vector(self, pool, pg, acting, msg,
+                                admit_epoch: int | None = None) -> MOSDOpReply:
+        c = self._shard_coll(pool, pg, NO_SHARD)
+        o = ghobject_t(msg.oid)
+        lg = self._pg_log(c)
+        if msg.reqid and msg.reqid in lg.reqids:
+            # duplicate of an applied op — but the retry exists
+            # BECAUSE something failed, and a fan-out that died
+            # mid-replication may have left a replica stale.  Verify
+            # every acting member actually serves the logged version
+            # before vouching for the commit (the EC dup path's PR-3
+            # discipline, now on the replicated path too: vouching
+            # blind acked writes whose redundancy was still degraded
+            # and left the stale-copy flake for scrub to find).
+            logged_v = lg.reqids[msg.reqid]
+            pairs = self._pg_members(pool, acting)
+            if await self._rep_replicated_at(
+                    pool, pg, pairs, msg.oid, logged_v, lg):
+                return MOSDOpReply(
+                    tid=msg.tid, result=0, epoch=self.epoch)
+            try:
+                await self._reconcile_object(
+                    pool, pg, pairs, msg.oid, have_lock=True)
+            except Exception:
+                log.exception(
+                    "osd.%d: dup-retry reconcile of %s failed",
+                    self.id, msg.oid)
+            if await self._rep_replicated_at(
+                    pool, pg, pairs, msg.oid, logged_v, lg):
+                return MOSDOpReply(
+                    tid=msg.tid, result=0, epoch=self.epoch)
+            self._queue_object_repair(pool, pg, msg.oid)
+            return MOSDOpReply(
+                tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        # make_writeable: clone-on-write under a newer SnapContext
+        from ceph_tpu_torch.msg.messages import OSDOp
+
+        snapc = self._effective_snapc(pool, msg)
+        if snapc.snaps and not snapc.valid():
+            return MOSDOpReply(tid=msg.tid, result=-errno.EINVAL, epoch=self.epoch)
+        ss = self._load_snapset(c, msg.oid)
+        live_head = self.store.exists(c, o) and not self._is_whiteout(c, o)
+        cow: list[OSDOp] = []
+        if live_head and ss.needs_cow(snapc):
+            clone = ss.make_clone(snapc, self.store.stat(c, o))
+            cow.append(OSDOp(
+                OP_SNAP_CLONE, off=clone.id, data=encode_snaps(clone.snaps)))
+        else:
+            ss.advance_seq(snapc)
+        resolved = self._rep_effects(c, o, msg.ops, ss=ss)
+        if isinstance(resolved, int):
+            return MOSDOpReply(tid=msg.tid, result=-resolved, epoch=self.epoch)
+        effects, size, delete, call_outs = resolved
+        effects = cow + effects
+        version = self._next_version(c, admit_epoch)
+        if version is None:
+            return MOSDOpReply(
+                tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        attrs = {
+            SIZE_ATTR: str(size).encode(),
+            VERSION_ATTR: _v_bytes(version),
+        }
+        if ss.seq or ss.clones:
+            attrs[SS_ATTR] = ss.to_bytes()
+        attrs[WHITEOUT_ATTR] = b"0"
+        if delete and ss.clones:
+            # clones still anchor to this name: leave a whiteout head
+            # (the reference's snapdir object role) instead of removing
+            delete = False
+            size = 0
+            effects.append(OSDOp(OP_CREATE))
+            attrs[SIZE_ATTR] = b"0"
+            attrs[WHITEOUT_ATTR] = b"1"
+        t = self._rep_effect_txn(
+            pool, pg, msg.oid, effects, attrs, version, delete,
+            reqid=msg.reqid,
+        )
+        parent_sp = self._op_span.get()
+        await self._store_latency_gate()
+        with self._maybe_span(
+            "store_commit", parent=parent_sp, stage="store", oid=msg.oid,
+        ):
+            if getattr(self.store, "blocking_commit", False):
+                await asyncio.to_thread(self.store.queue_transaction, t)
+            else:
+                self.store.queue_transaction(t)
+        waits = []
+        for osd in acting:
+            if osd in (self.id, CRUSH_ITEM_NONE):
+                continue
+            tid = next(self._tids)
+            waits.append(self._traced_sub_op(
+                "rep_sub_op", parent_sp, NO_SHARD, osd, msg.reqid,
+                MOSDRepOp(
+                    tid=tid, pg=pg, from_osd=self.id, oid=msg.oid,
+                    attrs=attrs, delete=delete, epoch=self.epoch,
+                    version=version, ops=effects, reqid=msg.reqid,
+                ), tid))
+        if waits:
+            replies = await asyncio.gather(*waits, return_exceptions=True)
+            lost = False
+            for rep in replies:
+                if isinstance(rep, asyncio.CancelledError):
+                    raise rep
+                if isinstance(rep, ECConnErrors + (OSError,)):
+                    lost = True
+                elif isinstance(rep, BaseException):
+                    raise rep
+                elif rep.result != 0:
+                    return MOSDOpReply(
+                        tid=msg.tid, result=rep.result, epoch=self.epoch)
+                elif getattr(rep, "floored", False):
+                    # replica pinned its contiguity floor mid-traffic:
+                    # queue a recovery pass (no map change will)
+                    self._queue_pg_pass(pool, pg)
+            if lost:
+                # partial replication: the primary applied + logged but
+                # a replica never confirmed.  Reconcile NOW under the
+                # object lock (push the logged version over the stale
+                # replica) so the client's dup-detected retry vouches
+                # for a write that actually replicated — not one the
+                # next scrub flags as a version mismatch
+                repaired = False
+                try:
+                    repaired = await self._reconcile_object(
+                        pool, pg, self._pg_members(pool, acting),
+                        msg.oid, have_lock=True)
+                except Exception:
+                    log.exception(
+                        "osd.%d: post-partial-repop reconcile of %s "
+                        "failed", self.id, msg.oid)
+                if not repaired:
+                    self._queue_object_repair(pool, pg, msg.oid)
+                return MOSDOpReply(
+                    tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        first_out = next((d for _r, d, _kv in call_outs if d), b"")
+        return MOSDOpReply(
+            tid=msg.tid, result=0, epoch=self.epoch, outs=call_outs,
+            data=first_out,
+        )
+
+    async def _apply_full_object(
+        self, pool, pg, oid, data, attrs, delete=False,
+        version: eversion_t = ZERO,
+    ):
+        await self._apply_shard_write_async(
+            pool, pg, NO_SHARD, oid, data, attrs, delete=delete,
+            version=version,
+        )
+
+    async def _handle_rep_op(self, msg: MOSDRepOp) -> None:
+        pool = self.osdmap.get_pg_pool(msg.pg.pool)
+        result = 0
+        try:
+            if msg.ops:
+                t = self._rep_effect_txn(
+                    pool, msg.pg, msg.oid, msg.ops, msg.attrs, msg.version,
+                    msg.delete, reqid=msg.reqid,
+                )
+                await self._store_latency_gate()
+                with self._maybe_span(
+                    "store_commit", ctx=msg.trace, stage="store",
+                    oid=msg.oid,
+                ):
+                    if getattr(self.store, "blocking_commit", False):
+                        await asyncio.to_thread(
+                            self.store.queue_transaction, t)
+                    else:
+                        self.store.queue_transaction(t)
+            else:
+                # legacy full-object payload (recovery pushes reuse this)
+                await self._apply_full_object(
+                    pool, msg.pg, msg.oid, msg.data, msg.attrs, msg.delete,
+                    msg.version,
+                )
+        except OSError as e:
+            result = -(e.errno or errno.EIO)
+        # report a pinned contiguity floor so the primary queues a
+        # recovery pass (see MOSDECSubOpWriteReply.floored)
+        floored = False
+        if result == 0 and msg.version > ZERO:
+            lg = self._pg_log(self._shard_coll(pool, msg.pg, NO_SHARD))
+            floored = (lg.contig_floor is not None
+                       and lg.info.last_update == msg.version)
+        await msg.conn.send_message(MOSDRepOpReply(
+            tid=msg.tid, pg=msg.pg, from_osd=self.id, result=result,
+            epoch=self.epoch, floored=floored,
+        ))
+

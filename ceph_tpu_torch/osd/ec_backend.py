@@ -1,0 +1,1290 @@
+"""EC backend: chunk fan-out writes, RMW overwrites, version-guarded
+reads, fast_read reconstruction, sub-op service (the
+src/osd/ECBackend.cc + ECTransaction.cc seam), split out of the
+daemon per the PGBackend seam layout."""
+
+from __future__ import annotations
+
+import asyncio
+import errno
+import logging
+
+import numpy as np
+
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+from ceph_tpu_torch.osd import ecutil
+from ceph_tpu_torch.osd.pglog import (
+    DELETE,
+    MODIFY,
+    ZERO,
+    eversion_t,
+    pg_log_entry_t,
+)
+from ceph_tpu_torch.osd.snaps import (
+    NOSNAP,
+    SNAPS_ATTR,
+    SS_ATTR,
+    WHITEOUT_ATTR,
+    SnapSet,
+    encode_snaps,
+)
+from ceph_tpu_torch.osd.types import PgPool, pg_t
+from ceph_tpu_torch.store import Transaction, coll_t, ghobject_t
+
+from ceph_tpu_torch.msg.messages import (
+    OP_APPEND,
+    OP_CREATE,
+    OP_DELETE,
+    OP_GETXATTR,
+    OP_GETXATTRS,
+    OP_LIST_SNAPS,
+    OP_OMAP_CLEAR,
+    OP_OMAP_RMKEYS,
+    OP_OMAP_SETKEYS,
+    OP_READ,
+    OP_RMXATTR,
+    OP_ROLLBACK,
+    OP_SETXATTR,
+    OP_STAT,
+    OP_TRUNCATE,
+    OP_WRITE,
+    OP_WRITE_FULL,
+    OP_ZERO,
+    MOSDECSubOpRead,
+    MOSDECSubOpReadReply,
+    MOSDECSubOpWrite,
+    MOSDECSubOpWriteReply,
+    MOSDOpReply,
+)
+from ceph_tpu_torch.osd.pgutil import (
+    ECConnErrors,
+    ECFetchError,
+    HINFO_ATTR,
+    RB_SNAP,
+    SIZE_ATTR,
+    USER_XATTR_PREFIX,
+    VERSION_ATTR,
+    _read_extents,
+    _v_bytes,
+    _v_parse,
+)
+
+log = logging.getLogger("ceph_tpu_torch.osd")
+
+
+class ECBackendMixin:
+    """The erasure-coded PGBackend — mixed into OSDDaemon; state lives
+    in the daemon's __init__."""
+
+    # -- EC backend ----------------------------------------------------
+
+    def _shard_coll(self, pool: PgPool, pg: pg_t, shard: int) -> coll_t:
+        return coll_t(pool.id, pool.raw_pg_to_pg(pg).ps, shard)
+
+    def _ensure_coll(self, t: Transaction, c: coll_t) -> None:
+        """Make sure ``c`` exists before ``t`` commits.  A missing
+        collection is created at once, in a transaction of its own on
+        the event loop: two writes into a new PG shard build their
+        transactions before either commits on a store that commits on a
+        worker thread (``blocking_commit``), and had each carried the
+        creation, the second would fail with "collection exists"."""
+        if not self.store.collection_exists(c):
+            self.store.queue_transaction(Transaction().create_collection(c))
+
+    def _ec_live(self, pool, acting) -> tuple[list, int | None] | None:
+        """(live shard pairs, my_shard) or None when the op must bounce."""
+        live = [
+            (shard, osd)
+            for shard, osd in enumerate(acting)
+            if osd != CRUSH_ITEM_NONE
+        ]
+        if len(live) < pool.min_size:
+            return None
+        my_shard = next((s for s, o in live if o == self.id), None)
+        if my_shard is None:
+            # a primary that holds no shard of the live set would mint
+            # versions from a PG log it never writes, defeating the
+            # stale-shard guards — bounce the op instead
+            return None
+        return live, my_shard
+
+    async def _ec_fan_out_write(
+        self, pool, pg, live, oid, shard_payloads, attrs, version,
+        *, off: int = 0, truncate: int = -1, rmattrs: list[str] | None = None,
+        reqid: str = "", prev_version=None, _retried: bool = False,
+        clone_snap: int = 0, clone_snaps: bytes = b"",
+    ) -> int:
+        """Fan one versioned shard write out to the live set; returns 0
+        or the first failing shard's errno (the ECBackend ECSubWrite
+        fan-out, src/osd/ECBackend.cc:943).
+
+        ``prev_version`` (None = unguarded) is the base version this
+        write was computed against: every shard must be AT that version
+        or the write is refused with ESTALE — a shard that missed
+        earlier writes is reconciled (recovery roll-forward) and the
+        fan-out retried once, mirroring the reference's write-blocks-on-
+        missing-object rule (PrimaryLogPG::is_missing_object wait)."""
+        from ceph_tpu_torch.common.fault_injector import FAULTS
+
+        await FAULTS.check("osd.ec_fan_out")
+        guarded = prev_version is not None
+        parent_sp = self._op_span.get()
+        waits = []
+        local: list[tuple[int, bytes]] = []
+        estale = False
+        for shard, osd in live:
+            payload = shard_payloads.get(shard, b"")
+            if not isinstance(payload, bytes):
+                payload = payload.tobytes()
+            if osd == self.id:
+                c = self._shard_coll(pool, pg, shard)
+                o = ghobject_t(oid, shard=shard)
+                if guarded and self._object_version(c, o) != prev_version:
+                    estale = True
+                    continue
+                local.append((shard, payload))
+            else:
+                tid = next(self._tids)
+                waits.append(self._traced_sub_op(
+                    "ec_sub_write", parent_sp, shard, osd, reqid,
+                    MOSDECSubOpWrite(
+                        tid=tid, pg=pg, shard=shard, from_osd=self.id,
+                        oid=oid, off=off, data=payload, attrs=attrs,
+                        epoch=self.epoch, truncate=truncate,
+                        version=version,
+                        rmattrs=rmattrs or [], reqid=reqid,
+                        prev_version=prev_version, guarded=guarded,
+                        clone_snap=clone_snap, clone_snaps=clone_snaps,
+                    ), tid))
+        first_err = 0
+        if waits:
+            reps = await asyncio.gather(*waits, return_exceptions=True)
+            lost = False
+            for rep in reps:
+                if isinstance(rep, asyncio.CancelledError):
+                    raise rep
+                if isinstance(rep, ECConnErrors + (OSError,)):
+                    lost = True
+                elif isinstance(rep, BaseException):
+                    raise rep
+                elif rep.result == -errno.ESTALE:
+                    estale = True
+                elif rep.result != 0 and first_err == 0:
+                    first_err = rep.result
+                if getattr(rep, "floored", False):
+                    # the replica just pinned its contiguity floor: it
+                    # rejoined mid-traffic and its EARLIER objects are
+                    # stale with no map change left to trigger a pass
+                    self._queue_pg_pass(pool, pg)
+            if lost:
+                # PARTIAL fan-out: some shard never confirmed while
+                # others may already hold this version.  Repair NOW,
+                # under the object lock, while the previous version
+                # still has >= k holders — deferring to the next map
+                # change lets a second partial write destroy the last
+                # reconstructible version (chaos-engine-found: a
+                # one-way drop + dup-acked retry left an object with
+                # no version on >= k shards, wedging recovery forever)
+                repaired = False
+                try:
+                    repaired = await self._reconcile_object(
+                        pool, pg, list(live), oid, have_lock=True)
+                except Exception:
+                    log.exception(
+                        "osd.%d: post-partial-fan-out reconcile of %s "
+                        "failed", self.id, oid)
+                if not repaired:
+                    # links still cut: keep repairing in the background
+                    # until the object reconciles (a partial write
+                    # after the last map epoch has no other trigger)
+                    self._queue_object_repair(pool, pg, oid)
+                return -errno.EAGAIN
+        if first_err:
+            return first_err
+        if not estale:
+            # the primary's OWN shard applies only after every remote
+            # accepted: a demoted primary whose fan-out the cluster
+            # rejects must not poison its local shard with a write
+            # nobody else has (that one divergent shard would cost the
+            # pg its availability margin)
+            for shard, payload in local:
+                await self._store_latency_gate()
+                with self._maybe_span(
+                    "store_commit", parent=parent_sp, stage="store",
+                    shard=shard, oid=oid,
+                ):
+                    await self._apply_shard_write_async(
+                        pool, pg, shard, oid, payload, attrs,
+                        version=version, off=off, truncate=truncate,
+                        rmattrs=rmattrs, reqid=reqid,
+                        clone_snap=clone_snap, clone_snaps=clone_snaps,
+                    )
+        if estale:
+            if _retried:
+                return -errno.EAGAIN
+            # roll the lagging shard(s) forward, then retry once; if the
+            # object state moved past our base meanwhile, the client
+            # must redo the RMW from the new base
+            pairs = [(s, o) for s, o in live]
+            try:
+                await self._reconcile_object(
+                    pool, pg, pairs, oid, have_lock=True)
+            except Exception:
+                log.exception(
+                    "osd.%d: pre-write reconcile of %s failed", self.id, oid)
+                return -errno.EAGAIN
+            acting_like = [CRUSH_ITEM_NONE] * pool.size
+            for s, o in live:
+                acting_like[s] = o
+            served = await self._ec_served_version(
+                pool, pg, acting_like, oid)
+            if served != prev_version:
+                return -errno.EAGAIN
+            return await self._ec_fan_out_write(
+                pool, pg, live, oid, shard_payloads, attrs, version,
+                off=off, truncate=truncate, rmattrs=rmattrs, reqid=reqid,
+                prev_version=prev_version, _retried=True,
+                clone_snap=clone_snap, clone_snaps=clone_snaps,
+            )
+        return 0
+
+    async def _ec_write_vector(
+        self, pool, pg, acting, msg, ec, sinfo, admit_epoch: int | None = None
+    ) -> MOSDOpReply:
+        """EC write-class op vector: full writes encode directly; partial
+        writes (write/append/zero/truncate) run the read-modify-write
+        pipeline over the dirty stripe range — the ECCommon RMW pipeline
+        (reference src/osd/ECCommon.cc:623-707 start_rmw/try_state_to_reads
+        + ExtentCache) re-designed as a single batched read → mutate →
+        re-encode → fan-out pass."""
+        ops = msg.ops
+        snapc = self._effective_snapc(pool, msg)
+        if snapc.snaps and not snapc.valid():
+            return MOSDOpReply(tid=msg.tid, result=-errno.EINVAL, epoch=self.epoch)
+        if any(o.op == OP_DELETE for o in ops):
+            if len(ops) != 1:
+                return MOSDOpReply(tid=msg.tid, result=-errno.EINVAL, epoch=self.epoch)
+            return await self._ec_delete(
+                pool, pg, acting, msg, snapc, admit_epoch)
+        lv = self._ec_live(pool, acting)
+        if lv is None:
+            return MOSDOpReply(tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        live, my_shard = lv
+        # duplicate-op detection: a resend of an already-applied
+        # non-idempotent vector is answered, not re-applied (reference:
+        # pg-log reqid dup lookup in PrimaryLogPG::do_op)
+        lg = self._pg_log(self._shard_coll(pool, pg, my_shard))
+        if msg.reqid and msg.reqid in lg.reqids:
+            # the log claims this op already applied — but a fan-out
+            # that died mid-write may have reached fewer than k shards
+            # (the retry exists BECAUSE something failed).  Verify the
+            # logged version is actually served before vouching for it;
+            # if not, reconcile (roll forward if >= k shards carry it,
+            # else divergent-rollback) and re-apply when rolled back.
+            logged_v = lg.reqids[msg.reqid]
+            served = await self._ec_served_version(
+                pool, pg, acting, msg.oid, lg)
+            if served is not None and served >= logged_v:
+                return MOSDOpReply(tid=msg.tid, result=0, epoch=self.epoch)
+            pairs = self._pg_members(pool, acting)
+            try:
+                await self._reconcile_object(
+                    pool, pg, pairs, msg.oid, have_lock=True)
+            except Exception:
+                log.exception(
+                    "osd.%d: dup-retry reconcile of %s failed", self.id,
+                    msg.oid)
+            served = await self._ec_served_version(
+                pool, pg, acting, msg.oid, lg)
+            if served is not None and served >= logged_v:
+                return MOSDOpReply(tid=msg.tid, result=0, epoch=self.epoch)
+            if served is None:
+                # the cluster state is UNREADABLE right now (links cut
+                # mid-thrash, shards unreachable): absence of evidence
+                # is not divergence.  Rolling back on a failed probe
+                # rewound the log to ZERO and re-applied this op's old
+                # payload as a fresh low version — clobbering newer
+                # acked writes shard by shard (chaos-engine-found
+                # time-travel corruption).  Bounce and let the client
+                # retry once the cluster is observable again.
+                self._queue_object_repair(pool, pg, msg.oid)
+                return MOSDOpReply(
+                    tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+            if msg.reqid in lg.reqids:
+                # reconcile did not strip it (e.g. zombie entry adopted
+                # from a peer log): drop it here so the op re-applies
+                t0 = Transaction()
+                self._ensure_coll(t0, self._shard_coll(pool, pg, my_shard))
+                lg.rollback_divergent(t0, msg.oid, served or ZERO)
+                if t0.ops:
+                    if getattr(self.store, "blocking_commit", False):
+                        await asyncio.to_thread(
+                            self.store.queue_transaction, t0)
+                    else:
+                        self.store.queue_transaction(t0)
+            # fall through: apply the vector afresh
+        for o in ops:
+            if o.op in (OP_OMAP_SETKEYS, OP_OMAP_RMKEYS, OP_OMAP_CLEAR):
+                # EC pools have no omap (reference restriction:
+                # pool_requires_alignment / MODE_EC forbids omap ops)
+                return MOSDOpReply(tid=msg.tid, result=-errno.EOPNOTSUPP, epoch=self.epoch)
+
+        # -- current object state (skipped for a leading WRITE_FULL
+        # when no snapshots are in play) ----
+        exists, cur_size = False, 0
+        cur_v = ZERO  # stale-shard write guard base (see _ec_fan_out_write)
+        ss = SnapSet()
+        local_ss_raw = self._getattr_quiet(
+            self._shard_coll(pool, pg, my_shard),
+            ghobject_t(msg.oid, shard=my_shard), SS_ATTR)
+        if ops[0].op != OP_WRITE_FULL or snapc.snaps or local_ss_raw:
+            try:
+                exists, _wo, cur_size, cur_v, ss, _attrs = \
+                    await self._ec_head_state(pool, pg, acting, msg.oid)
+            except ECFetchError as e:
+                return MOSDOpReply(
+                    tid=msg.tid, result=-e.errno, epoch=self.epoch)
+        else:
+            # whole-object replace: the primary's own shard version is
+            # the guard base; a mismatch on any shard reconciles first
+            cur_v = self._object_version(
+                self._shard_coll(pool, pg, my_shard),
+                ghobject_t(msg.oid, shard=my_shard))
+
+        # make_writeable: clone-on-write under a newer SnapContext
+        clone_snap_arg, clone_snaps_arg = 0, b""
+        if exists and ss.needs_cow(snapc):
+            cl = ss.make_clone(snapc, cur_size)
+            clone_snap_arg = cl.id
+            clone_snaps_arg = encode_snaps(cl.snaps)
+        else:
+            ss.advance_seq(snapc)
+
+        # -- fold the vector into (full | edits) + size + attr deltas ---
+        full: np.ndarray | None = None
+        edits: list[tuple] = []   # (off, np.ndarray) | ("zfill", off)
+        size = cur_size
+        attr_sets: dict[str, bytes] = {}
+        attr_rms: list[str] = []
+        touched = False
+        for o in ops:
+            if o.op == OP_CREATE:
+                if o.off and exists:  # off=1 -> exclusive
+                    return MOSDOpReply(tid=msg.tid, result=-errno.EEXIST, epoch=self.epoch)
+                touched = True
+            elif o.op == OP_WRITE_FULL:
+                full = np.frombuffer(o.data, np.uint8)
+                edits, size = [], len(o.data)
+                touched = exists = True
+            elif o.op == OP_WRITE:
+                edits.append((o.off, np.frombuffer(o.data, np.uint8)))
+                size = max(size, o.off + len(o.data))
+                touched = exists = True
+            elif o.op == OP_APPEND:
+                edits.append((size, np.frombuffer(o.data, np.uint8)))
+                size += len(o.data)
+                touched = exists = True
+            elif o.op == OP_ZERO:
+                end = min(size, o.off + o.length)
+                if o.off < end:
+                    edits.append((o.off, np.zeros(end - o.off, np.uint8)))
+                touched = exists = True
+            elif o.op == OP_TRUNCATE:
+                if o.off < size:
+                    # bytes past the cut must read as zero if the object
+                    # regrows later in this vector
+                    edits.append(("zfill", o.off))
+                size = o.off
+                touched = exists = True
+            elif o.op == OP_SETXATTR:
+                attr_sets[USER_XATTR_PREFIX + o.name] = bytes(o.data)
+            elif o.op == OP_RMXATTR:
+                attr_rms.append(USER_XATTR_PREFIX + o.name)
+            elif o.op == OP_ROLLBACK:
+                # restore head from the clone serving o.off
+                # (PrimaryLogPG::_rollback_to, EC flavor)
+                target = ss.resolve(o.off)
+                if target is None or (target == NOSNAP and not exists):
+                    return MOSDOpReply(
+                        tid=msg.tid, result=-errno.ENOENT,
+                        epoch=self.epoch)
+                if target == NOSNAP:
+                    continue  # head already serves that snap
+                try:
+                    csz, cattrs, cchunks = await self._ec_fetch(
+                        pool, pg, acting, msg.oid, ec, snap=target)
+                except ECFetchError as e:
+                    return MOSDOpReply(
+                        tid=msg.tid, result=-e.errno, epoch=self.epoch)
+                logical = await self._ecu_decode_concat(sinfo, ec, cchunks)
+                full = np.asarray(logical[:csz], np.uint8)
+                edits, size = [], csz
+                for name, v in (cattrs or {}).items():
+                    if name.startswith(USER_XATTR_PREFIX):
+                        attr_sets[name] = v
+                touched = exists = True
+            else:
+                return MOSDOpReply(tid=msg.tid, result=-errno.EOPNOTSUPP, epoch=self.epoch)
+
+        version = self._next_version(
+            self._shard_coll(pool, pg, my_shard), admit_epoch)
+        if version is None:
+            return MOSDOpReply(
+                tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        base_attrs = {
+            SIZE_ATTR: str(size).encode(),
+            VERSION_ATTR: _v_bytes(version),
+            **attr_sets,
+        }
+        if ss.seq or ss.clones:
+            base_attrs[SS_ATTR] = ss.to_bytes()
+        base_attrs[WHITEOUT_ATTR] = b"0"
+
+        # -- xattr-only vector: metadata write, no data churn -----------
+        if not touched and full is None and not edits:
+            if not exists:
+                base_attrs[SIZE_ATTR] = b"0"
+            r = await self._ec_fan_out_write(
+                pool, pg, live, msg.oid, {}, base_attrs, version,
+                rmattrs=attr_rms, reqid=msg.reqid, prev_version=cur_v,
+                clone_snap=clone_snap_arg, clone_snaps=clone_snaps_arg,
+            )
+            return MOSDOpReply(tid=msg.tid, result=r, epoch=self.epoch)
+
+        cs, sw = sinfo.chunk_size, sinfo.stripe_width
+        new_shard_len = sinfo.logical_to_next_chunk_offset(size)
+
+        if full is not None:
+            # whole-object replace: no read needed; edits (if any) land
+            # on the known content
+            padded = np.zeros(sinfo.logical_to_next_stripe_offset(size), np.uint8)
+            padded[: len(full)] = full
+            for e in edits:
+                if e[0] == "zfill":
+                    padded[e[1]:] = 0
+                else:
+                    off, buf = e
+                    padded[off : off + len(buf)] = buf
+            if len(padded):
+                shards = await self._ecu_encode(sinfo, ec, padded)
+            else:
+                shards = {s: np.zeros(0, np.uint8) for s in range(ec.get_chunk_count())}
+            hinfo = ecutil.HashInfo(ec.get_chunk_count())
+            hinfo.append(0, shards)
+            base_attrs[HINFO_ATTR] = hinfo.to_bytes()
+            r = await self._ec_fan_out_write(
+                pool, pg, live, msg.oid, shards, base_attrs, version,
+                off=0, truncate=new_shard_len, rmattrs=attr_rms,
+                reqid=msg.reqid, prev_version=cur_v,
+                clone_snap=clone_snap_arg, clone_snaps=clone_snaps_arg,
+            )
+            if r == 0:
+                self._extent_cache_put(pool.id, msg.oid, version, 0, padded)
+            else:
+                self._extent_cache_drop(pool.id, msg.oid)
+            return MOSDOpReply(tid=msg.tid, result=r, epoch=self.epoch)
+
+        # -- RMW over the dirty stripe range ----------------------------
+        real_edits: list[tuple[int, np.ndarray]] = []
+        for e in edits:
+            if e[0] == "zfill":
+                # zero through the stripe boundary, not just to the
+                # final size: a truncate-down must scrub the stale tail
+                # of its last stripe, or a later extension (which relies
+                # on the "bytes past size are zero" invariant) would
+                # resurrect old bytes
+                hi = max(size, sinfo.logical_to_next_stripe_offset(e[1]))
+                if e[1] < hi:
+                    real_edits.append((e[1], np.zeros(hi - e[1], np.uint8)))
+            else:
+                real_edits.append(e)
+        # truncate/create never dirty stripes by themselves: shard-level
+        # truncate keeps whole stripes, and store gap/extend writes
+        # zero-fill — the parity of all-zero data is all zeros, so holes
+        # stay consistent without re-encoding
+        dirty = [
+            (sinfo.logical_to_prev_stripe_offset(off),
+             sinfo.logical_to_next_stripe_offset(off + len(buf)))
+            for off, buf in real_edits if len(buf)
+        ]
+        if not dirty:
+            # pure truncate / create / zero-beyond-end
+            r = await self._ec_fan_out_write(
+                pool, pg, live, msg.oid, {}, base_attrs, version,
+                truncate=new_shard_len,
+                rmattrs=attr_rms + (
+                    [HINFO_ATTR] if exists and size != cur_size else []
+                ),
+                reqid=msg.reqid, prev_version=cur_v,
+                clone_snap=clone_snap_arg, clone_snaps=clone_snaps_arg,
+            )
+            return MOSDOpReply(tid=msg.tid, result=r, epoch=self.epoch)
+        d_lo = min(d[0] for d in dirty)
+        d_hi = max(d[1] for d in dirty)
+        old_end = sinfo.logical_to_next_stripe_offset(cur_size) if exists else 0
+        buf = np.zeros(d_hi - d_lo, np.uint8)
+        read_hi = min(d_hi, old_end)
+        if exists and d_lo < read_hi:
+            cached = self._extent_cache_get(
+                pool.id, msg.oid, cur_v, d_lo, read_hi)
+            if cached is not None:
+                # hot stripe: the bytes we last wrote at cur_v ARE the
+                # on-disk content — skip the shard read entirely
+                buf[: read_hi - d_lo] = cached
+            else:
+                c_lo = sinfo.logical_to_prev_chunk_offset(d_lo)
+                c_len = sinfo.logical_to_prev_chunk_offset(read_hi) - c_lo
+                try:
+                    _sz, _a, chunks = await self._ec_fetch(
+                        pool, pg, acting, msg.oid, ec,
+                        chunk_off=c_lo, chunk_len=c_len,
+                        fast_read=pool.fast_read,
+                    )
+                except ECFetchError as e:
+                    return MOSDOpReply(tid=msg.tid, result=-e.errno, epoch=self.epoch)
+                old_logical = await self._ecu_decode_concat(sinfo, ec, chunks)
+                buf[: len(old_logical)] = old_logical
+        for off, data in real_edits:
+            lo = max(off, d_lo)
+            hi = min(off + len(data), d_hi)
+            if lo < hi:
+                buf[lo - d_lo : hi - d_lo] = data[lo - off : hi - off]
+        shards = await self._ecu_encode(sinfo, ec, buf)
+        # the cumulative-append crc chain cannot survive an overwrite;
+        # deep scrub falls back to the parity-equation check (the
+        # reference's ec_overwrites pools drop hinfo the same way)
+        r = await self._ec_fan_out_write(
+            pool, pg, live, msg.oid, shards, base_attrs, version,
+            off=sinfo.logical_to_prev_chunk_offset(d_lo),
+            truncate=new_shard_len,
+            rmattrs=attr_rms + [HINFO_ATTR], reqid=msg.reqid,
+            prev_version=cur_v,
+            clone_snap=clone_snap_arg, clone_snaps=clone_snaps_arg,
+        )
+        if r == 0:
+            self._extent_cache_put(pool.id, msg.oid, version, d_lo, buf)
+        else:
+            self._extent_cache_drop(pool.id, msg.oid)
+        return MOSDOpReply(tid=msg.tid, result=r, epoch=self.epoch)
+
+    def _apply_shard_write(
+        self, pool, pg, shard, oid, payload: bytes, attrs,
+        delete=False, version: eversion_t = ZERO,
+        off: int = 0, truncate: int | None = None,
+        rmattrs: list[str] | None = None, reqid: str = "",
+    ) -> None:
+        """Apply a shard write + (when versioned) its pg-log entry in
+        ONE transaction — the reference couples data and log the same
+        way (ECTransaction appends log entries to the shard txn)."""
+        self.store.queue_transaction(
+            self._shard_write_txn(pool, pg, shard, oid, payload, attrs,
+                                  delete, version, off, truncate, rmattrs,
+                                  reqid)
+        )
+
+    async def _apply_shard_write_async(
+        self, pool, pg, shard, oid, payload: bytes, attrs,
+        delete=False, version: eversion_t = ZERO,
+        off: int = 0, truncate: int | None = None,
+        rmattrs: list[str] | None = None, reqid: str = "",
+        clone_snap: int = 0, clone_snaps: bytes = b"",
+    ) -> None:
+        """Same, but journaling stores fsync: run their commit on a
+        worker thread so one OSD's disk flush never stalls the whole
+        event loop (the reference's journaling happens on dedicated
+        finisher threads for the same reason)."""
+        t = self._shard_write_txn(
+            pool, pg, shard, oid, payload, attrs, delete, version,
+            off, truncate, rmattrs, reqid, clone_snap, clone_snaps,
+        )
+        try:
+            if getattr(self.store, "blocking_commit", False):
+                await asyncio.to_thread(self.store.queue_transaction, t)
+            else:
+                self.store.queue_transaction(t)
+        except OSError as e:
+            # a failed/torn commit is a medium error too: it feeds the
+            # same ledger so a disk that can no longer write escalates
+            # to self-markdown like one that can no longer read
+            if (e.errno or errno.EIO) == errno.EIO:
+                self._note_medium_error(pool, pg, shard, oid, op="write")
+            raise
+
+    def _shard_write_txn(
+        self, pool, pg, shard, oid, payload, attrs, delete, version,
+        off: int = 0, truncate: int | None = None,
+        rmattrs: list[str] | None = None, reqid: str = "",
+        clone_snap: int = 0, clone_snaps: bytes = b"",
+    ) -> Transaction:
+        """``truncate`` semantics: None keeps legacy whole-replace
+        (truncate to len(payload)); -1 leaves the length alone (ranged
+        RMW writes and metadata-only writes); >= 0 sets the exact shard
+        length after the write (store truncate zero-fills on extend).
+        ``clone_snap`` != 0 snapshots the local head shard into
+        (oid, snap=clone_snap) before applying (make_writeable COW)."""
+        c = self._shard_coll(pool, pg, shard)
+        o = ghobject_t(oid, shard=shard)
+        t = Transaction()
+        self._ensure_coll(t, c)
+        if clone_snap:
+            cl = ghobject_t(oid, snap=clone_snap, shard=shard)
+            if self.store.exists(c, o) and not self.store.exists(c, cl):
+                t.clone(c, o, cl)
+                t.setattrs(c, cl, {SNAPS_ATTR: clone_snaps})
+        if pool.is_erasure() and (version > ZERO or delete):
+            # rollback sidecar (the reference ECTransaction keeps
+            # roll-backward info until the write commits cluster-wide):
+            # preserve this shard's pre-write state so a PARTIAL
+            # fan-out can restore the member to the previous version —
+            # without it, an in-place partial overwrite destroys the
+            # old version's shard quorum and the object wedges unfound
+            rb = ghobject_t(oid, snap=RB_SNAP, shard=shard)
+            if self.store.exists(c, rb):
+                t.remove(c, rb)
+            if not delete and self.store.exists(c, o):
+                t.clone(c, o, rb)
+        if delete:
+            if self.store.exists(c, o):
+                t.remove(c, o)
+        else:
+            t.touch(c, o)
+            if payload:
+                t.write(c, o, off, payload)
+            if truncate is None:
+                if off == 0:
+                    t.truncate(c, o, len(payload))
+            elif truncate >= 0:
+                t.truncate(c, o, truncate)
+            if attrs:
+                t.setattrs(c, o, attrs)
+            for name in rmattrs or ():
+                t.rmattr(c, o, name)
+        if version > ZERO:
+            lg = self._pg_log(c)
+            prior = self._object_version(c, o)
+            entry = pg_log_entry_t(
+                DELETE if delete else MODIFY, oid, version, prior,
+                reqid,
+            )
+            if version > lg.info.last_update:
+                lg.append(t, entry)
+            else:
+                # OUT-OF-ORDER commit: concurrent ops to different
+                # objects race their store commits, and a later-minted
+                # version can land first.  The entry must still be
+                # RECORDED (fill, not append): silently dropping it
+                # left the object with no log evidence — invisible to
+                # missing_from() on every future pass, the last root
+                # of the stale-shard flake (chaos x load found: a
+                # replica that missed exactly such a write could never
+                # be scoped for it).
+                lg.fill(t, entry)
+            self._pg_log_trim(t, lg)
+        return t
+
+    async def _ec_head_state(self, pool, pg, acting, oid):
+        """Probe the EC head object: (exists, whiteout, size, version,
+        SnapSet, attrs).  exists is False for a whiteout head (data-
+        plane absent) but the SnapSet still anchors its clones."""
+        ec = self._ec_for(pool)
+        try:
+            sz, attrs, _ = await self._ec_fetch(
+                pool, pg, acting, oid, ec, want_data=False)
+        except ECFetchError as e:
+            if e.errno != errno.ENOENT:
+                raise  # degraded, not absent: callers surface the errno
+            return False, False, 0, ZERO, SnapSet(), {}
+        ss = SnapSet.from_bytes(attrs.get(SS_ATTR))
+        wo = attrs.get(WHITEOUT_ATTR) == b"1"
+        v = _v_parse(attrs.get(VERSION_ATTR))
+        return (not wo), wo, (0 if wo else sz), v, ss, attrs
+
+    async def _ec_served_version(
+        self, pool, pg, acting, oid, lg=None
+    ) -> "eversion_t | None":
+        """The object version a consistent k-shard subset currently
+        serves (None = nothing decodable right now).  An absent object
+        whose newest log entry is a DELETE counts as served at the
+        delete's version (the write wasn't lost — it was superseded)."""
+        ec = self._ec_for(pool)
+        try:
+            _sz, attrs, _ = await self._ec_fetch(
+                pool, pg, acting, oid, ec, want_data=False)
+        except ECFetchError as e:
+            if e.errno != errno.ENOENT:
+                return None
+            if lg is not None:
+                for v in sorted(lg.entries, reverse=True):
+                    if lg.entries[v].oid == oid:
+                        if lg.entries[v].op == DELETE:
+                            return v
+                        break
+            return ZERO
+        return _v_parse(attrs.get(VERSION_ATTR))
+
+    async def _traced_sub_op(self, name, parent, shard, osd, reqid, msg, tid):
+        """Child span per shard sub-op (the reference opens jaeger
+        child spans per ECSubRead/Write, ECCommon.cc:440-445) — and the
+        context-injection point: the sub-op message carries this span's
+        TraceContext, so the replica's apply/commit spans join the same
+        cluster-wide tree.  Untraced callers (recovery, background
+        repair) pass ``parent=None`` and ride the wire context-free."""
+        if parent is None:
+            return await self._sub_op(osd, msg, tid)
+        with self.tracer.span(
+            name, parent=parent, shard=shard, osd=osd, reqid=reqid,
+            stage="net",
+        ) as sp:
+            msg.trace = self.tracer.ctx_for(sp)
+            return await self._sub_op(osd, msg, tid)
+
+    def _ec_avail(self, acting) -> dict[int, int]:
+        """shard -> osd for the currently usable members of an acting
+        set (shared by the normal and fast_read fetch paths)."""
+        return {
+            shard: osd for shard, osd in enumerate(acting)
+            if osd != CRUSH_ITEM_NONE and self.osdmap.is_up(osd)
+        }
+
+    async def _ec_fetch_fast(
+        self, pool, pg, acting, oid, ec, *,
+        chunk_off: int = 0, chunk_len: int = 0, snap: int = NOSNAP,
+    ):
+        """fast_read flavor (reference ECCommon.cc:531 + the fast_read
+        pool option): fan the ranged read to EVERY available shard at
+        once and complete from the first k version-consistent replies —
+        latency is the fastest k of n shards instead of a fixed-k read
+        plus retry rounds."""
+        import numpy as np
+
+        k = ec.get_data_chunk_count()
+        avail = {
+            shard: osd for shard, osd in enumerate(acting)
+            if osd != CRUSH_ITEM_NONE and self.osdmap.is_up(osd)
+        }
+        if len(avail) < k:
+            # not enough UP members to read right now: transient — the
+            # client retries through the remap, never a medium error
+            raise ECFetchError(errno.EAGAIN)
+        async def read_one(s, o):
+            return s, await self._read_shard_quiet(
+                pool, pg, s, o, oid, off=chunk_off, length=chunk_len,
+                snap=snap,
+            )
+
+        tasks = [
+            asyncio.ensure_future(read_one(s, o)) for s, o in avail.items()
+        ]
+        got: dict[int, tuple] = {}
+        enoent = 0
+        saw_eio = False
+        saw_transient = False
+        try:
+            for fut in asyncio.as_completed(tasks):
+                shard, (payload, attrs, eno) = await fut
+                if payload is None:
+                    if eno == errno.ENOENT:
+                        enoent += 1
+                    elif eno == errno.EIO:
+                        saw_eio = True
+                    elif eno == errno.EHOSTUNREACH:
+                        saw_transient = True
+                    continue
+                got[shard] = (payload, attrs or {})
+                # complete as soon as k shards agree on the newest
+                # version seen so far
+                versions = {
+                    s2: _v_parse(a.get(VERSION_ATTR))
+                    for s2, (_p, a) in got.items()
+                }
+                vmax = max(versions.values())
+                fresh = [s2 for s2, v in versions.items() if v == vmax]
+                if len(fresh) >= k:
+                    self.perf.inc("ec_fast_read")
+                    attrs = got[fresh[0]][1]
+                    chunks = {
+                        s2: np.frombuffer(got[s2][0], np.uint8)
+                        for s2 in fresh[:k]
+                    }
+                    if SIZE_ATTR not in attrs:
+                        raise ECFetchError(errno.ENOENT)
+                    return int(attrs[SIZE_ATTR]), attrs, chunks
+        finally:
+            for t in tasks:
+                if not t.done():
+                    t.cancel()
+            if saw_eio:
+                # fast read completed (or failed) past a medium-error
+                # shard: background-repair it (EIO-as-erasure)
+                self.perf.inc("ec_eio_decode_around")
+                self._queue_object_repair(pool, pg, oid)
+        if enoent and enoent == len(tasks) - len(got):
+            raise ECFetchError(errno.ENOENT)
+        if saw_transient:
+            raise ECFetchError(errno.EAGAIN)
+        raise ECFetchError(errno.EIO)
+
+    async def _ec_fetch(
+        self, pool, pg, acting, oid, ec, *,
+        chunk_off: int = 0, chunk_len: int = 0, want_data: bool = True,
+        snap: int = NOSNAP, fast_read: bool = False,
+    ):
+        """Version-consistent EC shard fetch — the ECCommon read
+        pipeline (reference src/osd/ECCommon.cc:440-445 fans ECSubRead
+        to all shards concurrently; stale shards are excluded and the
+        read retried with a different shard set).
+
+        Returns ``(size, attrs, chunks)``; ``chunks`` maps shard id to
+        the requested chunk byte range (empty when ``want_data`` is
+        False — a probe).  ``chunk_len == 0`` reads to the shard end.
+        Raises :class:`ECFetchError` with ENOENT for a fully-absent
+        object, EIO otherwise.
+        """
+        if (
+            fast_read and want_data
+            and getattr(ec, "mds_any_k", False)
+            and ec.get_sub_chunk_count() == 1
+        ):
+            # decode-from-any-k is only sound for MDS codes; non-MDS
+            # plugins (shec/lrc) and sub-chunk codes take the
+            # minimum_to_decode-driven path below
+            try:
+                return await self._ec_fetch_fast(
+                    pool, pg, acting, oid, ec,
+                    chunk_off=chunk_off, chunk_len=chunk_len, snap=snap,
+                )
+            except ECFetchError:
+                raise
+            except ECConnErrors:
+                # a peer's failure takes the normal path; a failure of
+                # the device (a kernel wrapper's error) propagates
+                log.exception(
+                    "osd.%d: fast_read fetch failed; normal path", self.id)
+        k = ec.get_data_chunk_count()
+        avail = self._ec_avail(acting)
+        excluded: dict[int, int] = {}  # shard -> errno seen
+        for _attempt in range(len(acting) + 1):
+            usable = {s: o for s, o in avail.items() if s not in excluded}
+            want = set(range(k))
+            try:
+                minimum = ec.minimum_to_decode(want, set(usable))
+            except Exception:
+                break  # not enough shards left to decode
+            need_shards = sorted(set(minimum))
+            if want_data:
+                reads = (
+                    self._read_shard_quiet(
+                        pool, pg, s, usable[s], oid,
+                        off=chunk_off, length=chunk_len, snap=snap,
+                    )
+                    for s in need_shards
+                )
+            else:
+                reads = (
+                    self._read_shard_quiet(
+                        pool, pg, s, usable[s], oid, off=0, length=1,
+                        snap=snap,
+                    )
+                    for s in need_shards
+                )
+            results = await asyncio.gather(*reads)
+            chunks: dict[int, np.ndarray] = {}
+            shard_attrs: dict[int, dict[str, bytes]] = {}
+            failed = False
+            for shard, (payload, a, eno) in zip(need_shards, results):
+                if payload is None:
+                    excluded[shard] = eno
+                    failed = True
+                else:
+                    chunks[shard] = np.frombuffer(payload, np.uint8)
+                    shard_attrs[shard] = a or {}
+            if failed:
+                continue
+            # a revived OSD may hold a STALE chunk from before it went
+            # down: all chunks used in one decode must carry the same
+            # object version (object_info consistency; the reference
+            # reaches this via peering/recovery before serving)
+            versions = {
+                s: _v_parse(a.get(VERSION_ATTR)) for s, a in shard_attrs.items()
+            }
+            vmax = max(versions.values(), default=ZERO)
+            stale = [s for s, v in versions.items() if v < vmax]
+            if stale:
+                for s in stale:
+                    excluded[s] = errno.ESTALE
+                continue
+            attrs = next(iter(shard_attrs.values()), {})
+            if not attrs or SIZE_ATTR not in attrs:
+                raise ECFetchError(errno.ENOENT)
+            if any(e == errno.EIO for e in excluded.values()):
+                # the read completed by decoding AROUND a medium-error
+                # shard: background-repair the bad shard now so the
+                # degraded window closes (the reference requeues the
+                # object for recovery on shard EIO the same way)
+                self.perf.inc("ec_eio_decode_around")
+                self._queue_object_repair(pool, pg, oid)
+            return int(attrs[SIZE_ATTR]), attrs, (chunks if want_data else {})
+        if excluded and all(e == errno.ENOENT for e in excluded.values()):
+            raise ECFetchError(errno.ENOENT)
+        if any(e == errno.EIO for e in excluded.values()):
+            self._queue_object_repair(pool, pg, oid)
+        if any(e in (errno.EHOSTUNREACH, errno.ESTALE)
+               for e in excluded.values()):
+            # unreachable or stale-mid-recovery shards made the object
+            # unreadable RIGHT NOW — a transient the client retries
+            # (reference primaries park such ops on waiting_for_degraded
+            # instead of failing them), not a verified medium error
+            raise ECFetchError(errno.EAGAIN)
+        raise ECFetchError(errno.EIO)
+
+    async def _ec_read_vector(
+        self, pool, pg, acting, msg, ec, sinfo
+    ) -> MOSDOpReply:
+        """EC read-class op vector served from ONE version-consistent
+        shard snapshot: ranged reads fetch only the covering stripes
+        (objecter-style extent math) and xattrs ride the same attrs."""
+        ops = msg.ops
+        try:
+            if any(o.op == OP_LIST_SNAPS for o in ops):
+                _ex, _wo, _sz, _v, ss, _a = await self._ec_head_state(
+                    pool, pg, acting, msg.oid)
+                return MOSDOpReply(
+                    tid=msg.tid, result=0, epoch=self.epoch,
+                    data=ss.to_bytes())
+            read_snap = NOSNAP
+            if msg.snapid != NOSNAP:
+                # find_object_context: route the read at a clone
+                _ex, _wo, _sz, _v, ss, _a = await self._ec_head_state(
+                    pool, pg, acting, msg.oid)
+                target = ss.resolve(msg.snapid)
+                if target is None or (target == NOSNAP and (
+                        msg.snapid <= ss.seq or not _ex)):
+                    return MOSDOpReply(
+                        tid=msg.tid, result=-errno.ENOENT, epoch=self.epoch)
+                if target != NOSNAP:
+                    read_snap = target
+        except ECFetchError as e:
+            return MOSDOpReply(
+                tid=msg.tid, result=-e.errno, epoch=self.epoch)
+        reads = [o for o in ops if o.op == OP_READ]
+        chunk_off = chunk_len = 0
+        if reads:
+            lo = min(o.off for o in reads)
+            chunk_off = sinfo.logical_to_prev_chunk_offset(lo)
+            if not any(o.length == 0 for o in reads):
+                hi = max(o.off + o.length for o in reads)
+                chunk_len = sinfo.logical_to_next_chunk_offset(hi) - chunk_off
+        try:
+            size, attrs, chunks = await self._ec_fetch(
+                pool, pg, acting, msg.oid, ec,
+                chunk_off=chunk_off, chunk_len=chunk_len,
+                want_data=bool(reads), snap=read_snap,
+                fast_read=pool.fast_read,
+            )
+        except ECFetchError as e:
+            return MOSDOpReply(tid=msg.tid, result=-e.errno, epoch=self.epoch)
+        if read_snap == NOSNAP and attrs.get(WHITEOUT_ATTR) == b"1":
+            return MOSDOpReply(
+                tid=msg.tid, result=-errno.ENOENT, epoch=self.epoch)
+        logical = None
+        base = 0
+        if reads and chunks and any(len(v) for v in chunks.values()):
+            logical = await self._ecu_decode_concat(sinfo, ec, chunks)
+            base = sinfo.aligned_chunk_offset_to_logical_offset(chunk_off)
+        outs: list[tuple[int, bytes, dict[str, bytes]]] = []
+        first_read: bytes | None = None
+        for o in ops:
+            r, d, kv = 0, b"", {}
+            if o.op == OP_READ:
+                end = size if o.length == 0 else min(o.off + o.length, size)
+                if logical is not None and o.off < end:
+                    d = logical[o.off - base : end - base].tobytes()
+                if first_read is None:  # summarize the FIRST read op,
+                    first_read = d      # even when it returned 0 bytes
+            elif o.op == OP_STAT:
+                pass
+            elif o.op == OP_GETXATTR:
+                v = attrs.get(USER_XATTR_PREFIX + o.name)
+                if v is None:
+                    r = -errno.ENODATA
+                else:
+                    d = v
+            elif o.op == OP_GETXATTRS:
+                kv = {
+                    name[len(USER_XATTR_PREFIX):]: v
+                    for name, v in attrs.items()
+                    if name.startswith(USER_XATTR_PREFIX)
+                }
+            else:
+                # omap reads: EC pools have no omap (reference restriction)
+                r = -errno.EOPNOTSUPP
+            outs.append((r, d, kv))
+        result = next((r for r, _d, _kv in outs if r != 0), 0)
+        return MOSDOpReply(
+            tid=msg.tid, result=result, epoch=self.epoch, size=size,
+            data=first_read or b"", outs=outs,
+        )
+
+    async def _read_shard_quiet(
+        self, pool, pg, shard, osd, oid, *, off: int = 0, length: int = 0,
+        extents: list[tuple[int, int]] | None = None, snap: int = NOSNAP,
+    ):
+        """_read_shard with transport failures mapped to EHOSTUNREACH
+        — DISTINCT from a medium-error EIO: a dead/cut peer is a
+        transient the client should retry (EAGAIN at the op layer),
+        not verified damage to decode around and background-repair."""
+        try:
+            return await self._read_shard(
+                pool, pg, shard, osd, oid, off=off, length=length,
+                extents=extents, snap=snap,
+            )
+        except (OSError, asyncio.TimeoutError, ConnectionError):
+            return None, None, errno.EHOSTUNREACH
+
+    async def _read_shard(
+        self, pool, pg, shard, osd, oid, *, off: int = 0, length: int = 0,
+        extents: list[tuple[int, int]] | None = None, snap: int = NOSNAP,
+    ):
+        """Ranged chunk read of one shard: (payload, attrs, errno).
+        ``length == 0`` reads to the shard end.  ``extents`` returns
+        the concatenation of multiple byte runs (sub-chunk repair).
+        ``snap`` != NOSNAP reads the clone shard object instead."""
+        if osd == self.id:
+            c = self._shard_coll(pool, pg, shard)
+            o = (ghobject_t(oid, shard=shard) if snap == NOSNAP
+                 else ghobject_t(oid, snap=snap, shard=shard))
+            if not self.store.exists(c, o):
+                return None, None, errno.ENOENT
+            try:
+                if extents:
+                    data = _read_extents(self.store, c, o, extents)
+                else:
+                    data = self.store.read(
+                        c, o, off, None if length == 0 else length
+                    )
+                return data, self.store.getattrs(c, o), 0
+            except FileNotFoundError:
+                return None, None, errno.ENOENT
+            except OSError as e:
+                # local medium error (checksum-at-rest EIO): this shard
+                # becomes an ERASURE for the caller — _ec_fetch decodes
+                # around it — while the ledger/quarantine machinery
+                # repairs it in the background (EIO-as-erasure, the
+                # reference's ECBackend shard-EIO handling)
+                eno = e.errno or errno.EIO
+                if eno == errno.EIO:
+                    self._note_medium_error(
+                        pool, pg, shard, oid, snap=snap)
+                return None, None, eno
+        tid = next(self._tids)
+        rep = await self._traced_sub_op(
+            "ec_sub_read", self._op_span.get(), shard, osd,
+            "", MOSDECSubOpRead(
+                tid=tid, pg=pg, shard=shard, from_osd=self.id, oid=oid,
+                off=off, length=length, want_attrs=True, epoch=self.epoch,
+                extents=extents or [], snap=snap,
+            ), tid)
+        if rep.result != 0:
+            return None, None, -rep.result
+        return rep.data, rep.attrs, 0
+
+    async def _ec_delete(self, pool, pg, acting, msg, snapc=None,
+                         admit_epoch: int | None = None) -> MOSDOpReply:
+        my_shard = next(
+            (s for s, o in enumerate(acting) if o == self.id), None
+        )
+        if my_shard is None:
+            # same guard as _ec_write_full: never mint versions from a
+            # shard log this OSD doesn't own
+            return MOSDOpReply(tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        lg = self._pg_log(self._shard_coll(pool, pg, my_shard))
+        if msg.reqid and msg.reqid in lg.reqids:
+            return MOSDOpReply(tid=msg.tid, result=0, epoch=self.epoch)
+        # snapshots: a delete under a newer SnapContext clones first;
+        # if clones anchor to this name, leave a whiteout head (the
+        # snapdir role) instead of removing the shard objects
+        if snapc is not None and (snapc.snaps or self._getattr_quiet(
+                self._shard_coll(pool, pg, my_shard),
+                ghobject_t(msg.oid, shard=my_shard), SS_ATTR)):
+            try:
+                exists, _wo, cur_size, cur_v, ss, _ = \
+                    await self._ec_head_state(pool, pg, acting, msg.oid)
+            except ECFetchError as e:
+                return MOSDOpReply(
+                    tid=msg.tid, result=-e.errno, epoch=self.epoch)
+            if not exists and ss.clones:
+                # already a whiteout (or absent) but clones anchor here:
+                # a second DELETE must not remove the snapdir head
+                return MOSDOpReply(
+                    tid=msg.tid, result=-errno.ENOENT, epoch=self.epoch)
+            clone_snap_arg, clone_snaps_arg = 0, b""
+            if exists and ss.needs_cow(snapc):
+                cl = ss.make_clone(snapc, cur_size)
+                clone_snap_arg = cl.id
+                clone_snaps_arg = encode_snaps(cl.snaps)
+            else:
+                ss.advance_seq(snapc)
+            if ss.clones and exists:
+                lv = self._ec_live(pool, acting)
+                if lv is None:
+                    return MOSDOpReply(
+                        tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+                live, _ = lv
+                version = self._next_version(
+                    self._shard_coll(pool, pg, my_shard), admit_epoch)
+                if version is None:
+                    return MOSDOpReply(
+                        tid=msg.tid, result=-errno.EAGAIN,
+                        epoch=self.epoch)
+                wo_attrs = {
+                    SIZE_ATTR: b"0",
+                    VERSION_ATTR: _v_bytes(version),
+                    WHITEOUT_ATTR: b"1",
+                    SS_ATTR: ss.to_bytes(),
+                }
+                r = await self._ec_fan_out_write(
+                    pool, pg, live, msg.oid, {}, wo_attrs, version,
+                    truncate=0, reqid=msg.reqid, prev_version=cur_v,
+                    clone_snap=clone_snap_arg, clone_snaps=clone_snaps_arg,
+                )
+                return MOSDOpReply(tid=msg.tid, result=r, epoch=self.epoch)
+        self._extent_cache_drop(pool.id, msg.oid)
+        version = self._next_version(
+            self._shard_coll(pool, pg, my_shard), admit_epoch)
+        if version is None:
+            return MOSDOpReply(
+                tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
+        waits = []
+        for shard, osd in enumerate(acting):
+            if osd == CRUSH_ITEM_NONE:
+                continue
+            if osd == self.id:
+                await self._apply_shard_write_async(
+                    pool, pg, shard, msg.oid, b"", {}, delete=True,
+                    version=version, reqid=msg.reqid,
+                )
+            else:
+                tid = next(self._tids)
+                waits.append(self._sub_op(osd, MOSDECSubOpWrite(
+                    tid=tid, pg=pg, shard=shard, from_osd=self.id,
+                    oid=msg.oid, off=0, data=b"", attrs={},
+                    epoch=self.epoch, delete=True, version=version,
+                    reqid=msg.reqid,
+                ), tid))
+        if waits:
+            await asyncio.gather(*waits)
+        return MOSDOpReply(tid=msg.tid, result=0, epoch=self.epoch)
+
+    async def _handle_sub_write(self, msg: MOSDECSubOpWrite) -> None:
+        from ceph_tpu_torch.common.fault_injector import FAULTS
+
+        pool = self.osdmap.get_pg_pool(msg.pg.pool)
+        result = 0
+        try:
+            await FAULTS.check("osd.ec_sub_write_apply")
+            # injected store latency (degraded-disk chaos) models the
+            # slow disk's SERVICE-QUEUE delay: it runs BEFORE the
+            # epoch/primacy/version guards below, so a map interval
+            # that changed while the op sat in the slow queue still
+            # fences it (a post-guard sleep would let a demoted
+            # primary's fan-out land after the new primary's
+            # reconcile already rolled the object — an acked-write
+            # time-travel the chaos engine caught on this scenario)
+            await self._store_latency_gate()
+            if msg.version > ZERO and msg.version.epoch < self.epoch:
+                # a sub-write minted under an older map (the version
+                # carries the sender's ADMISSION epoch): accept it only
+                # if the sender still leads this pg in OUR map — a
+                # demoted primary's in-flight fan-out must not land
+                # (the reference's require_same_or_newer_map gate)
+                _u, _up, _a, cur_primary = self.osdmap.pg_to_up_acting_osds(
+                    pg_t(msg.pg.pool, msg.pg.ps), folded=True)
+                if msg.from_osd != cur_primary:
+                    result = -errno.ESTALE
+            skip = False
+            if msg.guard > ZERO:
+                c = self._shard_coll(pool, msg.pg, msg.shard)
+                o = ghobject_t(msg.oid, shard=msg.shard)
+                skip = self._object_version(c, o) > msg.guard
+            if msg.guarded and not skip and result == 0:
+                c = self._shard_coll(pool, msg.pg, msg.shard)
+                o = ghobject_t(msg.oid, shard=msg.shard)
+                if self._object_version(c, o) != msg.prev_version:
+                    # this shard missed earlier writes (or holds a
+                    # divergent newer one): recovery must reconcile it
+                    # before it may accept new versions, or a partial
+                    # write would stamp stale data current
+                    result = -errno.ESTALE
+            if not skip and result == 0:
+                # the replica leg of the cluster trace: joined to the
+                # primary's ec_sub_write span via the wire context
+                with self._maybe_span(
+                    "store_commit", ctx=msg.trace, stage="store",
+                    shard=msg.shard, oid=msg.oid,
+                ):
+                    await self._apply_shard_write_async(
+                        pool, msg.pg, msg.shard, msg.oid, msg.data,
+                        msg.attrs, delete=msg.delete, version=msg.version,
+                        off=msg.off, truncate=msg.truncate,
+                        rmattrs=msg.rmattrs, reqid=msg.reqid,
+                        clone_snap=msg.clone_snap,
+                        clone_snaps=msg.clone_snaps,
+                    )
+        except OSError as e:
+            result = -(e.errno or errno.EIO)
+        # did THIS apply pin the contiguity floor?  (this member
+        # rejoined mid-traffic and skipped a version window) — tell
+        # the primary in the reply so it queues a recovery pass NOW:
+        # without a later map change nothing else would scope the
+        # member's stale objects before scrub finds them
+        floored = False
+        if result == 0 and msg.version > ZERO:
+            lg = self._pg_log(self._shard_coll(pool, msg.pg, msg.shard))
+            floored = (lg.contig_floor is not None
+                       and lg.info.last_update == msg.version)
+        await msg.conn.send_message(MOSDECSubOpWriteReply(
+            tid=msg.tid, pg=msg.pg, shard=msg.shard, from_osd=self.id,
+            result=result, epoch=self.epoch, floored=floored,
+        ))
+
+    async def _handle_sub_read(self, msg: MOSDECSubOpRead) -> None:
+        pool = self.osdmap.get_pg_pool(msg.pg.pool)
+        c = self._shard_coll(pool, msg.pg, msg.shard)
+        o = (ghobject_t(msg.oid, shard=msg.shard) if msg.snap == NOSNAP
+             else ghobject_t(msg.oid, snap=msg.snap, shard=msg.shard))
+        if not self.store.exists(c, o):
+            rep = MOSDECSubOpReadReply(
+                tid=msg.tid, pg=msg.pg, shard=msg.shard, from_osd=self.id,
+                result=-errno.ENOENT, epoch=self.epoch,
+            )
+        else:
+            try:
+                if msg.extents:
+                    data = _read_extents(self.store, c, o, msg.extents)
+                else:
+                    data = self.store.read(
+                        c, o, msg.off, None if msg.length == 0 else msg.length
+                    )
+                self.perf.inc("subop_read_bytes", len(data))
+                attrs = self.store.getattrs(c, o) if msg.want_attrs else {}
+                rep = MOSDECSubOpReadReply(
+                    tid=msg.tid, pg=msg.pg, shard=msg.shard,
+                    from_osd=self.id, result=0, data=data, attrs=attrs,
+                    epoch=self.epoch,
+                )
+            except OSError as e:
+                # e.g. a checksum-at-rest failure (BlockStore EIO): the
+                # primary excludes this shard and reconstructs from the
+                # others (the reference's shard-EIO path,
+                # ECBackend::handle_sub_read error handling).  Locally
+                # the error feeds the read-error ledger: quarantine +
+                # escalation run on the osd that OWNS the dying disk.
+                if (e.errno or errno.EIO) == errno.EIO:
+                    self._note_medium_error(
+                        pool, msg.pg, msg.shard, msg.oid, snap=msg.snap)
+                rep = MOSDECSubOpReadReply(
+                    tid=msg.tid, pg=msg.pg, shard=msg.shard,
+                    from_osd=self.id, result=-(e.errno or 5),
+                    epoch=self.epoch,
+                )
+        await msg.conn.send_message(rep)

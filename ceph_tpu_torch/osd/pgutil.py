@@ -5,8 +5,7 @@ Counterpart of ``ceph_tpu/osd/pgutil.py``: the constants, extent reads,
 ``object_to_pg`` (object name -> PG through the rjenkins name hash)
 that the PGBackend seams (EC backend, recovery, scrub, tiering) share,
 the way the reference splits PGBackend.h / ECBackend.cc /
-PrimaryLogPG.cc / scrubber/.  The OSD daemon and those seams are not
-ported yet.
+PrimaryLogPG.cc / scrubber/.  ``osd.daemon`` re-exports them.
 """
 
 from __future__ import annotations

@@ -1,0 +1,2035 @@
+"""Recovery + peering-lite: reservation-gated PG recovery passes,
+object reconciliation, pushes, pg_query/pg_log exchange (the
+src/osd/PeeringState.cc + RecoveryBackend seam), split out of the
+daemon per the PGBackend seam layout."""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+
+import numpy as np
+
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+from ceph_tpu_torch.osd import ecutil
+from ceph_tpu_torch.osd.pglog import (
+    DELETE,
+    PGMETA_OID,
+    ZERO,
+    eversion_t,
+    pg_log_entry_t,
+)
+from ceph_tpu_torch.osd.types import PgPool, pg_t
+from ceph_tpu_torch.store import Transaction, ghobject_t
+
+from ceph_tpu_torch.msg.messages import (
+    MBackfillReserve,
+    MOSDECSubOpRead,
+    MOSDECSubOpWrite,
+    MOSDPGInfo,
+    MOSDPGLog,
+    MOSDPGLogAck,
+    MOSDPGPush,
+    MOSDPGPushReply,
+    MOSDPGQuery,
+)
+from ceph_tpu_torch.osd.pgutil import (
+    NO_SHARD,
+    RB_SNAP,
+    SIZE_ATTR,
+    SUBOP_TIMEOUT,
+    VERSION_ATTR,
+    _v_parse,
+    object_to_pg,
+)
+
+log = logging.getLogger("ceph_tpu_torch.osd")
+
+
+class RecoveryMixin:
+    """Peering + recovery + backfill reservations — mixed into
+    OSDDaemon; state lives in the daemon's __init__."""
+
+    # -- recovery ------------------------------------------------------
+
+    async def _recover_all(self) -> None:
+        """After a map change: for every PG this OSD leads, reconstruct
+        missing shards/objects on the current acting set (the
+        do_recovery -> recover_object path, §3.3).  Re-runs until a
+        full pass has seen the newest map (epochs can land mid-pass).
+
+        PGs run concurrently, but admission is reservation-gated
+        (backfill_reservation.rst): each PG takes one of OUR
+        osd_max_backfills local slots, then one remote slot on every
+        acting peer (MBackfillReserve REQUEST/GRANT); a REJECT_TOOFULL
+        releases everything and retries after
+        osd_backfill_retry_interval, so cluster-wide concurrent
+        backfill load per OSD stays bounded.
+
+        A pass that leaves PGs unclean (a peer mid-restart, a dropped
+        connection) re-runs even if no new map arrives — the
+        reference's recovery_request_timer retry role.  Without it a
+        transient error at the wrong moment parks the PG in peering
+        forever (found by the interleaving fuzzer,
+        tests/test_interleave_fuzz.py).  Retries back off
+        EXPONENTIALLY (interval, 2x, 4x ... capped at 32x) and only
+        re-run the still-unclean PGs: a fixed-cadence full re-pass
+        saturated contended deployments — every OSD burning a
+        pass-worth of CPU each second starved client I/O outright
+        (bench config 5, 64 OSDs on few cores)."""
+        retry_pgs: set[tuple[int, int]] | None = None  # None = all
+        retry_epoch = -1  # epoch retry_pgs was scoped under
+        backoff = max(self.conf["osd_backfill_retry_interval"], 0.05)
+        max_backoff = backoff * 32
+        while not self.stopping:
+            done_epoch = self.epoch
+            if retry_pgs is not None and done_epoch != retry_epoch:
+                # a map landed during the BACKOFF SLEEP (the mid-pass
+                # check below never sees it): the retry set was scoped
+                # to the old epoch's unclean pgs, and running only
+                # those would stamp them clean at the NEW epoch while
+                # every other pg keeps its stale clean_epoch — since
+                # map arrival spawns no task while this one runs, they
+                # report active+peering forever (chaos-fuzz-found:
+                # a deferred rollback made incomplete passes, and with
+                # them this wedge, routine)
+                retry_pgs = None
+                backoff = max(
+                    self.conf["osd_backfill_retry_interval"], 0.05)
+            # GC remote grants whose requesting primary is gone — a
+            # primary that died after GRANT can never send RELEASE
+            self._sweep_remote_grants()
+            try:
+                om = self.osdmap
+                work: list[tuple[PgPool, pg_t, list[int]]] = []
+                scanned = 0
+                for pid, pool in list(om.pools.items()):
+                    for ps in range(pool.pg_num):
+                        pg = pg_t(pid, ps)
+                        scanned += 1
+                        if scanned % 8 == 0:
+                            # the scalar mapping sweep must not hold
+                            # the event loop: handshakes/heartbeats
+                            # starve and peers file false failures
+                            # (bench config 5 post-mortem)
+                            await asyncio.sleep(0)
+                        _, _, acting, primary = om.pg_to_up_acting_osds(
+                            pg, folded=True
+                        )
+                        if primary != self.id:
+                            continue
+                        if retry_pgs is not None and \
+                                (pid, ps) not in retry_pgs:
+                            continue
+                        work.append((pool, pg, acting))
+                if work:
+                    # return_exceptions: one PG's crash must neither
+                    # abort the pass (siblings would keep running
+                    # DETACHED with reservations held) nor mask the
+                    # others' completion
+                    results = await asyncio.gather(*[
+                        self._recover_pg_reserved(pool, pg, acting,
+                                                  done_epoch)
+                        for pool, pg, acting in work
+                    ], return_exceptions=True)
+                    for (_p, pg, _a), r in zip(work, results):
+                        if isinstance(r, asyncio.CancelledError):
+                            raise r
+                        if isinstance(r, BaseException):
+                            log.exception(
+                                "osd.%d: recovery of %s crashed",
+                                self.id, pg, exc_info=r)
+                if self.epoch != done_epoch:
+                    # a map landed mid-pass: full re-pass, fresh pacing
+                    retry_pgs = None
+                    backoff = max(
+                        self.conf["osd_backfill_retry_interval"], 0.05)
+                    continue
+                incomplete = [
+                    pg for _pool, pg, _a in work
+                    if self._clean_epoch.get((pg.pool, pg.ps), -1)
+                    < done_epoch
+                ]
+                if not incomplete:
+                    return
+                log.info(
+                    "osd.%d: %d pgs unclean after pass; retrying in "
+                    "%.2fs", self.id, len(incomplete), backoff)
+                await asyncio.sleep(backoff)
+                retry_pgs = {(pg.pool, pg.ps) for pg in incomplete}
+                retry_epoch = done_epoch
+                backoff = min(backoff * 2, max_backoff)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("osd.%d: recovery pass failed", self.id)
+                return
+
+    async def _recover_pg_reserved(
+        self, pool: PgPool, pg: pg_t, acting: list[int], pass_epoch: int,
+    ) -> None:
+        key = (pg.pool, pg.ps)
+        peers = sorted({
+            o for o in acting
+            if o != CRUSH_ITEM_NONE and o != self.id
+        })
+        retry = self.conf["osd_backfill_retry_interval"]
+        async with self.local_reserver.request(key, priority=1):
+            self.recovery_stats["peak_local"] = max(
+                self.recovery_stats["peak_local"],
+                self.local_reserver.in_use)
+            granted: list[int] = []
+            try:
+                while not self.stopping and self.epoch == pass_epoch:
+                    if await self._reserve_remotes(pg, peers, granted):
+                        break
+                    # partial holds across the retry sleep invite
+                    # cluster-wide deadlock (two primaries each camped
+                    # on one of the other's replicas): drop everything
+                    self.recovery_stats["reservation_rejects"] += 1
+                    await self._release_remotes(pg, granted)
+                    granted.clear()
+                    # a TOOFULL rejecter may be full of exactly the
+                    # logged deletes this pass would replay onto it:
+                    # run the delete-replay OUTSIDE the reservation
+                    # gate so the peer can dig itself out and GRANT
+                    # the next round (fullness-chaos-found deadlock;
+                    # reference recovery deletes are never
+                    # reservation- or fullness-gated)
+                    await self._recover_pg_deletes(pool, pg, acting)
+                    await asyncio.sleep(retry)
+                else:
+                    return
+                self._recovering_pgs.add(key)
+                try:
+                    ok = await self._recover_pg(pool, pg, acting)
+                    if ok:
+                        # MONOTONE: a pass verified under an older map
+                        # must never rewind a newer verdict.  A queued
+                        # background pass (_queue_pg_pass) can run for
+                        # tens of seconds (sub-op timeouts) while the
+                        # map-driven task completes a newer pass and
+                        # EXITS believing everything clean; the stale
+                        # completion landing afterwards knocked the pg
+                        # back to active+peering with nothing left to
+                        # re-run recovery — the silent soak-sweep wedge
+                        self._clean_epoch[key] = max(
+                            pass_epoch, self._clean_epoch.get(key, -1))
+                        self.recovery_stats["pgs_recovered"] += 1
+                finally:
+                    self._recovering_pgs.discard(key)
+            finally:
+                await self._release_remotes(pg, granted)
+
+    async def _reserve_remotes(
+        self, pg: pg_t, peers: list[int], granted: list[int],
+    ) -> bool:
+        """GRANT from every acting peer, or False on REJECT_TOOFULL.
+
+        A peer the MAP says is down is skipped — it can take no
+        recovery load and no pushes will reach it.  A peer that is up
+        but unreachable counts as a REJECT: it may come back mid-
+        recovery and start absorbing pushes, so proceeding without its
+        slot would unbound its inbound backfill load; the retry loop
+        re-asks (either it answers, or it gets marked down — a new
+        epoch — and the pass restarts without it).  Either way a
+        best-effort RELEASE covers the race where the peer GRANTed but
+        the reply missed our timeout — without it the replica's slot
+        leaks until we restart."""
+        for o in peers:
+            tid = next(self._tids)
+            try:
+                rep = await self._sub_op(o, MBackfillReserve(
+                    tid=tid, op=MBackfillReserve.REQUEST, pool=pg.pool,
+                    ps=pg.ps, from_osd=self.id, priority=1,
+                ), tid)
+            except (OSError, asyncio.TimeoutError, ConnectionError):
+                if not self.osdmap.is_up(o):
+                    continue
+                await self._release_remotes(pg, [o])
+                return False
+            if rep.op == MBackfillReserve.GRANT:
+                granted.append(o)
+            else:
+                return False
+        return True
+
+    async def _release_remotes(self, pg: pg_t, granted: list[int]) -> None:
+        for o in granted:
+            try:
+                conn = await self._osd_conn(o)
+                await conn.send_message(MBackfillReserve(
+                    tid=next(self._tids), op=MBackfillReserve.RELEASE,
+                    pool=pg.pool, ps=pg.ps, from_osd=self.id,
+                ))
+            except (OSError, asyncio.TimeoutError, ConnectionError):
+                continue
+
+    def _sweep_remote_grants(self) -> None:
+        """Release remote backfill GRANTs whose requesting primary can
+        never send the RELEASE: the map says it is down, or the grant
+        aged past osd_backfill_grant_timeout (a primary that died and
+        was never reported, or whose RELEASE was lost).  Without the
+        sweep a GRANT held for a dead reserver leaks the remote slot
+        forever — with osd_max_backfills=1 that parks every other PG's
+        backfill onto this osd behind a ghost."""
+        timeout = self.conf["osd_backfill_grant_timeout"]
+        now = time.monotonic()
+        for key in list(self._remote_grants):
+            held = self._remote_grants.get(key)
+            if held is None:
+                continue
+            res, granted_at = held
+            down = self.osdmap is not None and not self.osdmap.is_up(key[2])
+            aged = timeout > 0 and (now - granted_at) > timeout
+            if down or aged:
+                self._remote_grants.pop(key, None)
+                res.release()
+                self.recovery_stats["grants_swept"] += 1
+                log.info(
+                    "osd.%d: swept backfill grant pg=%d.%d from osd.%d "
+                    "(%s)", self.id, key[0], key[1], key[2],
+                    "requester down" if down else "grant timed out")
+
+    async def _grant_sweep(self) -> None:
+        """Periodic reserver-death sweep — independent of this osd's
+        own recovery passes (an IDLE replica must still reclaim slots
+        leaked by a dead foreign primary)."""
+        while not self.stopping:
+            timeout = self.conf["osd_backfill_grant_timeout"]
+            period = max(0.25, min(timeout / 4 if timeout > 0 else 15.0,
+                                   15.0))
+            try:
+                await asyncio.sleep(period)
+            except asyncio.CancelledError:
+                return
+            try:
+                self._sweep_remote_grants()
+            except Exception:
+                log.exception("osd.%d: grant sweep failed", self.id)
+
+    async def _handle_backfill_reserve(self, msg: MBackfillReserve) -> None:
+        if msg.op == MBackfillReserve.REQUEST:
+            key = (msg.pool, msg.ps, msg.from_osd)
+            if (self._full_ratio()
+                    >= self.conf["mon_osd_backfillfull_ratio"]):
+                # backfillfull: absorbing a backfill would push this
+                # store toward FULL (reference REJECT_TOOFULL path,
+                # doc/dev/osd_internals/backfill_reservation.rst) —
+                # the primary backs off and retries; log-based
+                # recovery of existing objects is unaffected.  The
+                # counter is the fullness-pressure scenario's live
+                # proof that backfill actually paused here.
+                self.perf.inc("backfill_reject_toofull")
+                await msg.conn.send_message(MBackfillReserve(
+                    tid=msg.tid, op=MBackfillReserve.REJECT_TOOFULL,
+                    pool=msg.pool, ps=msg.ps, from_osd=self.id,
+                ))
+                return
+            held = self._remote_grants.get(key)
+            if held is not None:
+                # the same primary asking AGAIN means it restarted (or
+                # timed out our reply) after we GRANTed: the old hold
+                # IS its slot.  Re-GRANT it with a fresh clock instead
+                # of rejecting against our own stale hold — the
+                # kill-backfiller-mid-transfer deadlock (a revived
+                # primary could never re-reserve its own leaked slot).
+                self._remote_grants[key] = (held[0], time.monotonic())
+                op = MBackfillReserve.GRANT
+            else:
+                res = self.remote_reserver.try_request(key, msg.priority)
+                if res is not None:
+                    self._remote_grants[key] = (res, time.monotonic())
+                    self.recovery_stats["peak_remote"] = max(
+                        self.recovery_stats["peak_remote"],
+                        self.remote_reserver.in_use)
+                    op = MBackfillReserve.GRANT
+                else:
+                    op = MBackfillReserve.REJECT_TOOFULL
+            await msg.conn.send_message(MBackfillReserve(
+                tid=msg.tid, op=op, pool=msg.pool, ps=msg.ps,
+                from_osd=self.id,
+            ))
+        elif msg.op == MBackfillReserve.RELEASE:
+            held = self._remote_grants.pop(
+                (msg.pool, msg.ps, msg.from_osd), None)
+            if held is not None:
+                held[0].release()
+        else:  # GRANT / REJECT_TOOFULL reply to our REQUEST
+            fut = self._waiters.get(msg.tid)
+            if fut and not fut.done():
+                fut.set_result(msg)
+
+    def _load_backfill_cursor(self, myc, acting) -> str | None:
+        """Last-backfill cursor persisted by an interrupted pass —
+        valid only for the SAME interval (epoch + acting set); any map
+        change voids it, because a member that blinked in between may
+        have missed writes to objects below the cursor."""
+        import json as _json
+
+        lg = self._pg_log(myc)
+        try:
+            vals = self.store.omap_get_values(
+                myc, lg.meta, ["backfill_cursor"])
+        except (FileNotFoundError, OSError):
+            return None
+        raw = vals.get("backfill_cursor")
+        if not raw:
+            return None
+        try:
+            doc = _json.loads(raw)
+        except ValueError:
+            return None
+        if (doc.get("acting") != list(acting)
+                or doc.get("epoch") != self.epoch):
+            return None
+        return doc.get("oid")
+
+    def _save_backfill_cursor(
+        self, myc, acting, ordered_all, done, all_ok,
+    ) -> None:
+        """Persist the longest contiguous prefix of the sorted backfill
+        worklist that is verified-done, so a retry of an INTERRUPTED
+        pass (same interval) resumes past it instead of re-pushing
+        every object from scratch; a COMPLETE pass clears it."""
+        import json as _json
+
+        lg = self._pg_log(myc)
+        t = Transaction()
+        self._ensure_coll(t, myc)
+        t.touch(myc, lg.meta)
+        cursor = None
+        if not all_ok:
+            for oid in ordered_all:
+                if oid not in done:
+                    break
+                cursor = oid
+        if cursor is None:
+            t.omap_rmkeys(myc, lg.meta, ["backfill_cursor"])
+        else:
+            t.omap_setkeys(myc, lg.meta, {
+                "backfill_cursor": _json.dumps({
+                    "oid": cursor, "acting": list(acting),
+                    "epoch": self.epoch,
+                }).encode(),
+            })
+        self.store.queue_transaction(t)
+
+    def _local_objects(self, pool, pg, shard) -> list[str]:
+        c = self._shard_coll(pool, pg, shard)
+        if not self.store.collection_exists(c):
+            return []
+        return sorted(
+            {o.name for o in self.store.collection_list(c)} - {PGMETA_OID}
+        )
+
+    def _pg_members(
+        self, pool: PgPool, acting: list[int]
+    ) -> list[tuple[int, int]]:
+        """(shard, osd) pairs of the acting set; replicated members all
+        use NO_SHARD collections."""
+        if pool.is_erasure():
+            return [
+                (s, o) for s, o in enumerate(acting) if o != CRUSH_ITEM_NONE
+            ]
+        return [(NO_SHARD, o) for o in acting if o != CRUSH_ITEM_NONE]
+
+    async def _recover_pg_deletes(
+        self, pool: PgPool, pg: pg_t, acting: list[int],
+    ) -> None:
+        """Replay logged deletes WITHOUT holding backfill
+        reservations (the reference's recovery-delete semantics:
+        MOSDPGRecoveryDelete flows while backfill waits, and deletes
+        pass every fullness gate — they are how a peer digs itself
+        out).  Found by the fullness-pressure chaos scenario: a
+        member that missed a drain while out rejoins over the
+        backfillfull ratio, every reservation to it is rejected
+        TOOFULL, and without this pass the stale objects holding its
+        space are never removed — recovery deadlocks on the very
+        space it would free."""
+        pairs = self._pg_members(pool, acting)
+        if self.id not in [o for _, o in pairs]:
+            return
+        my_shard = next(s for s, o in pairs if o == self.id)
+        lg = self._pg_log(self._shard_coll(pool, pg, my_shard))
+        latest: dict[str, pg_log_entry_t] = {}
+        for v in sorted(lg.entries):
+            latest[lg.entries[v].oid] = lg.entries[v]
+        for e in latest.values():
+            if e.op != DELETE:
+                continue
+            try:
+                await self._reconcile_object(pool, pg, pairs, e.oid)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception(
+                    "osd.%d: delete replay of %s/%s failed",
+                    self.id, pg, e.oid)
+
+    async def _recover_pg(self, pool: PgPool, pg: pg_t, acting: list[int]) -> bool:
+        """Peering-lite + recovery for one PG this OSD leads.
+
+        1. collect pg_info from every acting member (MOSDPGQuery);
+        2. adopt log entries from any member ahead of us (we may have
+           been the one that was down);
+        3. scope the object set: exact per-peer missing sets when the
+           log covers everyone (PGLog::proc_replica_log), full
+           backfill over the union of object lists otherwise;
+        4. reconcile each object to its newest version (reconstruct +
+           MOSDPGPush / replayed delete);
+        5. bring lagging members' logs current (MOSDPGLog).
+        """
+        pass_epoch = self.epoch
+        pairs = self._pg_members(pool, acting)
+        if self.id not in [o for _, o in pairs]:
+            return True
+        # prior-set (PastIntervals role): still-up members of previous
+        # acting sets serve as extra data SOURCES — a fully-remapped PG
+        # pulls from its old home
+        prior = self._prior_pairs(pool, pg, pairs)
+        my_shard = next(s for s, o in pairs if o == self.id)
+        myc = self._shard_coll(pool, pg, my_shard)
+        lg = self._pg_log(myc)
+
+        peer_infos: dict[tuple[int, int], MOSDPGInfo] = {}
+        for s, o in pairs:
+            if o == self.id:
+                continue
+            try:
+                peer_infos[(s, o)] = await self._pg_query(
+                    pool, pg, s, o, since=lg.info.last_update
+                )
+            except (OSError, asyncio.TimeoutError, ConnectionError):
+                continue  # unreachable; next map change retries
+
+        # merge peers' witnessed interval chains into ours
+        # (PastIntervals sharing via pg info): a member that joined in
+        # a later interval learns the older homes it never saw
+        import json as _json
+
+        def _merge_chain(raw: bytes) -> bool:
+            if not raw:
+                return False
+            try:
+                chain = _json.loads(raw)
+            except ValueError:
+                return False
+            hist = self._past_acting.setdefault((pg.pool, pg.ps), [])
+            changed = False
+            for a in chain:
+                if a != acting and a not in hist:
+                    hist.append(a)
+                    del hist[:-16]
+                    changed = True
+            return changed
+
+        merged = False
+        for info in peer_infos.values():
+            merged |= _merge_chain(getattr(info, "past_acting", b""))
+        if merged:
+            self._save_past_acting()
+            prior = self._prior_pairs(pool, pg, pairs)
+
+        pre_adopt_lu = lg.info.last_update
+        # any participant still carrying a merge_pending marker means
+        # listings are a cross-child superposition this pass must not
+        # stray-reap from (see _merge_pending)
+        merge_seen = self._merge_pending(myc, lg) or any(
+            getattr(i, "merge_pending", False) for i in peer_infos.values()
+        )
+        ahead = [
+            i for i in peer_infos.values()
+            if i.last_update > lg.info.last_update
+        ]
+        gapped = False
+        if ahead:
+            best = max(ahead, key=lambda i: i.last_update)
+            # a peer whose log_tail moved past our state means its
+            # entries_after(our lu) delta has a hole: everything in the
+            # trimmed range must come from backfill, and our own log
+            # must admit the gap (set_tail) so covers() stays truthful
+            gapped = best.log_tail > pre_adopt_lu
+            t = Transaction()
+            self._ensure_coll(t, myc)
+            ents = [pg_log_entry_t.decode(raw) for raw in best.entries]
+            if gapped:
+                # adopt_tail (not set_tail+append) pins the contiguity
+                # floor at pre_adopt_lu: if this backfill is
+                # INTERRUPTED, the restart must re-take the backfill
+                # path instead of trusting the adopted last_update —
+                # set_tail+append made the adopted window look
+                # contiguous and a restart silently lost the gap
+                lg.adopt_tail(t, best.log_tail, ents)
+            else:
+                for e in ents:
+                    if e.version > lg.info.last_update:
+                        lg.append(t, e)
+            self._pg_log_trim(t, lg)
+            if not t.empty():
+                self.store.queue_transaction(t)
+
+        # scope; prior intervals force the backfill enumeration — the
+        # data may live entirely on members our log knows nothing
+        # about.  Our OWN contiguity gap forces it too: a primary
+        # whose log missed a window cannot compute truthful missing
+        # sets from it (it would silently skip the gap's oids).
+        scope: set[str] | None = (
+            None if (gapped or prior or lg.contig_floor is not None)
+            else set())
+        if scope is not None:
+            for info in peer_infos.values():
+                # a gapped peer's last_update overstates what it
+                # holds: scope it from its contiguity floor instead
+                miss = lg.missing_from(self._peer_effective_lu(info))
+                if miss is None:
+                    scope = None
+                    break
+                scope |= set(miss.items)
+        log.debug(
+            "osd.%d: pg %s scope=%s gapped=%s prior=%s floor=%s "
+            "tail=%s lu=%s peers=%s",
+            self.id, pg,
+            "backfill" if scope is None else sorted(scope),
+            gapped, prior, lg.contig_floor, lg.info.log_tail,
+            lg.info.last_update,
+            {o: (str(i.last_update), str(self._peer_effective_lu(i)))
+             for (s, o), i in peer_infos.items()})
+        if scope is not None:
+            # members' self-audited missing sets, plus our own: a
+            # log-current member can still be OBJECT-stale (entries
+            # adopted/synced without data — _self_audit_missing), and
+            # last_update scoping is blind to it
+            for info in peer_infos.values():
+                scope |= set(getattr(info, "missing", ()) or ())
+            scope |= set(
+                self._self_audit_missing(pool, pg, my_shard, lg))
+        if ahead and scope is not None:
+            # entries adopted above may name objects my own shard lacks
+            for raw in max(ahead, key=lambda i: i.last_update).entries:
+                e = pg_log_entry_t.decode(raw)
+                scope.add(e.oid)
+        strays: set[str] = set()
+        skip_done: set[str] = set()
+        if scope is None:
+            # the perf-counter pair is the soak runner's live proof
+            # that recovery took the BACKFILL path (full enumeration),
+            # not a log delta — started here, completed only after a
+            # fully verified pass
+            self.perf.inc("backfill_started")
+            # backfill: reconcile the union of object lists, but the
+            # member with the newest pre-recovery state is authoritative
+            # for WHICH objects exist — an object only held by stale
+            # members is a stray (deleted while they were down), never
+            # resurrected (reference backfill removes strays the same
+            # way)
+            objs = set(self._local_objects(pool, pg, my_shard))
+            lists: dict[tuple[int, int], set[str]] = {
+                (my_shard, self.id): set(objs)
+            }
+            lus = {(my_shard, self.id): pre_adopt_lu}
+            worklist = [
+                ((s, o), None) for s, o in prior
+            ] + [(k, i) for k, i in peer_infos.items()]
+            chain_grew = False
+            queried: set[tuple[int, int]] = {(my_shard, self.id)}
+            qi = 0
+            while qi < len(worklist):
+                (s, o), info = worklist[qi]
+                qi += 1
+                if (s, o) in queried:
+                    continue
+                queried.add((s, o))
+                if o == self.id:
+                    # a past interval where WE held a different shard:
+                    # serve the listing locally (querying self raises)
+                    try:
+                        lists[(s, o)] = set(
+                            self._local_objects(pool, pg, s))
+                    except FileNotFoundError:
+                        continue
+                    sc = self._shard_coll(pool, pg, s)
+                    slg = self._pg_log(sc)
+                    lus[(s, o)] = slg.info.last_update
+                    merge_seen |= self._merge_pending(sc, slg)
+                    objs |= lists[(s, o)]
+                    continue
+                try:
+                    full = await self._pg_query(
+                        pool, pg, s, o, since=lg.info.last_update,
+                        want_objects=True,
+                    )
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    continue
+                lists[(s, o)] = {oid for oid, _v in full.objects}
+                lus[(s, o)] = (
+                    info.last_update if info is not None
+                    else full.last_update
+                )
+                merge_seen |= getattr(full, "merge_pending", False)
+                objs |= lists[(s, o)]
+                if _merge_chain(getattr(full, "past_acting", b"")):
+                    # chain-follow: the old home knew an even older one
+                    chain_grew = True
+                    prior = self._prior_pairs(pool, pg, pairs)
+                    for pair in prior:
+                        if pair not in queried:
+                            worklist.append((pair, None))
+                if info is None and full.last_update > lg.info.last_update:
+                    # adopt the prior member's log delta so ops from
+                    # the foreign interval (e.g. DELETEs) replay here
+                    # instead of the old state resurrecting
+                    t2 = Transaction()
+                    self._ensure_coll(t2, myc)
+                    ents2 = [
+                        pg_log_entry_t.decode(raw) for raw in full.entries
+                    ]
+                    if full.log_tail > lg.info.last_update:
+                        lg.adopt_tail(t2, full.log_tail, ents2)
+                        for e in ents2:
+                            if e.version > full.log_tail:
+                                objs.add(e.oid)
+                    else:
+                        for e in ents2:
+                            if e.version > lg.info.last_update:
+                                lg.append(t2, e)
+                                objs.add(e.oid)
+                    self._pg_log_trim(t2, lg)
+                    if not t2.empty():
+                        self.store.queue_transaction(t2)
+            if chain_grew:
+                self._save_past_acting()  # one write after the drain
+            auth = max(lus, key=lambda k: lus[k])
+            strays = objs - lists[auth]
+            # an object the (adopted) authoritative log names as LIVE
+            # but missing from the auth member's listing is not
+            # deleted-while-down debris — it is missing ON the auth
+            # (log-sync hands members entries without data, so a
+            # freshly-seated member can be "newest" while empty).
+            # Reaping those deleted shards of acked objects from the
+            # members that still held them (chaos-engine-found).  The
+            # genuine stray case (DELETE entry trimmed away) has no
+            # retained live entry, so it still reaps.
+            if strays:
+                latest_op: dict[str, int] = {}
+                for v in sorted(lg.entries):
+                    e = lg.entries[v]
+                    latest_op[e.oid] = e.op
+                strays -= {
+                    o_ for o_, op_ in latest_op.items() if op_ != DELETE
+                }
+            log.debug(
+                "osd.%d: pg %s backfill: objs=%d prior=%s lists=%s "
+                "auth=%s strays=%d", self.id, pg, len(objs), prior,
+                {k: len(v) for k, v in lists.items()}, auth, len(strays))
+            if strays and merge_seen:
+                # first pass after a pg merge: per-child version
+                # sequences are incomparable, so the listing-based
+                # stray heuristic would reap freshly-merged objects
+                # (merge only commits on CLEAN pools — see
+                # _refile_merge_collections — so no genuine
+                # deleted-while-down strays can exist here)
+                log.info(
+                    "osd.%d: pg %s merge reconcile: %d would-be strays "
+                    "kept", self.id, pg, len(strays))
+                strays = set()
+            cursor = self._load_backfill_cursor(myc, acting)
+            if cursor is not None:
+                # resume an INTERRUPTED backfill from the persisted
+                # cursor: everything at or below it was verified this
+                # same interval (same epoch + acting set) and writes
+                # since replicate to every acting member normally, so
+                # re-pushing the prefix is pure waste.  Strays are
+                # never skipped — their removal is this pass's job.
+                skip_done = {
+                    oid for oid in objs
+                    if oid <= cursor and oid not in strays
+                }
+                if skip_done:
+                    log.info(
+                        "osd.%d: pg %s backfill resumes past %r: %d of "
+                        "%d objects already verified this interval",
+                        self.id, pg, cursor, len(skip_done), len(objs))
+        else:
+            objs = scope
+        all_ok = True
+        rsleep = self.conf["osd_recovery_sleep"]
+
+        async def _one(oid: str) -> bool:
+            # osd_recovery_max_active: in-flight reconciliations per
+            # daemon, across every concurrently-reserved PG; each one
+            # then admits through the mClock gate at recovery weight,
+            # so saturated client I/O overtakes it (admission strictly
+            # BEFORE the object lock — a lock holder must never wait
+            # on admission, or slots+locks could cycle)
+            async with self._recovery_budget:
+                async with self.op_gate.admit("recovery"):
+                    ok = await self._reconcile_object(
+                        pool, pg, pairs, oid, stray=oid in strays,
+                        prior_pairs=prior,
+                    )
+                if rsleep:
+                    await asyncio.sleep(rsleep)
+                return bool(ok)
+
+        ordered = sorted(objs - skip_done)
+        results = await asyncio.gather(
+            *[_one(oid) for oid in ordered], return_exceptions=True,
+        )
+        interrupted = False
+        for oid, r in zip(ordered, results):
+            if isinstance(r, (OSError, asyncio.TimeoutError, ConnectionError)):
+                log.warning(
+                    "osd.%d: reconcile %s/%s interrupted: %r",
+                    self.id, pg, oid, r,
+                )
+                interrupted = True
+                all_ok = False
+                continue
+            if isinstance(r, BaseException):
+                raise r
+            all_ok &= bool(r)
+        if scope is None:
+            done = skip_done | {
+                oid for oid, r in zip(ordered, results) if r is True
+            }
+            self._save_backfill_cursor(myc, acting, sorted(objs), done,
+                                       all_ok)
+            if all_ok:
+                self.perf.inc("backfill_completed")
+        if interrupted:
+            return False
+        if self.epoch != pass_epoch:
+            # interval guard: everything below vouches for state this
+            # pass VERIFIED — but its peer snapshots and pushes are
+            # evidence about the map it started under.  A pass that
+            # straddles map changes (member died, log churned past
+            # trim, member revived — all inside one pass, with the
+            # final acting set equal to the starting one, so an
+            # acting-set compare can't see it) would log-sync a
+            # joiner to clear_floor state it never checked there:
+            # the joiner's last_update then silently vouches for a
+            # trimmed-away window it does not hold, the next pass's
+            # missing-set scoping finds nothing, and the shard's
+            # objects are unreadable until scrub — a clean-looking
+            # data loss.  Report not-ok instead; the pass running
+            # under the new map redoes the work with fresh evidence.
+            log.info(
+                "osd.%d: pg %s map moved mid-pass (%d -> %d); "
+                "withholding verified log-sync",
+                self.id, pg, pass_epoch, self.epoch)
+            return False
+        # log sync — ONLY after a fully verified pass.  A lagging
+        # peer's last_update IS the next pass's missing-set evidence:
+        # syncing the log while an object push failed (member still
+        # booting through a near-instant kill+revive) hands the peer
+        # entries without data, the retry pass computes an EMPTY
+        # missing set from the now-current last_update, and the
+        # member stays one version stale until scrub flags it — the
+        # long-standing ~1/16 stale-shard flake, root-caused by the
+        # chaos x load composition runs (the reference never has this
+        # hole because MOSDPGLog populates a PERSISTED per-peer
+        # missing set; here last_update carries that burden, so it
+        # must stay honest).
+        if all_ok:
+            for (s, o), info in peer_infos.items():
+                eff = self._peer_effective_lu(info)
+                floored = bool(getattr(info, "contig_floor", b""))
+                if eff >= lg.info.last_update and not floored:
+                    continue
+                entries = [
+                    e.encode() for e in lg.entries_after(eff)
+                ]
+                try:
+                    # clear_floor: this pass verified every object on
+                    # this peer AND the entries above fill its gap
+                    await self._pg_log_send(
+                        pool, pg, s, o, entries, lg.info.log_tail,
+                        clear_floor=True)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    continue
+            if lg.contig_floor is not None:
+                # our own gap is verified too: every object this log
+                # names was reconciled across the acting set
+                t_fl = Transaction()
+                lg.clear_contig_floor(t_fl)
+                if not t_fl.empty():
+                    self.store.queue_transaction(t_fl)
+        # only a FULLY verified pass (every object confirmed on every
+        # target) may forget the prior intervals — a swallowed push
+        # failure must keep the old home reachable for the retry
+        if all_ok:
+            if self._past_acting.pop((pg.pool, pg.ps), None) is not None:
+                self._save_past_acting()
+            if merge_seen:
+                # verified: resolve every participant's merge marker so
+                # normal stray semantics resume (best-effort — a missed
+                # peer stays conservative, never destructive)
+                for s in range(pool.size if pool.is_erasure() else 1):
+                    sc = self._shard_coll(
+                        pool, pg, s if pool.is_erasure() else NO_SHARD)
+                    slg = self._pg_log(sc)
+                    if self._merge_pending(sc, slg):
+                        t3 = Transaction()
+                        t3.omap_rmkeys(sc, slg.meta, ["merge_pending"])
+                        self.store.queue_transaction(t3)
+                for s, o in set(pairs) | set(prior):
+                    if o == self.id:
+                        continue
+                    try:
+                        await self._pg_query(
+                            pool, pg, s, o, since=lg.info.last_update,
+                            clear_merge=True)
+                    except (OSError, asyncio.TimeoutError,
+                            ConnectionError):
+                        continue
+        else:
+            log.warning(
+                "osd.%d: %s recovery pass incomplete; retaining past "
+                "intervals", self.id, pg)
+        return all_ok
+
+    def _merge_pending(self, myc, lg) -> bool:
+        """True while this PG's first post-merge reconcile has not
+        completed (marker written by _refile_merge_collections)."""
+        try:
+            vals = self.store.omap_get_values(
+                myc, lg.meta, ["merge_pending"])
+        except (FileNotFoundError, OSError):
+            return False
+        return vals.get("merge_pending") == b"1"
+
+    async def _reconcile_object(
+        self, pool: PgPool, pg: pg_t, pairs: list[tuple[int, int]], oid: str,
+        stray: bool = False, have_lock: bool = False,
+        prior_pairs: list[tuple[int, int]] | None = None,
+    ) -> bool:
+        """Bring one object to its newest version on every acting
+        member: replay deletes, remove strays, reconstruct
+        stale/missing shards from the members holding the newest
+        version.
+
+        Serializes against client writes via the object lock — probing
+        mid-write would see a partial fan-out and wrongly roll it back
+        (``have_lock`` for callers inside the write path that already
+        hold it)."""
+        with self.tracer.span(
+            "recover_object", pg=str(pg), oid=oid,
+        ):
+            if not have_lock:
+                async with self._obj_lock(pool.id, oid):
+                    return await self._reconcile_object_locked(
+                        pool, pg, pairs, oid, stray, prior_pairs)
+            return await self._reconcile_object_locked(
+                pool, pg, pairs, oid, stray, prior_pairs)
+
+    async def _reconcile_object_locked(
+        self, pool: PgPool, pg: pg_t, pairs: list[tuple[int, int]], oid: str,
+        stray: bool = False,
+        prior_pairs: list[tuple[int, int]] | None = None,
+    ) -> bool:
+        """Returns True when the object verifiably reached every
+        target (False = retry on a later pass)."""
+        from ceph_tpu_torch.common.fault_injector import FAULTS
+
+        await FAULTS.check("osd.recover_object")
+        is_ec = pool.is_erasure()
+        my_shard = next(s for s, o in pairs if o == self.id)
+        lg = self._pg_log(self._shard_coll(pool, pg, my_shard))
+        latest: pg_log_entry_t | None = None
+        for v in sorted(lg.entries, reverse=True):
+            if lg.entries[v].oid == oid:
+                latest = lg.entries[v]
+                break
+
+        state: dict[tuple[int, int], tuple[bool, eversion_t, dict]] = {}
+        unprobed: list[tuple[int, int]] = []
+        for s, o in pairs:
+            try:
+                payload, attrs = await self._probe_shard(pool, pg, s, o, oid)
+            except (OSError, asyncio.TimeoutError, ConnectionError):
+                # unreachable: not a source nor target now — but its
+                # unseen state VETOES destructive decisions below
+                unprobed.append((s, o))
+                continue
+            if payload is None:
+                state[(s, o)] = (False, ZERO, {})
+            else:
+                state[(s, o)] = (
+                    True, _v_parse((attrs or {}).get(VERSION_ATTR)), attrs or {}
+                )
+        # prior-interval members: extra SOURCES (never targets) — data
+        # a full remap left on the old acting set
+        prior_state: dict[tuple[int, int], tuple[bool, eversion_t, dict]] = {}
+        prior_unprobed: list[tuple[int, int]] = []
+        for s, o in prior_pairs or ():
+            try:
+                payload, attrs = await self._probe_shard(pool, pg, s, o, oid)
+            except (OSError, asyncio.TimeoutError, ConnectionError):
+                # unreachable (typically DOWN-but-in, kept by
+                # _prior_pairs): useless as a source now, but its
+                # unseen store may hold the newest ACKED version —
+                # it vetoes the partial-write rollback below exactly
+                # as an unprobed CURRENT member does
+                prior_unprobed.append((s, o))
+                continue
+            if payload is not None:
+                prior_state[(s, o)] = (
+                    True, _v_parse((attrs or {}).get(VERSION_ATTR)), attrs or {}
+                )
+
+        delete_entry = latest is not None and latest.op == DELETE
+        if delete_entry or (stray and latest is None):
+            # logged delete replay, or a backfill stray (only stale
+            # members hold it; its DELETE entry was trimmed)
+            guard = latest.version if latest else lg.info.last_update
+            for (s, o), (present, _v, _a) in state.items():
+                if present:
+                    await self._recovery_delete(pool, pg, s, o, oid, guard)
+            return not unprobed  # an unseen member may still hold it
+
+        all_state = {**prior_state, **state}
+        versions = [v for (p, v, _a) in all_state.values() if p]
+        if not versions:
+            # nothing REACHABLE to recover from — but an unprobed
+            # member's state is unseen, not absent: only full
+            # coverage may declare the object whole
+            return not unprobed
+        vmax = max(versions)
+        sources = {
+            s: o for (s, o), (p, v, _a) in all_state.items()
+            if p and v == vmax
+        }
+        targets = [
+            (s, o) for (s, o), (p, v, _a) in state.items()
+            if not p or v < vmax
+        ]
+        clone_ok = True
+        if sources:
+            # clone objects are immutable COW copies that never appear
+            # in per-name reconciliation: a member rebuilt after data
+            # loss gets the head (and its SnapSet) pushed but would
+            # serve ENOENT for every snap read — sync any clone the
+            # authoritative SnapSet lists (chaos-engine-found gap;
+            # the EC variant ALSO must run before the head pushes
+            # below, while a COW-missing member's frozen content is
+            # still its head — see _sync_clones_ec)
+            src_attrs0 = next(
+                a for (s, o), (p, v, a) in all_state.items()
+                if p and v == vmax
+            )
+            if is_ec:
+                clone_ok = await self._sync_clones_ec(
+                    pool, pg, pairs, oid, src_attrs0, state,
+                    prior_pairs=prior_pairs)
+            else:
+                clone_ok = await self._sync_clones(
+                    pool, pg, pairs, oid, next(iter(sources.items())),
+                    src_attrs0, prior_pairs=prior_pairs,
+                )
+        if not targets:
+            # every PROBED member serves vmax — but success here must
+            # mean "verifiably reached every target", and an
+            # unreachable acting member is an unverified target, not a
+            # non-target.  Returning True with members unprobed was
+            # the stale-shard flake: a write-path reconcile racing a
+            # near-instant kill+revive probed around the dead member,
+            # declared the object whole, skipped the background
+            # repair queue — and the member stayed one version stale
+            # until the next scrub flagged it (no data loss; the
+            # probed quorum held the acked version throughout).
+            return clone_ok and not unprobed
+        log.info(
+            "osd.%d: recovering %s/%s to %s on %s", self.id, pg, oid,
+            vmax, targets,
+        )
+        self.perf.inc("recovery_ops")
+        src_attrs = next(
+            a for (s, o), (p, v, a) in all_state.items() if p and v == vmax
+        )
+        if not is_ec:
+            s0, o0 = next(iter(sources.items()))
+            payload, _a, _e = await self._read_shard_quiet(
+                pool, pg, s0, o0, oid
+            )
+            if payload is None:
+                return False
+            results = await asyncio.gather(*(
+                self._push(pool, pg, s, o, oid, payload, src_attrs)
+                for s, o in targets
+            ), return_exceptions=True)  # a dead target must not abort
+            return clone_ok and not unprobed and not any(
+                isinstance(r, BaseException) for r in results)
+        ec = self._ec_for(pool)
+        sinfo = self._sinfo(ec)
+        k = ec.get_data_chunk_count()
+        force_push = False
+        rb_srcs: set[int] = set()
+        if len(sources) < k and (unprobed or prior_unprobed):
+            # rollback is DESTRUCTIVE (strips log entries, force-pushes
+            # old data) and must never be decided on a partial view: an
+            # unreachable member may hold the very shards that make
+            # vmax reconstructible.  Absence of evidence is not
+            # divergence (chaos-engine-found: mid-partition reconciles
+            # rolled logs back to the reachable minority's version,
+            # after which stale dup-resends re-applied old payloads as
+            # fresh low versions).  A down-but-in PRIOR member vetoes
+            # too: a write acked degraded on exactly k shards leaves
+            # one holder outside the current acting set when that
+            # member is killed, and rolling back before it reboots
+            # loses the ack (chaos-fuzz-found; the veto lifts when the
+            # map outs it or the trace-end revive lets it answer).
+            # Retry when every member answers.
+            log.info(
+                "osd.%d: %s/%s rollback deferred: %s unprobed",
+                self.id, pg, oid, unprobed + prior_unprobed,
+            )
+            return False
+        if len(sources) < k:
+            # vmax is not reconstructible (a client write died mid
+            # fan-out): ROLL BACK to the newest version at least k
+            # shards agree on, overwriting the partial newer shards —
+            # the reference's divergent-entry rollback (PGLog merge_log)
+            # expressed at shard granularity.  The rolled-back write's
+            # log entries are stripped so a client retry re-applies it.
+            # rollback candidates come from the CURRENT interval only:
+            # prior-interval members hold old versions by definition,
+            # and letting them vote would roll back writes whose newer
+            # copies merely sit on temporarily-down current members
+            by_v: dict = {}
+            for (s, o), (p, v, _a) in state.items():
+                if p:
+                    by_v.setdefault(v, []).append((s, o))
+            # rollback-sidecar votes (see _shard_write_txn): a member
+            # whose OBJECT moved past the quorum version still holds
+            # the pre-write shard state in its sidecar — restorable,
+            # so it counts toward reconstructibility of that version
+            rb_votes: dict = {}  # (s, o) -> (version, attrs)
+            for (s, o), (p, _v, _a) in state.items():
+                if not p:
+                    continue
+                _sp, sa, _se = await self._read_shard_quiet(
+                    pool, pg, s, o, oid, length=1, snap=RB_SNAP)
+                if _sp is None:
+                    continue
+                rb_votes[(s, o)] = (
+                    _v_parse((sa or {}).get(VERSION_ATTR)), sa or {})
+            for (s, o), (rv, _ra) in rb_votes.items():
+                lst = by_v.setdefault(rv, [])
+                if s not in {s2 for s2, _o2 in lst}:
+                    lst.append((s, o))
+            candidates = [v for v, lst in by_v.items() if len(lst) >= k]
+            if not candidates:
+                # current members alone can reconstruct NOTHING — e.g.
+                # a remap seated an empty member while a partial write
+                # bumped another past the quorum version.  Count
+                # prior-interval holders toward reconstructibility too
+                # (distinct shard ids).  Safe: an acked write reached
+                # every live acting member at ack time, so a version
+                # invisible on >= k current+prior shards while an older
+                # one IS reconstructible was never acked — rolling it
+                # back loses nothing a client was promised (the wedge
+                # this unblocks spams "unrecoverable" forever and the
+                # PG never converges; chaos-engine-found).
+                by_v_all: dict = {}
+                for (s, o), (p, v, _a) in all_state.items():
+                    if p:
+                        by_v_all.setdefault(v, {}).setdefault(s, o)
+                for (s, o), (rv, _ra) in rb_votes.items():
+                    by_v_all.setdefault(rv, {}).setdefault(s, o)
+                candidates = [
+                    v for v, m in by_v_all.items() if len(m) >= k
+                ]
+                by_v = {
+                    v: list(m.items()) for v, m in by_v_all.items()
+                }
+            if not candidates:
+                # interval tracking can miss homes under heavy thrash
+                # (kills racing remaps faster than past_acting chains
+                # propagate): the reference's might_have_unfound sweep
+                # — probe EVERY up osd for every shard before declaring
+                # the object unfound.  Desperate path only: it is
+                # O(shards x osds) probes and runs solely when the
+                # normal evidence cannot reconstruct any version.
+                om = self.osdmap
+                desperate_blind = False
+                for s in range(pool.size):
+                    for o2 in range(om.max_osd):
+                        if not om.is_up(o2) or (s, o2) in all_state:
+                            continue
+                        try:
+                            payload, attrs = await self._probe_shard(
+                                pool, pg, s, o2, oid)
+                        except (OSError, asyncio.TimeoutError,
+                                ConnectionError):
+                            # an unanswered probe may hide the k-th
+                            # holder: destructive verdicts below need
+                            # FULL coverage
+                            desperate_blind = True
+                            continue
+                        if payload is not None:
+                            all_state[(s, o2)] = (
+                                True,
+                                _v_parse((attrs or {}).get(VERSION_ATTR)),
+                                attrs or {},
+                            )
+                by_v_all = {}
+                for (s, o2), (p, v, _a) in all_state.items():
+                    if p:
+                        by_v_all.setdefault(v, {}).setdefault(s, o2)
+                for (s, o2), (rv, _ra) in rb_votes.items():
+                    by_v_all.setdefault(rv, {}).setdefault(s, o2)
+                # a version regaining >= k distinct shards here may be
+                # vmax itself — then this is a roll FORWARD onto the
+                # acting set, not a rollback
+                candidates = [
+                    v for v, m in by_v_all.items() if len(m) >= k
+                ]
+                by_v = {
+                    v: list(m.items()) for v, m in by_v_all.items()
+                }
+            if not candidates:
+                if unprobed or desperate_blind:
+                    log.error(
+                        "osd.%d: %s/%s unrecoverable so far: %d/%d "
+                        "consistent shards, view incomplete",
+                        self.id, pg, oid, len(sources), k,
+                    )
+                    return False
+                # FULL coverage and still no version on >= k shards:
+                # no write to this object can ever have been ACKED (an
+                # acked EC write reaches every live acting member, and
+                # kills preserve stores) — what remains is debris of
+                # partial fan-outs at assorted versions.  Roll the
+                # object back to NONEXISTENCE: delete the orphan
+                # shards, strip its log entries so reqid dedup stops
+                # vouching, and let any client retry re-apply from
+                # scratch.  Without this the PG wedges forever — no
+                # version reconstructible, nothing deletable
+                # (chaos-engine-found terminal state).
+                # An ACKED version cannot land here: acking required
+                # every live acting member to apply it, and a member
+                # whose payload later moved past it keeps the pre-write
+                # state in its rollback sidecar — so an acked version
+                # that lost its payload quorum still reaches k votes
+                # via sidecars and resolves as a restorable CANDIDATE
+                # above.  (Residual risk: two+ partial overwrites on
+                # the same member rotate its single sidecar slot past
+                # an acked version — the bounded-rollback-window
+                # tradeoff the reference also makes.)
+                log.warning(
+                    "osd.%d: %s/%s: no version on >= %d shards anywhere;"
+                    " rolling back to nonexistence", self.id, pg, oid, k)
+                guard = vmax
+                for (s2, o2), (p, _v, _a) in sorted(all_state.items()):
+                    if p:
+                        try:
+                            await self._recovery_delete(
+                                pool, pg, s2, o2, oid, guard)
+                        except (OSError, asyncio.TimeoutError,
+                                ConnectionError):
+                            return False  # a holder vanished: retry
+                t = Transaction()
+                self._ensure_coll(t, self._shard_coll(pool, pg, my_shard))
+                lg.rollback_divergent(t, oid, ZERO)
+                if t.ops:
+                    if getattr(self.store, "blocking_commit", False):
+                        await asyncio.to_thread(
+                            self.store.queue_transaction, t)
+                    else:
+                        self.store.queue_transaction(t)
+                return True
+            v_star = max(candidates)
+            log.warning(
+                "osd.%d: %s/%s rolling back %s -> %s (partial write)",
+                self.id, pg, oid, vmax, v_star,
+            )
+            vmax = v_star
+            sources = dict(by_v[v_star])
+            targets = [
+                (s, o) for (s, o), (p, v, _a) in state.items()
+                if not p or v != v_star
+            ]
+            # shards whose v_star copy lives in the rollback sidecar,
+            # not the object (their object is at a doomed version):
+            # reads below must target the sidecar
+            rb_srcs = {
+                s for (s, o), (rv, _ra) in rb_votes.items()
+                if rv == v_star and not (
+                    (s, o) in all_state
+                    and all_state[(s, o)][0]
+                    and all_state[(s, o)][1] == v_star
+                )
+            }
+            src_attrs = next(
+                (a for (s, o), (p, v, a) in all_state.items()
+                 if p and v == v_star),
+                None,
+            )
+            if src_attrs is None:
+                src_attrs = next(
+                    ra for (rv, ra) in rb_votes.values() if rv == v_star
+                )
+            force_push = True
+            t = Transaction()
+            self._ensure_coll(t, self._shard_coll(pool, pg, my_shard))
+            lg.rollback_divergent(t, oid, v_star)
+            if getattr(self.store, "blocking_commit", False):
+                await asyncio.to_thread(self.store.queue_transaction, t)
+            else:
+                self.store.queue_transaction(t)
+        need = {s for s, _ in targets}
+        # single-shard repair of a regenerating code: thread
+        # minimum_to_decode's (sub-chunk offset, count) runs down to
+        # ranged shard reads so only sub_chunk_no/q of each helper
+        # crosses the wire (reference ECCommon.cc:262-299 +
+        # ErasureCodeClay::repair_one_lost_chunk) — CLAY's whole point
+        repair_extents: dict[int, list[tuple[int, int]]] | None = None
+        if (
+            len(need) == 1 and ec.get_sub_chunk_count() > 1
+            and not rb_srcs
+            and not getattr(self, "disable_subchunk_repair", False)
+        ):
+            try:
+                if ec.is_repair(need, set(sources)):
+                    minimum = ec.minimum_to_decode(need, set(sources))
+                    cs = sinfo.chunk_size
+                    sub = cs // ec.get_sub_chunk_count()
+                    size = int(src_attrs.get(SIZE_ATTR, b"0"))
+                    ns = max(
+                        1, sinfo.logical_to_next_chunk_offset(size) // cs
+                    )
+                    repair_extents = {
+                        s: [
+                            (stripe * cs + o * sub, c * sub)
+                            for stripe in range(ns)
+                            for o, c in runs
+                        ]
+                        for s, runs in minimum.items()
+                    }
+            except Exception:
+                repair_extents = None  # fall back to full-chunk reads
+        # helper-shard reads and shard pushes both fan out concurrently
+        # (the reference's ECSubRead/MOSDPGPush are fire-and-gather)
+        chunks: dict[int, np.ndarray] = {}
+        used_packed = False
+        if repair_extents is not None and set(repair_extents) <= set(sources):
+            src_items = [(s, sources[s]) for s in sorted(repair_extents)]
+            payloads = await asyncio.gather(*(
+                self._read_shard_quiet(
+                    pool, pg, s, o, oid, extents=repair_extents[s]
+                )
+                for s, o in src_items
+            ))
+            for (s, o), (payload, _a, _e) in zip(src_items, payloads):
+                if payload is not None:
+                    chunks[s] = np.frombuffer(payload, np.uint8)
+            if len(chunks) < len(repair_extents):
+                chunks = {}  # a helper vanished: retry with full reads
+            else:
+                used_packed = True
+        if not chunks:
+            src_items = list(sources.items())
+            payloads = await asyncio.gather(*(
+                self._read_shard_quiet(
+                    pool, pg, s, o, oid,
+                    **({"snap": RB_SNAP} if s in rb_srcs else {}))
+                for s, o in src_items
+            ))
+            for (s, o), (payload, _a, _e) in zip(src_items, payloads):
+                if payload is not None:
+                    chunks[s] = np.frombuffer(payload, np.uint8)
+            if len(chunks) < k:
+                log.error(
+                    "osd.%d: %s/%s recovery aborted: %d/%d source reads "
+                    "succeeded", self.id, pg, oid, len(chunks), k,
+                )
+                return False
+        # the timed decode stage (BASELINE.md #5; reference
+        # ECBackend.cc:365-431 handle_recovery_read_complete): measured
+        # IN the running daemon, not inferred from microbenches
+        _t0 = time.perf_counter()
+        rebuilt = await ecutil.decode_shards_async(
+            sinfo, ec, chunks, need, packed_repair=used_packed,
+            service=self.encode_service,
+            aggregator=self.decode_aggregator,
+        )
+        self.perf.inc("recovery_decode_seconds",
+                      time.perf_counter() - _t0)
+        self.perf.inc("recovery_decode_bytes",
+                      sum(v.nbytes for v in rebuilt.values()))
+        results = await asyncio.gather(*(
+            self._push(pool, pg, s, o, oid, rebuilt[s].tobytes(), src_attrs,
+                       force=force_push)
+            for s, o in targets
+        ), return_exceptions=True)  # dead targets retry on the next pass
+        return not unprobed and not any(
+            isinstance(r, BaseException) for r in results)
+
+    #: reserved push-attr key carrying a clone's snap id (clone pushes
+    #: reuse the MOSDPGPush frame; the receiver pops this and files the
+    #: payload under ghobject(oid, snap=...) instead of the head)
+    CLONE_PUSH_ATTR = "__clone_snap__"
+
+    def _queue_pg_pass(self, pool, pg: pg_t) -> None:
+        """A sub-op reply reported a freshly-pinned contiguity floor:
+        the replica rejoined mid-traffic and skipped a version window,
+        so its earlier objects are stale — and with no map change
+        coming, nothing else would run the pass that scopes them (the
+        floor/audit machinery only helps a pass that RUNS).  Queue a
+        bounded background recovery pass for the pg now.  Deduplicated
+        per (pool, ps)."""
+        key = (pool.id, pool.raw_pg_to_pg(pg).ps)
+        pend = getattr(self, "_pg_pass_pending", None)
+        if pend is None:
+            pend = self._pg_pass_pending = set()
+        if key in pend:
+            return
+        pend.add(key)
+
+        async def _run() -> None:
+            try:
+                for attempt in range(20):
+                    if self.stopping:
+                        return
+                    await asyncio.sleep(min(0.2 * (attempt + 1), 1.0))
+                    om = self.osdmap
+                    cur_pool = om.get_pg_pool(pool.id) if om else None
+                    if cur_pool is None:
+                        return
+                    cur_pg = pg_t(pool.id, key[1])
+                    _u, _up, acting, primary = om.pg_to_up_acting_osds(
+                        cur_pg, folded=True)
+                    if primary != self.id:
+                        return  # the new primary's own pass covers it
+                    epoch = self.epoch
+                    try:
+                        await self._recover_pg_reserved(
+                            cur_pool, cur_pg, acting, epoch)
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception:
+                        continue
+                    if self._clean_epoch.get(key, -1) >= epoch:
+                        return
+                log.warning(
+                    "osd.%d: floored-replica pass for %s never "
+                    "completed", self.id, key)
+            finally:
+                pend.discard(key)
+
+        self._spawn_repair_task(_run())
+
+    def _queue_object_repair(self, pool, pg, oid: str) -> None:
+        """A write-path repair failed (links cut mid-thrash, member
+        unreachable): keep retrying in the background until the object
+        reconciles.  Without this, damage inflicted AFTER the last map
+        epoch is never repaired — recovery passes only trigger on map
+        changes, so the cluster reports clean while a partial write
+        sits unreconstructible until the next scrub finds it
+        (chaos-engine-found).  Deduplicated per (pool, oid)."""
+        key = (pool.id, oid)
+        pend = getattr(self, "_repair_pending", None)
+        if pend is None:
+            pend = self._repair_pending = set()
+        if key in pend:
+            return
+        pend.add(key)
+        self.clog.cluster.warn(
+            f"pg {pg} object {oid}: write-path repair failed; "
+            "requeued background repair")
+
+        async def _retry() -> None:
+            try:
+                for attempt in range(60):
+                    if self.stopping:
+                        return
+                    await asyncio.sleep(min(0.25 * (attempt + 1), 2.0))
+                    om = self.osdmap
+                    cur_pool = om.get_pg_pool(pool.id) if om else None
+                    if cur_pool is None:
+                        return  # pool deleted
+                    cur_pg = object_to_pg(cur_pool, oid)
+                    acting, primary = self._acting(cur_pool, cur_pg)
+                    if primary != self.id:
+                        return  # the new primary owns the repair
+                    try:
+                        if await self._reconcile_object(
+                            cur_pool, cur_pg,
+                            self._pg_members(cur_pool, acting), oid,
+                        ):
+                            return
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception:
+                        continue
+                log.warning(
+                    "osd.%d: background repair of %s/%s gave up",
+                    self.id, pg, oid)
+            finally:
+                pend.discard(key)
+
+        t = asyncio.ensure_future(_retry())
+        hold = getattr(self, "_repair_tasks", None)
+        if hold is None:
+            hold = self._repair_tasks = set()
+        hold.add(t)
+        t.add_done_callback(hold.discard)
+
+    async def _sync_clones(
+        self, pool, pg, pairs, oid: str,
+        src_pair: tuple[int, int], src_attrs: dict,
+        prior_pairs: list | None = None,
+    ) -> bool:
+        """Replicated pools: ensure every acting member holds every
+        clone the authoritative head's SnapSet lists — at the RIGHT
+        frozen content.  Presence alone is NOT sufficiency: a member
+        whose head was still stale when the first post-snap write
+        landed COWs its OLD head into the clone slot (right name,
+        wrong content — long-soak chaos found snap reads serving
+        pre-outage versions this way).  Every current member freezes
+        the same head at COW time and a stale member can only freeze
+        an OLDER one, so the newest clone version attr among holders
+        IS the true frozen content; older copies are overwritten
+        (reference recovery ships clones as ordinary objects because
+        its missing-sets are ghobject-keyed; our name-keyed reconcile
+        needs this explicit pass)."""
+        import errno
+
+        from ceph_tpu_torch.osd.snaps import SS_ATTR, SnapSet
+
+        raw = (src_attrs or {}).get(SS_ATTR)
+        if not raw:
+            return True
+        ss = SnapSet.from_bytes(raw)
+        if not ss.clones:
+            return True
+        ok = True
+        for cl in ss.clones:
+            if cl.id in pool.removed_snaps:
+                # the snap was removed: its clones are trimmer
+                # territory (a member may have reaped while another
+                # holds a straggler) — syncing reaped debris would
+                # either resurrect it or wedge the pass retrying a
+                # source nobody has
+                continue
+            # probe EVERY acting member (version attr included): the
+            # authoritative copy is the newest one anywhere, not
+            # whichever member happened to be chosen as head source
+            vers: dict[tuple[int, int], eversion_t | None] = {}
+            best: tuple[eversion_t, int, int] | None = None
+            for s, o in pairs:
+                if o == CRUSH_ITEM_NONE:
+                    continue
+                if o == self.id:
+                    c = self._shard_coll(pool, pg, s)
+                    co = ghobject_t(oid, snap=cl.id, shard=s)
+                    if self.store.exists(c, co):
+                        v = _v_parse(self.store.getattrs(c, co).get(
+                            VERSION_ATTR))
+                        vers[(s, o)] = v
+                        if best is None or v > best[0]:
+                            best = (v, s, o)
+                    else:
+                        vers[(s, o)] = None
+                    continue
+                probe, a, perr = await self._read_shard_quiet(
+                    pool, pg, s, o, oid, length=1, snap=cl.id)
+                if probe is not None:
+                    v = _v_parse((a or {}).get(VERSION_ATTR))
+                    vers[(s, o)] = v
+                    if best is None or v > best[0]:
+                        best = (v, s, o)
+                elif perr in (errno.ENOENT,):
+                    vers[(s, o)] = None
+                else:
+                    ok = False  # unreachable member: retry next pass
+            # prior-interval members: extra SOURCES (never targets) —
+            # a remap may have left the only (or only current) copy on
+            # the old acting set
+            for s, o in prior_pairs or ():
+                if o in (CRUSH_ITEM_NONE, self.id):
+                    continue
+                try:
+                    probe, a, _e = await self._read_shard_quiet(
+                        pool, pg, s, o, oid, length=1, snap=cl.id)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    continue
+                if probe is not None:
+                    v = _v_parse((a or {}).get(VERSION_ATTR))
+                    if best is None or v > best[0]:
+                        best = (v, s, o)
+            if best is None:
+                # nowhere to sync from yet: retry on a later pass
+                ok = False
+                continue
+            v_auth, s_b, o_b = best
+            payload = attrs = None
+            if o_b == self.id:
+                c = self._shard_coll(pool, pg, s_b)
+                co = ghobject_t(oid, snap=cl.id, shard=s_b)
+                if self.store.exists(c, co):
+                    payload = bytes(self.store.read(c, co))
+                    attrs = dict(self.store.getattrs(c, co))
+            else:
+                try:
+                    payload, attrs, _e = await self._read_shard_quiet(
+                        pool, pg, s_b, o_b, oid, snap=cl.id)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    payload = None
+            if payload is None:
+                ok = False  # source vanished between probe and read
+                continue
+            for (s, o), v in vers.items():
+                if v is not None and v >= v_auth:
+                    continue  # holds the true frozen content
+                if o == self.id:
+                    c = self._shard_coll(pool, pg, s)
+                    co = ghobject_t(oid, snap=cl.id, shard=s)
+                    t = Transaction()
+                    self._ensure_coll(t, c)
+                    t.touch(c, co)
+                    t.truncate(c, co, len(payload))
+                    if payload:
+                        t.write(c, co, 0, payload)
+                    if attrs:
+                        t.setattrs(c, co, dict(attrs))
+                    self.store.queue_transaction(t)
+                    continue
+                try:
+                    await self._push(
+                        pool, pg, s, o, oid, payload, dict(attrs or {}),
+                        snap=cl.id)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    ok = False
+        return ok
+
+    async def _sync_clones_ec(
+        self, pool, pg, pairs, oid: str, src_attrs: dict,
+        state: dict, prior_pairs: list | None = None,
+    ) -> bool:
+        """EC pools: ensure every acting member holds its shard of
+        every clone the authoritative head's SnapSet lists.  Two
+        repair sources, tried in order:
+
+        1. **file-head-as-clone**: a member that missed the COW write
+           entirely (down during the thrash window) still holds the
+           FROZEN content as its head — its head version equals the
+           clone's version attr (clones copy head attrs at COW time).
+           Copy its head into the clone slot BEFORE the head
+           roll-forward overwrites it: this replays make_writeable at
+           recovery time, exactly what the member would have done had
+           it seen the write.
+        2. **decode-from-k**: >= k members hold their clone shards —
+           rebuild the missing member's shard and push it
+           (clone pushes ride MOSDPGPush with the snap id).
+
+        A clone with fewer than k shards anywhere and no filing
+        candidate is unrecoverable snap data — logged, never wedging
+        head convergence (the chaos snap invariant stays the judge).
+        """
+        import errno
+
+        from ceph_tpu_torch.osd.snaps import SNAPS_ATTR, SS_ATTR, SnapSet
+
+        raw = (src_attrs or {}).get(SS_ATTR)
+        if not raw:
+            return True
+        ss = SnapSet.from_bytes(raw)
+        if not ss.clones:
+            return True
+        ec = self._ec_for(pool)
+        sinfo = self._sinfo(ec)
+        k = ec.get_data_chunk_count()
+        ok = True
+        for cl in ss.clones:
+            if cl.id in pool.removed_snaps:
+                continue  # reaped by the trimmer (see _sync_clones)
+            # collect every member's clone shard WITH its version
+            # attr: a member whose head was stale at COW time froze
+            # old shard content under the right name (see
+            # _sync_clones) — letting such a shard into the decode
+            # set would rebuild garbage clones, so only shards at the
+            # newest frozen version count as holders; staler ones are
+            # re-push targets
+            shards: dict[tuple[int, int],
+                         tuple["np.ndarray", dict, eversion_t]] = {}
+            miss: list[tuple[int, int]] = []
+            for s, o in pairs:
+                payload, attrs, perr = await self._read_shard_quiet(
+                    pool, pg, s, o, oid, snap=cl.id)
+                if payload is not None:
+                    shards[(s, o)] = (
+                        np.frombuffer(payload, np.uint8), dict(attrs or {}),
+                        _v_parse((attrs or {}).get(VERSION_ATTR)))
+                elif perr in (errno.ENOENT,):
+                    miss.append((s, o))
+                else:
+                    ok = False  # unreachable member: retry next pass
+            vset = {v for _p, _a, v in shards.values()}
+            if not miss and len(vset) <= 1:
+                continue  # every member holds the same frozen content
+            # prior-interval members as clone SOURCES (never targets):
+            # a freshly-backfilled member got the HEAD pushed but its
+            # clone shard only ever existed on the old acting set
+            for s, o in prior_pairs or ():
+                if any(s == s2 for s2, _o2 in shards):
+                    continue
+                try:
+                    payload, attrs, _e = await self._read_shard_quiet(
+                        pool, pg, s, o, oid, snap=cl.id)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    continue
+                if payload is not None:
+                    shards[(s, o)] = (
+                        np.frombuffer(payload, np.uint8), dict(attrs or {}),
+                        _v_parse((attrs or {}).get(VERSION_ATTR)))
+            frozen_v = max(
+                (v for _p, _a, v in shards.values()), default=None)
+            have: dict[int, "np.ndarray"] = {}
+            have_attrs: dict | None = None
+            for (s, o), (p, a, v) in shards.items():
+                if v == frozen_v:
+                    if s not in have:
+                        have[s] = p
+                        if have_attrs is None:
+                            have_attrs = a
+                elif (s, o) in pairs:
+                    miss.append((s, o))  # stale COW: re-push
+            if not miss:
+                continue
+            filed: set[tuple[int, int]] = set()
+            if frozen_v is not None:
+                for s, o in miss:
+                    st = state.get((s, o))
+                    if not (st and st[0] and st[1] == frozen_v):
+                        continue
+                    payload, attrs, _e = await self._read_shard_quiet(
+                        pool, pg, s, o, oid)
+                    if payload is None:
+                        continue
+                    at = dict(attrs or {})
+                    at.pop(SS_ATTR, None)  # clones carry snaps, not SS
+                    if have_attrs and SNAPS_ATTR in have_attrs:
+                        at[SNAPS_ATTR] = have_attrs[SNAPS_ATTR]
+                    try:
+                        await self._push(pool, pg, s, o, oid, payload,
+                                         at, snap=cl.id)
+                        filed.add((s, o))
+                    except (OSError, asyncio.TimeoutError,
+                            ConnectionError):
+                        ok = False
+            remaining = [m for m in miss if m not in filed]
+            if not remaining:
+                continue
+            if len(have) >= k:
+                try:
+                    rebuilt = await ecutil.decode_shards_async(
+                        sinfo, ec, dict(have),
+                        {s for s, _o in remaining},
+                        service=self.encode_service,
+                        aggregator=self.decode_aggregator,
+                    )
+                except Exception:
+                    log.exception(
+                        "osd.%d: clone %s/%s@%d decode failed",
+                        self.id, pg, oid, cl.id)
+                    ok = False
+                    continue
+                for s, o in remaining:
+                    if s not in rebuilt:
+                        continue
+                    try:
+                        await self._push(
+                            pool, pg, s, o, oid,
+                            rebuilt[s].tobytes(),
+                            dict(have_attrs or {}), snap=cl.id)
+                    except (OSError, asyncio.TimeoutError,
+                            ConnectionError):
+                        ok = False
+            else:
+                log.warning(
+                    "osd.%d: clone %s/%s@%d has %d/%d shards and no "
+                    "filing candidate: snap unrecoverable",
+                    self.id, pg, oid, cl.id, len(have), k)
+        return ok
+
+    async def _recovery_delete(
+        self, pool, pg, shard, osd, oid, guard: eversion_t
+    ) -> None:
+        """Replay of a logged delete on a stale member (unlogged: the
+        log itself syncs separately).  ``guard`` protects a concurrent
+        re-create: members whose object is newer than the delete keep
+        it."""
+        if osd == self.id:
+            c = self._shard_coll(pool, pg, shard)
+            if self._object_version(c, ghobject_t(oid, shard=shard)) > guard:
+                return
+            await self._apply_shard_write_async(
+                pool, pg, shard, oid, b"", {}, delete=True
+            )
+            return
+        tid = next(self._tids)
+        await self._sub_op(osd, MOSDECSubOpWrite(
+            tid=tid, pg=pg, shard=shard, from_osd=self.id, oid=oid,
+            off=0, data=b"", attrs={}, epoch=self.epoch, delete=True,
+            guard=guard,
+        ), tid)
+
+    async def _pg_query(
+        self, pool, pg, shard, osd, since, want_objects: bool = False,
+        clear_merge: bool = False,
+    ) -> MOSDPGInfo:
+        if osd == self.id:
+            raise ValueError("query self")
+        tid = next(self._tids)
+        return await self._sub_op(osd, MOSDPGQuery(
+            tid=tid, pg=pg, shard=shard, from_osd=self.id, since=since,
+            want_objects=want_objects, epoch=self.epoch,
+            clear_merge=clear_merge,
+        ), tid)
+
+    async def _pg_log_send(self, pool, pg, shard, osd, entries, tail,
+                           clear_floor: bool = False) -> None:
+        tid = next(self._tids)
+        await self._sub_op(osd, MOSDPGLog(
+            tid=tid, pg=pg, shard=shard, from_osd=self.id,
+            entries=entries, epoch=self.epoch, tail=tail,
+            clear_floor=clear_floor,
+        ), tid)
+
+    @staticmethod
+    def _peer_effective_lu(info) -> eversion_t:
+        """What a peer's log can VOUCH for: its last_update, floored
+        by its reported contiguity gap (see PGLog.contig_floor)."""
+        lu = info.last_update
+        raw = getattr(info, "contig_floor", b"") or b""
+        if not raw:
+            return lu
+        try:
+            ep, _, ver = raw.decode().partition(".")
+            return min(eversion_t(int(ep), int(ver)), lu)
+        except ValueError:
+            return ZERO  # unreadable floor: trust nothing
+
+    def _spawn_peering(self, coro) -> None:
+        """Run a peering handler as its own task, strongly referenced
+        (the loop holds tasks weakly)."""
+        task = asyncio.ensure_future(coro)
+        tasks = getattr(self, "_peering_tasks", None)
+        if tasks is None:
+            tasks = self._peering_tasks = set()
+        tasks.add(task)
+        task.add_done_callback(tasks.discard)
+
+    async def _wait_for_epoch(self, epoch: int, timeout: float = 10.0) -> None:
+        """Peering messages are meaningful only at (or after) the
+        sender's epoch — the reference queues them behind map catch-up
+        (OSD::wait_for_new_map).  Without this, a primary splitting a
+        PG can query a peer that hasn't refiled yet, read an empty
+        child collection, and wrongly conclude the PG is clean."""
+        if self.epoch >= epoch:
+            return
+        try:
+            await self._request_map_fill()
+        except (ConnectionError, OSError):
+            pass
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout
+        while (self.epoch < epoch and loop.time() < deadline
+               and not self.stopping):
+            await asyncio.sleep(0.05)
+
+    def _self_audit_missing(self, pool, pg, shard, lg) -> list[str]:
+        """Oids this member's OWN log claims at versions its store
+        does not serve (reference pg_missing_t, rebuilt log-vs-store).
+        Log entries travel without object data — adoption while
+        briefly primary, post-pass MOSDPGLog sync — so last_update can
+        run ahead of the store; this audit is the persisted truth the
+        peering exchange must carry (root cause of the stale-shard
+        scrub flake: a log-current/object-stale member was invisible
+        to the primary's missing_from scoping).  Bounded by the
+        trimmed log length; store reads are local."""
+        c = self._shard_coll(pool, pg, shard)
+        latest: dict[str, pg_log_entry_t] = {}
+        for v in sorted(lg.entries):
+            latest[lg.entries[v].oid] = lg.entries[v]
+        out: list[str] = []
+        for oid, e in latest.items():
+            o = ghobject_t(oid, shard=shard)
+            try:
+                if e.op == DELETE:
+                    continue  # absence is the logged state
+                if not self.store.collection_exists(c) \
+                        or not self.store.exists(c, o):
+                    out.append(oid)
+                elif self._object_version(c, o) < e.version:
+                    out.append(oid)
+            except OSError:
+                out.append(oid)  # unreadable counts as missing
+        return out
+
+    async def _handle_pg_query(self, msg: MOSDPGQuery) -> None:
+        await self._wait_for_epoch(msg.epoch)
+        pool = self.osdmap.get_pg_pool(msg.pg.pool)
+        c = self._shard_coll(pool, msg.pg, msg.shard)
+        lg = self._pg_log(c)
+        if msg.clear_merge and self._merge_pending(c, lg):
+            # primary verified the post-merge reconcile: the listing
+            # superposition is resolved, normal stray semantics resume
+            tcm = Transaction()
+            tcm.omap_rmkeys(c, lg.meta, ["merge_pending"])
+            self.store.queue_transaction(tcm)
+        entries = [e.encode() for e in lg.entries_after(msg.since)]
+        objects: list[tuple[str, bytes]] = []
+        if msg.want_objects and self.store.collection_exists(c):
+            for name in self._local_objects(pool, msg.pg, msg.shard):
+                o = ghobject_t(name, shard=msg.shard)
+                try:
+                    v = self.store.getattr(c, o, VERSION_ATTR)
+                except (FileNotFoundError, KeyError):
+                    v = b""
+                objects.append((name, v))
+        import json as _json
+
+        if not self._past_acting_loaded:
+            self._load_past_acting()
+        chain = self._past_acting.get((msg.pg.pool, msg.pg.ps), [])
+        await msg.conn.send_message(MOSDPGInfo(
+            tid=msg.tid, pg=msg.pg, shard=msg.shard, from_osd=self.id,
+            last_update=lg.info.last_update, log_tail=lg.info.log_tail,
+            entries=entries, objects=objects, epoch=self.epoch,
+            past_acting=_json.dumps(chain).encode() if chain else b"",
+            merge_pending=self._merge_pending(c, lg),
+            missing=self._self_audit_missing(pool, msg.pg, msg.shard, lg),
+            contig_floor=(lg.contig_floor.key().encode()
+                          if lg.contig_floor is not None else b""),
+        ))
+
+    async def _handle_pg_log(self, msg: MOSDPGLog) -> None:
+        await self._wait_for_epoch(msg.epoch)
+        pool = self.osdmap.get_pg_pool(msg.pg.pool)
+        c = self._shard_coll(pool, msg.pg, msg.shard)
+        lg = self._pg_log(c)
+        t = Transaction()
+        self._ensure_coll(t, c)
+        # adopt_tail = set_tail + fill + floor bookkeeping in ONE step:
+        # every adopted entry's reqid enters the dup window (fill, not
+        # append — a gapped log heals by receiving the entries it
+        # MISSED as well as the new tail), and the contiguity floor
+        # stays honest: clear_floor from the primary means every
+        # object through our gap was just verified (floor clears),
+        # while an UNVERIFIED adoption that raises last_update pins it
+        lg.adopt_tail(
+            t, msg.tail,
+            [pg_log_entry_t.decode(raw) for raw in msg.entries],
+            verified=bool(msg.clear_floor),
+        )
+        self._pg_log_trim(t, lg)
+        if not t.empty():
+            self.store.queue_transaction(t)
+        await msg.conn.send_message(MOSDPGLogAck(
+            tid=msg.tid, pg=msg.pg, shard=msg.shard, from_osd=self.id,
+            result=0, epoch=self.epoch,
+        ))
+
+    async def _probe_shard(self, pool, pg, shard, osd, oid):
+        """Presence probe: zero-length read with attrs."""
+        if osd == self.id:
+            c = self._shard_coll(pool, pg, shard)
+            o = ghobject_t(oid, shard=shard)
+            if not self.store.exists(c, o):
+                return None, None
+            return b"", self.store.getattrs(c, o)
+        tid = next(self._tids)
+        rep = await self._sub_op(osd, MOSDECSubOpRead(
+            tid=tid, pg=pg, shard=shard, from_osd=self.id, oid=oid,
+            off=0, length=1, want_attrs=True, epoch=self.epoch,
+        ), tid)
+        if rep.result != 0:
+            return None, None
+        return rep.data, rep.attrs
+
+    async def _push(self, pool, pg, shard, osd, oid, payload, attrs,
+                    force: bool = False, snap: int | None = None) -> None:
+        if snap is not None:
+            # clone push: the snap id rides a reserved attr so the
+            # frame format stays unchanged (see CLONE_PUSH_ATTR)
+            attrs = dict(attrs)
+            attrs[self.CLONE_PUSH_ATTR] = str(snap).encode()
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        tid = next(self._tids)
+        self._push_waiters[tid] = fut
+        try:
+            conn = await self._osd_conn(osd)
+            await conn.send_message(MOSDPGPush(
+                pg=pg, shard=shard, from_osd=self.id,
+                pushes=[(oid, payload, attrs)], epoch=self.epoch,
+                force=force, tid=tid,
+            ))
+            await asyncio.wait_for(fut, SUBOP_TIMEOUT)
+        finally:
+            self._push_waiters.pop(tid, None)
+    async def _handle_push(self, msg: MOSDPGPush) -> None:
+        pool = self.osdmap.get_pg_pool(msg.pg.pool)
+        for oid, payload, attrs in msg.pushes:
+            c = self._shard_coll(pool, msg.pg, msg.shard)
+            clone_snap = attrs.pop(self.CLONE_PUSH_ATTR, None)
+            if clone_snap is not None:
+                # clone push (see _sync_clones): clones are immutable,
+                # so an existing clone object never gets overwritten
+                co = ghobject_t(
+                    oid, snap=int(clone_snap), shard=msg.shard)
+                if not self.store.exists(c, co):
+                    t = Transaction()
+                    self._ensure_coll(t, c)
+                    t.touch(c, co)
+                    t.truncate(c, co, len(payload))
+                    if payload:
+                        t.write(c, co, 0, payload)
+                    if attrs:
+                        t.setattrs(c, co, attrs)
+                    if getattr(self.store, "blocking_commit", False):
+                        await asyncio.to_thread(
+                            self.store.queue_transaction, t)
+                    else:
+                        self.store.queue_transaction(t)
+                continue
+            # never regress: a write may have landed here between the
+            # primary's probe and this push (the reference serializes
+            # this with per-object rw locks; we reconcile on the next
+            # recovery pass instead)
+            o = ghobject_t(oid, shard=msg.shard)
+            local_v = self._object_version(c, o)
+            pushed_v = _v_parse(attrs.get(VERSION_ATTR))
+            if local_v > pushed_v and not msg.force:
+                continue
+            if local_v > pushed_v:
+                # divergent rollback: the newer local write is being
+                # rolled back cluster-wide; strip its log entries so
+                # dup detection stops vouching for it
+                t0 = Transaction()
+                self._pg_log(c).rollback_divergent(t0, oid, pushed_v)
+                if t0.ops:
+                    if getattr(self.store, "blocking_commit", False):
+                        await asyncio.to_thread(
+                            self.store.queue_transaction, t0)
+                    else:
+                        self.store.queue_transaction(t0)
+            # a push REPLACES the object: stale local attrs the source
+            # doesn't carry (e.g. a hinfo dropped by an RMW this member
+            # missed) must go, or deep scrub sees a phantom crc chain
+            stale_attrs = []
+            if self.store.exists(c, o):
+                stale_attrs = [
+                    n for n in self.store.getattrs(c, o) if n not in attrs
+                ]
+            await self._apply_shard_write_async(
+                pool, msg.pg, msg.shard, oid, payload, attrs,
+                rmattrs=stale_attrs,
+            )
+        await msg.conn.send_message(MOSDPGPushReply(
+            pg=msg.pg, shard=msg.shard, from_osd=self.id, epoch=self.epoch,
+            tid=msg.tid,
+        ))

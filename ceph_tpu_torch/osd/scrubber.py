@@ -1,0 +1,453 @@
+"""Scrub: chunked background consistency scans, deep crc verification
+and pg repair (the src/osd/scrubber/ seam), split out of the daemon
+per the PGBackend seam layout."""
+
+from __future__ import annotations
+
+import asyncio
+import errno
+import logging
+import time
+
+
+from ceph_tpu_torch.osd import ecutil
+from ceph_tpu_torch.osd.pglog import (
+    ZERO,
+)
+from ceph_tpu_torch.osd.types import pg_t
+
+from ceph_tpu_torch.msg.messages import (
+    MOSDScrub,
+    MOSDScrubReply,
+)
+from ceph_tpu_torch.osd.pgutil import (
+    HINFO_ATTR,
+    VERSION_ATTR,
+)
+
+log = logging.getLogger("ceph_tpu_torch.osd")
+
+
+class ScrubMixin:
+    """Chunked scrub + repair — mixed into OSDDaemon; state lives in
+    the daemon's __init__."""
+
+    # -- scrub (src/osd/scrubber/, simplified to one pass) -------------
+
+    async def _handle_scrub(self, msg: MOSDScrub) -> None:
+        import json
+
+        try:
+            report = await self.scrub_pg(
+                msg.pool, msg.ps, deep=msg.deep,
+                repair=getattr(msg, "repair", False))
+            reply = MOSDScrubReply(
+                tid=msg.tid, result=0, report=json.dumps(report).encode()
+            )
+        except Exception as e:
+            log.exception("osd.%d: scrub failed", self.id)
+            reply = MOSDScrubReply(
+                tid=msg.tid, result=-errno.EIO, report=str(e).encode()
+            )
+        try:
+            await msg.conn.send_message(reply)
+        except ConnectionError:
+            pass
+
+    async def scrub_pg(
+        self, pool_id: int, ps: int, deep: bool = False,
+        repair: bool = False,
+    ) -> dict:
+        """Consistency check of one PG across its acting set, CHUNKED so
+        client I/O interleaves (reference src/osd/scrubber/: chunked
+        scrubs that block writes only on the objects in the current
+        chunk).  Shallow compares object sets and versions; ``deep``
+        additionally verifies every shard payload's crc32c against the
+        stored HashInfo chain (or the parity equations for RMW'd
+        objects).  ``repair`` reconstructs bad shards from the
+        surviving ones afterwards — the `ceph pg repair` verb
+        (scrub_backend authoritative-copy repair role)."""
+        pool = self.osdmap.get_pg_pool(pool_id)
+        if pool is None:
+            return {"error": f"no pool {pool_id}"}
+        pg = pg_t(pool_id, ps)
+        _, _, acting, primary = self.osdmap.pg_to_up_acting_osds(pg, folded=True)
+        if primary != self.id:
+            return {"error": f"osd.{self.id} is not primary for {pool_id}.{ps}"}
+        pairs = self._pg_members(pool, acting)
+
+        # enumerate the object set (bulk; per-object state is probed
+        # fresh under the object lock as each chunk is scrubbed)
+        names: set[str] = set()
+        for s_, o_ in pairs:
+            if o_ == self.id:
+                names.update(self._local_objects(pool, pg, s_))
+            else:
+                try:
+                    info = await self._pg_query(
+                        pool, pg, s_, o_, since=ZERO, want_objects=True
+                    )
+                    names.update(n for n, _v in info.objects)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    pass
+        all_oids = sorted(names)
+
+        chunk_max = self.conf["osd_scrub_chunk_max"]
+        chunk_sleep = self.conf["osd_scrub_sleep"]
+        inconsistencies: list[dict] = []
+
+        async def _one(oid: str) -> list[dict]:
+            async with self._obj_lock(pool.id, oid):
+                return await self._scrub_object(pool, pg, pairs, oid, deep)
+
+        for base in range(0, len(all_oids), chunk_max):
+            # one gate admission per chunk at best-effort weight:
+            # saturated client I/O outranks the scan (admission before
+            # the object locks, per the opqueue deadlock rule).  The
+            # chunk's objects run CONCURRENTLY (each under its own
+            # object lock) so their verification work lands in the
+            # scrub verifier's coalescing window as one batch instead
+            # of one launch per object.
+            async with self.op_gate.admit("best_effort"):
+                for incs in await asyncio.gather(*(
+                    _one(oid) for oid in all_oids[base : base + chunk_max]
+                )):
+                    inconsistencies.extend(incs)
+            await asyncio.sleep(chunk_sleep)
+
+        repaired: list[str] = []
+        if repair and inconsistencies:
+            bad_oids = sorted({i["object"] for i in inconsistencies})
+            for oid in bad_oids:
+                # hold the object lock across re-verify + repair so a
+                # concurrent client write can neither be torn by the
+                # force-pushes nor produce a false inconsistency
+                async with self._obj_lock(pool.id, oid):
+                    incs = await self._scrub_object(
+                        pool, pg, pairs, oid, deep)
+                    if not incs:
+                        continue  # fixed itself (e.g. write raced scan)
+                    try:
+                        await self._repair_object(pool, pg, pairs, oid, incs)
+                        repaired.append(oid)
+                    except Exception:
+                        log.exception(
+                            "osd.%d: repair of %s/%s failed",
+                            self.id, pg, oid)
+            # re-verify: the report carries what survived repair
+            remaining: list[dict] = []
+            for oid in bad_oids:
+                async with self._obj_lock(pool.id, oid):
+                    remaining.extend(
+                        await self._scrub_object(pool, pg, pairs, oid, deep)
+                    )
+            inconsistencies = remaining
+        self._scrub_stamps[(pool_id, ps)] = (
+            time.monotonic(),
+            time.monotonic() if deep else
+            self._scrub_stamps.get((pool_id, ps), (0.0, 0.0))[1],
+        )
+        return {
+            "pg": f"{pool_id}.{ps}",
+            "acting": [o for _, o in pairs],
+            "objects": len(all_oids),
+            "deep": deep,
+            "repaired": repaired,
+            "inconsistencies": inconsistencies,
+        }
+
+    async def _scrub_object(
+        self, pool, pg, pairs, oid: str, deep: bool
+    ) -> list[dict]:
+        """One object's scrub checks (caller holds the object lock)."""
+        out: list[dict] = []
+        versions: dict[str, bytes | None] = {}
+        payloads: dict[int, bytes] = {}
+        member_payloads: dict[str, bytes] = {}
+        hinfos: dict[int, bytes | None] = {}
+        crcs: dict[str, int] = {}
+        present = 0
+        for s, o in pairs:
+            key = f"{s}@osd.{o}"
+            if deep:
+                payload, attrs, _e = await self._read_shard_quiet(
+                    pool, pg, s, o, oid)
+            else:
+                try:
+                    payload, attrs = await self._probe_shard(
+                        pool, pg, s, o, oid)
+                except (OSError, asyncio.TimeoutError, ConnectionError):
+                    payload, attrs = None, None
+            if payload is None:
+                versions[key] = None
+                continue
+            present += 1
+            versions[key] = (attrs or {}).get(VERSION_ATTR, b"")
+            if deep:
+                payloads[s] = payload
+                member_payloads[key] = payload
+                hinfos[s] = (attrs or {}).get(HINFO_ATTR)
+        if present == 0:
+            return out  # deleted everywhere between listing and scrub
+        parity_bad = None
+        if deep and member_payloads:
+            if pool.is_erasure():
+                # EC: shard ids are distinct per member, so per-shard
+                # verification (batched when the verifier is attached)
+                # covers every member
+                shard_crcs, parity_bad = await self._verify_payloads(
+                    pool, payloads)
+                for s, o in pairs:
+                    if s in shard_crcs:
+                        crcs[f"{s}@osd.{o}"] = shard_crcs[s]
+            else:
+                # replicated: every member shares shard NO_SHARD — crc
+                # each member's copy individually
+                from ceph_tpu_torch.native import crc32c as _crc32c
+
+                crcs = {
+                    k: _crc32c(p) for k, p in member_payloads.items()
+                }
+        have = {k: v for k, v in versions.items() if v is not None}
+        if len(have) != len(pairs) or len(set(have.values())) > 1:
+            out.append({
+                "object": oid, "kind": "shallow",
+                "versions": {
+                    k: (v.decode() if v else None)
+                    for k, v in versions.items()
+                },
+            })
+            return out
+        if not deep:
+            return out
+        # deep: payload crc vs the stored HashInfo chain; RMW'd objects
+        # have no hinfo (the overwrite broke the append chain) — verify
+        # the parity equations instead by re-encoding the data shards
+        hinfo_raw = None
+        if pool.is_erasure() and hinfos:
+            chains = {h for h in hinfos.values() if h is not None}
+            if len(chains) == 1 and all(
+                h is not None for h in hinfos.values()
+            ):
+                hinfo_raw = chains.pop()
+                hi = ecutil.HashInfo.from_bytes(hinfo_raw)
+                for s, o in pairs:
+                    key = f"{s}@osd.{o}"
+                    if key not in crcs:
+                        continue
+                    want = hi.get_chunk_hash(s)
+                    if want != crcs[key]:
+                        out.append({
+                            "object": oid, "kind": "deep-crc",
+                            "member": key, "shard": s,
+                            "stored": want, "computed": crcs[key],
+                        })
+            elif chains:
+                out.append({
+                    "object": oid, "kind": "deep-hinfo-mismatch",
+                    "members": sorted(
+                        f"{s}" for s, h in hinfos.items() if h is not None
+                    ),
+                })
+        if pool.is_erasure() and hinfo_raw is None and payloads:
+            if parity_bad is not None:
+                # the batched verifier already re-encoded the data
+                # shards on device and compared parity there
+                for s in sorted(parity_bad):
+                    out.append({
+                        "object": oid, "kind": "deep-parity",
+                        "member": f"{s}", "shard": s,
+                    })
+            else:
+                ec = self._ec_for(pool)
+                sinfo = self._sinfo(ec)
+                k = ec.get_data_chunk_count()
+                import numpy as _np
+
+                if all(s in payloads for s in range(k)) and len(payloads[0]):
+                    chunks = {
+                        s: _np.frombuffer(payloads[s], _np.uint8)
+                        for s in range(k)
+                    }
+                    logical = ecutil.decode_concat(sinfo, ec, chunks)
+                    expect = ecutil.encode(sinfo, ec, logical)
+                    for s, payload in payloads.items():
+                        if s in expect and expect[s].tobytes() != payload:
+                            out.append({
+                                "object": oid, "kind": "deep-parity",
+                                "member": f"{s}", "shard": s,
+                            })
+        if not pool.is_erasure() and len(set(crcs.values())) > 1:
+            out.append({
+                "object": oid, "kind": "deep-replica-crc", "crcs": crcs,
+            })
+        return out
+
+    async def _verify_payloads(
+        self, pool, payloads
+    ) -> tuple[dict[int, int], frozenset[int] | None]:
+        """Per-shard crc32c (+ parity re-encode check for eligible EC
+        objects) of one object's shard payloads.
+
+        EC payloads go through the process-wide ScrubVerifier
+        (parallel/scrub_batcher.py): concurrent scrub chunks — across
+        objects and PGs — coalesce into fixed-shape batched device
+        launches, bit-identical to the host loop.  An EC pool whose
+        plugin fails to build, or a failed launch, raises: the host
+        crc path serves only replicated pools and
+        ``osd_scrub_verify_batch=off``.
+
+        Returns ``(shard -> crc32c, parity_bad)`` where ``parity_bad``
+        is the set of parity shards whose stored payload disagrees
+        with a re-encode of the data shards, or None when the parity
+        equations were not checked here."""
+        verifier = self.scrub_verifier if pool.is_erasure() else None
+        if verifier is not None:
+            check = await verifier.verify_object(
+                self._ec_for(pool), payloads)
+            return check.crcs, check.parity_bad
+        from ceph_tpu_torch.native import crc32c
+
+        return {s: crc32c(p) for s, p in payloads.items()}, None
+
+    async def _repair_object(self, pool, pg, pairs, oid, incs) -> None:
+        """`pg repair`: rebuild the authoritative copy of a damaged
+        object and push it over the bad members (reference
+        scrub_backend authoritative-copy selection + repair_object)."""
+        kinds = {i["kind"] for i in incs}
+        if pool.is_erasure():
+            bad_shards = {
+                i["shard"] for i in incs if "shard" in i
+            }
+            if bad_shards and not kinds - {"deep-crc", "deep-parity"}:
+                # corrupt shard payloads at a consistent version:
+                # reconstruct from the k+ clean shards and push over
+                ec = self._ec_for(pool)
+                sinfo = self._sinfo(ec)
+                good = {}
+                src_attrs = None
+                for s, o in pairs:
+                    if s in bad_shards:
+                        continue
+                    payload, attrs, _e = await self._read_shard_quiet(
+                        pool, pg, s, o, oid)
+                    if payload is not None:
+                        import numpy as _np
+
+                        good[s] = _np.frombuffer(payload, _np.uint8)
+                        src_attrs = src_attrs or attrs
+                _t0 = time.perf_counter()
+                rebuilt = await ecutil.decode_shards_async(
+                    sinfo, ec, good, bad_shards,
+                    service=self.encode_service,
+                    aggregator=self.decode_aggregator,
+                )
+                self.perf.inc("recovery_decode_seconds",
+                              time.perf_counter() - _t0)
+                self.perf.inc("recovery_decode_bytes",
+                              sum(v.nbytes for v in rebuilt.values()))
+                osd_of = dict(pairs)
+                await asyncio.gather(*(
+                    self._push(pool, pg, s, osd_of[s], oid,
+                               rebuilt[s].tobytes(), src_attrs or {},
+                               force=True)
+                    for s in bad_shards
+                ))
+                return
+        if "deep-replica-crc" in kinds:
+            # replicated payload divergence at one version: the
+            # majority crc wins (primary breaks ties) and is pushed
+            # over the minority — authoritative-copy selection
+            crcs = next(
+                i["crcs"] for i in incs if i["kind"] == "deep-replica-crc")
+            from collections import Counter
+
+            winner_crc, _n = Counter(crcs.values()).most_common(1)[0]
+            winner_key = next(
+                k for k, v in sorted(crcs.items()) if v == winner_crc)
+            ws, wo = winner_key.split("@osd.")
+            payload, attrs, _e = await self._read_shard_quiet(
+                pool, pg, int(ws), int(wo), oid)
+            if payload is None:
+                return
+            await asyncio.gather(*(
+                self._push(pool, pg, s, o, oid, payload, attrs or {},
+                           force=True)
+                for s, o in pairs
+                if crcs.get(f"{s}@osd.{o}") != winner_crc
+            ))
+            return
+        # version-level divergence (shallow / hinfo mismatch): the
+        # recovery reconciliation machinery is the repair (caller holds
+        # the object lock)
+        await self._reconcile_object(pool, pg, pairs, oid, have_lock=True)
+
+    async def _scrub_scheduler(self) -> None:
+        """Background scrub scheduling (reference
+        src/osd/scrubber/osd_scrub_sched.cc role): periodically scrub
+        the PG this OSD leads with the stalest stamp; deep scrubs on
+        their own (longer) cadence."""
+        interval = self.conf["osd_scrub_interval"]
+        deep_interval = self.conf["osd_deep_scrub_interval"]
+        if interval <= 0:
+            return
+        tick = max(0.05, min(interval, deep_interval or interval) / 4)
+        while not self.stopping:
+            await asyncio.sleep(tick)
+            try:
+                om = self.osdmap
+                if om is None:
+                    continue
+                now = time.monotonic()
+                # slow-OSD-aware deprioritization (the mgr analytics
+                # loop): while the active mgr's outlier detection
+                # flags this OSD slow (MMgrConfigure
+                # scrub_deprioritize), background scrubs wait a
+                # multiple of the normal interval — client I/O on a
+                # struggling disk outranks housekeeping
+                factor = 1.0
+                if self.mgr_client.scrub_deprioritized:
+                    factor = self.conf["osd_scrub_deprioritize_factor"]
+                due: list[tuple[float, int, int, bool]] = []
+                for pid, pool in om.pools.items():
+                    for ps in range(pool.pg_num):
+                        _u, _up, _a, primary = om.pg_to_up_acting_osds(
+                            pg_t(pid, ps), folded=True)
+                        if primary != self.id:
+                            continue
+                        if (pid, ps) not in self._scrub_stamps:
+                            # stamps are in-RAM (the reference persists
+                            # them in pg info): seed at first sight so a
+                            # restart doesn't deep-scrub everything at
+                            # once — first scrub lands one interval out
+                            self._scrub_stamps[(pid, ps)] = (now, now)
+                            continue
+                        last, last_deep = self._scrub_stamps[(pid, ps)]
+                        if deep_interval and now - last_deep > deep_interval:
+                            if now - last_deep <= deep_interval * factor:
+                                self.perf.inc("scrub_deferred_slow")
+                                continue
+                            due.append((last_deep, pid, ps, True))
+                        elif now - last > interval:
+                            if now - last <= interval * factor:
+                                self.perf.inc("scrub_deferred_slow")
+                                continue
+                            due.append((last, pid, ps, False))
+                # drain everything due this tick CONCURRENTLY (stalest
+                # first for launch order): chunked admission through
+                # the op gate still paces each scan, and co-scheduled
+                # deep scrubs land their verification chunks in the
+                # shared scrub verifier's window — cross-PG batching
+                if due and not self.stopping:
+                    results = await asyncio.gather(*(
+                        self.scrub_pg(pid, ps, deep=deep)
+                        for _stamp, pid, ps, deep in sorted(due)
+                    ), return_exceptions=True)
+                    for r in results:
+                        if isinstance(r, BaseException):
+                            log.error("osd.%d: scheduled scrub failed: %r",
+                                      self.id, r)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("osd.%d: scheduled scrub failed", self.id)

@@ -282,3 +282,29 @@ class DecodeAggregator:
         self.stats["prewarmed_shapes"] += n
         self.metrics.inc("prewarmed_shapes", by=n)
         return n
+
+
+_shared: DecodeAggregator | None = None
+
+
+def shared(device=None) -> DecodeAggregator:
+    """Process-wide aggregator on ``device`` (the card unless the caller asks
+    for the CPU), built on first use; co-hosted daemons share its
+    launch shapes and coalesce their work.  A request for another
+    device than the held aggregator's raises; ``reset_shared()`` drops the
+    held one."""
+    global _shared
+    want = resolve_device(device)
+    if _shared is None:
+        _shared = DecodeAggregator(device=want)
+    elif _shared.device != want:
+        raise RuntimeError(
+            f"the shared aggregator runs on {_shared.device}, not on the "
+            f"requested {want}; reset_shared() first")
+    return _shared
+
+
+def reset_shared() -> None:
+    """Test hook: drop the process-wide aggregator."""
+    global _shared
+    _shared = None

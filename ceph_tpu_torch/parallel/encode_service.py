@@ -244,10 +244,14 @@ class EncodeService:
                     torch.cuda.current_stream(self.device).synchronize()
                     out = tout
                 host = out.numpy()
+            # copies, always: a slice that is already contiguous (a lone
+            # request of a pow2 width) would otherwise be a view of the
+            # staging buffer, which the next dispatch overwrites before
+            # the waiter reads it
             outs = []
             off = 0
             for w in widths:
-                outs.append(np.ascontiguousarray(host[:, off:off + w]))
+                outs.append(host[:, off:off + w].copy())
                 off += w
         self.stats["single_dispatches"] += 1
         self.stats["coalesced"] += len(group)
@@ -323,24 +327,47 @@ class EncodeService:
 _shared: EncodeService | None = None
 
 
+def _layout(device) -> tuple:
+    """What ``shared(device)`` serves: a ('pg', 'shard') mesh over every
+    card when the request names no card and there are several (shard 2
+    when their count is even), else the one resolved device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available() \
+            and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        nsh = 2 if n % 2 == 0 else 1
+        return ("mesh", n, nsh)
+    return ("device", resolve_device(dev))
+
+
+def _held_layout(svc: EncodeService) -> tuple:
+    if svc.mesh is not None:
+        rows, nsh = svc.mesh.devices.shape
+        return ("mesh", rows * nsh, nsh)
+    return ("device", svc.device)
+
+
 def shared(device=None) -> EncodeService:
     """Process-wide service, built on first use: a ('pg', 'shard') mesh
-    over every card when there are several (shard 2 when their count is
-    even), single-device mode on one card.  With no card it raises unless
-    the caller asks for ``device="cpu"`` (single-device mode on the CPU,
-    the kernels' plain versions)."""
+    over every card when there are several, single-device mode on one
+    card.  With no card it raises unless the caller asks for
+    ``device="cpu"`` (single-device mode on the CPU, the kernels' plain
+    versions).  A request for another device (or mesh) than the held
+    service's raises; ``reset_shared()`` drops the held one."""
     global _shared
+    want = _layout(device)
     if _shared is None:
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda" and dev.index is None and torch.cuda.is_available() \
-                and torch.cuda.device_count() > 1:
-            n = torch.cuda.device_count()
-            nsh = 2 if n % 2 == 0 else 1
+        if want[0] == "mesh":
+            _, n, nsh = want
             grid = np.array([torch.device("cuda", i) for i in range(n)],
                             dtype=object).reshape(n // nsh, nsh)
             _shared = EncodeService(Mesh(grid, ("pg", "shard")))
         else:
-            _shared = EncodeService(device=resolve_device(dev))
+            _shared = EncodeService(device=want[1])
+    elif _held_layout(_shared) != want:
+        raise RuntimeError(
+            f"the shared encode service runs on {_held_layout(_shared)}, "
+            f"not on the requested {want}; reset_shared() first")
     return _shared
 
 

@@ -413,3 +413,29 @@ class ScrubVerifier:
         self.stats["prewarmed_shapes"] += n
         self.metrics.inc("prewarmed_shapes", by=n)
         return n
+
+
+_shared: ScrubVerifier | None = None
+
+
+def shared(device=None) -> ScrubVerifier:
+    """Process-wide verifier on ``device`` (the card unless the caller asks
+    for the CPU), built on first use; co-hosted daemons share its
+    launch shapes and coalesce their work.  A request for another
+    device than the held verifier's raises; ``reset_shared()`` drops the
+    held one."""
+    global _shared
+    want = resolve_device(device)
+    if _shared is None:
+        _shared = ScrubVerifier(device=want)
+    elif _shared.device != want:
+        raise RuntimeError(
+            f"the shared verifier runs on {_shared.device}, not on the "
+            f"requested {want}; reset_shared() first")
+    return _shared
+
+
+def reset_shared() -> None:
+    """Test hook: drop the process-wide verifier."""
+    global _shared
+    _shared = None

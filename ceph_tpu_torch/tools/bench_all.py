@@ -25,8 +25,8 @@ always run on the CPU.  Sizes are the reference's for the device's kind
   card's own byte bound for the same loop, as its metric string says.
   The ratio targets that are not rates (``/ 10`` of a speedup) stay.
 
-The reference's ``recovery`` config (multi-process OSD daemons) is not
-here: the OSD daemon is not ported yet.
+The reference's ``recovery`` config (OSD daemons in processes of their
+own) is not here yet.
 """
 
 from __future__ import annotations

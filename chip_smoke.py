@@ -133,7 +133,24 @@ through the port's entry points:
    every store remounted with a clean ``fsck()``, every PG log loaded and
    equal to what was sent to it (pushed collections hold none), and each
    object read back from the stores without shard 2 and decoded on the
-   card equal to what was written.
+   card equal to what was written;
+15. cluster — the system's own entry points: a ``Monitor``, 12
+   ``OSDDaemon``s (one a host, each on a ``BlockStore`` on its own
+   ``FileDB``) and a ``RadosClient`` in one event loop, every daemon on
+   the card.  The client sets an RS(8,3) profile on the ``cuda`` plugin
+   and creates a pool of 32 PGs; every daemon's map-time warmup finishes
+   (no failure, no cold batcher launch after it); ``osd balance`` runs
+   the mon's ``UpmapBalancer`` on the card; 32 of the store path's
+   objects (``CLUSTER_OBJECTS``) are written with ``write_full``, 16 in
+   flight, through each primary's encode service (the device's idle share
+   taken by torch.profiler), read back, and every PG deep-scrubbed clean
+   (the crc and the compare on the card); one byte of a parity shard
+   flipped at rest is found alone by a deep scrub, repaired and restored;
+   OSD 5 stops and goes down: every object it held reads back equal,
+   decoded on the card; it goes out: the cluster recovers to
+   active+clean through the ``DecodeAggregator``, every rebuilt shard's
+   crc32c equal to its hinfo; every object reads back equal, and every
+   daemon stops with no task left.  Every op must answer 0.
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -163,8 +180,12 @@ scrub, the scrub's and the decode's prewarms counted apart (the
 before and after phase 14, and around each of its steps: CRUSH at the
 wire remap, the placement and the loss, the bit-matrix kernel at the
 encode, the rebuild and the read-back (the ``subop_path_launches``
-line).  A ``wall`` line gives the smoke's seconds from the build to the
-kernel rows and the store and sub-op paths' shares of them.  Then a
+line); and before and after phase 15, and around each of its steps: CRUSH
+at the balance, the bit-matrix kernel at the write, the degraded read and
+the recovery, the crc and the compare at the scrub (the
+``cluster_path_launches`` line).  A ``wall`` line gives the smoke's
+seconds from the build to the kernel rows and the store, sub-op and
+cluster paths' shares of them.  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, the main path's memset µs, and the device time per launch at
 each kernel's main-path shape (and at each forced width of the launch
@@ -229,6 +250,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import native
+from ceph_tpu_torch.client import RadosClient
 from ceph_tpu_torch.common.config import ConfigProxy
 from ceph_tpu_torch.common.fault_injector import FAULTS
 from ceph_tpu_torch.crush import builder as crush_builder
@@ -247,6 +269,7 @@ from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
 from ceph_tpu_torch.mgr import analytics as mgr_analytics
 from ceph_tpu_torch.mgr import daemon as mgr_daemon
 from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
+from ceph_tpu_torch.mon import Monitor
 from ceph_tpu_torch.msg.messages import (
     MOSDECSubOpRead,
     MOSDECSubOpReadReply,
@@ -262,11 +285,13 @@ from ceph_tpu_torch.ops import rs_kernels as rk
 from ceph_tpu_torch.ops.gf256 import gf_matmul, gf_matrix_to_bitmatrix
 from ceph_tpu_torch.osd import ecutil, mapenc, pgutil, remap
 from ceph_tpu_torch.osd.balancer import UpmapBalancer
+from ceph_tpu_torch.osd.daemon import OSDDaemon
 from ceph_tpu_torch.osd.opqueue import MClockGate
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.pglog import MODIFY, ZERO, PGLog, eversion_t, pg_log_entry_t
 from ceph_tpu_torch.osd.scheduler import ClientProfile
 from ceph_tpu_torch.osd.types import FLAG_HASHPSPOOL, PgPool, PoolType, pg_t
+from ceph_tpu_torch.parallel import decode_batcher, encode_service, scrub_batcher
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
 from ceph_tpu_torch.parallel.encode_farm import Mesh, batch_encode_dp, sharded_encode_tp
 from ceph_tpu_torch.parallel.encode_service import EncodeService
@@ -1832,9 +1857,6 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
 def traced(fn) -> tuple[float, list[dict]]:
     """Run ``fn()`` under torch.profiler: (wall seconds to its end on the
     device, the trace's device events: kernels, copies, memsets)."""
-    import os
-    import tempfile
-
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1842,16 +1864,7 @@ def traced(fn) -> tuple[float, list[dict]]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
-    return wall, [e for e in events if e.get("ph") == "X"
-                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return wall, _device_events(prof)
 
 
 def ours(e: dict, kernel: str) -> bool:
@@ -3552,8 +3565,7 @@ async def subop_cluster(cfg: Config, device, osds: list, conf: ConfigProxy,
         for m in [driver.msgr, mon] + [o.msgr for o in osds]:
             await m.shutdown()
         await asyncio.sleep(0)
-        out["tasks_left"] = len([t for t in asyncio.all_tasks()
-                                 if t is not asyncio.current_task() and not t.done()])
+        out["tasks_left"] = tasks_pending()
         secs["shutdown"] = time.perf_counter() - t0
     return state
 
@@ -3686,6 +3698,407 @@ def run_subop_path(cfg: Config, device) -> dict:
     return {"subop": line, "launches": launches, "idle": idle}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the cluster path, a RadosClient's writes through a Monitor and
+# OSDDaemons to the card's kernels
+# ---------------------------------------------------------------------------
+
+#: the cluster: 12 OSDs on 12 hosts, the pool's name and osd_pool_default_pg_num
+#: PGs, the OSD lost, the ops a client keeps in flight, and the seconds a
+#: wait (a map epoch, active+clean) may take.  The path writes at most
+#: CLUSTER_OBJECTS of the store path's objects: its data steps run on the
+#: host at tens of MB/s (a Python messenger and BlockStores in one
+#: process) beside some 36 s of peering at the reference's recovery pacing
+#: (osd_max_backfills 1), and 64 objects took 73 s on the H100
+CLUSTER_OBJECTS = 32
+CLUSTER_POOL = "cluster"
+CLUSTER_OSDS = 12
+CLUSTER_PG_NUM = 32
+CLUSTER_LOST_OSD = 5
+CLUSTER_INFLIGHT = 16
+CLUSTER_TIMEOUT = 120.0
+#: the kernels that each step of the cluster path must launch on the card
+CLUSTER_STEP_KERNELS = (("balance", "crush_rule"), ("write", "gf_bitmatmul"),
+                        ("scrub", "batched_crc32c_device"), ("scrub", "gf_encode_compare"),
+                        ("degraded_read", "gf_bitmatmul"), ("recover", "gf_bitmatmul"))
+
+
+def cluster_profile(cfg: Config) -> dict:
+    """The pool's EC profile as a client sets it: the smoke's code on the
+    ``cuda`` plugin, one OSD a host."""
+    return {"plugin": "cuda", **store_profile(cfg), "crush-failure-domain": "host"}
+
+
+def cluster_objects(cfg: Config) -> dict[str, bytes]:
+    rng = np.random.default_rng(cfg.seed)
+    return {f"rbd_data.{i:016x}": rng.integers(0, 256, cfg.store_object_bytes,
+                                               dtype=np.uint8).tobytes()
+            for i in range(min(cfg.store_objects, CLUSTER_OBJECTS))}
+
+
+def tasks_pending() -> int:
+    return len([t for t in asyncio.all_tasks()
+                if t is not asyncio.current_task() and not t.done()])
+
+
+async def _until(cond, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"cluster path: {what} not reached in {timeout} s")
+        await asyncio.sleep(0.01)
+
+
+async def _bounded(calls, inflight: int) -> list:
+    """Await every coroutine of ``calls`` with at most ``inflight`` at
+    once; each result is the call's value, or the exception it raised."""
+    sem = asyncio.Semaphore(inflight)
+
+    async def one(c):
+        async with sem:
+            return await c
+
+    return await asyncio.gather(*(one(c) for c in calls), return_exceptions=True)
+
+
+def _op_result(r) -> int:
+    """An op's result as its reply carried it: 0, or the negative errno."""
+    if isinstance(r, BaseException):
+        return -(getattr(r, "errno", None) or errno.EIO)
+    return 0
+
+
+def _device_events(prof) -> list[dict]:
+    """The device events (kernels, copies, memsets) of a finished
+    torch.profiler trace."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+async def traced_async(coro_fn, device) -> tuple[float, float | None]:
+    """Await ``coro_fn()``, on the card under torch.profiler: (wall
+    seconds, the device's idle share of them; None off the card)."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        await coro_fn()
+        return time.perf_counter() - t0, None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        await coro_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in _device_events(prof)])
+    return wall, 1.0 - busy / (wall * 1e6)
+
+
+def _cluster_acting(client, pool_id: int, oid: str) -> tuple:
+    """(folded pg, acting set, primary) of ``oid`` in the client's map."""
+    om = client.osdmap
+    pool = om.get_pg_pool(pool_id)
+    pg = pgutil.object_to_pg(pool, oid)
+    _, _, acting, primary = om.pg_to_up_acting_osds(pg)
+    return pool.raw_pg_to_pg(pg), list(acting), primary
+
+
+def _shard_obj(pool_id: int, pg, shard: int, oid: str) -> tuple:
+    return coll_t(pool_id, pg.ps, shard), ghobject_t(oid, shard=shard)
+
+
+def _scrub_clean(rep: dict) -> bool:
+    return "error" not in rep and rep.get("inconsistencies") == []
+
+
+async def _deep_scrub(client, pgid: str, repair: bool = False) -> tuple[int, dict]:
+    rc, rs, data = await client.command(
+        {"prefix": "pg repair" if repair else "pg deep-scrub", "pgid": pgid})
+    return rc, (json.loads(data) if rc == 0 and data else {"error": rs})
+
+
+async def cluster_run(cfg: Config, device, stores: dict, out: dict) -> None:
+    """Steps 1-9 of the cluster path in one event loop; fills ``out``."""
+    secs, steps = out["seconds"], out["launches_by_step"]
+    k, n = cfg.k, cfg.k + cfg.m
+    crush = CrushMap()
+    crush_builder.build_hierarchy(crush, osds_per_host=1, n_hosts=CLUSTER_OSDS)
+    mon = Monitor(crush=crush, device=device)
+    osds: dict[int, OSDDaemon] = {}
+    client = RadosClient(client_id=4242)
+    objects = cluster_objects(cfg)
+    logical = sum(len(v) for v in objects.values())
+    stopped: set[int] = set()
+
+    def step(name: str, c0: dict, t0: float) -> None:
+        secs[name] = time.perf_counter() - t0
+        steps[name] = counts_since(c0)
+
+    async def read_all(oids) -> int:
+        got = await _bounded([io.read(oid) for oid in oids], CLUSTER_INFLIGHT)
+        out["op_failures"] += sum(_op_result(r) != 0 for r in got)
+        return sum(isinstance(r, BaseException) or r != objects[oid]
+                   for oid, r in zip(oids, got))
+
+    out["op_failures"] = 0
+    try:
+        # 1. boot: the mon, the OSDs on their stores, the client, the pool;
+        # every daemon's warmup done
+        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
+        await mon.start()
+        for i in range(CLUSTER_OSDS):
+            osds[i] = OSDDaemon(i, mon.addr, store=stores[i], device=device)
+            await osds[i].start()
+        await client.connect(*mon.addr)
+        await client.ec_profile_set(CLUSTER_POOL, cluster_profile(cfg))
+        await client.pool_create(CLUSTER_POOL, pg_num=CLUSTER_PG_NUM, pool_type="erasure",
+                                 erasure_code_profile=CLUSTER_POOL)
+        io = client.ioctx(CLUSTER_POOL)
+        epoch = client.osdmap.epoch
+        await _until(lambda: all(o.epoch >= epoch for o in osds.values()), CLUSTER_TIMEOUT,
+                     "the pool's map on every OSD")
+        while any(o._warm_tasks for o in osds.values()):
+            await asyncio.gather(*[t for o in osds.values() for t in o._warm_tasks])
+        await client.wait_clean(timeout=CLUSTER_TIMEOUT)
+        step("boot", c0, t0)
+        agg, ver = decode_batcher.shared(device), scrub_batcher.shared(device)
+        svc = osds[0].encode_service
+        out["encode_service_attached"] = sum(o.encode_service is not None for o in osds.values())
+        out["warmup_failures"] = [f"osd.{o.id}:{name}:{e!r}" for o in osds.values()
+                                  for name, e in o.warmup_failures]
+        out["prewarmed_shapes"] = {"decode": agg.stats["prewarmed_shapes"],
+                                   "scrub": ver.stats["prewarmed_shapes"],
+                                   "encode": svc.stats["prewarmed_shapes"] if svc else 0}
+        out["cold_launches_after_boot"] = {"decode": agg.stats["cold_launches"],
+                                           "scrub": ver.stats["cold_launches"]}
+
+        # 2. balance: `osd balance` on the empty pool, the mon's batched CRUSH
+        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
+        epoch = client.osdmap.epoch
+        rc, _, data = await client.command({"prefix": "osd balance"})
+        swaps = json.loads(data)["swaps"] if rc == 0 else None
+        if swaps:
+            await client._wait_new_map(epoch, timeout=CLUSTER_TIMEOUT)
+        await client.wait_clean(timeout=CLUSTER_TIMEOUT, min_epoch=client.osdmap.epoch)
+        step("balance", c0, t0)
+        out["balance"] = {"rc": rc, "upmap_items": swaps, "epoch_before": epoch,
+                          "epoch_after": client.osdmap.epoch}
+
+        # 3. write: every object, CLUSTER_INFLIGHT in flight, under the profiler
+        c0 = kernel_counts(CLUSTER_STEP_KERNELS)
+        s0 = dict(svc.stats) if svc else {}
+        results: list = []
+
+        async def write_all():
+            results.extend(await _bounded(
+                [io.write_full(oid, data) for oid, data in objects.items()], CLUSTER_INFLIGHT))
+
+        wall, idle = await traced_async(write_all, device)
+        secs["write"], steps["write"] = wall, counts_since(c0)
+        out["write_results_nonzero"] = sum(_op_result(r) != 0 for r in results)
+        out["op_failures"] += out["write_results_nonzero"]
+        dispatches = (sum(svc.stats[key] - s0.get(key, 0) for key in
+                          ("single_dispatches", "dp_dispatches", "tp_dispatches"))
+                      if svc else 0)
+        out["write"] = {"gb_per_s": logical / wall / 1e9, "ops": len(objects),
+                        "encode_dispatches": dispatches,
+                        "encode_coalesced": (svc.stats["coalesced"] - s0.get("coalesced", 0)
+                                             if svc else 0),
+                        "device_idle_share": idle}
+
+        # 4. read: every object back, healthy (no decode)
+        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
+        out["read_mismatches"] = await read_all(list(objects))
+        step("read", c0, t0)
+        out["read"] = {"gb_per_s": logical / secs["read"] / 1e9}
+
+        # 5. scrub: deep-scrub every PG at once, each report clean
+        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
+        pool_id = io.pool_id
+        reps = await asyncio.gather(*(_deep_scrub(client, f"{pool_id}.{ps}")
+                                      for ps in range(CLUSTER_PG_NUM)))
+        step("scrub", c0, t0)
+        out["scrub"] = {"pgs": len(reps),
+                        "clean": sum(rc == 0 and _scrub_clean(rep) for rc, rep in reps),
+                        "objects": sum(rep.get("objects", 0) for _, rep in reps)}
+
+        # 6. rot: one byte of one parity shard flipped at rest, found by
+        # deep scrub, repaired, a second scrub clean, the bytes restored
+        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
+        oid = next(iter(objects))
+        pg, acting, _ = _cluster_acting(client, pool_id, oid)
+        shard = k
+        store = stores[acting[shard]]
+        c, o = _shard_obj(pool_id, pg, shard, oid)
+        original = store.read(c, o)
+        flipped = bytearray(original)
+        flipped[len(flipped) // 2] ^= 0x01
+        store.queue_transaction(Transaction().write(c, o, 0, bytes(flipped)))
+        pgid = f"{pool_id}.{pg.ps}"
+        rc1, rep1 = await _deep_scrub(client, pgid)
+        rc2, rep2 = await _deep_scrub(client, pgid, repair=True)
+        rc3, rep3 = await _deep_scrub(client, pgid)
+        step("rot", c0, t0)
+        out["rot"] = {
+            "object": oid, "shard": shard, "osd": acting[shard], "rc": [rc1, rc2, rc3],
+            "found": [list(f) for f in sorted({(i["object"], i.get("shard")) for i in
+                                               rep1.get("inconsistencies", [])})],
+            "repaired": rep2.get("repaired"), "clean_after": _scrub_clean(rep3),
+            "bytes_restored": store.read(c, o) == original}
+
+        # 7. degraded read: OSD 5 stopped and marked down (not out); every
+        # object it held reads back through a decode on the card
+        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
+        before = {oid: _cluster_acting(client, pool_id, oid) for oid in objects}
+        held = [oid for oid, (_, a, _p) in before.items() if CLUSTER_LOST_OSD in a]
+        epoch = client.osdmap.epoch
+        await osds[CLUSTER_LOST_OSD].stop()
+        stopped.add(CLUSTER_LOST_OSD)
+        rc, _, _ = await client.command({"prefix": "osd down", "id": str(CLUSTER_LOST_OSD)})
+        await client._wait_new_map(epoch, timeout=CLUSTER_TIMEOUT)
+        out["degraded_mismatches"] = await read_all(held)
+        step("degraded_read", c0, t0)
+        out["degraded_read"] = {
+            "rc": rc, "objects": len(held),
+            "objects_needing_decode": sum(before[oid][1].index(CLUSTER_LOST_OSD) < k
+                                          for oid in held),
+            "gb_per_s": sum(len(objects[oid]) for oid in held) / secs["degraded_read"] / 1e9}
+
+        # 8. recover: OSD 5 out, active+clean, every rebuilt shard's crc
+        # equal to its hinfo
+        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
+        a0 = dict(agg.stats)
+        epoch = client.osdmap.epoch
+        rc, _, _ = await client.command({"prefix": "osd out", "id": str(CLUSTER_LOST_OSD)})
+        await client._wait_new_map(epoch, timeout=CLUSTER_TIMEOUT)
+        await client.wait_clean(timeout=CLUSTER_TIMEOUT, min_epoch=client.osdmap.epoch)
+        step("recover", c0, t0)
+        rebuilt = moved = crc_bad = 0
+        for oid, (pg0, a_old, _p) in before.items():
+            pg1, a_new, _p1 = _cluster_acting(client, pool_id, oid)
+            for s in range(n):
+                if a_new[s] == a_old[s]:
+                    continue
+                rebuilt += a_old[s] == CLUSTER_LOST_OSD
+                moved += a_old[s] != CLUSTER_LOST_OSD
+                c, o = _shard_obj(pool_id, pg1, s, oid)
+                st = stores[a_new[s]]
+                hinfo = ecutil.HashInfo.from_bytes(st.getattr(c, o, HINFO_ATTR))
+                crc_bad += native.crc32c(st.read(c, o)) != hinfo.get_chunk_hash(s)
+        out["recover"] = {
+            "rc": rc, "seconds_out_to_clean": secs["recover"],
+            "shards_rebuilt": rebuilt, "shards_moved": moved, "rebuilt_crc_mismatches": crc_bad,
+            "decode_batches": agg.stats["launches"] - a0["launches"],
+            "decode_requests": agg.stats["batched_requests"] - a0["batched_requests"]}
+
+        # 9. readback: every object equal after recovery
+        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
+        out["readback_mismatches"] = await read_all(list(objects))
+        step("readback", c0, t0)
+        out["cold_launches"] = {"decode": agg.stats["cold_launches"],
+                                "scrub": ver.stats["cold_launches"],
+                                "encode": svc.stats["cold_launches"] if svc else 0}
+    finally:
+        # every daemon stopped and no task left behind
+        t0 = time.perf_counter()
+        await client.shutdown()
+        for i, o in osds.items():
+            if i not in stopped:
+                await o.stop()
+        await mon.stop()
+        await asyncio.sleep(0)
+        out["tasks_left"] = tasks_pending()
+        secs["shutdown"] = time.perf_counter() - t0
+
+
+def phase_cluster(cfg: Config, device, root: str) -> dict:
+    """The cluster path under ``root``: a port Monitor, ``CLUSTER_OSDS``
+    port OSDDaemons each on a BlockStore on its own FileDB, and a port
+    RadosClient, all on ``device``; ``cfg.store_objects`` objects (at most
+    ``CLUSTER_OBJECTS``) of ``cfg.store_object_bytes`` written, read, deep-scrubbed, one parity
+    shard rotted and repaired, one OSD lost, read degraded and recovered,
+    read back.  Returns the line with each step's seconds and kernel
+    launches beside it."""
+    out = {"phase": "cluster", "objects": min(cfg.store_objects, CLUSTER_OBJECTS),
+           "object_bytes": cfg.store_object_bytes, "osds": CLUSTER_OSDS,
+           "pg_num": CLUSTER_PG_NUM, "profile": cluster_profile(cfg),
+           "seconds": {}, "launches_by_step": {}}
+    for mod in (encode_service, decode_batcher, scrub_batcher):
+        mod.reset_shared()
+    stores = {i: open_store(os.path.join(root, f"osd.{i}"), i) for i in range(CLUSTER_OSDS)}
+    try:
+        asyncio.run(cluster_run(cfg, device, stores, out))
+    finally:
+        for store in stores.values():
+            store.umount()
+        for mod in (encode_service, decode_batcher, scrub_batcher):
+            mod.reset_shared()
+    out["total_seconds"] = sum(out["seconds"].values())
+    return out
+
+
+def check_cluster(line: dict) -> None:
+    """What the cluster line must show: every op answered 0 and every read
+    equal, no warmup failure and no cold batcher launch, the balance
+    answered 0 (and its upmaps in a new map), every scrub report clean
+    but the rotted shard's, which is found alone and repaired, shards
+    rebuilt through the decode aggregator with every crc equal to its
+    hinfo, and no task left."""
+    rot = line["rot"]
+    faults = {
+        "ops": bool(line["op_failures"] or line["write_results_nonzero"]),
+        "reads": bool(line["read_mismatches"] or line["degraded_mismatches"]
+                      or line["readback_mismatches"]),
+        "warmup": bool(line["warmup_failures"]),
+        "cold_launches": any(line[key][b] for key in ("cold_launches_after_boot",
+                                                      "cold_launches")
+                             for b in ("decode", "scrub")),
+        "balance": (line["balance"]["rc"] != 0 or (line["balance"]["upmap_items"] and
+                    line["balance"]["epoch_after"] <= line["balance"]["epoch_before"])),
+        "scrub": line["scrub"]["clean"] != line["scrub"]["pgs"],
+        "rot": (rot["rc"] != [0, 0, 0] or rot["found"] != [[rot["object"], rot["shard"]]]
+                or rot["repaired"] != [rot["object"]] or not rot["clean_after"]
+                or not rot["bytes_restored"]),
+        "down_out": bool(line["degraded_read"]["rc"] or line["recover"]["rc"]),
+        "rebuilt": (line["recover"]["rebuilt_crc_mismatches"] > 0
+                    or line["recover"]["shards_rebuilt"] <= 0
+                    or line["recover"]["decode_batches"] <= 0),
+        "tasks_left": bool(line["tasks_left"]),
+    }
+    bad = sorted(k for k, v in faults.items() if v)
+    if bad:
+        raise AssertionError(f"cluster path: {bad}")
+
+
+def run_cluster_path(cfg: Config, device) -> dict:
+    """Phase 15 with its launches counted alone: reset just before, read
+    just after, in a temporary directory removed at the end.  On the card
+    each step must have launched its kernels (``CLUSTER_STEP_KERNELS``)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    rk.reset_launch_counts()
+    hashing.reset_launch_counts()
+    cm.reset_launch_counts()
+    try:
+        line = phase_cluster(cfg, device, root)
+        _sync(device)
+    finally:
+        shutil.rmtree(root)
+    launches = {**rk.launch_counts(), **hashing.launch_counts(), **cm.launch_counts()}
+    emit(line)
+    check_cluster(line)
+    idle = path_idle(line["launches_by_step"], CLUSTER_STEP_KERNELS)
+    if torch.device(device).type == "cuda" and idle:
+        raise AssertionError(f"kernels not launched on the cluster path: {idle}")
+    return {"cluster": line, "launches": launches, "idle": idle}
+
+
 def ptxas_lines(log: str) -> list[str]:
     """What ``ptxas -v`` says of each function: its name, then its stack
     frame and spills, then its registers."""
@@ -3789,6 +4202,14 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "subop_path_launches", **subop["launches"],
           "by_step": subop["subop"]["launches_by_step"]})
 
+    # the cluster path: a RadosClient's ops through a Monitor and
+    # OSDDaemons to the kernels, counted alone
+    t_cluster = time.perf_counter()
+    cluster = run_cluster_path(cfg, device)
+    cluster_s = time.perf_counter() - t_cluster
+    emit({"phase": "cluster_path_launches", **cluster["launches"],
+          "by_step": cluster["cluster"]["launches_by_step"]})
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     for row in rows:
@@ -3804,7 +4225,8 @@ def main(argv: list[str] | None = None) -> int:
     wall = time.perf_counter() - t0
     emit({"phase": "wall", "seconds": wall, "store_path_seconds": store_s,
           "store_path_share": store_s / wall, "subop_path_seconds": subop_s,
-          "subop_path_share": subop_s / wall})
+          "subop_path_share": subop_s / wall, "cluster_path_seconds": cluster_s,
+          "cluster_path_share": cluster_s / wall})
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -329,13 +329,41 @@ def test_failing_dispatch_reaches_every_waiter(monkeypatch):
     assert svc.stats["single_dispatches"] == 0 and "fallbacks" not in svc.stats
 
 
+def test_single_dispatch_results_outlive_the_staging_buffer(monkeypatch):
+    """On a card the single-device dispatch stages its rows and its result
+    in pinned buffers that the next dispatch reuses.  A waiter's result
+    must be its own copy: a lone request of a pow2 width is the whole
+    buffer, and were it returned as a view, the next dispatch would
+    overwrite it before the waiter reads it.  Stood in for on the CPU by
+    a product that returns one reused buffer."""
+    svc = es.EncodeService(device="cpu", min_bytes=0)
+    M = isa_cauchy_matrix(4, 2)
+    shared_out = torch.zeros((2, 4096), dtype=torch.uint8)
+    plain = rk.BitmatrixCodec._apply
+
+    def into_one_buffer(bits, rows, out):
+        return shared_out.copy_(plain(bits, rows, out))
+
+    monkeypatch.setattr(rk.BitmatrixCodec, "_apply", staticmethod(into_one_buffer))
+    rng = np.random.default_rng(8)
+    first, second = (rng.integers(0, 256, (4, 4096), dtype=np.uint8) for _ in range(2))
+    out1 = svc._run_group_single([(M, first, None)], svc._bits(M), 4)[0]
+    out2 = svc._run_group_single([(M, second, None)], svc._bits(M), 4)[0]
+    assert np.array_equal(out1, gf_matmul(M, first))
+    assert np.array_equal(out2, gf_matmul(M, second))
+    assert not np.shares_memory(out1, shared_out.numpy())
+
+
 def test_shared_needs_a_card_or_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         es.shared()
     svc = es.shared(device="cpu")
     assert svc.active() and svc.mesh is None and svc.device.type == "cpu"
-    assert es.shared() is svc
+    # the held CPU service is not handed to a caller that asks for the card
+    with pytest.raises(RuntimeError):
+        es.shared()
+    assert es.shared(device="cpu") is svc
     es.reset_shared()
     assert not es.EncodeService().active()
 

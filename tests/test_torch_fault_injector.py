@@ -2,8 +2,8 @@
 deterministic error/delay/abort at named points.
 
 The port's twin of tests/test_fault_injector.py: the same cases over
-``ceph_tpu_torch``.  The injected cluster fault case (a
-mini-cluster write through the client) waits for the port's daemons.
+``ceph_tpu_torch``, the injected cluster fault case on a port
+mini-cluster on the CPU.
 """
 
 import asyncio
@@ -137,3 +137,34 @@ class TestInjector:
         d = fi.dump()
         assert d["x"]["fired"] == 1 and d["x"]["count"] == 2
         assert d["x"]["error"] == errno.EIO
+
+
+class TestInjectedClusterFaults:
+    def test_injected_sub_write_failure_fails_cleanly_then_recovers(self):
+        """Arm the shard-apply point once: the write fails with exactly
+        the injected errno (no corruption, no hang), the retry applies
+        cleanly, and the partial first attempt is reconciled away —
+        deterministic, unlike thrashing."""
+        from ceph_tpu_torch.client.rados import RadosError
+        from tests.test_torch_mini_cluster import Cluster, run
+
+        async def go():
+            async with Cluster(n_osds=6) as c:
+                await c.client.ec_profile_set(
+                    "p", {"plugin": "cuda", "k": "3", "m": "2"})
+                await c.client.pool_create(
+                    "fi", pg_num=4, pool_type="erasure",
+                    erasure_code_profile="p")
+                io = c.client.ioctx("fi")
+                FAULTS.inject(
+                    "osd.ec_sub_write_apply", error=errno.EIO, count=1)
+                with pytest.raises(RadosError) as ei:
+                    await io.write_full("obj", b"fault injected " * 1000)
+                assert ei.value.errno == errno.EIO
+                assert FAULTS.fired("osd.ec_sub_write_apply") == 1
+                # the client's retry (same reqid machinery) succeeds and
+                # the partially-applied first attempt cannot corrupt
+                await io.write_full("obj", b"fault injected " * 1000)
+                assert await io.read("obj") == b"fault injected " * 1000
+
+        run(go())

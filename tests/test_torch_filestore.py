@@ -3,8 +3,7 @@ and a daemon-restart flow (reference analogue: store_test.cc over a
 journaling backend + its crash-replay cases).
 
 The port's twin of tests/test_filestore.py: the same cases over
-``ceph_tpu_torch``.  The daemon restart case (an OSD serving from a
-FileStore) waits for the port's OSD daemon.
+``ceph_tpu_torch``, the daemon restart case's daemons on the CPU.
 """
 
 from __future__ import annotations
@@ -127,3 +126,60 @@ class TestDurability:
         s2 = FileStore(store.path)
         s2.mount()
         assert s2.read(C, O1) == b"um"
+
+
+class TestDaemonRestart:
+    def test_osd_restart_from_disk(self, tmp_path):
+        """An OSD serving from a FileStore restarts with its data —
+        recovery sees a consistent member, not an empty one."""
+        import asyncio
+
+        from ceph_tpu_torch.client import RadosClient
+        from ceph_tpu_torch.crush import builder as B
+        from ceph_tpu_torch.crush.types import CrushMap
+        from ceph_tpu_torch.mon import Monitor
+        from ceph_tpu_torch.osd.daemon import OSDDaemon
+
+        async def go():
+            crush = CrushMap()
+            B.build_hierarchy(crush, osds_per_host=1, n_hosts=4)
+            mon = Monitor(crush=crush, device="cpu")
+            await mon.start()
+            stores = {}
+            osds = {}
+            for i in range(4):
+                stores[i] = FileStore(str(tmp_path / f"osd{i}"))
+                stores[i].mount()
+                osds[i] = OSDDaemon(i, mon.addr, store=stores[i], device="cpu")
+                await osds[i].start()
+            cl = RadosClient(client_id=3)
+            await cl.connect(*mon.addr)
+            await cl.ec_profile_set("p", {"plugin": "cuda", "k": "2", "m": "1"})
+            await cl.pool_create(
+                "ec", pg_num=4, pool_type="erasure", erasure_code_profile="p"
+            )
+            io = cl.ioctx("ec")
+            await io.write_full("durable", b"d" * 9000)
+            # stop an OSD, then bring it back from DISK (fresh FileStore)
+            victim = 1
+            epoch = cl.osdmap.epoch
+            await osds[victim].stop()
+            stores[victim].umount()
+            await cl.command({"prefix": "osd down", "id": str(victim)})
+            await cl._wait_new_map(epoch, timeout=10)
+            fresh = FileStore(str(tmp_path / f"osd{victim}"))
+            fresh.mount()
+            osds[victim] = OSDDaemon(victim, mon.addr, store=fresh, device="cpu")
+            await osds[victim].start()
+            await asyncio.sleep(0.5)
+            assert await io.read("durable") == b"d" * 9000
+            await cl.shutdown()
+            for o in osds.values():
+                await o.stop()
+            await mon.stop()
+
+        loop = asyncio.new_event_loop()
+        try:
+            loop.run_until_complete(asyncio.wait_for(go(), 60))
+        finally:
+            loop.close()

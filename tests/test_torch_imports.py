@@ -83,7 +83,13 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "store.filestore", "store.bluefs", "store.blockstore",
                  "msg.frames", "msg.auth", "msg.messenger", "msg.messages", "cls",
                  "cls.rgw", "osd.snaps", "osd.pglog", "osd.pgutil", "osd.scheduler",
-                 "osd.opqueue", "osd.mapenc"):
+                 "osd.opqueue", "osd.mapenc", "common.logclient", "mgr.client",
+                 "mgr.modules", "mgr.tracer", "osd.ec_backend", "osd.recovery",
+                 "osd.scrubber", "osd.tiering", "osd.daemon", "mon", "mon.store",
+                 "mon.paxos", "mon.auth_service", "mon.config_service",
+                 "mon.log_service", "mon.mgr_service", "mon.stats_service",
+                 "mon.osd_service", "mon.commands", "mon.monitor", "client",
+                 "client.striper", "client.objecter", "client.rados"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -110,13 +116,15 @@ _REF = re.compile(r"\bceph_tpu(\.|\s|$)", re.M)
 
 def test_foundation_loads_without_messages():
     """The host foundation (common/, kv/, store/, msg.denc) stands on its
-    own: ``ceph_tpu_torch.common`` exports the reference's names but the
-    cluster log's, and no ``msg.messages`` module is needed to load it."""
+    own: ``ceph_tpu_torch.common`` exports the reference's names, the
+    cluster log's ``LogClient`` and ``format_entry`` included, and no
+    ``msg.messages`` module is needed to load it (a ``LogClient`` imports
+    ``MLog`` when it first sends)."""
     assert set(ceph_tpu_torch.common.__all__) == {
-        "AdminSocket", "DoutLogger", "OPTIONS", "OpTracker", "TrackedOp",
+        "AdminSocket", "DoutLogger", "LogClient", "OPTIONS", "OpTracker", "TrackedOp",
         "admin_command", "ConfigProxy", "MetricsServer", "Option", "PerfCounters",
         "all_collections", "declare", "get_perf_counters", "prometheus_text",
-        "record_crash", "scan_crashes"}
+        "record_crash", "scan_crashes", "format_entry"}
     assert set(ceph_tpu_torch.store.__all__) == {
         "FileStore", "META_COLL", "MemStore", "ObjectStore", "Transaction", "TxOp",
         "coll_t", "ghobject_t"}
@@ -282,3 +290,39 @@ def test_version():
 
     for plugin in (clay, cuda, isa, jerasure, lrc, shec):
         assert plugin.__erasure_code_version__ == ceph_tpu_torch.__version__
+
+
+def test_daemons_take_the_card_unless_asked(no_cuda):
+    from ceph_tpu_torch.mon import Monitor
+    from ceph_tpu_torch.osd.daemon import OSDDaemon
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Monitor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OSDDaemon(0, ("127.0.0.1", 1))
+    assert Monitor(device="cpu").device.type == "cpu"
+    assert OSDDaemon(0, ("127.0.0.1", 1), device="cpu").device.type == "cpu"
+
+
+def test_client_import_builds_nothing():
+    """``import ceph_tpu_torch.client`` loads the OSD daemon module (the
+    client maps objects with its ``object_to_pg``): no kernel is built
+    and no device is touched at import."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceph_tpu'] = None\n"
+        "import torch\n"
+        "import ceph_tpu_torch.client, ceph_tpu_torch.mon\n"
+        "from ceph_tpu_torch.ops import _build\n"
+        "assert 'ceph_tpu_torch.osd.daemon' in sys.modules\n"
+        "assert _build._libs == {}\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

@@ -172,13 +172,23 @@ def segments(pkg, msg, seq: int = 7) -> list[bytes]:
 
 
 def test_registries_hold_39_classes_each_of_its_own_package():
+    """The 39 classes of ``msg.messages``, and the mon's election and
+    Paxos messages, which join the registry when ``mon.paxos`` loads (as
+    the reference's do), each the package's own."""
+    import ceph_tpu.mon.paxos as ref_paxos
+    import ceph_tpu_torch.mon.paxos as paxos
+
     assert len(CLASSES) == 39
-    assert sorted(messenger._REGISTRY) == sorted(c.TYPE for c in CLASSES)
+    mon = [paxos.MMonElection, paxos.MMonPaxos]
+    assert sorted(messenger._REGISTRY) == sorted([c.TYPE for c in CLASSES] + [c.TYPE for c in mon])
     for cls in CLASSES:
         assert ref_messenger._REGISTRY[cls.TYPE] is cls
         ours = messenger._REGISTRY[cls.TYPE]
         assert ours.__name__ == cls.__name__
         assert ours.__module__ == "ceph_tpu_torch.msg.messages"
+    for cls, ref in zip(mon, [ref_paxos.MMonElection, ref_paxos.MMonPaxos]):
+        assert messenger._REGISTRY[cls.TYPE] is cls and ref_messenger._REGISTRY[ref.TYPE] is ref
+        assert cls.TYPE == ref.TYPE and cls.__name__ == ref.__name__
 
 
 def test_decode_before_the_message_set_is_imported():

@@ -686,3 +686,104 @@ def test_chip_smoke_subop_checks_fail_loudly():
     assert chip_smoke.path_idle(steps, table) == []
     steps["lose"] = {"gf_bitmatmul": 0, "crush_rule": 1}
     assert chip_smoke.path_idle(steps, table) == ["gf_bitmatmul:lose"]
+
+
+#: chip_smoke's cluster path cut for the CPU: 4 objects of 64 KiB (the
+#: store path's) on the 12 OSDs, every matmul on the device seam
+TINY_CLUSTER = dict(store_objects=4, store_object_bytes=64 * 1024, store_device_min_bytes=0)
+
+
+def test_chip_smoke_cluster_path_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke's phase 15 at a tiny size on the CPU: a port Monitor,
+    12 port OSDDaemons on BlockStores and a port RadosClient; the pool
+    balanced, 4 objects written and read back, every PG deep-scrubbed
+    clean, a rotted parity shard found alone, repaired and restored, OSD
+    5 down (degraded reads equal) and out (recovered, every rebuilt
+    shard's crc equal to its hinfo), read back, every daemon stopped with
+    no task left.  On the CPU nothing launches, so the launch check names
+    every kernel of the path; the temporary directory is gone."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    run = chip_smoke.run_cluster_path(chip_smoke.Config(**TINY_CLUSTER), "cpu")
+    line = run["cluster"]
+    assert (line["objects"], line["osds"], line["pg_num"]) == (4, 12, 32)
+    assert line["profile"] == {"plugin": "cuda", "k": "8", "m": "3", "technique": "cauchy",
+                               "device-min-bytes": "0", "crush-failure-domain": "host"}
+    assert line["op_failures"] == 0 and line["write_results_nonzero"] == 0
+    assert line["warmup_failures"] == [] and line["encode_service_attached"] == 0
+    assert line["prewarmed_shapes"]["decode"] > 0 and line["prewarmed_shapes"]["scrub"] > 0
+    assert line["cold_launches_after_boot"] == {"decode": 0, "scrub": 0}
+    assert line["cold_launches"] == {"decode": 0, "scrub": 0, "encode": 0}
+    assert line["balance"]["rc"] == 0
+    assert line["read_mismatches"] == 0 and line["readback_mismatches"] == 0
+    assert line["scrub"] == {"pgs": 32, "clean": 32, "objects": 4}
+    rot = line["rot"]
+    assert rot["found"] == [[rot["object"], 8]] and rot["repaired"] == [rot["object"]]
+    assert rot["clean_after"] and rot["bytes_restored"] and rot["rc"] == [0, 0, 0]
+    assert line["degraded_mismatches"] == 0 and line["degraded_read"]["objects"] > 0
+    rec = line["recover"]
+    assert rec["shards_rebuilt"] > 0 and rec["rebuilt_crc_mismatches"] == 0
+    assert rec["decode_batches"] > 0 and line["tasks_left"] == 0
+    steps = ["boot", "balance", "write", "read", "scrub", "rot", "degraded_read", "recover",
+             "readback"]
+    assert list(line["launches_by_step"]) == steps
+    assert set(line["seconds"]) == set(steps) | {"shutdown"}
+    assert set(line["write"]) == {"gb_per_s", "ops", "encode_dispatches", "encode_coalesced",
+                                  "device_idle_share"}
+    assert set(run["launches"].values()) == {0}
+    assert run["idle"] == ["batched_crc32c_device:scrub", "crush_rule:balance",
+                           "gf_bitmatmul:degraded_read", "gf_bitmatmul:recover",
+                           "gf_bitmatmul:write", "gf_encode_compare:scrub"]
+    assert os.listdir(tmp_path) == []
+
+
+def test_chip_smoke_cluster_checks_fail_loudly():
+    """Each fault the cluster line can show fails its check, and on the
+    card an idle kernel of the path is named."""
+    oid = "rbd_data.0000000000000000"
+    good = {"op_failures": 0, "write_results_nonzero": 0, "read_mismatches": 0,
+            "degraded_mismatches": 0, "readback_mismatches": 0, "warmup_failures": [],
+            "cold_launches_after_boot": {"decode": 0, "scrub": 0},
+            "cold_launches": {"decode": 0, "scrub": 0, "encode": 3},
+            "balance": {"rc": 0, "upmap_items": 6, "epoch_before": 15, "epoch_after": 16},
+            "scrub": {"pgs": 32, "clean": 32},
+            "rot": {"object": oid, "shard": 8, "rc": [0, 0, 0], "found": [[oid, 8]],
+                    "repaired": [oid], "clean_after": True, "bytes_restored": True},
+            "degraded_read": {"rc": 0},
+            "recover": {"rc": 0, "rebuilt_crc_mismatches": 0, "shards_rebuilt": 59,
+                        "decode_batches": 59},
+            "tasks_left": 0}
+    chip_smoke.check_cluster(good)
+    rot = good["rot"]
+    bad_lines = [
+        ("ops", {"op_failures": 1}), ("ops", {"write_results_nonzero": 2}),
+        ("reads", {"degraded_mismatches": 1}), ("reads", {"readback_mismatches": 1}),
+        ("warmup", {"warmup_failures": ["osd.3:cluster:RuntimeError('nvcc')"]}),
+        ("cold_launches", {"cold_launches": {"decode": 1, "scrub": 0, "encode": 0}}),
+        ("cold_launches", {"cold_launches_after_boot": {"decode": 0, "scrub": 2}}),
+        ("balance", {"balance": {**good["balance"], "rc": -22}}),
+        # upmaps installed but the client never saw the new map
+        ("balance", {"balance": {**good["balance"], "epoch_after": 15}}),
+        ("scrub", {"scrub": {"pgs": 32, "clean": 31}}),
+        # the rot found with another shard, not repaired, or not restored
+        ("rot", {"rot": {**rot, "found": [[oid, 8], [oid, 2]]}}),
+        ("rot", {"rot": {**rot, "repaired": []}}),
+        ("rot", {"rot": {**rot, "bytes_restored": False}}),
+        ("rot", {"rot": {**rot, "rc": [0, -5, 0]}}),
+        ("down_out", {"recover": {**good["recover"], "rc": -11}}),
+        ("rebuilt", {"recover": {**good["recover"], "rebuilt_crc_mismatches": 1}}),
+        ("rebuilt", {"recover": {**good["recover"], "shards_rebuilt": 0}}),
+        # rebuilt, but not through the decode aggregator
+        ("rebuilt", {"recover": {**good["recover"], "decode_batches": 0}}),
+        ("tasks_left", {"tasks_left": 2})]
+    for fault, change in bad_lines:
+        with pytest.raises(AssertionError, match=f"'{fault}'"):
+            chip_smoke.check_cluster({**good, **change})
+    table = chip_smoke.CLUSTER_STEP_KERNELS
+    busy = {"gf_bitmatmul": 3, "crush_rule": 2, "batched_crc32c_device": 4,
+            "gf_encode_compare": 1}
+    steps = {s: busy for s in ("balance", "write", "scrub", "degraded_read", "recover")}
+    assert chip_smoke.path_idle(steps, table) == []
+    steps["scrub"] = {**busy, "gf_encode_compare": 0}
+    steps["balance"] = {**busy, "crush_rule": 0}
+    assert chip_smoke.path_idle(steps, table) == ["crush_rule:balance",
+                                                  "gf_encode_compare:scrub"]
