@@ -187,6 +187,11 @@ def create_ec_rule(
     CrushWrapper::add_simple_rule / add_indep_multi_osd_per_failure_
     domain_rule).  Returns the new rule id; registers ``name``.
 
+    A one-OSD-per-domain indep rule also carries Ceph's
+    ``set_choose_tries 100`` (CrushWrapper::add_simple_rule_at), which
+    ``ceph_tpu``'s omits: here a PG keeps no hole where a retry past the
+    map's 50 fills it.
+
     ``device_class`` restricts choice to OSDs of that class.  The
     reference materializes per-class shadow hierarchies
     (CrushWrapper::populate_classes); here class filtering is applied by
@@ -206,6 +211,12 @@ def create_ec_rule(
             map_, root_id, fd_type,
             rule_type=3, mode=mode, num=num_failure_domains,
         )
+        if mode == "indep":
+            # Ceph's erasure rule also raises the descent's retry budget
+            # (CrushWrapper::add_simple_rule_at: set_choose_tries 100):
+            # with the map's 50, a PG as wide as the hosts left after one
+            # goes out keeps a hole one time in 60
+            map_.rules[rid].steps.insert(1, RuleStep(RuleOp.SET_CHOOSE_TRIES, 100, 0))
     else:
         rid = add_osd_multi_per_domain_rule(
             map_, root_id, fd_type,

@@ -140,7 +140,7 @@ through the port's entry points:
    the card.  The client sets an RS(8,3) profile on the ``cuda`` plugin
    and creates a pool of 32 PGs; every daemon's map-time warmup finishes
    (no failure, no cold batcher launch after it); ``osd balance`` runs
-   the mon's ``UpmapBalancer`` on the card; 32 of the store path's
+   the mon's ``UpmapBalancer`` on the card; 16 of the store path's
    objects (``CLUSTER_OBJECTS``) are written with ``write_full``, 16 in
    flight, through each primary's encode service (the device's idle share
    taken by torch.profiler), read back, and every PG deep-scrubbed clean
@@ -150,7 +150,27 @@ through the port's entry points:
    decoded on the card; it goes out: the cluster recovers to
    active+clean through the ``DecodeAggregator``, every rebuilt shard's
    crc32c equal to its hinfo; every object reads back equal, and every
-   daemon stops with no task left.  Every op must answer 0.
+   daemon stops with no task left.  Every op must answer 0;
+16. services — the services Ceph's users talk to, over such a cluster
+   (a ``Monitor``, a ``MgrDaemon`` whose digest runs ``mgr_analytics.cu``,
+   12 ``OSDDaemon``s on ``BlockStore``s, a ``RadosClient``, all on the
+   card, booted and lost through the same steps as phase 15's):
+   replicated metadata pools ``rbd``, ``rgw.meta``, ``cephfs.meta``
+   (size 3, 8 PGs) and RS(8,3) data pools ``rbd.data``, ``rgw.data``,
+   ``cephfs.data`` (32 PGs each).  An RBD image of 128 MiB (order 22,
+   object map) written in 4 MiB writes and eight unaligned 64 KiB ones,
+   snapshotted, one object overwritten, head and snapshot read back; an
+   ``S3Frontend``: 8 objects of 16 MiB (a 4 MiB head and shadow tails)
+   PUT and GET over HTTP with SigV4, every body equal and every ETag its
+   md5; an ``MDSDaemon`` and an ``FSClient``: one 64 MiB file of 1 MiB
+   appends, ``fsync``, read back (the device's idle share of each write
+   step taken by torch.profiler).  Then 4 digests: every pass equal to
+   ``analyze_numpy`` on its snapshot, no failed pass, no cold launch,
+   ``osd perf`` naming the 12 OSDs, the dashboard's ``/metrics`` serving
+   the digest's series.  OSD 5 stops and goes down: the image (head and
+   snapshot), every S3 object and the file read back equal, decoded on
+   the card; it goes out: active+clean; everything reads back equal, and
+   every service and daemon stops with no task left.
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -183,9 +203,14 @@ encode, the rebuild and the read-back (the ``subop_path_launches``
 line); and before and after phase 15, and around each of its steps: CRUSH
 at the balance, the bit-matrix kernel at the write, the degraded read and
 the recovery, the crc and the compare at the scrub (the
-``cluster_path_launches`` line).  A ``wall`` line gives the smoke's
-seconds from the build to the kernel rows and the store, sub-op and
-cluster paths' shares of them.  Then a
+``cluster_path_launches`` line); and before and after phase 16, and
+around each of its steps: the bit-matrix kernel at the RBD, S3 and file
+writes, the degraded reads and the recovery, ``mgr_analytics`` at the
+digests, at least once a digest (the ``services_path_launches`` line; the
+kernel rows carry them as ``services_path_launches``, the mgr's at the
+row of its store's shape).  A ``wall`` line gives the smoke's seconds
+from the build to the kernel rows and the store, sub-op, cluster and
+services paths' shares of them.  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, the main path's memset µs, and the device time per launch at
 each kernel's main-path shape (and at each forced width of the launch
@@ -266,8 +291,10 @@ from ceph_tpu_torch.ec import ECError, registry
 from ceph_tpu_torch.kv import FileDB
 from ceph_tpu_torch.ec.plugins import clay_cuda
 from ceph_tpu_torch.ec.plugins.clay_cuda import ClayRepairProgram
+from ceph_tpu_torch.fs import FSClient, MDSDaemon
 from ceph_tpu_torch.mgr import analytics as mgr_analytics
 from ceph_tpu_torch.mgr import daemon as mgr_daemon
+from ceph_tpu_torch.mgr.dashboard import Dashboard
 from ceph_tpu_torch.models.matrices import decode_matrix_for, isa_cauchy_matrix
 from ceph_tpu_torch.mon import Monitor
 from ceph_tpu_torch.msg.messages import (
@@ -296,6 +323,9 @@ from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
 from ceph_tpu_torch.parallel.encode_farm import Mesh, batch_encode_dp, sharded_encode_tp
 from ceph_tpu_torch.parallel.encode_service import EncodeService
 from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
+from ceph_tpu_torch.rbd import RBD
+from ceph_tpu_torch.rgw import RGWStore, S3Frontend
+from ceph_tpu_torch.rgw.sigv4 import sign_request
 from ceph_tpu_torch.store import Transaction, coll_t, ghobject_t
 from ceph_tpu_torch.store.blockstore import BlobError, BlockStore
 from ceph_tpu_torch.tools import bench as t_bench
@@ -2869,7 +2899,8 @@ def kernel_counts(table: tuple) -> dict:
     now = {"gf_bitmatmul": sum(c for name, c in rc.items() if name.startswith("gf_bitmatmul")),
            "gf_encode_compare": rc["gf_encode_compare"],
            "batched_crc32c_device": hashing.launch_counts()["batched_crc32c_device"],
-           "crush_rule": sum(cm.launch_counts().values())}
+           "crush_rule": sum(cm.launch_counts().values()),
+           "mgr_analytics": ak.launch_counts()["mgr_analytics"]}
     return {kernel: now[kernel] for _, kernel in table}
 
 
@@ -3699,32 +3730,61 @@ def run_subop_path(cfg: Config, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 15: the cluster path, a RadosClient's writes through a Monitor and
-# OSDDaemons to the card's kernels
+# Phases 15 and 16: the cluster path, a RadosClient's writes through a
+# Monitor and OSDDaemons to the card's kernels, and the services path, RBD,
+# S3 and CephFS I/O and the mgr's digests over such a cluster
 # ---------------------------------------------------------------------------
 
-#: the cluster: 12 OSDs on 12 hosts, the pool's name and osd_pool_default_pg_num
-#: PGs, the OSD lost, the ops a client keeps in flight, and the seconds a
-#: wait (a map epoch, active+clean) may take.  The path writes at most
+#: the cluster of both paths: 12 OSDs on 12 hosts, the OSD lost, the
+#: seconds a wait (a map epoch, active+clean) may take; phase 15's pool's
+#: name (its EC profile's too) and osd_pool_default_pg_num PGs, and the
+#: ops its client keeps in flight.  Phase 15 writes at most
 #: CLUSTER_OBJECTS of the store path's objects: its data steps run on the
 #: host at tens of MB/s (a Python messenger and BlockStores in one
 #: process) beside some 36 s of peering at the reference's recovery pacing
-#: (osd_max_backfills 1), and 64 objects took 73 s on the H100
-CLUSTER_OBJECTS = 32
-CLUSTER_POOL = "cluster"
+#: (osd_max_backfills 1); 64 objects took 73 s on the H100, 32 took
+#: 48-60 s, and the smoke past 500 s with phase 16
+CLUSTER_OBJECTS = 16
 CLUSTER_OSDS = 12
-CLUSTER_PG_NUM = 32
 CLUSTER_LOST_OSD = 5
+CLUSTER_TIMEOUT = 180.0
+CLUSTER_POOL = "cluster"
+CLUSTER_PG_NUM = 32
 CLUSTER_INFLIGHT = 16
-CLUSTER_TIMEOUT = 120.0
-#: the kernels that each step of the cluster path must launch on the card
+#: the kernels that each step of phase 15 must launch on the card
 CLUSTER_STEP_KERNELS = (("balance", "crush_rule"), ("write", "gf_bitmatmul"),
                         ("scrub", "batched_crc32c_device"), ("scrub", "gf_encode_compare"),
                         ("degraded_read", "gf_bitmatmul"), ("recover", "gf_bitmatmul"))
 
+#: each service's (replicated metadata pool, RS(8,3) data pool), and
+#: their PGs (osd_pool_default_pg_num for the data pools)
+SERVICES_POOLS = (("rbd", "rbd.data"), ("rgw.meta", "rgw.data"),
+                  ("cephfs.meta", "cephfs.data"))
+SERVICES_META_PG_NUM = 8
+SERVICES_DATA_PG_NUM = 32
+#: an RBD image of RBD's default 4 MiB objects (order 22), written whole,
+#: then in unaligned 64 KiB writes; S3 objects of a 4 MiB head and shadow
+#: tails; a file of 1 MiB appends; the digests waited for after the
+#: writes; the ops a service keeps in flight
+SERVICES_IMAGE_BYTES = 128 * MiB
+SERVICES_ORDER = 22
+SERVICES_SMALL_WRITES = 8
+SERVICES_SMALL_WRITE = 64 * 1024
+SERVICES_S3_OBJECTS = 8
+SERVICES_S3_OBJECT_BYTES = 16 * MiB
+SERVICES_FILE_BYTES = 64 * MiB
+SERVICES_APPEND = 1 * MiB
+SERVICES_DIGESTS = 4
+SERVICES_INFLIGHT = 8
+S3_ACCESS, S3_SECRET = "SMOKEACCESSKEY", "smoke-secret-key"
+#: the kernels that each step of phase 16 must launch on the card
+SERVICES_STEP_KERNELS = (("rbd_write", "gf_bitmatmul"), ("s3_put", "gf_bitmatmul"),
+                         ("fs_write", "gf_bitmatmul"), ("digest", "mgr_analytics"),
+                         ("degraded_read", "gf_bitmatmul"), ("recover", "gf_bitmatmul"))
+
 
 def cluster_profile(cfg: Config) -> dict:
-    """The pool's EC profile as a client sets it: the smoke's code on the
+    """The pools' EC profile as a client sets it: the smoke's code on the
     ``cuda`` plugin, one OSD a host."""
     return {"plugin": "cuda", **store_profile(cfg), "crush-failure-domain": "host"}
 
@@ -3745,7 +3805,7 @@ async def _until(cond, timeout: float, what: str) -> None:
     deadline = time.monotonic() + timeout
     while not cond():
         if time.monotonic() > deadline:
-            raise AssertionError(f"cluster path: {what} not reached in {timeout} s")
+            raise AssertionError(f"{what} not reached in {timeout} s")
         await asyncio.sleep(0.01)
 
 
@@ -3766,6 +3826,13 @@ def _op_result(r) -> int:
     if isinstance(r, BaseException):
         return -(getattr(r, "errno", None) or errno.EIO)
     return 0
+
+
+def _failed(line: dict, results) -> int:
+    """Count the failed ops of ``results`` in the line; their number."""
+    n = sum(_op_result(r) != 0 for r in results)
+    line["op_failures"] += n
+    return n
 
 
 def _device_events(prof) -> list[dict]:
@@ -3824,55 +3891,194 @@ async def _deep_scrub(client, pgid: str, repair: bool = False) -> tuple[int, dic
     return rc, (json.loads(data) if rc == 0 and data else {"error": rs})
 
 
+def _step(line: dict, name: str, c0: dict, t0: float) -> None:
+    """A step of ``line`` ends: its seconds since ``t0`` and its kernel
+    launches since ``c0`` was read."""
+    line["seconds"][name] = time.perf_counter() - t0
+    line["launches_by_step"][name] = counts_since(c0)
+
+
+@dataclasses.dataclass
+class ClusterRig:
+    """A cluster path's daemons, services and client as far as they
+    were started: what its steps share and its shutdown stops.
+    ``passes`` holds every digest pass's snapshot and result."""
+    stores: dict
+    mon: Monitor
+    client: RadosClient
+    osds: dict = dataclasses.field(default_factory=dict)
+    stopped: set = dataclasses.field(default_factory=set)
+    passes: list = dataclasses.field(default_factory=list)
+    mgr: object = None
+    fe: object = None
+    mds: object = None
+    fs: object = None
+
+    @classmethod
+    def on(cls, stores: dict, device) -> "ClusterRig":
+        """A mon over ``CLUSTER_OSDS`` hosts of one OSD, and a client."""
+        crush = CrushMap()
+        crush_builder.build_hierarchy(crush, osds_per_host=1, n_hosts=CLUSTER_OSDS)
+        return cls(stores, Monitor(crush=crush, device=device), RadosClient(client_id=4242))
+
+    def warmup_failures(self) -> list[str]:
+        mgr = [] if self.mgr is None else self.mgr.warmup_failures
+        return ([f"osd.{o.id}:{name}:{e!r}" for o in self.osds.values()
+                 for name, e in o.warmup_failures]
+                + [f"mgr.x:{name}:{e!r}" for name, e in mgr])
+
+    async def shutdown(self, line: dict) -> None:
+        """Every service and daemon stopped (the lost OSD already was);
+        its seconds and the tasks left behind in the line."""
+        t0 = time.perf_counter()
+        if self.fs is not None:
+            await self.fs.unmount()
+        if self.mds is not None:
+            await self.mds.stop()
+        if self.fe is not None:
+            await self.fe.stop()
+        await self.client.shutdown()
+        for i, o in self.osds.items():
+            if i not in self.stopped:
+                await o.stop()
+        if self.mgr is not None:
+            await self.mgr.stop()
+        await self.mon.stop()
+        await asyncio.sleep(0)
+        line["tasks_left"] = tasks_pending()
+        line["seconds"]["shutdown"] = time.perf_counter() - t0
+
+
+async def boot_cluster(cfg: Config, device, rig: ClusterRig, line: dict, table: tuple,
+                       pools, *, mgr: bool = False) -> None:
+    """Step 1 of a cluster path: the mon, a mgr if asked (its digest on
+    the card, every pass recorded), the OSDs on their stores, the
+    client and ``pools`` ((name, PGs, erasure) each, an erasure pool on
+    the smoke's profile, a replicated one of size 3); every warmup done,
+    the mgr active, active+clean."""
+    c0, t0 = kernel_counts(table), time.perf_counter()
+    await rig.mon.start()
+    if mgr:
+        rig.mgr = mgr_daemon.MgrDaemon("x", [rig.mon.addr], device=device,
+                                       conf=ConfigProxy({"mgr_analytics_backend": "cuda"}))
+        analyze = rig.mgr.engine.analyze
+
+        def recorded(values, valid, cursor):
+            res = analyze(values, valid, cursor)
+            rig.passes.append(((values, valid, cursor), res))
+            return res
+
+        rig.mgr.engine.analyze = recorded
+        await rig.mgr.start()
+    for i in range(CLUSTER_OSDS):
+        rig.osds[i] = OSDDaemon(i, rig.mon.addr, store=rig.stores[i], device=device)
+        await rig.osds[i].start()
+    await rig.client.connect(*rig.mon.addr)
+    await rig.client.ec_profile_set(CLUSTER_POOL, cluster_profile(cfg))
+    for name, pg_num, erasure in pools:
+        if erasure:
+            await rig.client.pool_create(name, pg_num=pg_num, pool_type="erasure",
+                                         erasure_code_profile=CLUSTER_POOL)
+        else:
+            await rig.client.pool_create(name, pg_num=pg_num, size=3)
+    osds = rig.osds.values()
+    epoch = rig.client.osdmap.epoch
+    await _until(lambda: all(o.epoch >= epoch for o in osds), CLUSTER_TIMEOUT,
+                 f"{line['phase']} path: the pools' map on every OSD")
+    while any(o._warm_tasks for o in osds):
+        await asyncio.gather(*[t for o in osds for t in o._warm_tasks])
+    if rig.mgr is not None:
+        await rig.mgr._warm_task
+        await _until(lambda: rig.mgr.active, CLUSTER_TIMEOUT,
+                     f"{line['phase']} path: an active mgr")
+    await rig.client.wait_clean(timeout=CLUSTER_TIMEOUT)
+    _step(line, "boot", c0, t0)
+    line["warmup_failures"] = rig.warmup_failures()
+
+
+async def lose_osd(rig: ClusterRig) -> int:
+    """OSD ``CLUSTER_LOST_OSD`` stops and is marked down (not out); the
+    client holds the new map.  The mon's answer."""
+    epoch = rig.client.osdmap.epoch
+    await rig.osds[CLUSTER_LOST_OSD].stop()
+    rig.stopped.add(CLUSTER_LOST_OSD)
+    rc, _, _ = await rig.client.command({"prefix": "osd down", "id": str(CLUSTER_LOST_OSD)})
+    await rig.client._wait_new_map(epoch, timeout=CLUSTER_TIMEOUT)
+    return rc
+
+
+async def mark_out(rig: ClusterRig) -> int:
+    """The lost OSD marked out: the client holds the new map and every
+    PG is active+clean at it.  The mon's answer."""
+    client = rig.client
+    epoch = client.osdmap.epoch
+    rc, _, _ = await client.command({"prefix": "osd out", "id": str(CLUSTER_LOST_OSD)})
+    await client._wait_new_map(epoch, timeout=CLUSTER_TIMEOUT)
+    await client.wait_clean(timeout=CLUSTER_TIMEOUT, min_epoch=client.osdmap.epoch)
+    return rc
+
+
+def run_path(cfg: Config, device, line: dict, run, check, table: tuple) -> dict:
+    """A cluster path counted alone: every launch count reset just
+    before and read just after; ``CLUSTER_OSDS`` BlockStores, each on its
+    own FileDB, in a temporary directory removed at the end;
+    ``run(cfg, device, stores, line)`` in one event loop, which fills the
+    line; the line emitted and checked.  On the card each step must have
+    launched its kernels (``table``)."""
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{line['phase']}_")
+    for mod in (rk, hashing, cm, ak):
+        mod.reset_launch_counts()
+    for mod in (encode_service, decode_batcher, scrub_batcher):
+        mod.reset_shared()
+    try:
+        stores = {i: open_store(os.path.join(root, f"osd.{i}"), i)
+                  for i in range(CLUSTER_OSDS)}
+        try:
+            asyncio.run(run(cfg, device, stores, line))
+        finally:
+            for store in stores.values():
+                store.umount()
+            for mod in (encode_service, decode_batcher, scrub_batcher):
+                mod.reset_shared()
+        _sync(device)
+    finally:
+        shutil.rmtree(root)
+    line["total_seconds"] = sum(line["seconds"].values())
+    launches = {**rk.launch_counts(), **hashing.launch_counts(), **cm.launch_counts(),
+                **ak.launch_counts()}
+    emit(line)
+    check(line)
+    idle = path_idle(line["launches_by_step"], table)
+    if torch.device(device).type == "cuda" and idle:
+        raise AssertionError(f"kernels not launched on the {line['phase']} path: {idle}")
+    return {line["phase"]: line, "launches": launches, "idle": idle}
+
+
+async def _read_objects(io, objects: dict, oids, line: dict) -> int:
+    """Read ``oids`` back, ``CLUSTER_INFLIGHT`` in flight: the failed
+    ops counted in the line, the mismatches returned."""
+    got = await _bounded([io.read(oid) for oid in oids], CLUSTER_INFLIGHT)
+    _failed(line, got)
+    return sum(isinstance(r, BaseException) or r != objects[oid] for oid, r in zip(oids, got))
+
+
 async def cluster_run(cfg: Config, device, stores: dict, out: dict) -> None:
     """Steps 1-9 of the cluster path in one event loop; fills ``out``."""
-    secs, steps = out["seconds"], out["launches_by_step"]
-    k, n = cfg.k, cfg.k + cfg.m
-    crush = CrushMap()
-    crush_builder.build_hierarchy(crush, osds_per_host=1, n_hosts=CLUSTER_OSDS)
-    mon = Monitor(crush=crush, device=device)
-    osds: dict[int, OSDDaemon] = {}
-    client = RadosClient(client_id=4242)
+    rig = ClusterRig.on(stores, device)
+    client, k, n = rig.client, cfg.k, cfg.k + cfg.m
     objects = cluster_objects(cfg)
     logical = sum(len(v) for v in objects.values())
-    stopped: set[int] = set()
-
-    def step(name: str, c0: dict, t0: float) -> None:
-        secs[name] = time.perf_counter() - t0
-        steps[name] = counts_since(c0)
-
-    async def read_all(oids) -> int:
-        got = await _bounded([io.read(oid) for oid in oids], CLUSTER_INFLIGHT)
-        out["op_failures"] += sum(_op_result(r) != 0 for r in got)
-        return sum(isinstance(r, BaseException) or r != objects[oid]
-                   for oid, r in zip(oids, got))
-
     out["op_failures"] = 0
     try:
-        # 1. boot: the mon, the OSDs on their stores, the client, the pool;
-        # every daemon's warmup done
-        c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
-        await mon.start()
-        for i in range(CLUSTER_OSDS):
-            osds[i] = OSDDaemon(i, mon.addr, store=stores[i], device=device)
-            await osds[i].start()
-        await client.connect(*mon.addr)
-        await client.ec_profile_set(CLUSTER_POOL, cluster_profile(cfg))
-        await client.pool_create(CLUSTER_POOL, pg_num=CLUSTER_PG_NUM, pool_type="erasure",
-                                 erasure_code_profile=CLUSTER_POOL)
+        # 1. boot: the mon, the OSDs on their stores, the client, the
+        # pool; every daemon's warmup done
+        await boot_cluster(cfg, device, rig, out, CLUSTER_STEP_KERNELS,
+                           [(CLUSTER_POOL, CLUSTER_PG_NUM, True)])
         io = client.ioctx(CLUSTER_POOL)
-        epoch = client.osdmap.epoch
-        await _until(lambda: all(o.epoch >= epoch for o in osds.values()), CLUSTER_TIMEOUT,
-                     "the pool's map on every OSD")
-        while any(o._warm_tasks for o in osds.values()):
-            await asyncio.gather(*[t for o in osds.values() for t in o._warm_tasks])
-        await client.wait_clean(timeout=CLUSTER_TIMEOUT)
-        step("boot", c0, t0)
         agg, ver = decode_batcher.shared(device), scrub_batcher.shared(device)
-        svc = osds[0].encode_service
-        out["encode_service_attached"] = sum(o.encode_service is not None for o in osds.values())
-        out["warmup_failures"] = [f"osd.{o.id}:{name}:{e!r}" for o in osds.values()
-                                  for name, e in o.warmup_failures]
+        svc = rig.osds[0].encode_service
+        out["encode_service_attached"] = sum(o.encode_service is not None
+                                             for o in rig.osds.values())
         out["prewarmed_shapes"] = {"decode": agg.stats["prewarmed_shapes"],
                                    "scrub": ver.stats["prewarmed_shapes"],
                                    "encode": svc.stats["prewarmed_shapes"] if svc else 0}
@@ -3887,7 +4093,7 @@ async def cluster_run(cfg: Config, device, stores: dict, out: dict) -> None:
         if swaps:
             await client._wait_new_map(epoch, timeout=CLUSTER_TIMEOUT)
         await client.wait_clean(timeout=CLUSTER_TIMEOUT, min_epoch=client.osdmap.epoch)
-        step("balance", c0, t0)
+        _step(out, "balance", c0, t0)
         out["balance"] = {"rc": rc, "upmap_items": swaps, "epoch_before": epoch,
                           "epoch_after": client.osdmap.epoch}
 
@@ -3901,9 +4107,8 @@ async def cluster_run(cfg: Config, device, stores: dict, out: dict) -> None:
                 [io.write_full(oid, data) for oid, data in objects.items()], CLUSTER_INFLIGHT))
 
         wall, idle = await traced_async(write_all, device)
-        secs["write"], steps["write"] = wall, counts_since(c0)
-        out["write_results_nonzero"] = sum(_op_result(r) != 0 for r in results)
-        out["op_failures"] += out["write_results_nonzero"]
+        out["seconds"]["write"], out["launches_by_step"]["write"] = wall, counts_since(c0)
+        out["write_results_nonzero"] = _failed(out, results)
         dispatches = (sum(svc.stats[key] - s0.get(key, 0) for key in
                           ("single_dispatches", "dp_dispatches", "tp_dispatches"))
                       if svc else 0)
@@ -3915,16 +4120,16 @@ async def cluster_run(cfg: Config, device, stores: dict, out: dict) -> None:
 
         # 4. read: every object back, healthy (no decode)
         c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
-        out["read_mismatches"] = await read_all(list(objects))
-        step("read", c0, t0)
-        out["read"] = {"gb_per_s": logical / secs["read"] / 1e9}
+        out["read_mismatches"] = await _read_objects(io, objects, list(objects), out)
+        _step(out, "read", c0, t0)
+        out["read"] = {"gb_per_s": logical / out["seconds"]["read"] / 1e9}
 
         # 5. scrub: deep-scrub every PG at once, each report clean
         c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
         pool_id = io.pool_id
         reps = await asyncio.gather(*(_deep_scrub(client, f"{pool_id}.{ps}")
                                       for ps in range(CLUSTER_PG_NUM)))
-        step("scrub", c0, t0)
+        _step(out, "scrub", c0, t0)
         out["scrub"] = {"pgs": len(reps),
                         "clean": sum(rc == 0 and _scrub_clean(rep) for rc, rep in reps),
                         "objects": sum(rep.get("objects", 0) for _, rep in reps)}
@@ -3945,7 +4150,7 @@ async def cluster_run(cfg: Config, device, stores: dict, out: dict) -> None:
         rc1, rep1 = await _deep_scrub(client, pgid)
         rc2, rep2 = await _deep_scrub(client, pgid, repair=True)
         rc3, rep3 = await _deep_scrub(client, pgid)
-        step("rot", c0, t0)
+        _step(out, "rot", c0, t0)
         out["rot"] = {
             "object": oid, "shard": shard, "osd": acting[shard], "rc": [rc1, rc2, rc3],
             "found": [list(f) for f in sorted({(i["object"], i.get("shard")) for i in
@@ -3958,28 +4163,22 @@ async def cluster_run(cfg: Config, device, stores: dict, out: dict) -> None:
         c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
         before = {oid: _cluster_acting(client, pool_id, oid) for oid in objects}
         held = [oid for oid, (_, a, _p) in before.items() if CLUSTER_LOST_OSD in a]
-        epoch = client.osdmap.epoch
-        await osds[CLUSTER_LOST_OSD].stop()
-        stopped.add(CLUSTER_LOST_OSD)
-        rc, _, _ = await client.command({"prefix": "osd down", "id": str(CLUSTER_LOST_OSD)})
-        await client._wait_new_map(epoch, timeout=CLUSTER_TIMEOUT)
-        out["degraded_mismatches"] = await read_all(held)
-        step("degraded_read", c0, t0)
+        rc = await lose_osd(rig)
+        out["degraded_mismatches"] = await _read_objects(io, objects, held, out)
+        _step(out, "degraded_read", c0, t0)
         out["degraded_read"] = {
             "rc": rc, "objects": len(held),
             "objects_needing_decode": sum(before[oid][1].index(CLUSTER_LOST_OSD) < k
                                           for oid in held),
-            "gb_per_s": sum(len(objects[oid]) for oid in held) / secs["degraded_read"] / 1e9}
+            "gb_per_s": sum(len(objects[oid]) for oid in held)
+            / out["seconds"]["degraded_read"] / 1e9}
 
         # 8. recover: OSD 5 out, active+clean, every rebuilt shard's crc
         # equal to its hinfo
         c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
         a0 = dict(agg.stats)
-        epoch = client.osdmap.epoch
-        rc, _, _ = await client.command({"prefix": "osd out", "id": str(CLUSTER_LOST_OSD)})
-        await client._wait_new_map(epoch, timeout=CLUSTER_TIMEOUT)
-        await client.wait_clean(timeout=CLUSTER_TIMEOUT, min_epoch=client.osdmap.epoch)
-        step("recover", c0, t0)
+        rc = await mark_out(rig)
+        _step(out, "recover", c0, t0)
         rebuilt = moved = crc_bad = 0
         for oid, (pg0, a_old, _p) in before.items():
             pg1, a_new, _p1 = _cluster_acting(client, pool_id, oid)
@@ -3993,55 +4192,20 @@ async def cluster_run(cfg: Config, device, stores: dict, out: dict) -> None:
                 hinfo = ecutil.HashInfo.from_bytes(st.getattr(c, o, HINFO_ATTR))
                 crc_bad += native.crc32c(st.read(c, o)) != hinfo.get_chunk_hash(s)
         out["recover"] = {
-            "rc": rc, "seconds_out_to_clean": secs["recover"],
+            "rc": rc, "seconds_out_to_clean": out["seconds"]["recover"],
             "shards_rebuilt": rebuilt, "shards_moved": moved, "rebuilt_crc_mismatches": crc_bad,
             "decode_batches": agg.stats["launches"] - a0["launches"],
             "decode_requests": agg.stats["batched_requests"] - a0["batched_requests"]}
 
         # 9. readback: every object equal after recovery
         c0, t0 = kernel_counts(CLUSTER_STEP_KERNELS), time.perf_counter()
-        out["readback_mismatches"] = await read_all(list(objects))
-        step("readback", c0, t0)
+        out["readback_mismatches"] = await _read_objects(io, objects, list(objects), out)
+        _step(out, "readback", c0, t0)
         out["cold_launches"] = {"decode": agg.stats["cold_launches"],
                                 "scrub": ver.stats["cold_launches"],
                                 "encode": svc.stats["cold_launches"] if svc else 0}
     finally:
-        # every daemon stopped and no task left behind
-        t0 = time.perf_counter()
-        await client.shutdown()
-        for i, o in osds.items():
-            if i not in stopped:
-                await o.stop()
-        await mon.stop()
-        await asyncio.sleep(0)
-        out["tasks_left"] = tasks_pending()
-        secs["shutdown"] = time.perf_counter() - t0
-
-
-def phase_cluster(cfg: Config, device, root: str) -> dict:
-    """The cluster path under ``root``: a port Monitor, ``CLUSTER_OSDS``
-    port OSDDaemons each on a BlockStore on its own FileDB, and a port
-    RadosClient, all on ``device``; ``cfg.store_objects`` objects (at most
-    ``CLUSTER_OBJECTS``) of ``cfg.store_object_bytes`` written, read, deep-scrubbed, one parity
-    shard rotted and repaired, one OSD lost, read degraded and recovered,
-    read back.  Returns the line with each step's seconds and kernel
-    launches beside it."""
-    out = {"phase": "cluster", "objects": min(cfg.store_objects, CLUSTER_OBJECTS),
-           "object_bytes": cfg.store_object_bytes, "osds": CLUSTER_OSDS,
-           "pg_num": CLUSTER_PG_NUM, "profile": cluster_profile(cfg),
-           "seconds": {}, "launches_by_step": {}}
-    for mod in (encode_service, decode_batcher, scrub_batcher):
-        mod.reset_shared()
-    stores = {i: open_store(os.path.join(root, f"osd.{i}"), i) for i in range(CLUSTER_OSDS)}
-    try:
-        asyncio.run(cluster_run(cfg, device, stores, out))
-    finally:
-        for store in stores.values():
-            store.umount()
-        for mod in (encode_service, decode_batcher, scrub_batcher):
-            mod.reset_shared()
-    out["total_seconds"] = sum(out["seconds"].values())
-    return out
+        await rig.shutdown(out)
 
 
 def check_cluster(line: dict) -> None:
@@ -4078,25 +4242,321 @@ def check_cluster(line: dict) -> None:
 
 
 def run_cluster_path(cfg: Config, device) -> dict:
-    """Phase 15 with its launches counted alone: reset just before, read
-    just after, in a temporary directory removed at the end.  On the card
-    each step must have launched its kernels (``CLUSTER_STEP_KERNELS``)."""
-    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
-    rk.reset_launch_counts()
-    hashing.reset_launch_counts()
-    cm.reset_launch_counts()
+    """Phase 15 counted alone (``run_path``): a port Monitor,
+    ``CLUSTER_OSDS`` port OSDDaemons on BlockStores and a port
+    RadosClient, all on ``device``; ``cfg.store_objects`` objects (at
+    most ``CLUSTER_OBJECTS``) of ``cfg.store_object_bytes`` written, read,
+    deep-scrubbed, one parity shard rotted and repaired, one OSD lost,
+    read degraded and recovered, read back."""
+    line = {"phase": "cluster", "objects": min(cfg.store_objects, CLUSTER_OBJECTS),
+            "object_bytes": cfg.store_object_bytes, "osds": CLUSTER_OSDS,
+            "pg_num": CLUSTER_PG_NUM, "profile": cluster_profile(cfg),
+            "seconds": {}, "launches_by_step": {}}
+    return run_path(cfg, device, line, cluster_run, check_cluster, CLUSTER_STEP_KERNELS)
+
+
+async def _http(host: str, port: int, method: str, target: str, headers: dict,
+                body: bytes = b"") -> tuple[int, dict, bytes]:
+    """One HTTP/1.1 request on its own connection: (status, lowercased
+    headers, body)."""
+    reader, writer = await asyncio.open_connection(host, port)
     try:
-        line = phase_cluster(cfg, device, root)
-        _sync(device)
+        head = [f"{method} {target} HTTP/1.1\r\n", f"host: {host}:{port}\r\n",
+                f"content-length: {len(body)}\r\n"]
+        head += [f"{k}: {v}\r\n" for k, v in headers.items()
+                 if k not in ("host", "content-length")]
+        writer.write("".join(head).encode() + b"\r\n" + body)
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        got: dict[str, str] = {}
+        while (line := await reader.readline()) not in (b"\r\n", b"\n", b""):
+            name, _, val = line.decode().partition(":")
+            got[name.strip().lower()] = val.strip()
+        n = int(got.get("content-length", "0"))
+        return status, got, (await reader.readexactly(n) if n and method != "HEAD" else b"")
     finally:
-        shutil.rmtree(root)
-    launches = {**rk.launch_counts(), **hashing.launch_counts(), **cm.launch_counts()}
-    emit(line)
-    check_cluster(line)
-    idle = path_idle(line["launches_by_step"], CLUSTER_STEP_KERNELS)
-    if torch.device(device).type == "cuda" and idle:
-        raise AssertionError(f"kernels not launched on the cluster path: {idle}")
-    return {"cluster": line, "launches": launches, "idle": idle}
+        writer.close()
+        await writer.wait_closed()
+
+
+async def s3_request(fe, method: str, path: str, body: bytes = b"") -> tuple[int, dict, bytes]:
+    """An S3 request to the gateway ``fe``, signed with SigV4 (header auth)."""
+    headers = sign_request(method, path, "", {"host": f"{fe.host}:{fe.port}"}, body,
+                           S3_ACCESS, S3_SECRET,
+                           amz_date=time.strftime("%Y%m%dT%H%M%SZ", time.gmtime()))
+    return await _http(fe.host, fe.port, method, path, headers, body)
+
+
+def services_data(cfg: Config) -> dict:
+    """The services' payloads, made from the seed: the image, its small
+    unaligned writes and the overwrite of one object after the
+    snapshot, the S3 objects, the file."""
+    rng = np.random.default_rng(cfg.seed + 16)
+    size = SERVICES_IMAGE_BYTES
+    obj = 1 << SERVICES_ORDER
+
+    def payload(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    return {
+        "image": payload(size),
+        "small": [(int(rng.integers(0, size - SERVICES_SMALL_WRITE)) | 1,
+                   payload(SERVICES_SMALL_WRITE)) for _ in range(SERVICES_SMALL_WRITES)],
+        "overwrite": (min(3, size // obj - 1) * obj, payload(obj)),
+        "s3": {f"smoke/obj-{i}": payload(SERVICES_S3_OBJECT_BYTES)
+               for i in range(SERVICES_S3_OBJECTS)},
+        "file": payload(SERVICES_FILE_BYTES),
+    }
+
+
+async def services_steps(cfg: Config, device, rig: ClusterRig, out: dict):
+    """Steps 2-5 of the services path, on the booted cluster: the RBD
+    image, the S3 objects, the file, the digests.  Returns a coroutine
+    function that reads every service's data back and answers its
+    mismatches, and the bytes it reads."""
+    client, mgr = rig.client, rig.mgr
+    data = services_data(cfg)
+    size, obj = SERVICES_IMAGE_BYTES, 1 << SERVICES_ORDER
+
+    def failed(results) -> int:
+        return _failed(out, results)
+
+    # 2. RBD: the image written whole in 4 MiB writes, then small
+    # unaligned writes; a snapshot, one object overwritten; the head
+    # and the snapshot read back
+    rbd = RBD(client.ioctx("rbd"), client.ioctx("rbd.data"))
+    await rbd.create("vol", size=size, order=SERVICES_ORDER, features=["object-map"])
+    img = await rbd.open("vol")
+    head = bytearray(data["image"])
+    c0 = kernel_counts(SERVICES_STEP_KERNELS)
+
+    async def rbd_write():
+        failed(await _bounded([img.write(off, data["image"][off:off + obj])
+                               for off in range(0, size, obj)], SERVICES_INFLIGHT))
+        for off, chunk in data["small"]:
+            failed(await _bounded([img.write(off, chunk)], 1))
+            head[off:off + len(chunk)] = chunk
+
+    wall, idle = await traced_async(rbd_write, device)
+    out["seconds"]["rbd_write"], out["launches_by_step"]["rbd_write"] = wall, counts_since(c0)
+    written = size + SERVICES_SMALL_WRITE * len(data["small"])
+    out["rbd"] = {"image_bytes": size, "objects": size // obj, "write_gb_per_s":
+                 written / wall / 1e9, "device_idle_share": idle}
+    c0, t0 = kernel_counts(SERVICES_STEP_KERNELS), time.perf_counter()
+    snapid = await img.snap_create("s1")
+    snap = bytes(head)
+    off, chunk = data["overwrite"]
+    failed(await _bounded([img.write(off, chunk)], 1))
+    head[off:off + len(chunk)] = chunk
+    head = bytes(head)
+
+    async def rbd_read() -> int:
+        got_head = await img.read(0, size)
+        img.snap_set("s1")
+        try:
+            got_snap = await img.read(0, size)
+        finally:
+            img.snap_set(None)
+        return (got_head != head) + (got_snap != snap)
+
+    out["rbd_mismatches"] = await rbd_read()
+    _step(out, "rbd_read", c0, t0)
+    out["rbd"].update({"snapid": snapid, "read_gb_per_s": 2 * size / out["seconds"]["rbd_read"]
+                      / 1e9, "object_map_bytes": len(img.objmap._bits)})
+
+    # 3. RGW: an S3 gateway; one bucket, the objects PUT and GET over
+    # HTTP with SigV4, every body equal and every ETag its md5
+    store = RGWStore(client.ioctx("rgw.meta"), {"default": client.ioctx("rgw.data")})
+    await store.create_user("smoke", "Smoke User", access_key=S3_ACCESS,
+                            secret_key=S3_SECRET)
+    rig.fe = fe = S3Frontend(store)
+    await fe.start()
+    status, _, _ = await s3_request(fe, "PUT", "/smoke")
+    out["s3_bucket_status"] = status
+    c0 = kernel_counts(SERVICES_STEP_KERNELS)
+    put: list = []
+
+    async def s3_put():
+        put.extend(await _bounded([s3_request(fe, "PUT", f"/smoke/{key}", body)
+                                   for key, body in data["s3"].items()], SERVICES_INFLIGHT))
+
+    wall, idle = await traced_async(s3_put, device)
+    out["seconds"]["s3_put"], out["launches_by_step"]["s3_put"] = wall, counts_since(c0)
+    s3_bytes = sum(len(b) for b in data["s3"].values())
+    bad_put = sum(isinstance(r, BaseException) or r[0] != 200
+                  or r[1].get("etag", "").strip('"') != hashlib.md5(body).hexdigest()
+                  for r, body in zip(put, data["s3"].values()))
+    out["op_failures"] += bad_put
+
+    async def s3_get() -> int:
+        got = await _bounded([s3_request(fe, "GET", f"/smoke/{key}")
+                              for key in data["s3"]], SERVICES_INFLIGHT)
+        failed(r for r in got if isinstance(r, BaseException))
+        return sum(isinstance(r, BaseException) or r[0] != 200 or r[2] != body
+                   or r[1].get("etag", "").strip('"') != hashlib.md5(body).hexdigest()
+                   for r, body in zip(got, data["s3"].values()))
+
+    c0, t0 = kernel_counts(SERVICES_STEP_KERNELS), time.perf_counter()
+    out["s3_mismatches"] = await s3_get()
+    _step(out, "s3_get", c0, t0)
+    out["s3"] = {"objects": len(data["s3"]), "object_bytes": SERVICES_S3_OBJECT_BYTES,
+                "put_failures": bad_put, "put_gb_per_s": s3_bytes / out["seconds"]["s3_put"] / 1e9,
+                "get_gb_per_s": s3_bytes / out["seconds"]["s3_get"] / 1e9,
+                "device_idle_share": idle}
+
+    # 4. CephFS: an MDS and a client; one file of 1 MiB appends,
+    # fsync, read back
+    rig.mds = MDSDaemon(0, rig.mon.addr)
+    await rig.mds.start()
+    rig.fs = fs = FSClient(rig.mds.addr, client.ioctx("cephfs.data"))
+    await fs.mount()
+    f = await fs.create("/smoke.bin")
+    c0 = kernel_counts(SERVICES_STEP_KERNELS)
+
+    async def fs_write():
+        for off in range(0, len(data["file"]), SERVICES_APPEND):
+            failed(await _bounded([f.write(off, data["file"][off:off + SERVICES_APPEND])], 1))
+        failed(await _bounded([f.fsync()], 1))
+
+    wall, idle = await traced_async(fs_write, device)
+    out["seconds"]["fs_write"], out["launches_by_step"]["fs_write"] = wall, counts_since(c0)
+
+    async def fs_read() -> int:
+        g = await fs.open("/smoke.bin")
+        return int(g.size != len(data["file"]) or await g.read(0) != data["file"])
+
+    c0, t0 = kernel_counts(SERVICES_STEP_KERNELS), time.perf_counter()
+    out["fs_mismatches"] = await fs_read()
+    _step(out, "fs_read", c0, t0)
+    n = len(data["file"])
+    out["fs"] = {"file_bytes": n, "appends": n // SERVICES_APPEND,
+                "write_gb_per_s": n / out["seconds"]["fs_write"] / 1e9,
+                "read_gb_per_s": n / out["seconds"]["fs_read"] / 1e9, "device_idle_share": idle}
+
+    # 5. digest: digests after the writes; each pass equal to the
+    # plain version on its snapshot; `osd perf` names every OSD; the
+    # dashboard's /metrics serves the digest's series
+    c0, t0 = kernel_counts(SERVICES_STEP_KERNELS), time.perf_counter()
+    d0 = mgr.digests_sent
+    await _until(lambda: mgr.digests_sent >= d0 + SERVICES_DIGESTS, CLUSTER_TIMEOUT,
+                 "services path: the digests after the writes")
+    _step(out, "digest", c0, t0)
+    passes = list(rig.passes)
+    bad = sum(int((np.asarray(res[key]) != want[key]).sum())
+              for snap_, res in passes
+              for want in (mgr_analytics.analyze_numpy(*snap_),) for key in want)
+    rc, _, perf = await client.command({"prefix": "osd perf"})
+    perf_ids = sorted(row["id"] for row in json.loads(perf)["osd_perf_infos"]) if rc == 0 else []
+    dash = Dashboard(rig.mon)
+    host, port = await dash.start()
+    try:
+        m_status, _, metrics = await _http(host, port, "GET", "/metrics", {})
+    finally:
+        await dash.stop()
+    text = metrics.decode()
+    out["digest"] = {
+        "digests": mgr.digests_sent, "after_writes": mgr.digests_sent - d0,
+        "passes": len(passes), "mismatches_vs_numpy": bad,
+        "last_is_recorded": any(res is mgr.last_analytics for _, res in passes[-2:]),
+        "cold_launches": mgr.engine.stats["cold_launches"],
+        "digest_failures": mgr.digest_failures, "engine": dict(mgr.engine.stats),
+        "engine_shape": list(mgr.engine.shape),
+        "sessions": sorted(mgr.sessions), "osd_perf_rc": rc, "osd_perf_ids": perf_ids,
+        "metrics_status": m_status,
+        "metrics_series": ("ceph_tpu_cluster_write_lat_us_p50" in text
+                           and "ceph_tpu_osd_0_" in text)}
+
+    async def read_all() -> int:
+        return await rbd_read() + await s3_get() + await fs_read()
+
+    return read_all, 2 * size + s3_bytes + n
+
+
+
+async def services_run(cfg: Config, device, stores: dict, out: dict) -> None:
+    """Steps 1-6 of the services path in one event loop; fills ``out``."""
+    rig = ClusterRig.on(stores, device)
+    out["op_failures"] = 0
+    try:
+        # 1. boot: the mon, the mgr, the OSDs on their stores, the client,
+        # the six pools; every warmup done, the mgr active, active+clean
+        pools = [(name, pg_num, erasure) for meta, data in SERVICES_POOLS
+                 for name, pg_num, erasure in ((meta, SERVICES_META_PG_NUM, False),
+                                               (data, SERVICES_DATA_PG_NUM, True))]
+        await boot_cluster(cfg, device, rig, out, SERVICES_STEP_KERNELS, pools, mgr=True)
+        read_all, read_bytes = await services_steps(cfg, device, rig, out)
+
+        # 6. loss: OSD 5 stops and goes down: the image (head and
+        # snapshot), every S3 object and the file read degraded; it goes
+        # out: active+clean; everything read back
+        c0, t0 = kernel_counts(SERVICES_STEP_KERNELS), time.perf_counter()
+        rc_down = await lose_osd(rig)
+        out["degraded_mismatches"] = await read_all()
+        _step(out, "degraded_read", c0, t0)
+        c0, t0 = kernel_counts(SERVICES_STEP_KERNELS), time.perf_counter()
+        rc_out = await mark_out(rig)
+        _step(out, "recover", c0, t0)
+        c0, t0 = kernel_counts(SERVICES_STEP_KERNELS), time.perf_counter()
+        out["readback_mismatches"] = await read_all()
+        _step(out, "readback", c0, t0)
+        out["loss"] = {"rc": [rc_down, rc_out], "read_bytes": read_bytes,
+                       "degraded_gb_per_s": read_bytes / out["seconds"]["degraded_read"] / 1e9,
+                       "readback_gb_per_s": read_bytes / out["seconds"]["readback"] / 1e9}
+        out["digest"].update(final_digests=rig.mgr.digests_sent,
+                             final_digest_failures=rig.mgr.digest_failures,
+                             final_cold_launches=rig.mgr.engine.stats["cold_launches"])
+    finally:
+        await rig.shutdown(out)
+
+
+def check_services(line: dict) -> None:
+    """What the services line must show: every op answered and every read
+    equal, no warmup failure, the mgr's digests after the writes with no
+    failed pass and no cold launch, each pass equal to the plain version
+    on its snapshot, `osd perf` naming every OSD, the dashboard's
+    /metrics serving the digest's series, the loss answered, and no task
+    left."""
+    d = line["digest"]
+    faults = {
+        "ops": bool(line["op_failures"] or line["s3_bucket_status"] != 200),
+        "reads": bool(line["rbd_mismatches"] or line["s3_mismatches"] or line["fs_mismatches"]
+                      or line["degraded_mismatches"] or line["readback_mismatches"]),
+        "warmup": bool(line["warmup_failures"]),
+        "digest": (d["after_writes"] < line["digests_wanted"] or not d["last_is_recorded"]
+                   or d["passes"] < d["digests"]),
+        "digest_failures": bool(d["digest_failures"] or d["final_digest_failures"]),
+        "cold_launches": bool(d["cold_launches"] or d["final_cold_launches"]),
+        "digest_vs_plain": bool(d["mismatches_vs_numpy"]),
+        "osd_perf": d["osd_perf_rc"] != 0 or d["osd_perf_ids"] != list(range(line["osds"])),
+        "metrics": d["metrics_status"] != 200 or not d["metrics_series"],
+        "down_out": line["loss"]["rc"] != [0, 0],
+        "tasks_left": bool(line["tasks_left"]),
+    }
+    bad = sorted(k for k, v in faults.items() if v)
+    if bad:
+        raise AssertionError(f"services path: {bad}")
+
+
+def run_services_path(cfg: Config, device) -> dict:
+    """Phase 16 counted alone (``run_path``): a port Monitor, a port
+    MgrDaemon, ``CLUSTER_OSDS`` port OSDDaemons on BlockStores and a port
+    RadosClient, all on ``device``; an RBD image, S3 objects through an
+    S3Frontend and a CephFS file, each on an EC data pool, read back; the
+    mgr's digests; one OSD lost, everything read degraded, recovered,
+    read back.  On the card ``mgr_analytics`` must also have launched at
+    least once a digest."""
+    line = {"phase": "services", "osds": CLUSTER_OSDS, "profile": cluster_profile(cfg),
+            "pools": [list(p) for p in SERVICES_POOLS], "meta_pg_num": SERVICES_META_PG_NUM,
+            "data_pg_num": SERVICES_DATA_PG_NUM, "digests_wanted": SERVICES_DIGESTS,
+            "seconds": {}, "launches_by_step": {},
+            "card": (gpu_name_and_power_limit() if torch.device(device).type == "cuda"
+                     else None)}
+    run = run_path(cfg, device, line, services_run, check_services, SERVICES_STEP_KERNELS)
+    launched, digests = run["launches"]["mgr_analytics"], line["digest"]["final_digests"]
+    if torch.device(device).type == "cuda" and launched < digests:
+        raise AssertionError(f"services path: {launched} mgr_analytics launches for "
+                             f"{digests} digests")
+    return run
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -4210,6 +4670,14 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "cluster_path_launches", **cluster["launches"],
           "by_step": cluster["cluster"]["launches_by_step"]})
 
+    # the services path: RBD, S3 and CephFS I/O through a cluster to the
+    # kernels, and the mgr's digests, counted alone
+    t_services = time.perf_counter()
+    services = run_services_path(cfg, device)
+    services_s = time.perf_counter() - t_services
+    emit({"phase": "services_path_launches", **services["launches"],
+          "by_step": services["services"]["launches_by_step"]})
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     for row in rows:
@@ -4218,6 +4686,15 @@ def main(argv: list[str] | None = None) -> int:
     rows.append(clay_bench_row(cfg, device, launches["clay_repair"]))
     rows += tools_kernel_rows(cfg, device, tool_worst, tools["launches"])
     rows += mgr_kernel_rows(cfg, device, mgr_worst, mgr["launches"])
+    # the services path's launches beside each row's own: the bit-matrix
+    # entry points, CRUSH, and the row of the mgr's store shape
+    mgr_row = f"mgr_analytics:{_shape_name(services['services']['digest']['engine_shape'])}"
+    if mgr_row not in {row["name"] for row in rows}:
+        raise AssertionError(f"no kernel row for the mgr's store: {mgr_row}")
+    for row in rows:
+        name = "mgr_analytics" if row["name"] == mgr_row else row["name"]
+        if name in services["launches"]:
+            row["services_path_launches"] = services["launches"][name]
     rows.append(fold_kernel_row(cfg, device, fold_worst, farm["launches"]["gf_fold"]))
     emit(phase_crc_sweep(cfg, device))
     emit(phase_mgr_staged(cfg, device))
@@ -4226,7 +4703,8 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "wall", "seconds": wall, "store_path_seconds": store_s,
           "store_path_share": store_s / wall, "subop_path_seconds": subop_s,
           "subop_path_share": subop_s / wall, "cluster_path_seconds": cluster_s,
-          "cluster_path_share": cluster_s / wall})
+          "cluster_path_share": cluster_s / wall, "services_path_seconds": services_s,
+          "services_path_share": services_s / wall})
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,6 +20,11 @@ Then one seeded workload runs on an all-reference cluster (plugin
 object's placement ``(pg, shard -> osd)``, each shard's bytes and its
 ``hinfo`` and ``_size`` xattrs are held equal, byte for byte.
 
+Last, 12 reference OSDs under a port mon, whose erasure rule carries
+Ceph's ``set_choose_tries 100`` (the reference's lacks it), place an
+RS(8,3) pool with one OSD out as the mon does, and the rule places
+2,000 seeds alike through both packages' mappers.
+
 The port's daemons run with ``device="cpu"``.  The reference's run on
 JAX's CPU backend; the module compiles privately (tests/xla_private.py).
 """
@@ -27,6 +32,7 @@ JAX's CPU backend; the module compiles privately (tests/xla_private.py).
 from __future__ import annotations
 
 import asyncio
+import copy
 import importlib
 import json
 
@@ -255,3 +261,75 @@ def test_seeded_workload_byte_equal_on_reference_and_port():
             assert r_bytes == p_bytes, (oid, shard)
             assert r_hinfo == p_hinfo and r_hinfo is not None, (oid, shard)
             assert r_size == p_size and r_size is not None, (oid, shard)
+
+
+# ---------------------------------------------------------------------------
+# a port mon's erasure rule under reference OSDs, with an OSD out
+# ---------------------------------------------------------------------------
+
+def test_port_mon_erasure_rule_places_alike_with_an_osd_out():
+    """The port's mon writes Ceph's ``set_choose_tries 100`` into an
+    erasure rule, which the reference's own rule lacks.  Under a port mon,
+    12 reference OSDs decode that rule from the wire; with OSD 5 out,
+    every PG of an RS(8,3) pool places alike through the mon's map and
+    each OSD's, and 2,000 seeds place alike through both scalar mappers
+    and the port's batched one (``crush_rule.cu``'s plain version), those
+    among them where the reference's own rule leaves a hole too."""
+    from ceph_tpu.crush import mapper as ref_mapper
+    from ceph_tpu.osd.types import pg_t as ref_pg_t
+    from ceph_tpu_torch.crush import mapper as port_mapper
+    from ceph_tpu_torch.crush.cudamapper import BatchedRuleMapper, compile_map
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE, RuleOp
+    from ceph_tpu_torch.osd.types import pg_t
+
+    lost, n, seeds = 5, 11, 2000
+
+    async def go():
+        async with MixedCluster(PORT, PORT, [REF] * 12) as c:
+            io = await _ec_pool(c, {**JERASURE, "k": "8", "m": "3"})
+            epoch = c.client.osdmap.epoch
+            code, _, _ = await c.client.command({"prefix": "osd out", "id": str(lost)})
+            assert code == 0
+            await c.wait_epoch(epoch + 1)
+            await c.client.wait_clean(timeout=60, min_epoch=epoch + 1)
+            for _ in range(1000):
+                if all(o.osdmap.epoch == c.mon.osdmap.epoch for o in c.osds):
+                    break
+                await asyncio.sleep(0.01)
+            mon_map, pool_id = c.mon.osdmap, io.pool_id
+            pool = mon_map.get_pg_pool(pool_id)
+            steps = [(int(s.op), s.arg1) for s in mon_map.crush.rules[pool.crush_rule].steps]
+            assert mon_map.osd_weight[lost] == 0
+            for o in c.osds:
+                assert o.osdmap.epoch == mon_map.epoch
+                rule = o.osdmap.crush.rules[pool.crush_rule]
+                assert [(int(s.op), s.arg1) for s in rule.steps] == steps
+                for ps in range(pool.pg_num):
+                    assert (o.osdmap.pg_to_up_acting_osds(ref_pg_t(pool_id, ps), folded=True)
+                            == mon_map.pg_to_up_acting_osds(pg_t(pool_id, ps), folded=True))
+            return (copy.deepcopy(mon_map.crush), copy.deepcopy(c.osds[0].osdmap.crush),
+                    pool.crush_rule, list(mon_map.osd_weight), steps)
+
+    port_crush, ref_crush, ruleno, weights, steps = run(go())
+    assert (int(RuleOp.SET_CHOOSE_TRIES), 100) in steps
+    port_rows = [port_mapper.crush_do_rule(port_crush, ruleno, x, n, weights)
+                 for x in range(seeds)]
+    assert [ref_mapper.crush_do_rule(ref_crush, ruleno, x, n, weights)
+            for x in range(seeds)] == port_rows
+    assert not any(CRUSH_ITEM_NONE in row for row in port_rows)
+    # the reference's own rule, without the step, leaves holes at some of
+    # these seeds: the rule's step is what places them
+    own = copy.deepcopy(ref_crush)
+    own.rules[ruleno].steps = [s for s in own.rules[ruleno].steps
+                               if int(s.op) != int(RuleOp.SET_CHOOSE_TRIES)]
+    holes = [x for x in range(seeds)
+             if CRUSH_ITEM_NONE in ref_mapper.crush_do_rule(own, ruleno, x, n, weights)]
+    assert holes
+    # the batched mapper at those seeds and the first 64 (its plain
+    # version walks every lane in lockstep, so every seed costs it the
+    # longest retry chain)
+    xs = sorted(set(holes) | set(range(64)))
+    vals, cnt = BatchedRuleMapper(compile_map(port_crush), ruleno, n, device="cpu")(
+        np.asarray(xs, dtype=np.uint32), weights)
+    assert [[int(v) for v in vals[i, :cnt[i]]] for i in range(len(xs))] == \
+        [port_rows[x] for x in xs]

@@ -173,7 +173,8 @@ class TestRegistry:
 
 class TestCreateRule:
     """``create_rule`` builds the same CRUSH rule as the reference on an
-    equal map, step for step, with the same errno mapping."""
+    equal map, step for step (the port's indep rule with Ceph's
+    ``set_choose_tries 100`` besides), with the same errno mapping."""
 
     @staticmethod
     def _maps():
@@ -205,8 +206,46 @@ class TestCreateRule:
         port = registry.factory("cuda", dict(prof), device="cpu")
         rid = port.create_rule("ecpool", m)
         assert rid == ref.create_rule("ecpool", r)
-        assert self._steps(m.rules[rid]) == self._steps(r.rules[rid])
+        want = self._steps(r.rules[rid])
+        if "crush-osds-per-failure-domain" not in extra:
+            # the port's indep rule also sets Ceph's retry budget,
+            # set_choose_tries 100 (CrushWrapper::add_simple_rule_at),
+            # which the reference's omits
+            from ceph_tpu_torch.crush.types import RuleOp
+
+            want[2].insert(1, (int(RuleOp.SET_CHOOSE_TRIES), 100, 0))
+        assert self._steps(m.rules[rid]) == want
         assert m.rule_names == r.rule_names == {"ecpool": rid}
+
+    def test_indep_rule_leaves_no_hole_where_the_reference_does(self):
+        """RS(8,3) over 12 hosts with one out: 11 positions on the 11 hosts
+        left.  With the map's 50 tries the reference's rule leaves a
+        ``NONE`` for 31 of 2,000 seeds (a PG degraded for good); the
+        port's, with Ceph's ``set_choose_tries 100``, for none."""
+        from ceph_tpu.crush import builder as rb
+        from ceph_tpu.crush import mapper as rmapper
+        from ceph_tpu.crush.types import CrushMap as RCrushMap
+        from ceph_tpu_torch.crush import builder as pb
+        from ceph_tpu_torch.crush import mapper as pmapper
+        from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE, CrushMap
+
+        m, r = CrushMap(), RCrushMap()
+        pb.build_hierarchy(m, osds_per_host=1, n_hosts=12)
+        rb.build_hierarchy(r, osds_per_host=1, n_hosts=12)
+        prof = {"k": "8", "m": "3"}
+        pid = registry.factory("cuda", dict(prof), device="cpu").create_rule("ec", m)
+        rid = ref_registry.factory("jerasure", dict(prof)).create_rule("ec", r)
+        weights = [0x10000] * 12
+        weights[5] = 0
+        holes = {"port": 0, "ref": 0}
+        for x in range(2000):
+            port = pmapper.crush_do_rule(m, pid, x, 11, weights)
+            ref = rmapper.crush_do_rule(r, rid, x, 11, weights)
+            holes["port"] += CRUSH_ITEM_NONE in port
+            holes["ref"] += CRUSH_ITEM_NONE in ref
+            if CRUSH_ITEM_NONE not in ref:
+                assert port == ref, x  # a retry past 50 changes nothing else
+        assert holes == {"port": 0, "ref": 31}
 
     def test_errors_match_reference(self):
         m, r = self._maps()

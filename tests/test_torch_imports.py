@@ -89,7 +89,10 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "mon.paxos", "mon.auth_service", "mon.config_service",
                  "mon.log_service", "mon.mgr_service", "mon.stats_service",
                  "mon.osd_service", "mon.commands", "mon.monitor", "client",
-                 "client.striper", "client.objecter", "client.rados"):
+                 "client.striper", "client.objecter", "client.rados",
+                 "crush.compiler", "mgr.dashboard", "rbd", "rbd.objectmap",
+                 "rbd.journal", "rbd.mirror", "rgw", "rgw.sigv4", "rgw.store",
+                 "rgw.frontend", "fs", "fs.journal", "fs.mds", "fs.client"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -293,6 +296,7 @@ def test_version():
 
 
 def test_daemons_take_the_card_unless_asked(no_cuda):
+    from ceph_tpu_torch.mgr.daemon import MgrDaemon
     from ceph_tpu_torch.mon import Monitor
     from ceph_tpu_torch.osd.daemon import OSDDaemon
 
@@ -300,8 +304,12 @@ def test_daemons_take_the_card_unless_asked(no_cuda):
         Monitor()
     with pytest.raises(RuntimeError, match="CUDA"):
         OSDDaemon(0, ("127.0.0.1", 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MgrDaemon("x", ("127.0.0.1", 1))
     assert Monitor(device="cpu").device.type == "cpu"
     assert OSDDaemon(0, ("127.0.0.1", 1), device="cpu").device.type == "cpu"
+    mgr = MgrDaemon("x", ("127.0.0.1", 1), device="cpu")
+    assert mgr.device.type == "cpu" and mgr.engine.device.type == "cpu"
 
 
 def test_client_import_builds_nothing():

@@ -47,18 +47,19 @@ def reset_shared() -> None:
 
 
 class Cluster:
-    """A port mon, ``n_osds`` port OSDs (one a host) and a port client,
-    all on ``device`` (the CPU unless a test asks for another).  The
-    reference harness's ``n_mgrs`` has no twin: the mgr daemon is not
-    ported."""
+    """A port mon, ``n_mgrs`` port mgrs, ``n_osds`` port OSDs (one a
+    host) and a port client, all on ``device`` (the CPU unless a test
+    asks for another)."""
 
     def __init__(self, n_osds: int = N_OSDS, osd_conf: dict | None = None,
                  store_factory=None, mon_conf: dict | None = None,
+                 n_mgrs: int = 0, mgr_conf: dict | None = None,
                  device="cpu"):
         from ceph_tpu_torch.common import ConfigProxy
 
         self.osd_conf = osd_conf
         self.store_factory = store_factory
+        self.mgr_conf = mgr_conf
         self.device = device
         crush = CrushMap()
         # one osd per host: failure domain host == osd for small tests
@@ -68,13 +69,20 @@ class Cluster:
             conf=ConfigProxy(mon_conf) if mon_conf else None,
             device=device)
         self.osds: list[OSDDaemon] = [None] * n_osds
+        self.mgrs: list = [None] * n_mgrs
         self.client = RadosClient(client_id=4242)
 
     async def __aenter__(self):
         reset_shared()
         await self.mon.start()
         from ceph_tpu_torch.common import ConfigProxy
+        from ceph_tpu_torch.mgr.daemon import MgrDaemon
 
+        for i in range(len(self.mgrs)):
+            conf = ConfigProxy(self.mgr_conf) if self.mgr_conf else None
+            self.mgrs[i] = MgrDaemon(f"mgr{i}", [self.mon.addr], conf=conf,
+                                     device=self.device)
+            await self.mgrs[i].start()
         for i in range(len(self.osds)):
             conf = ConfigProxy(self.osd_conf) if self.osd_conf else None
             store = self.store_factory(i) if self.store_factory else None
@@ -89,6 +97,9 @@ class Cluster:
         for osd in self.osds:
             if osd is not None:
                 await osd.stop()
+        for mgr in self.mgrs:
+            if mgr is not None:
+                await mgr.stop()
         await self.mon.stop()
         reset_shared()
 

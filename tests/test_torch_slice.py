@@ -787,3 +787,99 @@ def test_chip_smoke_cluster_checks_fail_loudly():
     steps["balance"] = {**busy, "crush_rule": 0}
     assert chip_smoke.path_idle(steps, table) == ["crush_rule:balance",
                                                   "gf_encode_compare:scrub"]
+
+
+#: chip_smoke's services path cut for the CPU (its module constants): 4
+#: PGs a metadata pool and 8 a data pool, a 16 MiB image (4 objects of
+#: 4 MiB), 2 S3 objects of a 4 MiB head and a 2 MiB shadow tail, a 4 MiB
+#: file; every matmul on the device seam
+TINY_SERVICES = dict(SERVICES_META_PG_NUM=4, SERVICES_DATA_PG_NUM=8,
+                     SERVICES_IMAGE_BYTES=16 * 1024 * 1024, SERVICES_S3_OBJECTS=2,
+                     SERVICES_S3_OBJECT_BYTES=6 * 1024 * 1024,
+                     SERVICES_FILE_BYTES=4 * 1024 * 1024)
+
+
+def test_chip_smoke_services_path_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke's phase 16 at a tiny size on the CPU: a port Monitor,
+    MgrDaemon, 12 OSDDaemons on BlockStores and a RadosClient; an RBD
+    image written, snapshotted, overwritten and read back (head and
+    snapshot), S3 objects PUT and GET through an S3Frontend with SigV4, a
+    CephFS file of 1 MiB appends written and read back; 4 digests after
+    the writes, each pass equal to the plain version, `osd perf` naming
+    the 12 OSDs, the dashboard serving the digest's series; OSD 5 down
+    (every read equal) and out (active+clean, every read equal), every
+    service and daemon stopped with no task left.  On the CPU nothing
+    launches, so the launch check names every kernel of the path."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    for name, value in TINY_SERVICES.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    run = chip_smoke.run_services_path(chip_smoke.Config(store_device_min_bytes=0), "cpu")
+    line = run["services"]
+    assert (line["osds"], line["meta_pg_num"], line["data_pg_num"]) == (12, 4, 8)
+    assert line["pools"] == [["rbd", "rbd.data"], ["rgw.meta", "rgw.data"],
+                             ["cephfs.meta", "cephfs.data"]]
+    assert line["profile"]["plugin"] == "cuda" and line["card"] is None
+    assert line["op_failures"] == 0 and line["warmup_failures"] == []
+    assert line["rbd"]["objects"] == 4 and line["s3"]["objects"] == 2
+    assert line["fs"]["appends"] == 4
+    for key in ("rbd_mismatches", "s3_mismatches", "fs_mismatches", "degraded_mismatches",
+                "readback_mismatches", "tasks_left"):
+        assert line[key] == 0, key
+    d = line["digest"]
+    assert d["after_writes"] >= 4 and d["mismatches_vs_numpy"] == 0 and d["last_is_recorded"]
+    assert d["digest_failures"] == d["final_digest_failures"] == 0
+    assert d["cold_launches"] == d["final_cold_launches"] == 0
+    assert d["osd_perf_ids"] == list(range(12)) and d["engine_shape"] == [16, 16, 32]
+    assert d["metrics_status"] == 200 and d["metrics_series"]
+    assert {"mds.0", "rgw.main", "osd.0"} <= set(d["sessions"])
+    assert line["loss"]["rc"] == [0, 0]
+    steps = ["boot", "rbd_write", "rbd_read", "s3_put", "s3_get", "fs_write", "fs_read",
+             "digest", "degraded_read", "recover", "readback"]
+    assert list(line["launches_by_step"]) == steps
+    assert set(line["seconds"]) == set(steps) | {"shutdown"}
+    assert set(run["launches"].values()) == {0}
+    assert run["idle"] == ["gf_bitmatmul:degraded_read", "gf_bitmatmul:fs_write",
+                           "gf_bitmatmul:rbd_write", "gf_bitmatmul:recover",
+                           "gf_bitmatmul:s3_put", "mgr_analytics:digest"]
+    assert os.listdir(tmp_path) == []
+
+
+def test_chip_smoke_services_checks_fail_loudly():
+    """Each fault the services line can show fails its check, and on the
+    card an idle kernel of the path is named."""
+    digest = {"after_writes": 4, "last_is_recorded": True, "passes": 40, "digests": 40,
+              "digest_failures": 0, "final_digest_failures": 0, "cold_launches": 0,
+              "final_cold_launches": 0, "mismatches_vs_numpy": 0, "osd_perf_rc": 0,
+              "osd_perf_ids": list(range(12)), "metrics_status": 200, "metrics_series": True}
+    good = {"op_failures": 0, "s3_bucket_status": 200, "rbd_mismatches": 0,
+            "s3_mismatches": 0, "fs_mismatches": 0, "degraded_mismatches": 0,
+            "readback_mismatches": 0, "warmup_failures": [], "digest": digest,
+            "digests_wanted": 4, "osds": 12, "loss": {"rc": [0, 0]}, "tasks_left": 0}
+    chip_smoke.check_services(good)
+    bad_lines = [
+        ("ops", {"op_failures": 1}), ("ops", {"s3_bucket_status": 403}),
+        ("reads", {"rbd_mismatches": 1}), ("reads", {"s3_mismatches": 1}),
+        ("reads", {"fs_mismatches": 1}), ("reads", {"degraded_mismatches": 2}),
+        ("reads", {"readback_mismatches": 1}),
+        ("warmup", {"warmup_failures": ["mgr.x:analytics:RuntimeError('nvcc')"]}),
+        ("digest", {"digest": {**digest, "after_writes": 3}}),
+        ("digest", {"digest": {**digest, "last_is_recorded": False}}),
+        ("digest_failures", {"digest": {**digest, "final_digest_failures": 1}}),
+        ("cold_launches", {"digest": {**digest, "cold_launches": 1}}),
+        ("digest_vs_plain", {"digest": {**digest, "mismatches_vs_numpy": 5}}),
+        # an OSD missing from `osd perf`
+        ("osd_perf", {"digest": {**digest, "osd_perf_ids": list(range(11))}}),
+        ("metrics", {"digest": {**digest, "metrics_series": False}}),
+        ("metrics", {"digest": {**digest, "metrics_status": 401}}),
+        ("down_out", {"loss": {"rc": [0, -11]}}),
+        ("tasks_left", {"tasks_left": 1})]
+    for fault, change in bad_lines:
+        with pytest.raises(AssertionError, match=f"'{fault}'"):
+            chip_smoke.check_services({**good, **change})
+    table = chip_smoke.SERVICES_STEP_KERNELS
+    busy = {"gf_bitmatmul": 3, "mgr_analytics": 4}
+    steps = {s: busy for s, _ in table}
+    assert chip_smoke.path_idle(steps, table) == []
+    steps["digest"] = {**busy, "mgr_analytics": 0}
+    steps["recover"] = {**busy, "gf_bitmatmul": 0}
+    assert chip_smoke.path_idle(steps, table) == ["gf_bitmatmul:recover", "mgr_analytics:digest"]
