@@ -395,8 +395,7 @@ declare(
            "arm after EC map-install warmup, on = armed immediately, "
            "off = never; violations are counted in "
            "BucketCounters('transfer_guard').host_transfers and "
-           "answered from the host fallback (the runtime twin of "
-           "ctlint's device-host-sink rule)",
+           "fail the launch (nothing answers from the host)",
            enum=("auto", "on", "off")),
     Option("osd_transfer_guard_window", float, 0.0, LEVEL_ADVANCED,
            "seconds after EC warmup completes before the transfer "

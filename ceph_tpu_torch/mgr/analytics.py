@@ -37,6 +37,7 @@ import threading
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common import transfer_guard as tg
 from ceph_tpu_torch.common.metrics import BucketCounters
 from ceph_tpu_torch.common.tracing import device_tracer
 from ceph_tpu_torch.ops import analytics_kernels as ak
@@ -181,13 +182,14 @@ class AnalyticsEngine:
                                      shape=str(self.shape))
                 if count_cold else contextlib.nullcontext())
         D, M, _ = self.shape
-        with span:
-            # one upload of each of the three store arrays, one copy of
-            # the six outputs back (the digest is consumed on the host)
-            v = torch.from_numpy(np.ascontiguousarray(values, np.int64)).to(self.device)
-            b = torch.from_numpy(np.ascontiguousarray(valid, bool)).to(self.device)
-            c = torch.from_numpy(np.ascontiguousarray(cursor, np.int64)).to(self.device)
-            buf = ak.analyze_packed(v, b, c).cpu()
+        with span, tg.no_implicit_transfers("mgr_analytics", self.device):
+            # one declared upload of each of the three store arrays, one
+            # declared copy of the six outputs back (the digest is
+            # consumed on the host)
+            v = tg.upload(np.asarray(values, np.int64), self.device)
+            b = tg.upload(np.asarray(valid, bool), self.device)
+            c = tg.upload(np.asarray(cursor, np.int64), self.device)
+            buf = torch.from_numpy(tg.readback(ak.analyze_packed(v, b, c)))
         return {name: t.numpy() for name, t in ak.unpack(buf, D, M).items()}
 
     def prewarm(self) -> int:

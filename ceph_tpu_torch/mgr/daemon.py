@@ -33,8 +33,9 @@ and digest JSON.  Where the port differs, on purpose:
 - a failed prewarm is logged and kept in ``warmup_failures``; the
   digest still waits for the prewarm to land, so ``cold_launches``
   stays 0;
-- no transfer guard is armed (``osd_transfer_guard`` is read by nothing
-  here);
+- the transfer guard armed after the prewarm fails a digest pass that
+  makes an implicit transfer (counted in ``host_transfers``) where the
+  reference answers it from numpy;
 - ``stop()`` returns once its cancelled loops and any pass or prewarm
   still on its thread have finished;
 - the declared analytics columns are the port's own copy,
@@ -337,6 +338,15 @@ class MgrDaemon:
             except Exception as e:
                 log.exception("mgr.%s: analytics prewarm failed", self.name)
                 self.warmup_failures.append(("analytics", e))
+                return
+            # steady state starts here: arm the transfer guard, so an
+            # implicit host<->device transfer on a later digest pass is
+            # counted (host_transfers) and fails the pass
+            mode = self.conf["osd_transfer_guard"]
+            if mode != "off":
+                from ceph_tpu_torch.common.transfer_guard import configure
+
+                configure(mode, self.conf["osd_transfer_guard_window"])
 
         self._warm_task = asyncio.ensure_future(asyncio.to_thread(_warm))
         await self._mon_hunt()

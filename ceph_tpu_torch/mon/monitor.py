@@ -27,7 +27,7 @@ Counterpart of ``ceph_tpu/mon/monitor.py``: the same commands, messages
 and committed state.  ``Monitor(..., device=None)`` takes the device of
 its EC profile validation and of ``osd balance``'s batched placement
 (the card unless the caller passes ``device="cpu"``); a profile without
-``plugin`` gets ``cuda``; there is no ``dump_chaos`` admin command.
+``plugin`` gets ``cuda``.
 """
 
 from __future__ import annotations
@@ -249,6 +249,13 @@ class Monitor(OSDMonitorMixin, StatsServiceMixin, MgrServiceMixin,
                     "epoch": self.osdmap.epoch,
                     "num_pools": len(self.osdmap.pools),
                 },
+            )
+            self._admin.register(
+                "dump_chaos", "chaos-engine event counters + recent "
+                "event spans (process-wide, ceph_tpu_torch/chaos)",
+                lambda cmd: __import__(
+                    "ceph_tpu_torch.chaos", fromlist=["dump_chaos"]
+                ).dump_chaos(),
             )
             self._admin.register(
                 "dump_traces", "recent spans (blkin/otel role)",

@@ -137,9 +137,9 @@ class Connection:
     async def send_message(self, msg: Message) -> None:
         if self._closed:
             raise ConnectionError("connection closed")
-        # deterministic network emulation (the chaos shim, not ported
-        # yet: ``netem`` stays None until it is): per-peer partitions
-        # raise, one-way drops swallow the message,
+        # deterministic network emulation (the chaos shim,
+        # chaos/netem.py): per-peer partitions raise, one-way drops
+        # swallow the message,
         # delay/reorder holds run here — BEFORE the send lock, so a
         # held message is genuinely overtaken on the wire
         shim = self.messenger.netem
@@ -391,8 +391,8 @@ class Messenger:
         # ms_inject_delay analogue: seconds of latency added to every
         # outgoing message (0 = off)
         self.inject_delay = 0.0
-        # deterministic chaos shim (a Netem, whose module the port does
-        # not have yet); None = transparent
+        # deterministic chaos shim (chaos/netem.py's Netem attaches
+        # itself here); None = transparent
         self.netem = None
         # the owning daemon's Tracer: messages carrying a SAMPLED
         # trace context get msg_send/msg_recv spans (stage=net), the

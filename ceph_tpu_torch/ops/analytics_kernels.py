@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from ceph_tpu_torch.common.transfer_guard import check_operands
 from ceph_tpu_torch.ops import rs_kernels as rk
 
 #: fixed-point scale of the EWMA and the means (2^8 sub-unit steps)
@@ -261,6 +262,7 @@ def analyze_packed(values: torch.Tensor, valid: torch.Tensor,
     """The six outputs packed into one int64 tensor on the store's device
     (:func:`unpack` splits it).  On the card: one launch of
     ``mgr_analytics.cu``; a launch that fails raises."""
+    check_operands(values, valid, cursor)
     D, M, W = _check(values, valid, cursor)
     if rk._on_cpu(values):
         return pack(analyze_plain(values, valid, cursor))

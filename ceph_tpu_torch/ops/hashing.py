@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import native
+from ceph_tpu_torch.common.transfer_guard import check_operands
 from ceph_tpu_torch.ops.rs_kernels import _on_cpu, count_launch
 
 # ---------------------------------------------------------------------------
@@ -436,6 +437,7 @@ def _plain_matrix(width: int, device: torch.device) -> torch.Tensor:
 def _check_lanes(data: torch.Tensor) -> tuple[int, int]:
     if not isinstance(data, torch.Tensor):
         raise TypeError(f"data must be a torch.Tensor, not {type(data).__name__}")
+    check_operands(data)
     if data.dtype != torch.uint8:
         raise TypeError(f"data must be uint8, not {data.dtype}")
     if data.dim() != 2:
@@ -567,8 +569,8 @@ def kernel_operators(width: int) -> np.ndarray:
         advance_tables(n).reshape(-1) for n in combine_advances(width)])
 
 
-#: (device index, width) -> the operand block on that device
-_operators: dict[tuple[int, int], torch.Tensor] = {}
+#: (device, width) -> the operand block on that device
+_operators: dict[tuple[torch.device, int], torch.Tensor] = {}
 _fn = None
 
 
@@ -589,13 +591,25 @@ def _kernel():
     return _fn
 
 
-def _device_operators(width: int, index: int) -> torch.Tensor:
-    key = (index, width)
+def _device_operators(width: int, device: torch.device) -> torch.Tensor:
+    key = (device, width)
     ops = _operators.get(key)
     if ops is None:
         ops = _operators[key] = torch.from_numpy(
-            kernel_operators(width).view(np.int32)).to(torch.device("cuda", index))
+            kernel_operators(width).view(np.int32)).to(device)
     return ops
+
+
+def prepare(width: int, device) -> None:
+    """Put the kernel's operand block for lanes of ``width`` bytes on
+    ``device`` now (one upload, once per width and card), so that a
+    launch inside a guarded window moves no data but its operands.
+    Nothing to do on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.type != "cpu":
+        _device_operators(width, dev)
 
 
 def _launch(data: torch.Tensor, out: torch.Tensor) -> None:
@@ -609,7 +623,7 @@ def _launch(data: torch.Tensor, out: torch.Tensor) -> None:
     if out.get_device() != index:
         raise ValueError(f"out on {out.device}, data on {data.device}")
     b, w = data.shape
-    ops = _device_operators(w, index)
+    ops = _device_operators(w, data.device)
     args = (data.data_ptr(), out.data_ptr(), ops.data_ptr(), w, b)
     if index == torch.cuda.current_device():
         err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))

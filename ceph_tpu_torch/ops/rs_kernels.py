@@ -45,6 +45,7 @@ import weakref
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common.transfer_guard import check_operands
 from ceph_tpu_torch.ops.gf256 import gf_matrix_to_bitmatrix
 
 #: columns per step of the plain version: bounds its float bit tensor
@@ -228,6 +229,16 @@ def _masks(bitmat: torch.Tensor) -> tuple[int, int]:
     return packed, held.data_ptr()
 
 
+def prepare(bitmat: torch.Tensor) -> torch.Tensor:
+    """Build the kernel's masks for a card bit-matrix now (one copy to
+    the host and one back, once per bit-matrix), so that its launches
+    inside a guarded window move no data but their operands.  Nothing
+    to do on the CPU.  Returns ``bitmat``."""
+    if bitmat.is_cuda:
+        _masks(bitmat)
+    return bitmat
+
+
 @functools.lru_cache(maxsize=1024)
 def _launch_plan(s: int, batch: int, sm_count: int,
                  words: int | None = None) -> tuple[int, int]:
@@ -374,6 +385,7 @@ def _launch_compare(bitmat, data, parity, flags) -> None:
 
 def _check(bitmat: torch.Tensor, data: torch.Tensor) -> tuple[int, int]:
     """Validate operands; returns (k, m)."""
+    check_operands(bitmat, data)
     for name, t in (("bitmat", bitmat), ("data", data)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, not {type(t).__name__}")
@@ -527,6 +539,7 @@ def gf_encode_compare(bitmat: torch.Tensor, data: torch.Tensor,
     k, m = _check(bitmat, data)
     if not isinstance(parity, torch.Tensor) or parity.dtype != torch.uint8:
         raise TypeError("parity must be a uint8 torch.Tensor")
+    check_operands(parity)
     want = (*data.shape[:-2], m, data.shape[-1])
     if tuple(parity.shape) != want or parity.device != data.device:
         raise ValueError(f"parity must be {want} on {data.device}, got "

@@ -41,8 +41,9 @@ and on-store bytes.  Where the port differs, on purpose:
   exactly when the daemon's device is a card;
 - a failed map-time warmup is logged and also kept in
   ``warmup_failures`` (shown by ``dump_faults``);
-- no transfer guard is armed (``osd_transfer_guard`` is read by nothing
-  here), and there is no ``dump_chaos`` admin command.
+- the transfer guard armed after the warmup fails a launch that makes
+  an implicit transfer (counted in ``host_transfers``) where the
+  reference answers it from the host path.
 """
 
 from __future__ import annotations
@@ -519,6 +520,12 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
             "efficiency (batched crc32c + parity re-encode per-bucket "
             "occupancy/launch/compile counters)",
             lambda cmd: self._dump_scrub_batch(),
+        )
+        sock.register(
+            "dump_chaos", "chaos-engine event counters + recent event "
+            "spans (process-wide, ceph_tpu_torch/chaos)",
+            lambda cmd: __import__(
+                "ceph_tpu_torch.chaos", fromlist=["dump_chaos"]).dump_chaos(),
         )
         sock.register(
             "dump_faults", "armed fault-injection points + fired "
@@ -1025,6 +1032,7 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
         farm_warm = self.device.type == "cuda"
 
         def _warm() -> None:
+            failed = False
             for name, prof in fresh:
                 try:
                     # the thread builds its own plugin instance: the
@@ -1047,6 +1055,18 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
                         "osd.%d: EC warmup for profile %r failed",
                         self.id, name)
                     self.warmup_failures.append((name, e))
+                    failed = True
+            if failed:
+                return      # not armed on a failed warmup (nor is the mgr)
+            # every profile's ladder is launched: the steady state
+            # starts here, so arm the transfer guard — an implicit
+            # host<->device transfer on a later decode / scrub / encode
+            # launch is counted and raises
+            mode = self.conf["osd_transfer_guard"]
+            if mode != "off":
+                from ceph_tpu_torch.common.transfer_guard import configure
+
+                configure(mode, self.conf["osd_transfer_guard_window"])
 
         task = asyncio.ensure_future(asyncio.to_thread(_warm))
         self._warm_tasks.add(task)

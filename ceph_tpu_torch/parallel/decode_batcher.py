@@ -38,10 +38,11 @@ import threading
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common import transfer_guard as tg
 from ceph_tpu_torch.common.metrics import BucketCounters
 from ceph_tpu_torch.common.tracing import device_tracer
 from ceph_tpu_torch.ops.gf256 import gf_matrix_to_bitmatrix
-from ceph_tpu_torch.ops.rs_kernels import gf_bitmatmul, resolve_device
+from ceph_tpu_torch.ops.rs_kernels import gf_bitmatmul, prepare, resolve_device
 
 #: padded widths below this stay in one bucket — tiny decodes all share
 #: one shape instead of minting pow2 shapes per small size
@@ -125,7 +126,10 @@ class DecodeAggregator:
         key = D.shape[0].to_bytes(2, "little") + D.tobytes()
         hit = self._bits_cache.get(key)
         if hit is None:
-            hit = torch.as_tensor(gf_matrix_to_bitmatrix(D), device=self.device)
+            # made, and its kernel masks built, once a signature and
+            # outside the launch's guard window
+            hit = prepare(torch.as_tensor(gf_matrix_to_bitmatrix(D),
+                                          device=self.device))
             self._bits_cache[key] = hit
             if len(self._bits_cache) > _BITS_CACHE_SIZE:
                 self._bits_cache.popitem(last=False)
@@ -213,12 +217,13 @@ class DecodeAggregator:
                     "cuda_launch", stage="device", kind="decode_batch",
                     w=w, b=b, b_real=b_real,
                     occupancy=round(b_real / b, 3), cold=cold,
-                ):
-                    # one upload of the padded batch, one download of the
-                    # launch result (rebuilt shards persist to the store)
-                    out = gf_bitmatmul(
-                        bits, torch.from_numpy(batch).to(self.device)
-                    ).cpu().numpy()
+                ), tg.no_implicit_transfers("decode_batch", self.device):
+                    # one declared upload of the padded batch, one
+                    # declared download of the launch result (rebuilt
+                    # shards persist to the store); any other copy in
+                    # the window is counted and raises
+                    out = tg.readback(gf_bitmatmul(
+                        bits, tg.upload(batch, self.device)))
                 self.stats["launches"] += 1
                 self.stats["batched_requests"] += b_real
                 self.metrics.inc("launches", w=w, b=b)

@@ -35,10 +35,11 @@ import threading
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common import transfer_guard as tg
 from ceph_tpu_torch.common.metrics import BucketCounters
 from ceph_tpu_torch.common.tracing import device_tracer
 from ceph_tpu_torch.ops.gf256 import gf_matrix_to_bitmatrix
-from ceph_tpu_torch.ops.rs_kernels import BitmatrixCodec, resolve_device
+from ceph_tpu_torch.ops.rs_kernels import BitmatrixCodec, prepare, resolve_device
 from ceph_tpu_torch.parallel.decode_batcher import pow2_bucket
 from ceph_tpu_torch.parallel.encode_farm import Mesh, batch_encode_dp, sharded_encode_tp
 
@@ -114,7 +115,8 @@ class EncodeService:
         key = M.shape[0].to_bytes(2, "little") + M.tobytes()
         hit = self._bits_cache.get(key)
         if hit is None:
-            hit = torch.as_tensor(gf_matrix_to_bitmatrix(M), device=self._home())
+            hit = prepare(torch.as_tensor(gf_matrix_to_bitmatrix(M),
+                                          device=self._home()))
             self._bits_cache[key] = hit
             if len(self._bits_cache) > _BITS_CACHE_SIZE:
                 self._bits_cache.popitem(last=False)
@@ -236,14 +238,20 @@ class EncodeService:
                 big[:, off:off + w] = rows
                 off += w
             with self._note_shape(("single", tuple(bits.shape), k, S), w=S,
-                                  b_real=len(group)):
-                out = BitmatrixCodec._apply(bits, tin.to(self.device, non_blocking=True), None)
-                if on_card:
-                    tout = self._staging("out", out.shape[0], S)
-                    tout.copy_(out, non_blocking=True)
-                    torch.cuda.current_stream(self.device).synchronize()
-                    out = tout
-                host = out.numpy()
+                                  b_real=len(group)), \
+                    tg.no_implicit_transfers("encode_single", self.device):
+                # the pinned buffers' two copies are the launch's
+                # declared upload and read-back
+                with tg.declared():
+                    tin = tin.to(self.device, non_blocking=True)
+                out = BitmatrixCodec._apply(bits, tin, None)
+                with tg.declared():
+                    if on_card:
+                        tout = self._staging("out", out.shape[0], S)
+                        tout.copy_(out, non_blocking=True)
+                        torch.cuda.current_stream(self.device).synchronize()
+                        out = tout
+                    host = out.numpy()
             # copies, always: a slice that is already contiguous (a lone
             # request of a pow2 width) would otherwise be a view of the
             # staging buffer, which the next dispatch overwrites before

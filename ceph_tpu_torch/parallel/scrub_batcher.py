@@ -41,8 +41,9 @@ means the card; a failed launch is raised to every waiter of its group
 and out of :meth:`ScrubVerifier.verify_object`, never answered from the
 host (``parity_bad=None`` is kept only for the objects the compare does
 not cover by design, :meth:`ScrubVerifier._parity_eligible`); each
-launch makes one explicit upload of its lane batch and one download of
-the (B,) words or the (B, m) mask.
+launch makes one declared upload of its lane batch and one download of
+the (B,) words or the (B, m) mask inside a transfer-guard window, where
+any other copy is counted and raises (``common/transfer_guard.py``).
 """
 
 from __future__ import annotations
@@ -55,11 +56,13 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import native
+from ceph_tpu_torch.common import transfer_guard as tg
 from ceph_tpu_torch.common.metrics import BucketCounters
 from ceph_tpu_torch.common.tracing import device_tracer
 from ceph_tpu_torch.ops.gf256 import gf_matrix_to_bitmatrix
 from ceph_tpu_torch.ops.hashing import batched_crc32c_device, crc32c_unadvance
-from ceph_tpu_torch.ops.rs_kernels import gf_encode_compare, resolve_device
+from ceph_tpu_torch.ops.hashing import prepare as prepare_crc
+from ceph_tpu_torch.ops.rs_kernels import gf_encode_compare, prepare, resolve_device
 from ceph_tpu_torch.osd.ecutil import bucket_lanes
 from ceph_tpu_torch.parallel.decode_batcher import (
     DEFAULT_MAX_BATCH,
@@ -273,7 +276,8 @@ class ScrubVerifier:
         key = C.shape[0].to_bytes(2, "little") + C.tobytes()
         hit = self._bits_cache.get(key)
         if hit is None:
-            hit = torch.as_tensor(gf_matrix_to_bitmatrix(C), device=self.device)
+            hit = prepare(torch.as_tensor(gf_matrix_to_bitmatrix(C),
+                                          device=self.device))
             self._bits_cache[key] = hit
             if len(self._bits_cache) > _BITS_CACHE_SIZE:
                 self._bits_cache.popitem(last=False)
@@ -310,6 +314,9 @@ class ScrubVerifier:
         """Worker-thread body: batched crc32c launches over one bucket;
         returns each lane's seed-0 crc word of the padded lane."""
         outs: list[int] = [0] * len(group)
+        # the kernel's operand block for this width goes up before the
+        # window, as the bit-matrix masks do (prepare)
+        prepare_crc(w, self.device)
         for at in range(0, len(group), self.crc_lanes):
             chunk = group[at:at + self.crc_lanes]
             b_real = len(chunk)
@@ -323,10 +330,10 @@ class ScrubVerifier:
             with self._note_launch(
                 ("crc", b, w), "crc", w, b, b_real,
                 sum(width for _, width, _ in chunk), b * w,
-            ):
-                out = batched_crc32c_device(
-                    torch.from_numpy(batch).to(self.device)
-                ).view(torch.int32).cpu().numpy().view(np.uint32)
+            ), tg.no_implicit_transfers("scrub_crc", self.device):
+                out = tg.readback(batched_crc32c_device(
+                    tg.upload(batch, self.device)
+                ).view(torch.int32)).view(np.uint32)
             for j in range(b_real):
                 outs[at + j] = int(out[j])
         return outs
@@ -353,10 +360,10 @@ class ScrubVerifier:
                 (tuple(bits.shape), b, k, w), "enc", w, b, b_real,
                 sum((k + m) * d.shape[1] for _C, d, _p, _f in chunk),
                 b * (k + m) * w,
-            ):
-                out = gf_encode_compare(
-                    bits, torch.from_numpy(data).to(self.device),
-                    torch.from_numpy(parity).to(self.device)).cpu().numpy()
+            ), tg.no_implicit_transfers("scrub_enc", self.device):
+                out = tg.readback(gf_encode_compare(
+                    bits, tg.upload(data, self.device),
+                    tg.upload(parity, self.device)))
             for j in range(b_real):
                 outs[at + j] = out[j]
         return outs

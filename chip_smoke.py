@@ -170,7 +170,14 @@ through the port's entry points:
    the digest's series.  OSD 5 stops and goes down: the image (head and
    snapshot), every S3 object and the file read back equal, decoded on
    the card; it goes out: active+clean; everything reads back equal, and
-   every service and daemon stops with no task left.
+   every service and daemon stops with no task left;
+17. chaos — the chaos engine's ``run_scenario`` for each of its 13
+   built-in scenarios at seed 0 on the card, each at its own widths (its
+   OSDs, mons, mgrs, pools and stores; the transfer guard armed by the
+   daemons after their warmup): every scenario green, every delta of the
+   cold-launch snapshot 0 (``host_transfers`` among them) with guard
+   windows opened, ``compose_load``'s client and mgr percentiles
+   agreeing.
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -208,9 +215,14 @@ around each of its steps: the bit-matrix kernel at the RBD, S3 and file
 writes, the degraded reads and the recovery, ``mgr_analytics`` at the
 digests, at least once a digest (the ``services_path_launches`` line; the
 kernel rows carry them as ``services_path_launches``, the mgr's at the
-row of its store's shape).  A ``wall`` line gives the smoke's seconds
-from the build to the kernel rows and the store, sub-op, cluster and
-services paths' shares of them.  Then a
+row of its store's shape); and before the first scenario of phase 17 and
+after its last: the bit-matrix kernel (by the recovery decode's batcher)
+and ``mgr_analytics``, the compare, the crc and CRUSH recorded (a
+``chaos`` line a scenario with its own launches, then the
+``chaos_path_launches`` line; the RS rows carry them as
+``chaos_path_launches``).  A ``wall`` line gives the smoke's seconds
+from the build to the kernel rows and the store, sub-op, cluster,
+services and chaos paths' shares of them.  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, the main path's memset µs, and the device time per launch at
 each kernel's main-path shape (and at each forced width of the launch
@@ -4441,7 +4453,9 @@ async def services_steps(cfg: Config, device, rig: ClusterRig, out: dict):
     await _until(lambda: mgr.digests_sent >= d0 + SERVICES_DIGESTS, CLUSTER_TIMEOUT,
                  "services path: the digests after the writes")
     _step(out, "digest", c0, t0)
-    passes = list(rig.passes)
+    # the passes, the count and the last result read at one instant: the
+    # digest loop goes on through the awaits below
+    passes, sent, last = list(rig.passes), mgr.digests_sent, mgr.last_analytics
     bad = sum(int((np.asarray(res[key]) != want[key]).sum())
               for snap_, res in passes
               for want in (mgr_analytics.analyze_numpy(*snap_),) for key in want)
@@ -4455,9 +4469,9 @@ async def services_steps(cfg: Config, device, rig: ClusterRig, out: dict):
         await dash.stop()
     text = metrics.decode()
     out["digest"] = {
-        "digests": mgr.digests_sent, "after_writes": mgr.digests_sent - d0,
+        "digests": sent, "after_writes": sent - d0,
         "passes": len(passes), "mismatches_vs_numpy": bad,
-        "last_is_recorded": any(res is mgr.last_analytics for _, res in passes[-2:]),
+        "last_is_recorded": any(res is last for _, res in passes[-2:]),
         "cold_launches": mgr.engine.stats["cold_launches"],
         "digest_failures": mgr.digest_failures, "engine": dict(mgr.engine.stats),
         "engine_shape": list(mgr.engine.shape),
@@ -4557,6 +4571,111 @@ def run_services_path(cfg: Config, device) -> dict:
         raise AssertionError(f"services path: {launched} mgr_analytics launches for "
                              f"{digests} digests")
     return run
+
+
+#: the chaos path: every built-in scenario of the chaos engine at this
+#: seed, each as the engine defines it (its own OSDs, mons, mgrs, pools
+#: and stores), each within this many seconds
+CHAOS_SEED = 0
+CHAOS_TIMEOUT = 300.0
+#: the kernels the chaos path counts; it must launch the batched
+#: bit-matrix kernel (recovery decode) and ``mgr_analytics``
+CHAOS_KERNELS = ("gf_bitmatmul", "gf_encode_compare", "batched_crc32c_device",
+                 "crush_rule", "mgr_analytics")
+CHAOS_REQUIRED = ("gf_bitmatmul", "mgr_analytics")
+
+
+def chaos_line(res: dict, launches: dict, decode_batches: int, wall: float) -> dict:
+    """One scenario's line: its verdicts, trace, cold-launch deltas,
+    guard windows and kernel launches."""
+    line = {"phase": "chaos", "scenario": res["scenario"], "seed": res["seed"],
+            "ok": bool(res.get("ok")), "crash": res.get("crash"),
+            "invariants": {k: v["ok"] for k, v in (res.get("invariants") or {}).items()},
+            "trace_hash": res.get("trace_hash"), "events_applied": res.get("events_applied"),
+            "event_errors": res.get("event_errors"), "wall_s": res.get("wall_s"),
+            "seconds": wall, "cold_launch_deltas": res.get("cold_launch_deltas"),
+            "guard_windows": res.get("guard_windows"), "launches": launches,
+            "decode_batch_launches": decode_batches}
+    if res.get("load") is not None:
+        xc = res["load"]["client_vs_mgr"]
+        line["load"] = {"ops_completed": res["load"]["ops_completed"],
+                        "client": xc["client"], "mgr": xc["mgr"], "agree": xc["agree"]}
+    return line
+
+
+def check_chaos(lines: list[dict], launches: dict) -> None:
+    """What the chaos path must show: every scenario green with no
+    crash, every cold-launch delta 0 (no implicit transfer among them)
+    with the guard live, ``compose_load``'s client and mgr percentiles
+    agreeing, and the kernels of ``CHAOS_REQUIRED`` launched, the
+    bit-matrix kernel by the recovery decode's batcher."""
+    faults = {}
+    for ln in lines:
+        bad = []
+        if not ln["ok"] or ln["crash"]:
+            bad.append("red")
+        deltas = ln["cold_launch_deltas"] or {}
+        if any(deltas.values()) or not deltas:
+            bad.append("cold_launches")
+        if ln["scenario"] == "compose_load" and not (ln.get("load") or {}).get("agree"):
+            bad.append("client_vs_mgr")
+        if bad:
+            faults[ln["scenario"]] = bad
+    if sum(ln["guard_windows"] or 0 for ln in lines) <= 0:
+        faults["guard"] = ["no guard window"]
+    idle = [k for k in CHAOS_REQUIRED if launches.get(k, 0) <= 0]
+    if sum(ln["decode_batch_launches"] for ln in lines) <= 0:
+        idle.append("decode_batch")
+    if idle:
+        faults["launches"] = idle
+    if faults:
+        raise AssertionError(f"chaos path: {faults}")
+
+
+def run_chaos_path(cfg: Config, device, scenarios=None) -> dict:
+    """Phase 17 counted alone: the port's ``run_scenario`` for every
+    built-in scenario (or ``scenarios``) at ``CHAOS_SEED`` on ``device``,
+    one event loop a scenario, every launch count reset just before the
+    first and read just after the last.  One line a scenario, then the
+    path's launches; ``check_chaos`` must pass.  On the CPU nothing
+    launches, so the launch check applies on the card only."""
+    from ceph_tpu_torch.chaos.runner import SCENARIOS, run_scenario
+
+    names = sorted(SCENARIOS) if scenarios is None else list(scenarios)
+    table = tuple((None, k) for k in CHAOS_KERNELS)
+    for mod in (rk, hashing, cm, ak):
+        mod.reset_launch_counts()
+    for mod in (encode_service, decode_batcher, scrub_batcher):
+        mod.reset_shared()
+    lines = []
+    try:
+        for name in names:
+            before = kernel_counts(table)
+            agg = decode_batcher.shared(device)
+            batches = agg.stats["launches"]
+            t0 = time.perf_counter()
+            res = asyncio.run(asyncio.wait_for(
+                run_scenario(name, CHAOS_SEED, device=device), CHAOS_TIMEOUT))
+            _sync(device)
+            line = chaos_line(res, counts_since(before), agg.stats["launches"] - batches,
+                              time.perf_counter() - t0)
+            emit(line)
+            lines.append(line)
+    finally:
+        for mod in (encode_service, decode_batcher, scrub_batcher):
+            mod.reset_shared()
+    launches = kernel_counts(table)
+    summary = {"phase": "chaos_path_launches", **launches,
+               "scenarios": len(lines), "green": sum(ln["ok"] for ln in lines),
+               "guard_windows": sum(ln["guard_windows"] or 0 for ln in lines),
+               "host_transfers": sum((ln["cold_launch_deltas"] or {}).get(
+                   "transfer_guard_host_transfers", 0) for ln in lines),
+               "decode_batch_launches": sum(ln["decode_batch_launches"] for ln in lines),
+               "seconds": sum(ln["seconds"] for ln in lines)}
+    emit(summary)
+    on_card = torch.device(device).type == "cuda"
+    check_chaos(lines, launches if on_card else dict.fromkeys(CHAOS_REQUIRED, 1))
+    return {"chaos": lines, "launches": launches, "summary": summary}
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -4678,6 +4797,12 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "services_path_launches", **services["launches"],
           "by_step": services["services"]["launches_by_step"]})
 
+    # the chaos path: the chaos engine's 13 scenarios at seed 0 on the
+    # card, counted alone
+    t_chaos = time.perf_counter()
+    chaos = run_chaos_path(cfg, device)
+    chaos_s = time.perf_counter() - t_chaos
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     for row in rows:
@@ -4695,6 +4820,8 @@ def main(argv: list[str] | None = None) -> int:
         name = "mgr_analytics" if row["name"] == mgr_row else row["name"]
         if name in services["launches"]:
             row["services_path_launches"] = services["launches"][name]
+        if row["name"] in ("gf_bitmatmul", "gf_encode_compare", "batched_crc32c_device"):
+            row["chaos_path_launches"] = chaos["launches"][row["name"]]
     rows.append(fold_kernel_row(cfg, device, fold_worst, farm["launches"]["gf_fold"]))
     emit(phase_crc_sweep(cfg, device))
     emit(phase_mgr_staged(cfg, device))
@@ -4704,7 +4831,8 @@ def main(argv: list[str] | None = None) -> int:
           "store_path_share": store_s / wall, "subop_path_seconds": subop_s,
           "subop_path_share": subop_s / wall, "cluster_path_seconds": cluster_s,
           "cluster_path_share": cluster_s / wall, "services_path_seconds": services_s,
-          "services_path_share": services_s / wall})
+          "services_path_share": services_s / wall, "chaos_path_seconds": chaos_s,
+          "chaos_path_share": chaos_s / wall})
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

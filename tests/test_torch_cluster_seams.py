@@ -162,6 +162,29 @@ def test_warmup_failure_is_recorded():
     assert d.decode_aggregator.stats["cold_launches"] == 0
 
 
+def test_a_failed_warmup_does_not_arm_the_transfer_guard():
+    """``osd_transfer_guard=auto`` arms after a warmup that built every
+    profile's ladder, and not after one that failed (as the mgr)."""
+    from ceph_tpu_torch.common import transfer_guard as tg
+
+    good = {"plugin": "cuda", "k": "2", "m": "1"}
+    bad = {"plugin": "no_such_plugin", "k": "2", "m": "1"}
+    tg.disarm()
+    try:
+        for profiles, armed in (({"good": good, "bad": bad}, False),
+                                ({"good": good}, True)):
+            d = _with_profiles(_daemon(), profiles)
+
+            async def go():
+                d._warm_ec_profiles()
+                await asyncio.gather(*list(d._warm_tasks))
+
+            run(go())
+            assert tg.active() is armed, profiles
+    finally:
+        tg.disarm()
+
+
 # ---------------------------------------------------------------------------
 # scrub: an EC pool whose plugin does not build raises, never crc only
 # ---------------------------------------------------------------------------

@@ -7,8 +7,7 @@ and the chaos ``check_events`` invariant on hand-built observations
 The port's twin of tests/test_event_plane.py: the same cases over
 ``ceph_tpu_torch``, the mon on the CPU.  Three ``TestProgressModule``
 cases have no twin, being red in the reference (``ROADMAP.md``,
-reference facts); the two ``TestCheckEventsInvariant`` cases wait for
-the chaos harness (``chaos/``), which is not ported.
+reference facts).
 """
 
 from __future__ import annotations
@@ -368,6 +367,60 @@ class TestCrashModule:
             assert crash.health() == {}
 
         run(go())
+
+
+class TestCheckEventsInvariant:
+    def _obs(self, **over):
+        base = {
+            "expect_progress": True,
+            "progress_events": {
+                "recovery-1": {"kind": "recovery",
+                               "fractions": [0.0, 0.5, 1.0],
+                               "final": 1.0, "reaped": True},
+            },
+            "deaths": {"osd.1": 1},
+            "crash_entities": {"osd.1"},
+            "unmuted_checks": [],
+            "allowed_checks": [],
+        }
+        base.update(over)
+        return base
+
+    def test_clean_obs_passes(self):
+        from ceph_tpu_torch.chaos.invariants import check_events
+
+        assert check_events(self._obs()) == []
+
+    def test_violations_detected(self):
+        from ceph_tpu_torch.chaos.invariants import check_events
+
+        v = check_events(self._obs(progress_events={}))
+        assert [x["invariant"] for x in v] == ["progress_never_observed"]
+        v = check_events(self._obs(progress_events={
+            "recovery-1": {"kind": "recovery",
+                           "fractions": [0.0, 0.6, 0.4, 1.0],
+                           "final": 1.0, "reaped": True}}))
+        assert any(x["invariant"] == "progress_regressed" for x in v)
+        v = check_events(self._obs(progress_events={
+            "recovery-1": {"kind": "recovery", "fractions": [0.0, 0.4],
+                           "final": 0.4, "reaped": True}}))
+        assert any(x["invariant"] == "progress_incomplete" for x in v)
+        v = check_events(self._obs(progress_events={
+            "recovery-1": {"kind": "recovery",
+                           "fractions": [0.0, 1.0],
+                           "final": 1.0, "reaped": False}}))
+        assert any(x["invariant"] == "progress_not_reaped" for x in v)
+        v = check_events(self._obs(crash_entities=set()))
+        assert any(x["invariant"] == "crash_missing" for x in v)
+        v = check_events(self._obs(
+            unmuted_checks=["RECENT_CRASH", "DEVICE_HEALTH"],
+            allowed_checks=["DEVICE_HEALTH"]))
+        assert [x["invariant"] for x in v] == [
+            "unexpected_health_at_settle"]
+        # allowed codes do not violate
+        assert check_events(self._obs(
+            unmuted_checks=["DEVICE_HEALTH"],
+            allowed_checks=["DEVICE_HEALTH"])) == []
 
 
 class TestAnalyticsColumns:

@@ -41,10 +41,12 @@ DEPARTURES = {
     "mgr_analytics_backend": {"default": "cuda", "enum": ("cuda", "numpy")},
 }
 #: the options whose help text named XLA or JAX and now names the port's
-#: counterpart (defaults and semantics unchanged): those four, and the
-#: analytics backend whose enum is a departure
+#: counterpart (defaults and semantics unchanged): those four, the
+#: analytics backend whose enum is a departure, and the transfer guard,
+#: whose violations fail the launch where the reference answers from the
+#: host
 REWORDED_HELP = {"ms_connection_ready_timeout", "osd_ec_encode_farm", "osd_ec_warmup",
-                 "mgr_stats_window", "mgr_analytics_backend"}
+                 "mgr_stats_window", "mgr_analytics_backend", "osd_transfer_guard"}
 FIELDS = ("name", "type", "default", "level", "desc", "min", "max", "see_also", "enum")
 
 

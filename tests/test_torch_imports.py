@@ -92,7 +92,11 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "client.striper", "client.objecter", "client.rados",
                  "crush.compiler", "mgr.dashboard", "rbd", "rbd.objectmap",
                  "rbd.journal", "rbd.mirror", "rgw", "rgw.sigv4", "rgw.store",
-                 "rgw.frontend", "fs", "fs.journal", "fs.mds", "fs.client"):
+                 "rgw.frontend", "fs", "fs.journal", "fs.mds", "fs.client",
+                 "common.transfer_guard", "chaos", "chaos.schedule", "chaos.netem",
+                 "chaos.workload", "chaos.invariants", "chaos.runner", "loadgen",
+                 "loadgen.schedule", "loadgen.report", "loadgen.driver",
+                 "tools.chaos_run", "tools.load_run"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -310,6 +314,28 @@ def test_daemons_take_the_card_unless_asked(no_cuda):
     assert OSDDaemon(0, ("127.0.0.1", 1), device="cpu").device.type == "cpu"
     mgr = MgrDaemon("x", ("127.0.0.1", 1), device="cpu")
     assert mgr.device.type == "cpu" and mgr.engine.device.type == "cpu"
+
+
+def test_chaos_and_load_harness_take_the_card_unless_asked(no_cuda):
+    from ceph_tpu_torch.chaos.runner import SCENARIOS, ChaosCluster, run_sweep
+    from ceph_tpu_torch.loadgen import resolve_profile
+    from ceph_tpu_torch.loadgen.driver import LoadHarness
+    from ceph_tpu_torch.tools import chaos_run, load_run
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChaosCluster(SCENARIOS["netem_storm"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoadHarness(resolve_profile("rados_rw"), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chaos_run.main(["--scenarios", "netem_storm", "--seed", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_run.main(["--profile", "rados_rw"])
+    # a sweep records a run that could not boot as a crash, not a pass
+    art = run_sweep(["netem_storm"], [0])
+    assert art["summary"]["green"] == 0
+    assert "CUDA" in art["runs"][0]["crash"]
+    assert ChaosCluster(SCENARIOS["netem_storm"], device="cpu").device.type == "cpu"
+    assert LoadHarness(resolve_profile("rados_rw"), 1, device="cpu").device.type == "cpu"
 
 
 def test_client_import_builds_nothing():

@@ -10,8 +10,7 @@ whose data path goes silent is marked down by peer reports while its
 beacon keeps flowing.
 
 The port's twin of tests/integration/test_mon_persistence.py over
-``ceph_tpu_torch``, every daemon on the CPU.  The reference's
-timing-sensitive ``test_trimmed_log_full_sync`` has no twin yet.
+``ceph_tpu_torch``, every daemon on the CPU.
 """
 
 from __future__ import annotations
@@ -165,6 +164,85 @@ class TestMonPersistence:
             for o in osds2:
                 await o.stop()
             await mon2.stop()
+
+        run(go())
+
+    def test_trimmed_log_full_sync(self, tmp_path):
+        """A mon that slept through more commits than the kept log must
+        rejoin via the SYNC snapshot (trim makes incremental catch-up
+        impossible)."""
+        async def go():
+            crush = CrushMap()
+            B.build_hierarchy(crush, osds_per_host=1, n_hosts=3)
+            mons = [
+                Monitor(crush=crush, rank=r, n_mons=3,
+                        store=_filestore(tmp_path, f"mon{r}"),
+                        paxos_trim_max=20, paxos_trim_keep=10)
+                for r in range(3)
+            ]
+            monmap = [await m.start() for m in mons]
+            for m in mons:
+                await m.open_quorum(monmap)
+            for m in mons:
+                await m.wait_stable()
+            leader = None
+            for _ in range(100):
+                leader = next((m for m in mons if m.is_leader), None)
+                if leader is not None:
+                    break
+                await asyncio.sleep(0.1)
+            assert leader is not None, "election never settled"
+
+            # isolate mon.2, then push > trim_max commits
+            await mons[2].stop()
+            for i in range(30):
+                await leader._propose({
+                    "op": "profile", "name": f"prof{i}",
+                    "profile": {"plugin": "cuda", "k": "2", "m": "1"},
+                })
+            assert leader.paxos.first_committed > 1  # log actually trimmed
+
+            # mon.2 rejoins from its (stale) store
+            m2 = Monitor(crush=crush, rank=2, n_mons=3,
+                         store=_filestore(tmp_path, "mon2"),
+                         paxos_trim_max=20, paxos_trim_keep=10)
+            addr = await m2.start()
+            monmap2 = [monmap[0], monmap[1], addr]
+            for m in (mons[0], mons[1], m2):
+                m.monmap = monmap2
+            await m2.open_quorum(monmap2)
+            await m2.wait_stable()
+            # trigger catch-up: the leader commits one more value and
+            # the gap forces mon.2 to FETCH -> SYNC.  The rejoin can
+            # churn an election round; retry the propose until the
+            # quorum settles.
+            members = (mons[0], mons[1], m2)
+            for _try in range(20):
+                try:
+                    await leader._propose({
+                        "op": "profile", "name": "last",
+                        "profile": {"plugin": "cuda", "k": "2", "m": "1"},
+                    })
+                    break
+                except ConnectionError:
+                    await asyncio.sleep(0.3)
+                    leader = next(
+                        (m for m in members if m.is_leader), leader
+                    )
+            else:
+                raise AssertionError("quorum never settled after rejoin")
+            for _ in range(100):
+                if (
+                    m2.paxos.last_committed == leader.paxos.last_committed
+                    and "last" in m2.osdmap.erasure_code_profiles
+                ):
+                    break
+                await asyncio.sleep(0.1)
+            assert "last" in m2.osdmap.erasure_code_profiles
+            assert "prof0" in m2.osdmap.erasure_code_profiles  # via snapshot
+            assert m2.paxos.last_committed == leader.paxos.last_committed
+            for m in (mons[0], mons[1], m2):
+                await m.stop()
 
         run(go())
 

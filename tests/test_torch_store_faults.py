@@ -16,6 +16,16 @@ from ceph_tpu_torch.common.fault_injector import FAULTS, InjectedError
 from ceph_tpu_torch.store import MemStore, Transaction, coll_t, ghobject_t
 from ceph_tpu_torch.store.blockstore import BlockStore
 
+
+@pytest.fixture(autouse=True)
+def _no_armed_faults():
+    """FAULTS is process-wide: leave no point armed for the tests that
+    run after these in the same worker."""
+    FAULTS.clear()
+    yield
+    FAULTS.clear()
+
+
 C = coll_t(1, 0)
 O1 = ghobject_t("obj1")
 O2 = ghobject_t("obj2")
