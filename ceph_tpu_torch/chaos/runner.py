@@ -520,10 +520,12 @@ class ChaosCluster:
         # doomed rack was still up, and that every PG retained enough
         # shards to survive whole-rack loss)
         self.domains_obs: list[dict] = []
-        # baseline for the backfill-interrupt gate: perf counters are
-        # process-global, so sweep runs sharing this process must
-        # judge in-flight passes against a per-run snapshot
-        self._backfill_gate_base: tuple[float, float] = (0.0, 0.0)
+        # seconds that gated events were held past their trace time;
+        # the event loop delays every later event by as much
+        self.delivery_lag = 0.0
+        # osd id -> (primary daemon, pass key) of the backfill pass a
+        # gated kill of that osd interrupted; its revive waits for it
+        self._interrupted_passes: dict[int, tuple] = {}
         self.fullness: dict = {
             "nearfull_raised": False, "backfillfull_raised": False,
             "full_raised": False, "enospc_bounced": False,
@@ -581,7 +583,6 @@ class ChaosCluster:
         from ceph_tpu_torch.osd.daemon import OSDDaemon
 
         sc = self.scenario
-        self._backfill_gate_base = self._backfill_totals()
         crush = CrushMap()
         topo = sc.get("topology")
         if topo:
@@ -820,9 +821,10 @@ class ChaosCluster:
         kind = ev.kind
         if kind == "osd_kill":
             if a.get("await_backfill"):
-                await self._await_backfill_inflight()
+                await self._await_backfill_inflight(a["osd"])
             await self._kill_osd(a["osd"])
         elif kind == "osd_revive":
+            await self._await_interrupted_pass(a["osd"])
             await self._revive_osd(a["osd"])
         elif kind in ("rack_kill", "host_kill"):
             # correlated loss: every member of one failure domain dies
@@ -1055,38 +1057,63 @@ class ChaosCluster:
 
     # -- backfill-interrupt machinery -----------------------------------
 
-    def _backfill_totals(self) -> tuple[float, float]:
-        """Cluster-wide (backfill_started, backfill_completed) sums.
-        The counters are process-global, so a baseline snapshot is
-        taken at cluster start and deltas are judged against it."""
-        from ceph_tpu_torch.common.metrics import get_perf_counters
-        s = c = 0.0
-        for i in range(self.scenario["n_osds"]):
-            d = get_perf_counters(f"osd.{i}").dump()
-            s += d.get("backfill_started", 0.0)
-            c += d.get("backfill_completed", 0.0)
-        return s, c
+    async def _await_backfill_inflight(
+        self, osd_id: int, timeout: float = 10.0,
+    ) -> None:
+        """Hold a scripted interrupt kill of ``osd_id`` until a backfill
+        pass with that OSD as a member is MID-TRANSFER: some live
+        primary lists it in ``backfill_passes`` with at least two
+        objects not yet started (the next may start while the daemon
+        is still stopping; the one after cannot).  The pass is noted
+        so the revive of ``osd_id`` waits for its end
+        (``_await_interrupted_pass``): its remaining objects meet the
+        member down, so it ends short, whatever other passes hold the
+        recovery slots meanwhile.  The cluster-wide started/completed
+        counters cannot tell any of this: a pass cut short earlier
+        leaves started > completed for good, and a pass that does not
+        touch ``osd_id`` completes whatever the kill does.
 
-    async def _await_backfill_inflight(self, timeout: float = 10.0) -> None:
-        """Hold a scripted interrupt kill until a backfill pass is
-        verifiably in flight (started > completed, judged against the
-        run's baseline) so the kill lands MID-TRANSFER instead of
-        racing the revived member's boot.  Every completed pass bumps
-        both counters equally, so a positive delta means a pass is
-        running right now.  This gates DELIVERY of one trace event on
-        cluster state — the trace itself (times, kinds, args, hash)
-        stays pure in (seed, scenario).  On timeout the kill proceeds
-        anyway and check_backfill reports the miss honestly."""
-        base_s, base_c = self._backfill_gate_base
+        This gates DELIVERY of trace events on cluster state — the
+        trace itself (times, kinds, args, hash) stays pure in (seed,
+        scenario).  Every hold is added to ``delivery_lag``, which
+        shifts each later event by as much, so the revive still comes
+        no sooner than its scripted dwell after the kill.  On timeout
+        the kill proceeds anyway and check_backfill reports the miss
+        honestly."""
         loop = asyncio.get_running_loop()
-        deadline = loop.time() + timeout
-        while loop.time() < deadline:
-            s, c = self._backfill_totals()
-            if (s - base_s) > (c - base_c):
-                return
-            await asyncio.sleep(0.02)
-        log.warning("await_backfill: no pass in flight after %.1fs — "
-                    "killing anyway", timeout)
+        start = loop.time()
+        try:
+            while loop.time() < start + timeout:
+                for osd in self.osds:
+                    if osd is None or osd.stopping:
+                        continue
+                    for token, p in list(osd.backfill_passes.items()):
+                        if osd_id in p["members"] and p["left"] >= 2:
+                            self._interrupted_passes[osd_id] = (osd, token)
+                            return
+                await asyncio.sleep(0.02)
+        finally:
+            self.delivery_lag += loop.time() - start
+        log.warning("await_backfill: no pass with osd.%d in flight after "
+                    "%.1fs — killing anyway", osd_id, timeout)
+
+    async def _await_interrupted_pass(
+        self, osd_id: int, timeout: float = 10.0,
+    ) -> None:
+        """Hold the revive of ``osd_id`` until the backfill pass its
+        gated kill interrupted has ended (or ``timeout``)."""
+        held = self._interrupted_passes.pop(osd_id, None)
+        if held is None:
+            return
+        osd, token = held
+        loop = asyncio.get_running_loop()
+        start = loop.time()
+        try:
+            while (token in osd.backfill_passes
+                   and loop.time() < start + timeout):
+                await asyncio.sleep(0.02)
+        finally:
+            self.delivery_lag += loop.time() - start
 
     # -- failure-domain machinery ---------------------------------------
 
@@ -1924,7 +1951,8 @@ async def run_trace(
         loop = asyncio.get_running_loop()
         t0 = loop.time()
         for ev in events:
-            delay = t0 + ev.t * time_scale - loop.time()
+            delay = (t0 + cluster.delivery_lag + ev.t * time_scale
+                     - loop.time())
             if delay > 0:
                 await asyncio.sleep(delay)
             await cluster.apply_event(ev)

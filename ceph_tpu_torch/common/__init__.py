@@ -6,8 +6,9 @@ scheduler.
 
 The port's twin of ceph_tpu/common/ with the same exports, the cluster
 log's ``LogClient`` and ``format_entry`` included.  ``transfer_guard``
-is the port's own (it judges torch copies); ``cpumesh`` pins JAX to a
-virtual CPU platform and has no twin here."""
+is the port's own (it judges torch copies), and so is ``launches`` (the
+kernel wrappers' counts of a process, served as ``dump_launches``);
+``cpumesh`` pins JAX to a virtual CPU platform and has no twin here."""
 
 from ceph_tpu_torch.common.admin_socket import AdminSocket, admin_command
 from ceph_tpu_torch.common.config import OPTIONS, ConfigProxy, Option, declare

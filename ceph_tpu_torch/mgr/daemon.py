@@ -66,6 +66,7 @@ from ceph_tpu_torch.msg.messages import (
     MMonSubscribe,
 )
 from ceph_tpu_torch.msg.messenger import Connection, Message, Messenger
+from ceph_tpu_torch.common.launches import dump_launches
 from ceph_tpu_torch.ops.rs_kernels import resolve_device
 
 log = logging.getLogger("ceph_tpu_torch.mgr")
@@ -427,6 +428,10 @@ class MgrDaemon:
                 self.trace_collector.assemble(int(cmd["trace_id"]))
                 or {"error": "unknown trace_id"}
             ),
+        )
+        sock.register(
+            "dump_launches", "this process's kernel launches by wrapper",
+            dump_launches,
         )
         sock.register(
             "dump_analytics", "analytics engine stats (launches, "

@@ -124,6 +124,7 @@ from ceph_tpu_torch.msg.messenger import Connection, Message, Messenger
 _DELETE_OPS = frozenset(
     {OP_DELETE, OP_OMAP_RMKEYS, OP_OMAP_CLEAR, OP_RMXATTR})
 from ceph_tpu_torch.ops.hashing import ceph_str_hash_rjenkins
+from ceph_tpu_torch.common.launches import dump_launches
 from ceph_tpu_torch.ops.rs_kernels import resolve_device
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.osd.mapenc import apply_map_message
@@ -321,6 +322,11 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
         self._op_span = contextvars.ContextVar(
             f"osd{osd_id}_op_span", default=None)
         self._recovering_pgs: set[tuple[int, int]] = set()
+        # the backfill passes this OSD runs now, from their listing to
+        # their end, one key a pass (two may run for one pg): "members"
+        # (osd ids) and "left" (objects not yet started); a chaos run
+        # times its mid-backfill kill by them
+        self.backfill_passes: dict[object, dict] = {}
         # (pool, ps) -> newest epoch whose recovery pass completed for
         # that pg: a pg is only reported clean once the pass has
         # verified it under the current map (completeness, not just
@@ -332,6 +338,11 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
         # see _prime_interval)
         self._primed_intervals: dict[tuple[int, int], tuple] = {}
         self._prime_locks: dict[tuple[int, int], asyncio.Lock] = {}
+        # (pool, ps) -> {oid: version} of the log entries a replicated
+        # primary adopted while priming and may not hold in its store
+        # yet (the reference's primary missing set): an op on such an
+        # object recovers it first (_recover_if_missing)
+        self._primary_missing: dict[tuple[int, int], dict[str, eversion_t]] = {}
         # past_intervals-lite (reference src/osd/osd_types.h:3270
         # PastIntervals): per local PG, the acting sets of recent map
         # intervals since the pg was last clean — recovery consults
@@ -509,6 +520,10 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
             "admitted/queued counts, park time and served cost per "
             "dmclock client class (the tenant-differentiation proof)",
             lambda cmd: self.op_gate.qos_dump(),
+        )
+        sock.register(
+            "dump_launches", "this process's kernel launches by wrapper",
+            dump_launches,
         )
         sock.register(
             "dump_decode_batch", "recovery-decode aggregator batching "
@@ -1189,10 +1204,13 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
                 if info.last_update > lg.info.last_update:
                     t = Transaction()
                     self._ensure_coll(t, c)
+                    missing = (self._primary_missing.setdefault(key, {})
+                               if mine == NO_SHARD else {})
                     for raw in info.entries:
                         e = pg_log_entry_t.decode(raw)
                         if e.version > lg.info.last_update:
                             lg.append(t, e)
+                            missing[e.oid] = e.version
                     self._pg_log_trim(t, lg)
                     if not t.empty():
                         if getattr(self.store, "blocking_commit", False):
@@ -1203,6 +1221,48 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
             if self.epoch == epoch0:
                 self._primed_intervals[key] = (epoch0, act)
             return self.epoch == epoch0
+
+    async def _recover_if_missing(self, pool, pg, acting, oid: str,
+                                  have_lock: bool) -> bool:
+        """Before a replicated primary serves an op on ``oid``, bring the
+        object to the version its adopted log names (the reference's
+        ``is_missing_object`` wait in PrimaryLogPG::do_op).  Priming
+        adopts the peers' entries, not their data: without this a revived
+        primary reads its stale copy, and a write under a newer
+        SnapContext clones the stale copy into the snapshot.  False (the
+        caller bounces EAGAIN) while the object is behind and the acting
+        set cannot yet vouch for another version."""
+        missing = self._primary_missing.get((pool.id, pool.raw_pg_to_pg(pg).ps))
+        need = missing.get(oid) if missing else None
+        if need is None:
+            return True
+        c = self._shard_coll(pool, pg, NO_SHARD)
+        if self._object_version(c, ghobject_t(oid)) >= need:
+            self._drop_missing(missing, oid, need)
+            return True
+        try:
+            whole = await self._reconcile_object(
+                pool, pg, self._pg_members(pool, acting), oid, have_lock=have_lock)
+        except (OSError, asyncio.TimeoutError, ConnectionError):
+            whole = False  # a member unreachable now: the client retries
+        except Exception:
+            log.exception("osd.%d: recovery of missing %s before an op failed",
+                          self.id, oid)
+            whole = False
+        # whole: every acting member verifiably serves the newest version
+        # there is (a rolled-back entry leaves it below ``need``)
+        if whole or self._object_version(c, ghobject_t(oid)) >= need:
+            self._drop_missing(missing, oid, need)
+            return True
+        self._queue_object_repair(pool, pg, oid)
+        return False
+
+    @staticmethod
+    def _drop_missing(missing: dict, oid: str, need: eversion_t) -> None:
+        """Forget ``oid``'s entry once it is met, unless a concurrent op
+        dropped it already or a newer priming raised it meanwhile."""
+        if missing.get(oid) == need:
+            del missing[oid]
 
     def _next_version(
         self, c: coll_t, epoch: int | None = None
@@ -2276,11 +2336,17 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
         # promote) AND the op itself, so the agent's flush/evict can't
         # interleave with a client op's check-then-act; internal tier
         # ops carry _have_obj_lock and skip re-acquisition
-        if (tiered or msg.is_write()) and not getattr(
-                msg, "_have_obj_lock", False):
+        have_lock = getattr(msg, "_have_obj_lock", False)
+        if (tiered or msg.is_write()) and not have_lock:
             async with self._obj_lock(pool.id, msg.oid):
+                if not pool.is_erasure() and not await self._recover_if_missing(
+                        pool, pg, acting, msg.oid, have_lock=True):
+                    return MOSDOpReply(tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
                 return await self._execute_op_locked(
                     pool, pg, acting, msg, admit_epoch, tiered)
+        if not pool.is_erasure() and not await self._recover_if_missing(
+                pool, pg, acting, msg.oid, have_lock=have_lock):
+            return MOSDOpReply(tid=msg.tid, result=-errno.EAGAIN, epoch=self.epoch)
         return await self._execute_op_locked(
             pool, pg, acting, msg, admit_epoch, tiered)
 

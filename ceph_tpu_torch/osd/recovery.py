@@ -469,6 +469,17 @@ class RecoveryMixin:
                     self.id, pg, e.oid)
 
     async def _recover_pg(self, pool: PgPool, pg: pg_t, acting: list[int]) -> bool:
+        """One recovery pass over ``pg`` (see ``_recover_pg_pass``); a
+        backfill pass is listed in ``backfill_passes`` while it runs."""
+        token = object()
+        try:
+            return await self._recover_pg_pass(pool, pg, acting, token)
+        finally:
+            self.backfill_passes.pop(token, None)
+
+    async def _recover_pg_pass(
+        self, pool: PgPool, pg: pg_t, acting: list[int], token: object,
+    ) -> bool:
         """Peering-lite + recovery for one PG this OSD leads.
 
         1. collect pg_info from every acting member (MOSDPGQuery);
@@ -755,6 +766,7 @@ class RecoveryMixin:
             objs = scope
         all_ok = True
         rsleep = self.conf["osd_recovery_sleep"]
+        listed: dict | None = None  # this pass's backfill_passes entry
 
         async def _one(oid: str) -> bool:
             # osd_recovery_max_active: in-flight reconciliations per
@@ -764,6 +776,8 @@ class RecoveryMixin:
             # BEFORE the object lock — a lock holder must never wait
             # on admission, or slots+locks could cycle)
             async with self._recovery_budget:
+                if listed is not None:
+                    listed["left"] -= 1
                 async with self.op_gate.admit("recovery"):
                     ok = await self._reconcile_object(
                         pool, pg, pairs, oid, stray=oid in strays,
@@ -774,6 +788,11 @@ class RecoveryMixin:
                 return bool(ok)
 
         ordered = sorted(objs - skip_done)
+        if scope is None:
+            listed = self.backfill_passes[token] = {
+                "members": frozenset(o for _, o in pairs),
+                "left": len(ordered),
+            }
         results = await asyncio.gather(
             *[_one(oid) for oid in ordered], return_exceptions=True,
         )

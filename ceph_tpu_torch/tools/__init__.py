@@ -1,25 +1,37 @@
-"""The port's measurement tools: twins of the JAX package's ``tools/``.
+"""The port's tools: twins of the JAX package's ``tools/``.
 
 Each runs as ``python -m ceph_tpu_torch.tools.<name>`` on the card, and
 on the CPU only when asked (``--device cpu``):
 
 - ``ec_benchmark`` — Ceph's ``ceph_erasure_code_benchmark`` CLI;
-- ``bench_all`` — the ``BASELINE.md`` configurations, one JSON line each;
+- ``bench_all`` — the ``BASELINE.md`` configurations, one JSON line each,
+  ``recovery`` with its OSDs in worker processes;
 - ``bench`` — the north-star RS(8,3) encode loop, one JSON line;
 - ``perf_lab``, ``perf_lab2``, ``perf_lab3`` — the kernel probes: copy
   rooflines, dispatch sweeps, the encode's stage ablation, the repeat
-  variant and the looped acc encode.
+  variant and the looped acc encode;
+- ``chaos_run``, ``load_run``, ``chaos_fuzz`` — the chaos matrix, the
+  load harness and the coverage-guided fuzz campaign;
+- ``crushtool``, ``osdmaptool`` — CRUSH and OSDMap offline tools (their
+  ``--test`` and ``--test-map-pgs`` map on the card);
+- ``vstart``, ``cephadm``, ``ceph`` — a dev cluster in one process, a
+  cluster of daemon processes, and the admin CLI (a RADOS client: no
+  device of its own).
 
 The helpers below are shared by them.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ceph_tpu_torch.ops.rs_kernels import resolve_device
 
 MiB = 1 << 20
+#: the repository root: the processes the tools start import the package from it
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 #: NVIDIA H100 SXM data sheet: the HBM3 rate.  The byte bounds of the
 #: ``vs_baseline`` shares are taken against it.
 PEAK_BYTES_PER_S = 3.35e12
@@ -43,6 +55,13 @@ def device_label(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
+def child_env(**extra: str) -> dict[str, str]:
+    """This process's environment for a ``python -m ceph_tpu_torch...``
+    child: the repository root first on its PYTHONPATH, then ``extra``."""
+    path = os.pathsep.join(filter(None, (REPO_ROOT, os.environ.get("PYTHONPATH"))))
+    return {**os.environ, "PYTHONPATH": path, **extra}
+
+
 def int_list(text: str) -> list[int]:
     """``"1,2,3"`` -> [1, 2, 3] (argparse type)."""
     return [int(v) for v in text.split(",") if v]
@@ -56,5 +75,5 @@ def size_label(nbytes: int) -> str:
     return f"{nbytes}B"
 
 
-__all__ = ["MiB", "PEAK_BYTES_PER_S", "device_label", "int_list", "random_bytes", "resolve_device",
-           "size_label", "sync"]
+__all__ = ["MiB", "PEAK_BYTES_PER_S", "REPO_ROOT", "child_env", "device_label", "int_list",
+           "random_bytes", "resolve_device", "size_label", "sync"]

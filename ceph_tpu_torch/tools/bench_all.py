@@ -6,7 +6,10 @@ Twin of the JAX package's ``tools/bench_all.py``:
   ceph_erasure_code_benchmark.cc): encode and decode workloads;
 - osdmaptool --test-map-pgs / ParallelPGMapper for the whole-map remap;
 - the recovery-decode aggregator and the deep-scrub verifier against
-  their per-object host paths.
+  their per-object host paths;
+- the thrash suites' recovery measurement (qa/tasks/ceph_manager.py):
+  end-to-end single-OSD recovery with the OSD daemons in worker
+  processes of their own (``recovery``).
 
 Run on the card:
 
@@ -25,8 +28,15 @@ always run on the CPU.  Sizes are the reference's for the device's kind
   card's own byte bound for the same loop, as its metric string says.
   The ratio targets that are not rates (``/ 10`` of a speedup) stay.
 
-The reference's ``recovery`` config (OSD daemons in processes of their
-own) is not here yet.
+``recovery`` runs ``BENCH_RECOVERY_OSDS`` OSDs (default 64; EC(8,3), or
+EC(4,2) below 12 OSDs) in up to eight worker processes, the victim in one
+of its own, each worker on the same device as the bench; it kills the
+victim and times the cluster back to active+clean twice: run A with the
+batched recovery decode (``device-min-bytes`` 4096, the aggregator on),
+run B with the per-object host decode (``device-min-bytes`` 2^40, the
+aggregator and the encode farm off, so no bit-matrix kernel launches in
+its workers from the kill to clean), as the reference measures them.  Its value is run A's
+in-daemon decode rate over run B's, against the reference's 10x target.
 """
 
 from __future__ import annotations
@@ -35,7 +45,12 @@ import argparse
 import asyncio
 import dataclasses
 import json
+import os
+import shutil
+import signal
+import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -49,14 +64,15 @@ from ceph_tpu_torch.ec.plugins import clay_cuda
 from ceph_tpu_torch.models.matrices import isa_cauchy_matrix
 from ceph_tpu_torch.native import crc32c
 from ceph_tpu_torch.ops import rs_kernels as rk
+from ceph_tpu_torch.common.launches import sum_launches
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.remap import BatchedClusterMapper
 from ceph_tpu_torch.osd.types import PgPool, PoolType, pg_t
 from ceph_tpu_torch.parallel.decode_batcher import DecodeAggregator
 from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
-from ceph_tpu_torch.tools import (MiB, PEAK_BYTES_PER_S, device_label, random_bytes,
-                                  resolve_device, size_label, sync)
+from ceph_tpu_torch.tools import (MiB, PEAK_BYTES_PER_S, child_env, device_label,
+                                  random_bytes, resolve_device, size_label, sync)
 
 #: payloads past this many bytes would leave the host path: the host
 #: baselines pin their plugins below it (the reference's
@@ -95,9 +111,9 @@ class Sizes:
         return cls(**changes)
 
 
-def _emit(metric: str, value: float, unit: str, vs_baseline, device) -> dict:
+def _emit(metric: str, value: float, unit: str, vs_baseline, device, **extra) -> dict:
     line = {"metric": metric, "value": value, "unit": unit, "vs_baseline": vs_baseline,
-            "device": device_label(device)}
+            "device": device_label(device), **extra}
     print(json.dumps(line), flush=True)
     return line
 
@@ -470,6 +486,283 @@ def bench_remap(device, sizes: Sizes) -> dict:
         t_scalar / best, "x speedup", 1.0, device)
 
 
+# -- config 5: e2e 1-OSD-down recovery (multi-process) -----------------------
+#
+# The OSDs run in worker processes (up to eight OSDs a worker, the victim
+# alone), so the kill is a real process kill; the decode stage is timed
+# inside the daemons (the recovery_decode_seconds / _bytes perf counters)
+# and read back over their admin sockets, with the aggregator's batch
+# stats; the device-versus-host ratio comes from running the same
+# scenario twice with the profile's device-min-bytes and the workers'
+# osd_recovery_decode_batch and osd_ec_encode_farm flipping the decode
+# between the batched kernel and the per-object host path.
+
+#: the workers read osd_recovery_decode_batch and osd_ec_encode_farm from
+#: the environment (``common/config.py``: CEPH_TPU_<OPTION>)
+DECODE_BATCH_ENV = "CEPH_TPU_OSD_RECOVERY_DECODE_BATCH"
+ENCODE_FARM_ENV = "CEPH_TPU_OSD_EC_ENCODE_FARM"
+
+
+def recovery_osds() -> int:
+    return int(os.environ.get("BENCH_RECOVERY_OSDS", "64"))
+
+
+def recovery_objects() -> int:
+    return int(os.environ.get("BENCH_RECOVERY_OBJECTS", "128"))
+
+
+def _bench_ec_profile() -> tuple[int, int]:
+    """EC(k, m) of the recovery config, scaled to the cluster: EC(8,3) on
+    64 OSDs (BASELINE.md), but a small debug cluster (fewer than 12 OSDs)
+    cannot host 11 distinct shards across single-OSD failure domains, so
+    it takes EC(4,2)."""
+    return (8, 3) if recovery_osds() >= 12 else (4, 2)
+
+
+def _warm_worker(device, conf) -> None:
+    """Build and launch everything this worker's daemons will need before
+    any op exists: a real encode and a 1-erasure decode at the bench's
+    chunk scale, then, where ``conf`` turns them on, the decode
+    aggregator's and the encode service's prewarm of every bucket the
+    profile can launch.  A failure raises: the worker dies and the run
+    fails."""
+    from ceph_tpu_torch.parallel import decode_batcher, encode_service
+
+    k, m = _bench_ec_profile()
+    ec = registry.factory("cuda", {"k": str(k), "m": str(m)}, device=device)
+    enc = ec.encode(set(range(k + m)), np.zeros(512 * 1024, dtype=np.uint8))
+    cs = len(enc[0])
+    ec.decode({2}, {i: enc[i] for i in range(k + m) if i != 2}, cs)
+    if conf["osd_recovery_decode_batch"] != "off":
+        decode_batcher.shared(device).prewarm(ec, [max(cs >> 2, 1), cs, cs << 2])
+    if conf["osd_ec_encode_farm"] == "on":
+        encode_service.shared(device).prewarm(ec.coding_matrix, [cs])
+
+
+def _osd_group_main(argv: list[str]) -> int:
+    """Worker process: host a group of OSDs on a device until SIGTERM.
+    ``argv``: mon host, mon port, admin socket directory, OSD ids
+    (comma-separated), device."""
+    from ceph_tpu_torch.common import ConfigProxy
+    from ceph_tpu_torch.osd.daemon import OSDDaemon
+
+    host, port, admin_dir, ids, dev = argv[0], int(argv[1]), argv[2], argv[3], argv[4]
+    osd_ids = [int(s) for s in ids.split(",")]
+    device = resolve_device(dev)
+    # the decode batch and the encode farm come from the environment
+    conf = {
+        "admin_socket": os.path.join(admin_dir, "osd.$id.asok"),
+        # the bench drives the failure itself (osd down / out), so
+        # failure detection is out of scope: peer pings off, beacons on
+        "osd_heartbeat_interval": 0.0,
+        # a co-hosted loop stalls for seconds under load; a short
+        # handshake budget would turn that into false failures
+        "ms_connection_ready_timeout": 120.0,
+    }
+    _warm_worker(device, ConfigProxy(dict(conf)))
+
+    async def run() -> None:
+        osds = []
+        for i in osd_ids:
+            o = OSDDaemon(i, (host, port), conf=ConfigProxy(dict(conf)), device=device)
+            await o.start()
+            osds.append(o)
+        stop = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+        await stop.wait()
+        for o in osds:
+            await o.stop()
+
+    asyncio.run(run())
+    return 0
+
+
+async def _sum_decode_counters(admin_dir: str, osd_ids) -> tuple[float, float]:
+    """In-daemon recovery decode seconds and bytes, summed over the OSDs."""
+    from ceph_tpu_torch.common import admin_command
+
+    secs = byts = 0.0
+    for i, path in zip(osd_ids, _osd_sockets(admin_dir, osd_ids)):
+        try:
+            perf = await admin_command(path, "perf dump")
+        except (OSError, ConnectionError):
+            continue
+        c = perf.get(f"osd.{i}", perf)
+        if isinstance(c, dict):
+            secs += float(c.get("recovery_decode_seconds", 0.0))
+            byts += float(c.get("recovery_decode_bytes", 0.0))
+    return secs, byts
+
+
+def _osd_sockets(admin_dir: str, osd_ids) -> list[str]:
+    return [os.path.join(admin_dir, f"osd.{i}.asok") for i in osd_ids]
+
+
+async def sum_batch_stats(socket_paths) -> dict:
+    """The recovery-decode aggregators' stats (``dump_decode_batch``)
+    summed over the OSD processes behind ``socket_paths`` (co-hosted
+    daemons share one aggregator, so the sockets are deduped by pid), with
+    the mean batch and the process count."""
+    from ceph_tpu_torch.common import admin_command
+
+    seen_pids: set[int] = set()
+    total: dict[str, float] = {}
+    for path in socket_paths:
+        try:
+            d = await admin_command(path, "dump_decode_batch")
+        except (OSError, ConnectionError):
+            continue
+        if not isinstance(d, dict) or not d.get("active") or d.get("pid") in seen_pids:
+            continue
+        seen_pids.add(d.get("pid"))
+        for k, v in (d.get("stats") or {}).items():
+            total[k] = total.get(k, 0.0) + float(v)
+    out = dict(total)
+    out["processes"] = len(seen_pids)
+    if total.get("launches"):
+        out["mean_batch"] = total.get("batched_requests", 0.0) / total["launches"]
+    return out
+
+
+async def _recovery_scenario(profile_extra: dict, device, decode_batch: str = "on",
+                             encode_farm: str = "on") -> dict:
+    """One multi-process 1-OSD-down run on ``device``: a mon in this
+    process, the OSDs in workers, the victim alone.  Returns its seconds
+    to clean, bytes written, in-daemon decode seconds and bytes, and the
+    aggregators' stats; ``decode_batch`` and ``encode_farm`` are the
+    workers' osd_recovery_decode_batch and osd_ec_encode_farm."""
+    from ceph_tpu_torch.client import RadosClient
+    from ceph_tpu_torch.common import ConfigProxy
+    from ceph_tpu_torch.mon import Monitor
+
+    n_osds = recovery_osds()
+    # workers scale with the machine; the victim is always its own
+    # process so the failure is a real process kill
+    workers = max(1, min(8, os.cpu_count() or 1))
+    group = max(1, -(-(n_osds - 1) // workers))
+    crush = CrushMap()
+    B.build_hierarchy(crush, osds_per_host=1, n_hosts=n_osds)
+    mon = Monitor(crush=crush, conf=ConfigProxy({"ms_connection_ready_timeout": 120.0}),
+                  device=device)
+    await mon.start()
+    admin_dir = tempfile.mkdtemp(prefix="bench-recovery-asok-")
+    victim = n_osds - 1
+    groups = [list(range(g, min(g + group, n_osds - 1)))
+              for g in range(0, n_osds - 1, group)] + [[victim]]
+    env = child_env(**{DECODE_BATCH_ENV: decode_batch, ENCODE_FARM_ENV: encode_farm})
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.bench_all", "_osd_group",
+         mon.addr[0], str(mon.addr[1]), admin_dir, ",".join(map(str, ids)), str(device)],
+        env=env) for ids in groups]
+    cl = RadosClient(client_id=55, handshake_timeout=120.0)
+    t_boot = time.perf_counter()
+    try:
+        deadline = t_boot + 300
+        await cl.connect(*mon.addr)
+        while True:
+            om = cl.osdmap
+            if om is not None and sum(om.max_osd > o and om.is_up(o)
+                                      for o in range(n_osds)) == n_osds:
+                break
+            dead = [p.args[-2] for p in procs if p.poll() is not None]
+            if dead or time.perf_counter() > deadline:
+                raise RuntimeError(f"OSDs did not come up (workers exited: {dead})")
+            await cl._wait_new_map(om.epoch if om else 0, timeout=1)
+        boot_s = time.perf_counter() - t_boot
+        out = await _recovery_run(cl, procs[-1], victim, admin_dir, n_osds, profile_extra)
+        return {"boot_s": boot_s, **out}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        await cl.shutdown()
+        await mon.stop()
+        shutil.rmtree(admin_dir, ignore_errors=True)
+
+
+async def _recovery_run(cl, victim_proc, victim: int, admin_dir: str, n_osds: int,
+                        profile_extra: dict) -> dict:
+    import random
+
+    k, m = _bench_ec_profile()
+    await cl.ec_profile_set("p", {"plugin": "cuda", "k": str(k), "m": str(m), **profile_extra})
+    await cl.pool_create("bench", pg_num=32, pool_type="erasure", erasure_code_profile="p")
+    io = cl.ioctx("bench")
+    rng = random.Random(9)
+    total = 0
+    t0 = time.perf_counter()
+    for i in range(recovery_objects()):
+        data = rng.randbytes(512 * 1024)
+        await io.write_full(f"o{i}", data)
+        total += len(data)
+    write_s = time.perf_counter() - t0
+    await cl.wait_clean(timeout=600)
+    clean_s = time.perf_counter() - t0 - write_s
+    survivors = range(n_osds - 1)
+    socks = _osd_sockets(admin_dir, survivors)
+    launches_before = await sum_launches(socks)
+    victim_proc.send_signal(signal.SIGKILL)
+    t0 = time.perf_counter()
+    await cl.command({"prefix": "osd down", "id": str(victim)})
+    await cl.command({"prefix": "osd out", "id": str(victim)})
+    # every pg report must post-date the out epoch: stale pre-kill
+    # active+clean reports would otherwise satisfy the wait at once
+    code, _rs, data = await cl.command({"prefix": "status"})
+    kill_epoch = json.loads(data)["epoch"] if code == 0 else 0
+    await cl.wait_clean(timeout=900, min_epoch=kill_epoch)
+    seconds = time.perf_counter() - t0
+    dsec, dbytes = await _sum_decode_counters(admin_dir, survivors)
+    launches = await sum_launches(socks)
+    return {"write_s": write_s, "first_clean_s": clean_s,
+            "seconds_to_clean": seconds, "bytes_written": total, "decode_seconds": dsec,
+            "decode_bytes": dbytes, "batch": await sum_batch_stats(socks),
+            # the survivors' kernel launches from the kill to clean
+            "recovery_launches": {k: v - launches_before.get(k, 0)
+                                  for k, v in launches.items() if v - launches_before.get(k, 0)}}
+
+
+def bench_recovery(device, sizes: Sizes) -> dict:
+    """Run A (the batched decode on ``device``, the encode farm on) and
+    run B (the per-object host decode: the plugin's device path past
+    2^40 bytes, the aggregator and the farm off) of the same scenario.
+    Run A must decode in batches with no cold launch, run B launch no
+    bit-matrix kernel from the kill to clean; its value is A's decode
+    rate over B's."""
+    runs = {}
+    for name, extra, on in (("A", {"device-min-bytes": "4096"}, "on"),
+                            ("B", {"device-min-bytes": str(1 << 40)}, "off")):
+        r = asyncio.run(_recovery_scenario(extra, device, decode_batch=on, encode_farm=on))
+        r["decode_gbs"] = r["decode_bytes"] / r["decode_seconds"] / 1e9 if r["decode_seconds"] else 0.0
+        r["to_clean_gbs"] = r["bytes_written"] / r["seconds_to_clean"] / 1e9
+        runs[name] = r
+    a, b = runs["A"], runs["B"]
+    if a["batch"].get("launches", 0) <= 0:
+        raise AssertionError(f"run A decoded in no batch: {a['batch']}")
+    if a["batch"].get("cold_launches", 0):
+        raise AssertionError(f"run A's aggregators launched cold: {a['batch']}")
+    if device.type == "cuda" and a["recovery_launches"].get("gf_bitmatmul", 0) <= 0:
+        raise AssertionError(f"run A's recovery launched no batched decode: {a}")
+    if any(name.startswith("gf_bitmatmul") for name in b["recovery_launches"]):
+        raise AssertionError(f"run B's host decode launched on the card: {b['recovery_launches']}")
+    ratio = a["decode_gbs"] / b["decode_gbs"] if b["decode_gbs"] else 0.0
+    k, m = _bench_ec_profile()
+    n_osds = recovery_osds()
+    return _emit(
+        f"e2e 1-OSD-down recovery, {n_osds} OSDs in worker processes, EC({k},{m}), "
+        f"{a['bytes_written'] >> 20} MiB user data on {device_label(device)}: in-daemon "
+        f"decode, batched ({a['decode_gbs'] * 1e3:.1f} MB/s, mean batch "
+        f"{a['batch'].get('mean_batch', 0.0):.1f}) vs per-object host "
+        f"({b['decode_gbs'] * 1e3:.1f} MB/s); to clean {a['seconds_to_clean']:.2f} s vs "
+        f"{b['seconds_to_clean']:.2f} s", ratio, "x speedup", ratio / 10.0, device,
+        osds=n_osds, k=k, m=m, runs=runs)
+
+
 CONFIGS = {
     "jerasure_cpu": bench_jerasure_cpu,
     "decode": bench_decode,
@@ -478,13 +771,18 @@ CONFIGS = {
     "decode_batch": bench_decode_batch,
     "scrub_verify": bench_scrub_verify,
     "remap": bench_remap,
+    "recovery": bench_recovery,
 }
 
 
 def main(argv=None, sizes: Sizes | None = None) -> int:
     """Run the configs named in ``argv`` (default: every config whose
     name does not start with ``_``; ``clay_repair`` runs ``_clay_cpu``'s
-    measurement itself).  Returns 1 if any config failed."""
+    measurement itself).  Returns 1 if any config failed.  ``_osd_group``
+    is the recovery config's worker process."""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["_osd_group"]:
+        return _osd_group_main(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("configs", nargs="*", help=f"any of {', '.join(CONFIGS)}")

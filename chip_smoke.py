@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --crush-lab      # the CRUSH lab line alone
     python3 chip_smoke.py --mgr-fold-lab   # the analytics and fold lab line alone
+    python3 chip_smoke.py --operator-path  # phase 18 alone
 
 Builds the CUDA kernels from ``ceph_tpu_torch/ops/csrc`` (first use, one
 ``nvcc`` per source, all started together), then runs one RS(8,3) pool
@@ -162,7 +163,7 @@ through the port's entry points:
    snapshotted, one object overwritten, head and snapshot read back; an
    ``S3Frontend``: 8 objects of 16 MiB (a 4 MiB head and shadow tails)
    PUT and GET over HTTP with SigV4, every body equal and every ETag its
-   md5; an ``MDSDaemon`` and an ``FSClient``: one 64 MiB file of 1 MiB
+   md5; an ``MDSDaemon`` and an ``FSClient``: one 32 MiB file of 1 MiB
    appends, ``fsync``, read back (the device's idle share of each write
    step taken by torch.profiler).  Then 4 digests: every pass equal to
    ``analyze_numpy`` on its snapshot, no failed pass, no cold launch,
@@ -177,7 +178,30 @@ through the port's entry points:
    daemons after their warmup): every scenario green, every delta of the
    cold-launch snapshot 0 (``host_transfers`` among them) with guard
    windows opened, ``compose_load``'s client and mgr percentiles
-   agreeing.
+   agreeing;
+18. operator — the operator's command line and a QA engineer's
+   harnesses, each through its ``python -m ceph_tpu_torch.tools.<name>``
+   entry point: ``crushtool --build 1024 --osds-per-host 8`` (the remap
+   map's 128 hosts of 8), ``-d`` round-tripped to the same text, and
+   ``--test`` of rule 0 (firstn, 3 replicas) and rule 1 (indep, 11) over x
+   = 0 .. 32767 on the card; ``osdmaptool --createsimple 1024 --pg-num
+   32768`` and ``--test-map-pgs`` on the card; each equal to the same CLI
+   with ``--device cpu`` (processes of their own, started first); the
+   Makefile's fuzz campaign (``chaos_fuzz --scenarios osd_thrash --budget
+   2``) on the card: no crashed run, every admitted entry re-derived from
+   its lineage, the minimizer's demo exact; ``vstart`` in a process of its
+   own (3 mons, 12 OSDs, a mgr, all on the card) driven by the ``ceph``
+   CLI through test_cli's flow, then an RS(8,3) pool on the ``cuda``
+   plugin: 16 objects of 4 MiB written and read back, ``osd out`` of one
+   OSD to active+clean, read back again, every PG deep-scrubbed clean,
+   ``osd perf`` naming the 12 OSDs, the daemons' launches and the mgr's
+   digest from their admin sockets; ``cephadm``'s flow of test_cephadm
+   (bootstrap of a mon and 3 OSDs on BlockStores, each a process on the
+   card; I/O, ls, add-osd, restart, stop), then every daemon started again
+   on its stores and the objects read back; and ``bench_all``'s recovery
+   config at 16 OSDs (EC(8,3), the OSDs in worker processes, the victim
+   killed; 8 objects of 512 KiB), runs A (batched decode) and B
+   (per-object host decode).
 
 Phase 1 also holds the CRUSH kernel against its plain version and the
 scalar ``crush_do_rule``: each pool's rule at 1 seed, 1000 seeds and the
@@ -220,9 +244,16 @@ after its last: the bit-matrix kernel (by the recovery decode's batcher)
 and ``mgr_analytics``, the compare, the crc and CRUSH recorded (a
 ``chaos`` line a scenario with its own launches, then the
 ``chaos_path_launches`` line; the RS rows carry them as
-``chaos_path_launches``).  A ``wall`` line gives the smoke's seconds
+``chaos_path_launches``); and before phase 18, and around each of its
+steps: CRUSH at ``crushtool`` and at ``osdmaptool``; the daemons' own
+counts, read over their admin sockets (``dump_launches``), for the vstart
+cluster (the crc and the compare at its deep scrub, ``mgr_analytics`` at
+its digests), the cephadm daemons and the recovery workers (the batched
+bit-matrix kernel from the kill to clean) (the ``operator`` line, then
+``operator_path_launches``; the kernel rows carry them as
+``operator_path_launches``).  A ``wall`` line gives the smoke's seconds
 from the build to the kernel rows and the store, sub-op, cluster,
-services and chaos paths' shares of them.  Then a
+services, chaos and operator paths' shares of them.  Then a
 torch.profiler pass over phases 2-6 gives the device's busy and idle
 share, the main path's memset µs, and the device time per launch at
 each kernel's main-path shape (and at each forced width of the launch
@@ -253,6 +284,10 @@ with a build of ``crush_rule.cu`` whose draws use nvcc's emulated 64-bit
 division (the yardstick of its FP64-reciprocal division), and over a
 sweep of seed counts (where a launch stops being latency-bound).  The
 smoke itself does not run it.
+
+``--operator-path`` builds the kernels and runs phase 18 alone (its
+``operator`` and ``operator_path_launches`` lines, no result line): the
+quickest check of the operator tools on the card.
 
 ``--mgr-fold-lab`` builds the analytics and fold kernels only and prints
 only an ``mgr_fold_lab`` line (each kernel held against its plain version
@@ -321,6 +356,7 @@ from ceph_tpu_torch.ops import analytics_kernels as ak
 from ceph_tpu_torch.ops import hashing
 from ceph_tpu_torch.ops import lab_kernels as lk
 from ceph_tpu_torch.ops import rs_kernels as rk
+from ceph_tpu_torch.common.launches import kernel_launch_counts, sum_launches
 from ceph_tpu_torch.ops.gf256 import gf_matmul, gf_matrix_to_bitmatrix
 from ceph_tpu_torch.osd import ecutil, mapenc, pgutil, remap
 from ceph_tpu_torch.osd.balancer import UpmapBalancer
@@ -340,6 +376,7 @@ from ceph_tpu_torch.rgw import RGWStore, S3Frontend
 from ceph_tpu_torch.rgw.sigv4 import sign_request
 from ceph_tpu_torch.store import Transaction, coll_t, ghobject_t
 from ceph_tpu_torch.store.blockstore import BlobError, BlockStore
+from ceph_tpu_torch.tools import REPO_ROOT, child_env
 from ceph_tpu_torch.tools import bench as t_bench
 from ceph_tpu_torch.tools import bench_all as t_bench_all
 from ceph_tpu_torch.tools import ec_benchmark as t_ec_benchmark
@@ -1873,7 +1910,9 @@ def phase_crc_sweep(cfg: Config, device) -> dict:
             "loads_per_pass": vec, "cluster": cluster, "passes": passes,
             "device_us": prof["device_us_mean"],
             "ms": time_ms(fn, 48, cfg.repeats), "bound_ms": bms, "bound_by": by,
-            "bound_share_device": bms * 1e3 / prof["device_us_mean"],
+            # None: three traces caught no launch of the kernel
+            "bound_share_device": (bms * 1e3 / prof["device_us_mean"]
+                                   if prof["launches"] else None),
             "device_ops_per_call": prof["device_ops_per_call"]})
         del bufs
     return out
@@ -1913,13 +1952,14 @@ def ours(e: dict, kernel: str) -> bool:
     return kernel in e.get("name", "")
 
 
-def traced_calls(fn, calls: int) -> tuple[float, list[dict]]:
+def traced_calls(fn, calls: int, kernel: str | None = None) -> tuple[float, list[dict]]:
     """``traced`` over ``calls`` calls of ``fn(i)``.  A trace that holds no
-    device event at all lost its window (the calls launched kernels, or
-    raised): it is taken again, up to three times."""
+    device event at all, or none of ``kernel``'s where it is named, lost
+    its window (the calls launched kernels, or raised): it is taken
+    again, up to three times."""
     for _ in range(3):
         wall, dev = traced(lambda: [fn(i) for i in range(calls)])
-        if dev:
+        if dev and (kernel is None or any(ours(e, kernel) for e in dev)):
             break
     return wall, dev
 
@@ -1928,7 +1968,7 @@ def per_launch(fn, calls: int, shape: str, kernel: str = "gf_bitmatmul_kernel") 
     """Device time per launch of ``kernel`` over ``calls`` calls of
     ``fn(i)`` (one warm-up call first), beside the wall time per call."""
     fn(0)
-    wall_c, dev_c = traced_calls(fn, calls)
+    wall_c, dev_c = traced_calls(fn, calls, kernel)
     kern = [e["dur"] for e in dev_c if ours(e, kernel)]
     memsets = sum(e["cat"] == "gpu_memset" for e in dev_c)
     return {"shape": shape, "launches": len(kern),
@@ -2170,6 +2210,10 @@ def phase_kernel_tools(cfg: Config, device) -> dict[str, int]:
     return worst
 
 
+#: ``bench_all``'s configs the tools path runs: all but ``recovery``, which
+#: the operator path runs with its OSDs in worker processes
+BENCH_ALL_TOOLS_CONFIGS = [n for n in t_bench_all.CONFIGS
+                           if not n.startswith("_") and n != "recovery"]
 _TIMED_LINE = re.compile(r"^(?P<name>.+?)\s+(?P<ms>[\d.]+) ms\s+(?P<gbs>[\d.]+) GB/s$")
 
 
@@ -2250,7 +2294,8 @@ def phase_tools(cfg: Config, device) -> dict:
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = t_bench_all.main(dev + list(cfg.bench_all_args), sizes=sizes)
+        rc = t_bench_all.main(dev + list(cfg.bench_all_args) + BENCH_ALL_TOOLS_CONFIGS,
+                              sizes=sizes)
     done("bench_all", time.perf_counter() - t0,
          [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")])
     if rc != 0 or any("error" in ln for ln in out["bench_all"]):
@@ -2903,16 +2948,20 @@ STORE_STEP_KERNELS = (("encode", "gf_bitmatmul"), ("scrub", "batched_crc32c_devi
                       ("scrub", "gf_encode_compare"), ("rebuild", "gf_bitmatmul"))
 
 
+def group_launches(raw: dict) -> dict:
+    """Wrapper counts as the path's kernels: ``gf_bitmatmul`` sums every
+    bit-matrix entry point, ``crush_rule`` every rule kind."""
+    return {"gf_bitmatmul": sum(v for k, v in raw.items() if k.startswith("gf_bitmatmul")),
+            "gf_encode_compare": raw.get("gf_encode_compare", 0),
+            "batched_crc32c_device": raw.get("batched_crc32c_device", 0),
+            "crush_rule": sum(v for k, v in raw.items() if k.startswith("crush_rule")),
+            "mgr_analytics": raw.get("mgr_analytics", 0)}
+
+
 def kernel_counts(table: tuple) -> dict:
     """The counts as they stand of the kernels that a (step, kernel)
-    table names: ``gf_bitmatmul`` sums every entry point of the
-    bit-matrix kernel, ``crush_rule`` every rule kind."""
-    rc = rk.launch_counts()
-    now = {"gf_bitmatmul": sum(c for name, c in rc.items() if name.startswith("gf_bitmatmul")),
-           "gf_encode_compare": rc["gf_encode_compare"],
-           "batched_crc32c_device": hashing.launch_counts()["batched_crc32c_device"],
-           "crush_rule": sum(cm.launch_counts().values()),
-           "mgr_analytics": ak.launch_counts()["mgr_analytics"]}
+    table names, grouped as ``group_launches`` groups them."""
+    now = group_launches(kernel_launch_counts())
     return {kernel: now[kernel] for _, kernel in table}
 
 
@@ -2920,6 +2969,12 @@ def counts_since(before: dict) -> dict:
     """Launches of each kernel of ``before`` since it was read."""
     now = kernel_counts(tuple((None, kernel) for kernel in before))
     return {name: now[name] - before[name] for name in before}
+
+
+def _raw_since(before: dict, after: dict) -> dict:
+    """The wrapper counts that moved from ``before`` to ``after`` (two
+    ``kernel_launch_counts`` or ``sum_launches`` readings), ungrouped."""
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] - before.get(k, 0)}
 
 
 def path_idle(steps: dict, table: tuple) -> list[str]:
@@ -4586,11 +4641,14 @@ CHAOS_REQUIRED = ("gf_bitmatmul", "mgr_analytics")
 
 
 def chaos_line(res: dict, launches: dict, decode_batches: int, wall: float) -> dict:
-    """One scenario's line: its verdicts, trace, cold-launch deltas,
-    guard windows and kernel launches."""
+    """One scenario's line: its verdicts (a red one's violations), trace,
+    cold-launch deltas, guard windows and kernel launches."""
     line = {"phase": "chaos", "scenario": res["scenario"], "seed": res["seed"],
             "ok": bool(res.get("ok")), "crash": res.get("crash"),
             "invariants": {k: v["ok"] for k, v in (res.get("invariants") or {}).items()},
+            # what a red invariant found, so a red on the card can be read
+            "violations": {k: v.get("violations") for k, v in (res.get("invariants") or {}).items()
+                           if not v["ok"]},
             "trace_hash": res.get("trace_hash"), "events_applied": res.get("events_applied"),
             "event_errors": res.get("event_errors"), "wall_s": res.get("wall_s"),
             "seconds": wall, "cold_launch_deltas": res.get("cold_launch_deltas"),
@@ -4678,6 +4736,670 @@ def run_chaos_path(cfg: Config, device, scenarios=None) -> dict:
     return {"chaos": lines, "launches": launches, "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the operator path
+# ---------------------------------------------------------------------------
+
+#: crushtool: ``--build`` of the remap map's shape (128 hosts of 8 OSDs),
+#: ``-d``, and ``--test`` of its firstn rule at 3 replicas and its indep
+#: rule at 11 over x = 0 .. 32767
+OPERATOR_CRUSH_OSDS = 1024
+OPERATOR_CRUSH_PER_HOST = 8
+OPERATOR_CRUSH_MAX_X = 32767
+OPERATOR_CRUSH_TESTS = ((0, 3), (1, 11))
+#: osdmaptool: ``--createsimple`` of 1024 OSDs and a size-3 pool of 32768
+#: PGs (Ceph's mon_target_pg_per_osd of 100 over 1024 OSDs at size 3, to
+#: the next power of two)
+OPERATOR_OSDMAP_OSDS = 1024
+OPERATOR_OSDMAP_PGS = 32768
+#: vstart: 3 mons, 12 OSDs and a mgr on the card; test_cli's flow, then an
+#: EC pool on the ``cuda`` plugin with 16 objects of 4 MiB and one OSD out
+OPERATOR_VSTART_MONS = 3
+OPERATOR_VSTART_OSDS = 12
+OPERATOR_EC = (8, 3)
+OPERATOR_EC_PG_NUM = 32
+OPERATOR_OBJECTS = 16
+OPERATOR_OBJECT_BYTES = 4 * MiB
+OPERATOR_OUT_OSD = 11
+#: cephadm: test_cephadm's flow with 3 OSDs on BlockStores (a FileStore
+#: reports the host filesystem's usage, which on a shared disk can sit
+#: past the backfillfull ratio and stall every PG)
+OPERATOR_CEPHADM_OSDS = 3
+OPERATOR_CEPHADM_STORE = "block"
+#: bench_all's recovery config at this many OSDs and objects of 512 KiB
+#: (its EC(8,3) headline of 64 OSDs and 128 objects runs as ``python -m
+#: ceph_tpu_torch.tools.bench_all recovery``; on the card its writes take
+#: seconds each in the worker processes, so the smoke writes few)
+OPERATOR_RECOVERY_OSDS = 16
+OPERATOR_RECOVERY_OBJECTS = 8
+#: the Makefile's fuzz target
+OPERATOR_FUZZ_ARGS = ("--scenarios", "osd_thrash", "--budget", "2", "--settle-timeout", "45")
+OPERATOR_TIMEOUT = 300.0
+#: the CPU references run beside the vstart and cephadm steps (whose
+#: daemons mostly wait), not beside the fuzz runs or the recovery bench,
+#: on this many threads each
+OPERATOR_REFERENCE_THREADS = 3
+#: the kernel rows that carry the operator path's launches (the mgr's row
+#: of its store shape too)
+OPERATOR_ROWS = ("gf_bitmatmul", "gf_encode_compare", "batched_crc32c_device",
+                 "crush_rule_firstn", "crush_rule_indep", "crush_rule_msr")
+
+
+def _add(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _tool(name: str, argv, **kw) -> subprocess.CompletedProcess:
+    """``python -m ceph_tpu_torch.tools.<name> argv`` from the repository root."""
+    return subprocess.run([sys.executable, "-m", f"ceph_tpu_torch.tools.{name}", *argv],
+                          capture_output=True, text=True, cwd=REPO_ROOT, env=child_env(),
+                          timeout=OPERATOR_TIMEOUT, **kw)
+
+
+def _json_docs(lines: list[str]) -> list:
+    """The JSON documents of a tool's output, one after another."""
+    text, dec, docs, i = "\n".join(lines).strip(), json.JSONDecoder(), [], 0
+    while i < len(text):
+        doc, i = dec.raw_decode(text, i)
+        docs.append(doc)
+        while i < len(text) and text[i].isspace():
+            i += 1
+    return docs
+
+
+def operator_maps(tmp: str) -> dict:
+    """``crushtool --build`` and ``-d`` (the text must round-trip) and
+    ``osdmaptool --createsimple`` and ``--print``; no device."""
+    from ceph_tpu_torch.tools import crushtool as t_crushtool
+    from ceph_tpu_torch.tools import osdmaptool as t_osdmaptool
+
+    crush, osdmap = os.path.join(tmp, "crush.txt"), os.path.join(tmp, "osdmap.bin")
+    out = {"crush_map": crush, "osdmap": osdmap}
+    out["build_s"], _ = _run_twin(t_crushtool.main, [
+        "--build", str(OPERATOR_CRUSH_OSDS), "--osds-per-host", str(OPERATOR_CRUSH_PER_HOST),
+        "-o", crush])
+    out["decompile_s"], lines = _run_twin(t_crushtool.main, ["-d", crush])
+    with open(crush) as f:
+        out["roundtrip"] = "\n".join(lines).rstrip("\n") == f.read().rstrip("\n")
+    out["createsimple_s"], _ = _run_twin(t_osdmaptool.main, [
+        "--createsimple", str(OPERATOR_OSDMAP_OSDS), "--pg-num", str(OPERATOR_OSDMAP_PGS),
+        "-o", osdmap])
+    _, lines = _run_twin(t_osdmaptool.main, [osdmap, "--print"])
+    out["print"] = _json_docs(lines)[0]
+    return out
+
+
+def crush_test_args(maps: dict, rule: int, rep: int) -> list[str]:
+    return ["--test", "-i", maps["crush_map"], "--rule", str(rule), "--num-rep", str(rep),
+            "--min-x", "0", "--max-x", str(OPERATOR_CRUSH_MAX_X)]
+
+
+def start_cpu_references(maps: dict) -> dict:
+    """The same ``--test`` and ``--test-map-pgs`` with ``--device cpu``, each
+    a process of its own on ``OPERATOR_REFERENCE_THREADS`` threads, started
+    now and read later."""
+    env = child_env(OMP_NUM_THREADS=str(OPERATOR_REFERENCE_THREADS))
+
+    def start(name, argv):
+        return subprocess.Popen([sys.executable, "-m", f"ceph_tpu_torch.tools.{name}", *argv,
+                                 "--device", "cpu"], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=REPO_ROOT, env=env)
+
+    refs = {f"rule{rule}": start("crushtool", crush_test_args(maps, rule, rep))
+            for rule, rep in OPERATOR_CRUSH_TESTS}
+    refs["map_pgs"] = start("osdmaptool", [maps["osdmap"], "--test-map-pgs"])
+    return refs
+
+
+def read_cpu_references(refs: dict) -> dict:
+    """Each reference's last JSON document, ``seconds`` dropped; raises if
+    one failed (the caller kills what is left running)."""
+    out = {}
+    for name, proc in refs.items():
+        stdout, stderr = proc.communicate(timeout=OPERATOR_TIMEOUT)
+        if proc.returncode != 0:
+            raise AssertionError(f"the CPU reference {name} exited {proc.returncode}:\n"
+                                 f"{stderr[-2000:]}")
+        doc = _json_docs(stdout.splitlines())[-1]
+        doc.pop("seconds", None)
+        out[name] = doc
+    return out
+
+
+def operator_crushtool(maps: dict, device) -> dict:
+    """``crushtool --test`` of each rule on ``device``: its statistics."""
+    from ceph_tpu_torch.tools import crushtool as t_crushtool
+
+    out = {}
+    for rule, rep in OPERATOR_CRUSH_TESTS:
+        secs, lines = _run_twin(t_crushtool.main,
+                                crush_test_args(maps, rule, rep) + ["--device", str(device)])
+        out[f"rule{rule}"] = {"num_rep": rep, "seconds": secs,
+                              "statistics": _json_docs(lines)[0]}
+    return out
+
+
+def operator_osdmaptool(maps: dict, device) -> dict:
+    """``osdmaptool --test-map-pgs`` on ``device``: its summary."""
+    from ceph_tpu_torch.tools import osdmaptool as t_osdmaptool
+
+    secs, lines = _run_twin(t_osdmaptool.main,
+                            [maps["osdmap"], "--test-map-pgs", "--device", str(device)])
+    return {"seconds": secs, "map_pgs": _json_docs(lines)[0]}
+
+
+def operator_fuzz(tmp: str, device) -> dict:
+    """The Makefile's fuzz campaign through ``chaos_fuzz`` on ``device``,
+    its artifact in ``tmp``: each run's verdict, each admitted entry
+    re-derived from its lineage, and the minimizer's demo against the
+    pure function's."""
+    from ceph_tpu_torch.chaos.runner import SCENARIOS
+    from ceph_tpu_torch.chaos.schedule import events_from_json, generate_schedule, trace_hash
+    from ceph_tpu_torch.fuzz.mutate import mutate
+    from ceph_tpu_torch.fuzz.runner import minimize_demo
+    from ceph_tpu_torch.tools import chaos_fuzz as t_chaos_fuzz
+
+    path = os.path.join(tmp, "fuzz.json")
+    buf = io.StringIO()
+    for mod in (encode_service, decode_batcher, scrub_batcher):
+        mod.reset_shared()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = t_chaos_fuzz.main([*OPERATOR_FUZZ_ARGS, "--out", path, "--device", str(device)])
+    finally:
+        for mod in (encode_service, decode_batcher, scrub_batcher):
+            mod.reset_shared()
+    with open(path) as f:
+        art = json.load(f)
+    by_hash = {e["trace_hash"]: e for e in art["corpus"]}
+    lineage_mismatches = []
+    for e in art["corpus"]:
+        sc = SCENARIOS[e["scenario"]]
+        if e["mutation_kind"] == "seed":
+            ev = generate_schedule(0, sc)
+        else:
+            parent = by_hash[e["parent"]]
+            ev, _ = mutate(events_from_json(parent["events"]), sc, parent["trace_hash"],
+                           e["mutation_seed"])
+        if trace_hash(ev) != e["trace_hash"]:
+            lineage_mismatches.append(e["trace_hash"])
+    demo = json.loads(json.dumps(minimize_demo()))
+    return {"rc": rc, "runs": [{k: r.get(k) for k in ("scenario", "ok", "crash", "trace_hash",
+                                                       "n_events", "wall_s")}
+                               for r in art["runs"]],
+            "crashed": [r["trace_hash"] for r in art["runs"] if r.get("crash")],
+            "reds": [{"trace_hash": r["trace_hash"], "mutation_kind": r["mutation_kind"],
+                      "violations": r["violations"]} for r in art["reds"]],
+            "summary": art["summary"],
+            "mutation_stats": art["mutation_stats"], "lineage_mismatches": lineage_mismatches,
+            "minimize_demo_equal": art["minimize_demo"] == demo,
+            "minimize_demo_exact": bool(art["minimize_demo"]["found_exact_kernel"])}
+
+
+def _wait_for(path: str, pattern: str, proc: subprocess.Popen, timeout: float) -> str:
+    """The first group of ``pattern`` in the log at ``path``, written by
+    ``proc``; raises if ``proc`` exits or the time runs out first."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(path, errors="replace") as f:
+            m = re.search(pattern, f.read())
+        if m:
+            return m.group(1)
+        if proc.poll() is not None or time.monotonic() > deadline:
+            with open(path, errors="replace") as f:
+                raise AssertionError(f"{proc.args[2]} did not start (rc={proc.poll()}):\n"
+                                     f"{f.read()[-3000:]}")
+        time.sleep(0.2)
+
+
+def _cli_main(main_fn, argv) -> subprocess.CompletedProcess:
+    """A CLI's ``main(argv)`` in this process, its output captured as a
+    process's would be (``main`` runs its own event loop, so call it from
+    a thread of its own when a loop is running)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(argv)
+    return subprocess.CompletedProcess(argv, rc, out.getvalue(), err.getvalue())
+
+
+async def _ceph(spec: str, *args, flags=(), process: bool = False) -> subprocess.CompletedProcess:
+    """The port's ``ceph`` CLI against the monmap ``spec``: its ``main`` in
+    a thread, or with ``process`` as ``python -m`` (a process takes seconds
+    to import torch on the card's host)."""
+    from ceph_tpu_torch.tools import ceph as t_ceph
+
+    argv = ["-m", spec, *flags, *args]
+    if process:
+        return await asyncio.to_thread(_tool, "ceph", argv)
+    return await asyncio.to_thread(_cli_main, t_ceph.main, argv)
+
+
+async def _up(client, n: int, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    while True:
+        om = client.osdmap
+        if om is not None and sum(om.is_up(o) for o in range(om.max_osd)) >= n:
+            return
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{n} OSDs not up in {timeout} s")
+        await client._wait_new_map(om.epoch if om else 0, timeout=2)
+
+
+def operator_objects() -> dict[str, bytes]:
+    rng = np.random.default_rng(18)
+    return {f"op{i}": rng.integers(0, 256, OPERATOR_OBJECT_BYTES, dtype=np.uint8).tobytes()
+            for i in range(OPERATOR_OBJECTS)}
+
+
+async def vstart_flow(spec: str, asok: str, out: dict) -> None:
+    """test_cli's flow through the port's ``ceph``, then an EC pool on the
+    ``cuda`` plugin: objects written and read back, one OSD out, active+
+    clean, read back again, ``osd perf``; the daemons' launches and
+    batch stats from their admin sockets."""
+    from ceph_tpu_torch.common import admin_command
+    from ceph_tpu_torch.tools.ceph import parse_addrs
+
+    osd_socks = [os.path.join(asok, f"osd.{i}.asok") for i in range(OPERATOR_VSTART_OSDS)]
+    mgr_sock = os.path.join(asok, "mgr.x.asok")
+    boot = await sum_launches(osd_socks + [mgr_sock])
+    t0 = time.perf_counter()
+    rcs = {}
+    out["op_failures"] = 0
+
+    async def ceph(name, *args, flags=(), process=False):
+        r = await _ceph(spec, *args, flags=flags, process=process)
+        rcs[name] = r.returncode
+        return r
+
+    r = await ceph("status", "status", process=True)
+    out["num_up_osds"] = json.loads(r.stdout)["num_up_osds"] if r.returncode == 0 else None
+    await ceph("profile", "osd", "erasure-code-profile", "set", "cliprof", "k=2", "m=1",
+               "plugin=cuda")
+    r = await ceph("pool_create", "osd", "pool", "create", "clipool",
+                   flags=("--pg-num", "8", "--pool-type", "erasure",
+                          "--erasure-code-profile", "cliprof"))
+    out["clipool_id"] = json.loads(r.stdout)["pool_id"] if r.returncode == 0 else None
+    r = await ceph("df", "df")
+    out["df_names_clipool"] = "clipool" in r.stdout
+    r = await ceph("pg_scrub", "pg", "scrub", "1.0")
+    out["scrub_inconsistencies"] = (json.loads(r.stdout)["inconsistencies"]
+                                    if r.returncode == 0 else None)
+    await ceph("osd_down", "osd", "down", "5")
+    await ceph("status_after_down", "status")
+    out["cli_flow_s"] = time.perf_counter() - t0
+
+    k, m = OPERATOR_EC
+    await ceph("ec_profile", "osd", "erasure-code-profile", "set", "rs", f"k={k}", f"m={m}",
+               "plugin=cuda")
+    await ceph("ec_pool", "osd", "pool", "create", "rs",
+               flags=("--pg-num", str(OPERATOR_EC_PG_NUM), "--pool-type", "erasure",
+                      "--erasure-code-profile", "rs"))
+    client = RadosClient(client_id=1818)
+    await client.connect_multi(parse_addrs(spec))
+    try:
+        await _up(client, OPERATOR_VSTART_OSDS, OPERATOR_TIMEOUT)
+        await client.wait_clean(timeout=OPERATOR_TIMEOUT)
+        io = client.ioctx("rs")
+        objects = operator_objects()
+        t1 = time.perf_counter()
+        res = await _bounded([io.write_full(o, d) for o, d in objects.items()], 8)
+        out["write_s"] = time.perf_counter() - t1
+        _failed(out, res)
+        out["read_mismatches"] = await _read_objects(io, objects, list(objects), out)
+        before = await sum_launches(osd_socks)
+        dec0 = await t_bench_all.sum_batch_stats(osd_socks)
+        t1 = time.perf_counter()
+        await ceph("osd_out", "osd", "out", str(OPERATOR_OUT_OSD))
+        rc, _, data = await client.command({"prefix": "status"})
+        await client.wait_clean(timeout=OPERATOR_TIMEOUT,
+                                min_epoch=json.loads(data)["epoch"] if rc == 0 else 0)
+        out["out_to_clean_s"] = time.perf_counter() - t1
+        dec1 = await t_bench_all.sum_batch_stats(osd_socks)
+        out["recovery_launches"] = _raw_since(before, await sum_launches(osd_socks))
+        # an OSD out but up is a copy source: its shards move, nothing decodes
+        out["recovery_decode_batches"] = dec1.get("launches", 0) - dec0.get("launches", 0)
+        out["cold_launches"] = dec1.get("cold_launches", 0)
+        out["readback_mismatches"] = await _read_objects(io, objects, list(objects), out)
+        # deep scrub of every PG of the pool (the crc and the compare on
+        # the card): the first through the CLI, the rest through the client
+        before, t1 = await sum_launches(osd_socks), time.perf_counter()
+        pool_id = client.osdmap.lookup_pg_pool_name("rs")
+        r = await ceph("deep_scrub", "pg", "deep-scrub", f"{pool_id}.0")
+        reports = [json.loads(r.stdout)] if r.returncode == 0 else []
+        for rep in await _bounded([client.command({"prefix": "pg deep-scrub",
+                                                   "pgid": f"{pool_id}.{ps}"})
+                                   for ps in range(1, OPERATOR_EC_PG_NUM)], 8):
+            if not isinstance(rep, BaseException) and rep[0] == 0:
+                reports.append(json.loads(rep[2]))
+        out["deep_scrub_s"] = time.perf_counter() - t1
+        out["deep_scrubbed_pgs"] = len(reports)
+        out["deep_scrub_inconsistencies"] = sum(len(x.get("inconsistencies", [])) for x in reports)
+        out["deep_scrub_launches"] = _raw_since(before, await sum_launches(osd_socks))
+    finally:
+        await client.shutdown()
+    r = await ceph("osd_perf", "osd", "perf")
+    out["osd_perf_ids"] = (sorted(row["id"] for row in json.loads(r.stdout)["osd_perf_infos"])
+                           if r.returncode == 0 else [])
+    mgr = await admin_command(mgr_sock, "dump_analytics")
+    out["mgr"] = {"shape": mgr["shape"], "launches": mgr["stats"].get("launches", 0),
+                  "cold_launches": mgr["stats"].get("cold_launches", 0),
+                  "digest_failures": mgr["digest_failures"],
+                  "warmup_failures": mgr["warmup_failures"]}
+    out["cli_rcs"] = rcs
+    out["boot_launches"] = boot
+    out["launches"] = _raw_since(boot, await sum_launches(osd_socks + [mgr_sock]))
+
+
+def operator_vstart(tmp: str, device) -> dict:
+    """``vstart`` in a process of its own on ``device`` (its monmap read
+    from its output), driven by ``vstart_flow``, then stopped."""
+    asok = tempfile.mkdtemp(prefix="vs-")
+    log = os.path.join(tmp, "vstart.log")
+    out = {"mons": OPERATOR_VSTART_MONS, "osds": OPERATOR_VSTART_OSDS}
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.vstart", "--mons",
+             str(OPERATOR_VSTART_MONS), "--osds", str(OPERATOR_VSTART_OSDS), "--mgrs", "1",
+             "--beacon", "0.5", "--admin-socket-dir", asok, "--device", str(device)],
+            stdout=f, stderr=subprocess.STDOUT, cwd=REPO_ROOT, env=child_env())
+    try:
+        spec = _wait_for(log, r"mons at (\S+)", proc, OPERATOR_TIMEOUT)
+        out["boot_s"] = time.perf_counter() - t0
+        asyncio.run(asyncio.wait_for(vstart_flow(spec, asok, out), 2 * OPERATOR_TIMEOUT))
+    finally:
+        proc.terminate()
+        try:
+            out["stop_rc"] = proc.wait(timeout=OPERATOR_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out["stop_rc"] = proc.wait()
+        shutil.rmtree(asok, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _cephadm(pids: set, *argv) -> str:
+    """One ``cephadm`` verb through its ``main`` in this process (the
+    daemons it starts are processes of their own, in sessions of their
+    own, and children of this one: their pids join ``pids``); its output."""
+    from ceph_tpu_torch.tools import cephadm as t_cephadm
+
+    r = _cli_main(t_cephadm.main, list(argv))
+    data = argv[argv.index("--data") + 1]
+    for name in os.listdir(data):
+        if name.endswith(".pid"):
+            with open(os.path.join(data, name)) as f:
+                pids.add(int(f.read().strip()))
+    if r.returncode != 0:
+        raise AssertionError(f"cephadm {argv[0]} exited {r.returncode}:\n{r.stderr[-3000:]}")
+    return r.stdout
+
+
+async def _cephadm_client(addrs, n: int):
+    client = RadosClient(client_id=1819)
+    deadline = time.monotonic() + OPERATOR_TIMEOUT
+    while True:
+        try:
+            await client.connect_multi(addrs)
+            break
+        except (OSError, ConnectionError, asyncio.TimeoutError):
+            if time.monotonic() > deadline:
+                raise
+            await asyncio.sleep(0.5)
+    await _up(client, n, OPERATOR_TIMEOUT)
+    return client
+
+
+def operator_cephadm(tmp: str, device) -> dict:
+    """test_cephadm's flow through the port's ``cephadm``, every daemon a
+    process on ``device``: bootstrap, I/O, ls, add-osd, restart, the new
+    OSD placed, the daemons' launches, stop; then every daemon started
+    again on its stores (``restart`` of each) and the objects read back
+    (durability across a whole stop), and stop."""
+    data = tempfile.mkdtemp(prefix="adm-")
+    pids: set[int] = set()
+    n = OPERATOR_CEPHADM_OSDS
+    objects = {f"o{i}": bytes([i]) * 2048 for i in range(6)}
+    out = {"osds": n, "store": OPERATOR_CEPHADM_STORE}
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+
+    async def io_phase(addrs):
+        client = await _cephadm_client(addrs, n)
+        try:
+            await client.pool_create("adm", pg_num=4, size=2)
+            io = client.ioctx("adm")
+            for oid, payload in objects.items():
+                await io.write_full(oid, payload)
+            await client.wait_clean(timeout=OPERATOR_TIMEOUT)
+        finally:
+            await client.shutdown()
+
+    async def verify(addrs, want_osds):
+        client = await _cephadm_client(addrs, want_osds)
+        try:
+            await client.wait_clean(timeout=OPERATOR_TIMEOUT)
+            io = client.ioctx("adm")
+            bad = sum([await io.read(oid) != payload for oid, payload in objects.items()])
+            crush = client.osdmap.crush
+            h = crush.bucket_names.get(f"host{n}")
+            return bad, h is not None and n in crush.buckets[h].items
+        finally:
+            await client.shutdown()
+
+    try:
+        t0 = time.perf_counter()
+        _cephadm(pids, "bootstrap", "--data", data, "--osds", str(n), "--store",
+                 OPERATOR_CEPHADM_STORE, "--device", str(device))
+        with open(os.path.join(data, "cluster_spec.json")) as f:
+            addrs = [("127.0.0.1", p) for p in json.load(f)["mon_ports"]]
+        step("bootstrap", t0)
+        t0 = time.perf_counter()
+        asyncio.run(io_phase(addrs))
+        step("io", t0)
+        out["ls_up"] = _cephadm(pids, "ls", "--data", data).count("up")
+        t0 = time.perf_counter()
+        _cephadm(pids, "add-osd", "--data", data)
+        _cephadm(pids, "restart", "--data", data, "osd.0")
+        time.sleep(2)
+        ls = _cephadm(pids, "ls", "--data", data)
+        out["ls_up_after_add"], out["added_listed"] = ls.count("up"), f"osd.{n}" in ls
+        out["read_mismatches"], out["added_placed"] = asyncio.run(verify(addrs, n + 1))
+        step("add_restart_verify", t0)
+        out["launches"] = asyncio.run(sum_launches(
+            [os.path.join(data, f"{i}.asok") for i in range(n + 1)]))
+        t0 = time.perf_counter()
+        _cephadm(pids, "stop", "--data", data)
+        out["ls_up_after_stop"] = _cephadm(pids, "ls", "--data", data).count("up")
+        # the mon first, as bootstrap starts it, and the OSDs once it listens
+        _cephadm(pids, "restart", "--data", data, "mon.0")
+        _listening(addrs[0], OPERATOR_TIMEOUT)
+        for i in range(n + 1):
+            _cephadm(pids, "restart", "--data", data, f"osd.{i}")
+        out["reboot_read_mismatches"], _ = asyncio.run(verify(addrs, n + 1))
+        step("rebootstrap", t0)
+    finally:
+        _cephadm(pids, "stop", "--data", data)
+        out["ls_up_at_end"] = _cephadm(pids, "ls", "--data", data).count("up")
+        _reap(pids)
+        shutil.rmtree(data, ignore_errors=True)
+    out["steps"] = steps
+    return out
+
+
+def _listening(addr: tuple, timeout: float) -> None:
+    """Wait until something accepts connections at ``addr``."""
+    import socket
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            socket.create_connection(addr, timeout=1.0).close()
+            return
+        except OSError:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"nothing listens at {addr} after {timeout} s")
+            time.sleep(0.1)
+
+
+def _reap(pids: set) -> None:
+    """SIGKILL any of the cephadm daemons ``pids`` still running, and reap
+    them all."""
+    for pid in pids:
+        try:
+            os.kill(pid, 9)
+        except ProcessLookupError:
+            pass
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+
+
+def operator_recovery(device) -> dict:
+    """``bench_all``'s recovery config, runs A and B, at
+    ``OPERATOR_RECOVERY_OSDS`` OSDs: its line."""
+    saved = {k: os.environ.get(k) for k in ("BENCH_RECOVERY_OSDS", "BENCH_RECOVERY_OBJECTS")}
+    os.environ["BENCH_RECOVERY_OSDS"] = str(OPERATOR_RECOVERY_OSDS)
+    os.environ["BENCH_RECOVERY_OBJECTS"] = str(OPERATOR_RECOVERY_OBJECTS)
+    try:
+        secs, lines = _run_twin(t_bench_all.main, ["recovery", "--device", str(device)])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    line = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    line["seconds"] = secs
+    return line
+
+
+def check_operator(line: dict, on_card: bool) -> None:
+    """What the operator path must show: the CRUSH text round-tripped and
+    the card's ``crushtool --test`` and ``osdmaptool --test-map-pgs`` equal
+    to ``--device cpu``'s; the fuzz campaign with every run green and none
+    crashed, every admitted entry re-derived from its lineage, the minimizer's demo
+    exact and equal; test_cli's flow and the EC pool's objects read back
+    equal before and after an OSD out, active+clean, ``osd perf`` naming
+    every OSD, the mgr's digest with no failure or cold launch;
+    test_cephadm's flow and the restart of a stopped cluster, every daemon
+    down at the end; the recovery config's run A decoding in batches with
+    no cold launch (and, on the card, launching the batched decode in its
+    workers), run B launching no bit-matrix kernel.  On the card also: CRUSH launched by ``crushtool`` and by
+    ``osdmaptool``, the crc and the compare by the vstart cluster's deep
+    scrub and ``mgr_analytics`` by its mgr."""
+    cr, om, fz = line["crushtool"], line["osdmaptool"], line["fuzz"]
+    vs, adm, rec = line["vstart"], line["cephadm"], line["recovery"]
+    ref = line["cpu_reference"]
+    n_vs = vs["osds"]
+    faults = {
+        "crush_roundtrip": not line["maps"]["roundtrip"],
+        "crush_vs_cpu": any(cr[name]["statistics"] != ref[name] for name in cr),
+        "map_pgs_vs_cpu": {k: v for k, v in om["map_pgs"].items() if k != "seconds"}
+                          != ref["map_pgs"],
+        "fuzz_crash": bool(fz["crashed"]),
+        # every run green, the seed runs (phase 17's osd_thrash seed 0
+        # among them) and the mutants alike: chaos_fuzz exits 1 on a red
+        "fuzz_red": fz["rc"] != 0 or bool(fz["reds"]),
+        "fuzz_lineage": bool(fz["lineage_mismatches"]),
+        "fuzz_demo": not (fz["minimize_demo_equal"] and fz["minimize_demo_exact"]),
+        "cli": (any(rc != 0 for rc in vs["cli_rcs"].values()) or vs["num_up_osds"] != n_vs
+                or not vs["df_names_clipool"] or vs["scrub_inconsistencies"] != []
+                or (vs["clipool_id"] or 0) < 1),
+        "vstart_io": bool(vs["op_failures"] or vs["read_mismatches"]
+                          or vs["readback_mismatches"] or vs["cold_launches"]),
+        "vstart_scrub": (vs["deep_scrubbed_pgs"] != OPERATOR_EC_PG_NUM
+                         or vs["deep_scrub_inconsistencies"]),
+        "osd_perf": vs["osd_perf_ids"] != list(range(n_vs)),
+        "mgr": bool(vs["mgr"]["digest_failures"] or vs["mgr"]["cold_launches"]
+                    or vs["mgr"]["warmup_failures"] or vs["mgr"]["launches"] <= 0),
+        "cephadm": (adm["ls_up"] != 1 + adm["osds"] or adm["ls_up_after_add"] != 2 + adm["osds"]
+                    or not adm["added_listed"] or not adm["added_placed"]
+                    or adm["read_mismatches"] or adm["ls_up_after_stop"]
+                    or adm["reboot_read_mismatches"] or adm["ls_up_at_end"]),
+        "recovery": (rec["runs"]["A"]["batch"].get("launches", 0) <= 0
+                     or rec["runs"]["A"]["batch"].get("cold_launches", 0) != 0
+                     or any(k.startswith("gf_bitmatmul")
+                            for k in rec["runs"]["B"]["recovery_launches"])),
+    }
+    if on_card:
+        steps = line["by_step"]
+        faults["launches"] = (steps["crushtool"]["crush_rule"] <= 0
+                              or steps["osdmaptool"]["crush_rule"] <= 0
+                              or group_launches(vs["deep_scrub_launches"])[
+                                  "batched_crc32c_device"] <= 0
+                              or group_launches(vs["deep_scrub_launches"])[
+                                  "gf_encode_compare"] <= 0
+                              or group_launches(vs["launches"])["mgr_analytics"] <= 0)
+    bad = sorted(k for k, v in faults.items() if v)
+    if bad:
+        raise AssertionError(f"operator path: {bad}")
+
+
+def run_operator_path(cfg: Config, device) -> dict:
+    """Phase 18 counted alone: every count reset just before it, each
+    step's launches read around it (this process's for the tools that run
+    in it, the daemons' admin sockets for those in processes of their
+    own), one ``operator`` line, then the ``operator_path_launches`` line
+    with each step's launches; ``check_operator`` must pass.  On the CPU
+    nothing launches, so the launch checks apply on the card only."""
+    for mod in (rk, hashing, cm, ak, clay_cuda):
+        mod.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="operator-")
+    line = {"phase": "operator", "device": str(device)}
+    by_step, total, seconds = {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        line["maps"] = operator_maps(tmp)
+        seconds["maps"] = time.perf_counter() - t0
+        for name, fn in (("crushtool", lambda: operator_crushtool(line["maps"], device)),
+                         ("osdmaptool", lambda: operator_osdmaptool(line["maps"], device)),
+                         ("fuzz", lambda: operator_fuzz(tmp, device))):
+            before, t0 = kernel_launch_counts(), time.perf_counter()
+            line[name] = fn()
+            _sync(device)
+            seconds[name] = time.perf_counter() - t0
+            by_step[name] = _raw_since(before, kernel_launch_counts())
+        refs = start_cpu_references(line["maps"])
+        try:
+            for name, fn in (("vstart", lambda: operator_vstart(tmp, device)),
+                             ("cephadm", lambda: operator_cephadm(tmp, device))):
+                t0 = time.perf_counter()
+                line[name] = fn()
+                seconds[name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            line["cpu_reference"] = read_cpu_references(refs)
+            seconds["cpu_reference_wait"] = time.perf_counter() - t0
+        finally:
+            for proc in refs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        t0 = time.perf_counter()
+        line["recovery"] = operator_recovery(device)
+        seconds["recovery"] = time.perf_counter() - t0
+        by_step["vstart"] = line["vstart"]["launches"]
+        by_step["cephadm"] = line["cephadm"]["launches"]
+        by_step["recovery"] = line["recovery"]["runs"]["A"]["recovery_launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for raw in by_step.values():
+        _add(total, raw)
+    line["seconds"] = seconds
+    line["by_step"] = {k: group_launches(v) for k, v in by_step.items()}
+    emit(line)
+    summary = {"phase": "operator_path_launches", **group_launches(total), "raw": total,
+               "by_step": line["by_step"], "seconds": sum(seconds.values())}
+    emit(summary)
+    check_operator(line, torch.device(device).type == "cuda")
+    return {"operator": line, "launches": total, "summary": summary}
+
+
 def ptxas_lines(log: str) -> list[str]:
     """What ``ptxas -v`` says of each function: its name, then its stack
     frame and spills, then its registers."""
@@ -4687,7 +5409,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 def main(argv: list[str] | None = None) -> int:
     argv = argv or []
-    if argv not in ([], ["--crush-lab"], ["--mgr-fold-lab"]):
+    if argv not in ([], ["--crush-lab"], ["--mgr-fold-lab"], ["--operator-path"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4714,6 +5436,11 @@ def main(argv: list[str] | None = None) -> int:
           "ptxas": {n: ptxas_lines(log) for n, log in _build.BUILD_LOG.items()}})
     emit({"config": dataclasses.asdict(cfg), "plugin": "cuda",
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if argv == ["--operator-path"]:
+        # the operator path alone: no other path, no kernel rows, no result line
+        run_operator_path(cfg, device)
+        print(gpu_name_and_power_limit(), flush=True)
+        return 0
     if argv:
         # the CRUSH lab alone: no path is driven, no result line
         emit(phase_crush_lab(cfg, device))
@@ -4803,6 +5530,12 @@ def main(argv: list[str] | None = None) -> int:
     chaos = run_chaos_path(cfg, device)
     chaos_s = time.perf_counter() - t_chaos
 
+    # the operator path: the operator's command line, the dev cluster, the
+    # orchestrator, the recovery bench and the fuzz campaign, counted alone
+    t_operator = time.perf_counter()
+    operator = run_operator_path(cfg, device)
+    operator_s = time.perf_counter() - t_operator
+
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
     for row in rows:
@@ -4814,14 +5547,21 @@ def main(argv: list[str] | None = None) -> int:
     # the services path's launches beside each row's own: the bit-matrix
     # entry points, CRUSH, and the row of the mgr's store shape
     mgr_row = f"mgr_analytics:{_shape_name(services['services']['digest']['engine_shape'])}"
-    if mgr_row not in {row["name"] for row in rows}:
-        raise AssertionError(f"no kernel row for the mgr's store: {mgr_row}")
+    operator_mgr_row = (
+        f"mgr_analytics:{_shape_name(tuple(operator['operator']['vstart']['mgr']['shape']))}")
+    for name in (mgr_row, operator_mgr_row):
+        if name not in {row["name"] for row in rows}:
+            raise AssertionError(f"no kernel row for the mgr's store: {name}")
     for row in rows:
         name = "mgr_analytics" if row["name"] == mgr_row else row["name"]
         if name in services["launches"]:
             row["services_path_launches"] = services["launches"][name]
         if row["name"] in ("gf_bitmatmul", "gf_encode_compare", "batched_crc32c_device"):
             row["chaos_path_launches"] = chaos["launches"][row["name"]]
+        if row["name"] in OPERATOR_ROWS:
+            row["operator_path_launches"] = operator["launches"].get(row["name"], 0)
+        elif row["name"] == operator_mgr_row:
+            row["operator_path_launches"] = operator["launches"].get("mgr_analytics", 0)
     rows.append(fold_kernel_row(cfg, device, fold_worst, farm["launches"]["gf_fold"]))
     emit(phase_crc_sweep(cfg, device))
     emit(phase_mgr_staged(cfg, device))
@@ -4832,7 +5572,8 @@ def main(argv: list[str] | None = None) -> int:
           "subop_path_share": subop_s / wall, "cluster_path_seconds": cluster_s,
           "cluster_path_share": cluster_s / wall, "services_path_seconds": services_s,
           "services_path_share": services_s / wall, "chaos_path_seconds": chaos_s,
-          "chaos_path_share": chaos_s / wall})
+          "chaos_path_share": chaos_s / wall, "operator_path_seconds": operator_s,
+          "operator_path_share": operator_s / wall})
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

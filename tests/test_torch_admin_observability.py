@@ -8,10 +8,11 @@ historic + slow-op dumps, complaint threshold), src/common/dout.h
 The port's twin of tests/integration/test_admin_observability.py: the same cases over
 ``ceph_tpu_torch``, the daemons on the CPU and the EC pools on the
 ``cuda`` plugin.  ``test_event_plane_cli_and_dashboard`` runs the
-reference's ``tools/ceph.py`` and waits for that CLI's twin."""
+port's CLI, ``python -m ceph_tpu_torch.tools.ceph``."""
 
 from __future__ import annotations
 
+import asyncio
 import logging
 
 from ceph_tpu_torch.common import ConfigProxy, DoutLogger, OpTracker, admin_command
@@ -245,6 +246,111 @@ class TestAdminSocket:
         assert t.counters["spans_recorded"] == 10
         assert t.counters["spans_dropped"] == 6
         assert t.counters["sampler_reject"] == 10
+
+    def test_event_plane_cli_and_dashboard(self, tmp_path):
+        """Event-plane satellite: the port's ``ceph status`` renders the
+        mgr progress bars + the last cluster-log lines, `log last`
+        prints formatted entries, and the dashboard serves /api/logs
+        (entries + follow cursor) and /api/progress."""
+
+        async def go():
+            import subprocess
+            import sys
+
+            from ceph_tpu_torch.mgr.dashboard import Dashboard
+
+            conf = {
+                "mgr_beacon_interval": 0.1, "mgr_report_interval": 0.15,
+                "mgr_digest_interval": 0.15,
+                "mgr_module_tick_interval": 0.1,
+                "crash_dir": str(tmp_path),
+            }
+            async with Cluster(n_osds=3, osd_conf=conf, mon_conf=conf,
+                               n_mgrs=1, mgr_conf=conf) as c:
+                loop = asyncio.get_running_loop()
+                # the mgr logs one scrub verdict per OSD after its first
+                # analytics pass; let those land before the pool, so the
+                # lines after the pool-create record are only the
+                # recovery event's start and end and `status`'s last
+                # five still hold that record
+                def verdicts():
+                    return [e for e in c.mon._log_last(20)["entries"]
+                            if "scrub deprioritiz" in e["message"]]
+
+                deadline = loop.time() + 15
+                while len(verdicts()) < 3 and loop.time() < deadline:
+                    await asyncio.sleep(0.1)
+                assert len(verdicts()) == 3, verdicts()
+                await c.client.pool_create("ev", pg_num=4, size=2)
+                io = c.client.ioctx("ev")
+                await io.write_full("o", b"x" * 512)
+                # at least one cluster-log entry (the pool-create
+                # audit record) must have committed, and the pool's
+                # recovery event must have ended
+                deadline = loop.time() + 15
+                entries = []
+                while loop.time() < deadline:
+                    out = c.mon._log_last(20)
+                    entries = out["entries"]
+                    if any("recovery complete" in e["message"] for e in entries):
+                        break
+                    await asyncio.sleep(0.2)
+                assert entries, "no cluster-log entries committed"
+                assert out["cursor"] >= len(entries)
+
+                # dashboard endpoints
+                from tests.test_torch_dashboard import _get
+
+                dash = Dashboard(c.mon)
+                addr = await dash.start()
+                try:
+                    import json as _json
+
+                    code, body = await _get(addr, "/api/logs")
+                    assert code == 200
+                    doc = _json.loads(body)
+                    assert doc["entries"] and doc["cursor"] >= 1
+                    assert any("osd pool create" in e["message"]
+                               for e in doc["entries"])
+                    code, body = await _get(addr, "/api/progress")
+                    assert code == 200
+                    assert isinstance(_json.loads(body), dict)
+                finally:
+                    await dash.stop()
+
+                # the CLI: `status` shows the recent-log block; `log
+                # last` renders formatted entries (subprocess — the
+                # operator's actual entry point)
+                addr_s = f"{c.mon.addr[0]}:{c.mon.addr[1]}"
+
+                def cli(*args):
+                    import os
+
+                    return subprocess.run(
+                        [sys.executable, "-m", "ceph_tpu_torch.tools.ceph",
+                         "-m", addr_s, *args],
+                        capture_output=True, text=True, timeout=120,
+                        check=False, env=dict(os.environ),
+                        cwd=os.path.dirname(os.path.dirname(
+                            os.path.abspath(__file__))),
+                    )
+
+                res = await asyncio.to_thread(cli, "status")
+                assert res.returncode == 0, res.stderr
+                # stdout stays pure JSON; the human block (progress
+                # bars + recent log lines) rides stderr
+                import json as _json2
+
+                _json2.loads(res.stdout)
+                assert "recent cluster log" in res.stderr
+                assert "osd pool create" in res.stderr
+                res = await asyncio.to_thread(cli, "log", "last", "5")
+                assert res.returncode == 0, res.stderr
+                assert "AUDIT" in res.stdout or "INFO" in res.stdout
+                res = await asyncio.to_thread(cli, "progress")
+                assert res.returncode == 0, res.stderr
+
+        run(go())
 
     def test_dump_chaos_surface(self, tmp_path):
         """The chaos engine's observability plane: events applied by

@@ -96,7 +96,10 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "common.transfer_guard", "chaos", "chaos.schedule", "chaos.netem",
                  "chaos.workload", "chaos.invariants", "chaos.runner", "loadgen",
                  "loadgen.schedule", "loadgen.report", "loadgen.driver",
-                 "tools.chaos_run", "tools.load_run"):
+                 "tools.chaos_run", "tools.load_run", "fuzz", "fuzz.mutate",
+                 "fuzz.coverage", "fuzz.corpus", "fuzz.minimize", "fuzz.runner",
+                 "tools.chaos_fuzz", "tools.crushtool", "tools.osdmaptool", "tools.vstart",
+                 "tools.ceph", "tools.cephadm"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -336,6 +339,68 @@ def test_chaos_and_load_harness_take_the_card_unless_asked(no_cuda):
     assert "CUDA" in art["runs"][0]["crash"]
     assert ChaosCluster(SCENARIOS["netem_storm"], device="cpu").device.type == "cpu"
     assert LoadHarness(resolve_profile("rados_rw"), 1, device="cpu").device.type == "cpu"
+
+
+def test_operator_clis_take_the_card_unless_asked(no_cuda, tmp_path):
+    """The fuzz campaign, ``chaos_fuzz``, ``crushtool --test``, ``osdmaptool
+    --test-map-pgs``, ``vstart``, ``cephadm bootstrap`` and ``bench_all``'s
+    ``recovery`` raise without a card unless asked for the CPU."""
+    from ceph_tpu_torch.fuzz.runner import run_campaign
+    from ceph_tpu_torch.tools import (bench_all, cephadm, chaos_fuzz, crushtool, osdmaptool,
+                                      vstart)
+
+    crush_txt, osdmap_bin = str(tmp_path / "crush.txt"), str(tmp_path / "osdmap.bin")
+    assert crushtool.main(["--build", "8", "-o", crush_txt]) == 0
+    assert osdmaptool.main(["--createsimple", "8", "--pg-num", "16", "-o", osdmap_bin]) == 0
+    for call in (lambda: run_campaign(budget=0, scenario_names=["netem_storm"]),
+                 lambda: chaos_fuzz.main(["--scenarios", "netem_storm", "--budget", "0"]),
+                 lambda: crushtool.main(["--test", "-i", crush_txt]),
+                 lambda: osdmaptool.main([osdmap_bin, "--test-map-pgs"]),
+                 lambda: vstart.main(["--osds", "1", "--mgrs", "0"]),
+                 lambda: cephadm.main(["bootstrap", "--data", str(tmp_path / "c")]),
+                 lambda: bench_all.main(["recovery"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not os.path.exists(tmp_path / "c")
+    assert crushtool.main(["--test", "-i", crush_txt, "--device", "cpu", "--max-x", "15"]) == 0
+    assert osdmaptool.main([osdmap_bin, "--test-map-pgs", "--device", "cpu"]) == 0
+
+
+#: the processes the operator tools start, as they start them: a cephadm
+#: daemon, a recovery-config worker, a vstart cluster, a fuzz campaign
+SUBPROCESS_ENTRY_POINTS = (
+    ("ceph_tpu_torch.tools.cephadm", ["_daemon", "osd", "--data", "{tmp}", "--mon-ports",
+                                      "1", "--device", "cuda"]),
+    ("ceph_tpu_torch.tools.bench_all", ["_osd_group", "127.0.0.1", "1", "{tmp}", "0", "cuda"]),
+    ("ceph_tpu_torch.tools.vstart", ["--osds", "1", "--mgrs", "0"]),
+    ("ceph_tpu_torch.tools.chaos_fuzz", ["--scenarios", "netem_storm", "--budget", "0"]),
+)
+
+
+@pytest.mark.parametrize("module,argv", SUBPROCESS_ENTRY_POINTS,
+                         ids=[m.rsplit(".", 1)[1] for m, _ in SUBPROCESS_ENTRY_POINTS])
+def test_subprocess_entry_points_import_alone_and_raise_without_a_card(module, argv, tmp_path):
+    """Each entry point the operator tools start as a process of its own,
+    run as ``python -m`` with ``jax`` and ``ceph_tpu`` blocked and no card:
+    it imports nothing of either and stops on the missing card (a
+    RuntimeError naming CUDA), never running on the host instead."""
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ceph_tpu'] = None\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"sys.argv = [{module!r}] + {argv!r}\n"
+        f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "RuntimeError" in res.stderr and "CUDA" in res.stderr, res.stderr[-2000:]
+    assert "ImportError" not in res.stderr and "ModuleNotFoundError" not in res.stderr
 
 
 def test_client_import_builds_nothing():

@@ -338,7 +338,8 @@ def test_chip_smoke_crc_sweep_on_cpu(monkeypatch):
     operations a call."""
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, calls, repeats: (fn(0), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "per_launch", lambda fn, calls, shape, kernel: {
-        "device_us_mean": 1.0, "device_ops_per_call": {"kernel": 1.0, "memset": 0.0, "other": 0.0}})
+        "launches": calls, "device_us_mean": 1.0,
+        "device_ops_per_call": {"kernel": 1.0, "memset": 0.0, "other": 0.0}})
     cfg = chip_smoke.Config(batch_cols=4096, crc_sweep=((1, 1024), (3, 4096), (2, 8192)))
     out = chip_smoke.phase_crc_sweep(cfg, "cpu")
     assert [(c["lanes"], c["width"]) for c in out["cases"]] == [(1, 1024), (3, 4096), (2, 8192)]
@@ -475,6 +476,28 @@ def test_chip_smoke_retakes_an_empty_trace(monkeypatch):
     assert calls == [0, 1, 2] * 2
     monkeypatch.setattr(chip_smoke, "traced", lambda fn: (fn(), (1.0, []))[1])
     assert chip_smoke.traced_calls(lambda i: None, 2) == (1.0, [])
+
+
+def test_chip_smoke_retakes_a_trace_without_the_kernel(monkeypatch):
+    """A trace whose device events hold none of the measured kernel's
+    launches lost them: ``per_launch`` takes it again (up to three
+    times) instead of reading a device time of zero."""
+    other = {"name": "memcpy", "cat": "gpu_memcpy", "dur": 1.0}
+    mine = {"name": "crc32c_lanes_kernel<4>", "cat": "kernel", "dur": 4.0}
+    takes = []
+
+    def fake_traced(fn):
+        fn()
+        takes.append(1)
+        return 1.0, [other] if len(takes) < 3 else [other, mine, mine]
+    monkeypatch.setattr(chip_smoke, "traced", fake_traced)
+    prof = chip_smoke.per_launch(lambda i: None, 2, "crc", "crc32c_lanes_kernel")
+    assert len(takes) == 3
+    assert prof["launches"] == 2 and prof["device_us_mean"] == 4.0
+    takes.clear()
+    monkeypatch.setattr(chip_smoke, "traced", lambda fn: (fn(), (1.0, [other]))[1])
+    prof = chip_smoke.per_launch(lambda i: None, 2, "crc", "crc32c_lanes_kernel")
+    assert prof["launches"] == 0 and prof["device_us_mean"] == 0
 
 
 
