@@ -34,7 +34,8 @@ the launch fails and nothing answers in its place.
 Arming: the guard judges only the steady state.  Daemons arm it after
 their map-install warmup via :func:`configure` (``osd_transfer_guard``:
 ``auto`` arms there, ``on`` is armed from the start, ``off`` never;
-``osd_transfer_guard_window`` delays it).  Tests arm explicitly.
+``osd_transfer_guard_window`` delays it), which first primes the op
+watch on their device (:func:`prime`).  Tests arm explicitly.
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ _mode = _DEFAULT_MODE
 _armed_at: float | None = None
 _state = threading.local()
 _counters: BucketCounters | None = None
+#: the op watch's one-time set-up has been paid in this process (prime)
+_primed = False
 
 
 class TransferGuardError(RuntimeError):
@@ -72,14 +75,33 @@ def guard_counters() -> BucketCounters:
 
 
 def configure(mode: str | None = None,
-              window_s: float | None = None) -> None:
+              window_s: float | None = None, device=None) -> None:
     """Config wiring (osd_transfer_guard / osd_transfer_guard_window):
-    sets the mode and — unless off — arms after ``window_s``."""
+    sets the mode and — unless off — primes the op watch on ``device``
+    (:func:`prime`) and arms after ``window_s``."""
     global _mode
     if mode is not None:
         _mode = mode
     if _mode != "off":
+        if device is not None:
+            prime(device)
         arm(window_s or 0.0)
+
+
+def prime(device) -> None:
+    """Pay the op watch's one-time cost now, off the steady state.  The
+    first window a process opens on a card sets up PyTorch's Python
+    dispatch mode, which takes seconds (6.9-9.4 s on an H100); unpaid,
+    it lands on the first guarded decode, scrub or encode, which stalls
+    that long while the cluster moves on.  Once a process; nothing to
+    pay on the CPU, where windows install no watch."""
+    global _primed
+    dev = _as_device(device)
+    if _primed or dev.type == "cpu":
+        return
+    with declared(), _Watch("prime", dev):
+        torch.zeros(8, dtype=torch.uint8, device=dev).add_(1)
+    _primed = True
 
 
 def arm(delay_s: float = 0.0) -> None:

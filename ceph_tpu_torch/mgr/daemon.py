@@ -347,7 +347,8 @@ class MgrDaemon:
             if mode != "off":
                 from ceph_tpu_torch.common.transfer_guard import configure
 
-                configure(mode, self.conf["osd_transfer_guard_window"])
+                configure(mode, self.conf["osd_transfer_guard_window"],
+                          device=self.device)
 
         self._warm_task = asyncio.ensure_future(asyncio.to_thread(_warm))
         await self._mon_hunt()

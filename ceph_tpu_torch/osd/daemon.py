@@ -1081,7 +1081,8 @@ class OSDDaemon(ECBackendMixin, RecoveryMixin, ScrubMixin, TieringMixin):
             if mode != "off":
                 from ceph_tpu_torch.common.transfer_guard import configure
 
-                configure(mode, self.conf["osd_transfer_guard_window"])
+                configure(mode, self.conf["osd_transfer_guard_window"],
+                          device=self.device)
 
         task = asyncio.ensure_future(asyncio.to_thread(_warm))
         self._warm_tasks.add(task)

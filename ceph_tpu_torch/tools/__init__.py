@@ -16,7 +16,9 @@ on the CPU only when asked (``--device cpu``):
   ``--test`` and ``--test-map-pgs`` map on the card);
 - ``vstart``, ``cephadm``, ``ceph`` — a dev cluster in one process, a
   cluster of daemon processes, and the admin CLI (a RADOS client: no
-  device of its own).
+  device of its own);
+- ``lint`` — ctlint over the port (``ceph_tpu_torch/analysis/``): plain
+  ``ast``, no torch, no card.
 
 The helpers below are shared by them.
 """
@@ -24,10 +26,6 @@ The helpers below are shared by them.
 from __future__ import annotations
 
 import os
-
-import torch
-
-from ceph_tpu_torch.ops.rs_kernels import resolve_device
 
 MiB = 1 << 20
 #: the repository root: the processes the tools start import the package from it
@@ -37,14 +35,29 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 PEAK_BYTES_PER_S = 3.35e12
 
 
+# torch is imported where it is used: ``lint`` imports this package and
+# runs with no torch at all
+
+
+def resolve_device(device=None):
+    """``ceph_tpu_torch.ops.rs_kernels.resolve_device``."""
+    from ceph_tpu_torch.ops.rs_kernels import resolve_device as resolve
+
+    return resolve(device)
+
+
 def sync(device: torch.device) -> None:
     """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    import torch
+
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def random_bytes(shape, seed: int, device: torch.device) -> torch.Tensor:
     """Uniform uint8 tensor made on ``device`` from ``seed``."""
+    import torch
+
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randint(0, 256, tuple(shape), dtype=torch.uint8, device=device,
                          generator=gen)
@@ -52,6 +65,8 @@ def random_bytes(shape, seed: int, device: torch.device) -> torch.Tensor:
 
 def device_label(device: torch.device) -> str:
     """The card's name, or ``cpu``."""
+    import torch
+
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 

@@ -19,8 +19,9 @@ traces (trim pressure + long outage force the backfill path):
     python -m ceph_tpu_torch.tools.chaos_run --soak --seeds 4
 
 ``--device`` (default ``cuda``) is the daemons' device; ``--device cpu``
-runs the whole matrix on the CPU.  The reference's ``--lint`` preflight
-has no port lint to run yet and refuses.
+runs the whole matrix on the CPU.  ``--lint`` first runs the port's
+ctlint (``python -m ceph_tpu_torch.tools.lint``) in a subprocess and
+aborts the sweep with its exit code unless it is clean.
 """
 
 from __future__ import annotations
@@ -28,7 +29,19 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import subprocess
 import sys
+
+#: the preflight's lint command (run from the repository root)
+LINT_COMMAND = [sys.executable, "-m", "ceph_tpu_torch.tools.lint"]
+
+
+def lint_preflight() -> int:
+    """Run the port's lint in a subprocess; its exit code (0 = clean:
+    no new finding, no stale or dead baseline entry)."""
+    from ceph_tpu_torch.tools import REPO_ROOT, child_env
+
+    return subprocess.run(LINT_COMMAND, cwd=REPO_ROOT, env=child_env()).returncode
 
 
 def main(argv=None) -> int:
@@ -81,8 +94,9 @@ def main(argv=None) -> int:
         "without touching a cluster (pure replay check)")
     ap.add_argument(
         "--lint", action="store_true",
-        help="ctlint preflight: abort the sweep unless tools/lint.py "
-        "is clean (no new findings, no stale/dead baseline entries) "
+        help="ctlint preflight: abort the sweep unless the port's lint "
+        "(python -m ceph_tpu_torch.tools.lint) is clean (no new "
+        "findings, no stale/dead baseline entries) "
         "— chaos evidence is only meaningful for a tree that honors "
         "the static invariants it claims")
     ap.add_argument(
@@ -92,9 +106,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.lint:
-        print("chaos_run: the port has no lint yet, so --lint cannot "
-              "vouch for this tree", file=sys.stderr)
-        return 2
+        rc = lint_preflight()
+        if rc != 0:
+            print(f"chaos_run: ctlint preflight failed (exit {rc}) — "
+                  f"fix/baseline findings before sweeping", file=sys.stderr)
+            return rc
 
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --crush-lab      # the CRUSH lab line alone
     python3 chip_smoke.py --mgr-fold-lab   # the analytics and fold lab line alone
     python3 chip_smoke.py --operator-path  # phase 18 alone
+    python3 chip_smoke.py --lint-path      # phase 19 alone
 
 Builds the CUDA kernels from ``ceph_tpu_torch/ops/csrc`` (first use, one
 ``nvcc`` per source, all started together), then runs one RS(8,3) pool
@@ -284,6 +285,18 @@ with a build of ``crush_rule.cu`` whose draws use nvcc's emulated 64-bit
 division (the yardstick of its FP64-reciprocal division), and over a
 sweep of seed counts (where a launch stops being latency-bound).  The
 smoke itself does not run it.
+
+Last, phase 19 (the ``lint`` line): the port's ctlint, ``python -m
+ceph_tpu_torch.tools.lint --json`` in a subprocess over the whole
+``ceph_tpu_torch/`` tree, must exit 0 with no new finding and no stale or
+dead baseline entry (the line gives the files, the findings by rule and
+the lint's seconds); then every kernel entry point that any earlier path
+launched (this process's counts at each path's end, and the operator
+path's daemons' counts) is followed through the lint's call graph to the
+library loaders it reaches, and each must be declared in the prewarm
+registry (``ceph_tpu_torch/analysis/prewarm_registry.py`` ``PREWARMED``).
+``--lint-path`` runs the lint alone (nothing launched, so no kernel is
+held to the registry; no result line).
 
 ``--operator-path`` builds the kernels and runs phase 18 alone (its
 ``operator`` and ``operator_path_launches`` lines, no result line): the
@@ -5400,6 +5413,107 @@ def run_operator_path(cfg: Config, device) -> dict:
     return {"operator": line, "launches": total, "summary": summary}
 
 
+#: the repository root (the lint runs over its ``ceph_tpu_torch/``)
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def entry_point_ids() -> dict[str, list[str]]:
+    """Launch-count name -> ``module:qualname`` of the kernel wrappers it
+    counts: each module's ``KERNEL_ENTRY_POINTS`` by name, the grouped
+    names of ``group_launches`` (``crush_rule``: every rule kind) and
+    ``mgr_analytics`` (``analyze_packed``)."""
+    table: dict[str, list[str]] = {}
+    for mod in (rk, hashing, cm, clay_cuda, lk):
+        for fn in mod.KERNEL_ENTRY_POINTS:
+            table[fn.__name__] = [f"{fn.__module__}:{fn.__qualname__}"]
+    table["crush_rule"] = [fid for fn in cm.KERNEL_ENTRY_POINTS
+                           for fid in table[fn.__name__]]
+    table["mgr_analytics"] = [f"{ak.analyze_packed.__module__}:"
+                              f"{ak.analyze_packed.__qualname__}"]
+    return table
+
+
+def check_prewarmed(launched: dict[str, int], graph) -> dict[str, list[str]]:
+    """The library loaders that each kernel launched at least once reaches
+    through the lint's call graph; raises unless each reaches one and
+    every one it reaches is declared in ``PREWARMED``."""
+    from ceph_tpu_torch.analysis.prewarm_registry import PREWARMED
+    from ceph_tpu_torch.analysis.rules.device import loaders_reached
+
+    table = entry_point_ids()
+    loaders: dict[str, list[str]] = {}
+    bad = []
+    for name, count in sorted(launched.items()):
+        if count <= 0:
+            continue
+        fids = table.get(name.split(":")[0])
+        if fids is None:
+            bad.append(f"{name}: not a kernel entry point")
+            continue
+        reached = set().union(*(loaders_reached(graph, fid) for fid in fids))
+        loaders[name] = sorted(reached)
+        if not reached:
+            bad.append(f"{name}: reaches no library loader")
+        bad += [f"{name}: loader {key} is not in PREWARMED"
+                for key in sorted(reached - set(PREWARMED))]
+    if bad:
+        raise AssertionError(f"lint path: {bad}")
+    return loaders
+
+
+def run_lint(root: str = REPO_ROOT) -> tuple[dict, float]:
+    """``python -m ceph_tpu_torch.tools.lint --json`` over ``root``'s tree
+    in a subprocess with torch, JAX and the JAX package blocked: (its
+    report, its seconds).  Raises unless it exits 0
+    with no new finding and no stale or dead baseline entry."""
+    # torch and JAX blocked: a lint run imports neither (and so costs no
+    # CUDA context); the lint fails to import if it ever does
+    code = ("import runpy, sys\n"
+            "for name in ('torch', 'jax', 'ceph_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "runpy.run_module('ceph_tpu_torch.tools.lint', run_name='__main__', alter_sys=True)\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code, "--json", "--root", root,
+                          "--baseline", os.path.join(root, "ctlint_torch_baseline.json")],
+                         cwd=root, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             filter(None, (root, os.environ.get("PYTHONPATH"))))})
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"lint path: the lint exited {res.returncode}\n"
+                             f"{res.stdout[-4000:]}{res.stderr[-4000:]}")
+    report = json.loads(res.stdout)
+    bad = [k for k in ("new", "stale_baseline", "baseline_rot") if report[k]]
+    if bad:
+        raise AssertionError(f"lint path: {bad} not empty")
+    return report, seconds
+
+
+def run_lint_path(launched: dict[str, int]) -> dict:
+    """Phase 19: the port's lint once over the whole tree, clean, then
+    each kernel that ``launched`` counts above 0 (this smoke's launches
+    over every earlier phase) held to the static registry: every library
+    loader it reaches must be declared in ``PREWARMED``.  One ``lint``
+    line; raises on any failed check."""
+    from ceph_tpu_torch.analysis.core import Project
+    from ceph_tpu_torch.analysis.dataflow import CallGraph
+
+    report, seconds = run_lint()
+    by_rule: dict[str, int] = {}
+    for f in report["findings"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    loaders = check_prewarmed(launched, CallGraph(Project.load(REPO_ROOT)))
+    line = {"phase": "lint", "files": report["summary"]["files"],
+            "findings": report["summary"]["findings"],
+            "baselined": report["summary"]["baselined"],
+            "findings_by_rule": dict(sorted(by_rule.items())),
+            "lint_seconds": seconds,
+            "launched": {k: v for k, v in sorted(launched.items()) if v > 0},
+            "loaders": loaders}
+    emit(line)
+    return {"lint": line, "report": report}
+
+
 def ptxas_lines(log: str) -> list[str]:
     """What ``ptxas -v`` says of each function: its name, then its stack
     frame and spills, then its registers."""
@@ -5409,7 +5523,8 @@ def ptxas_lines(log: str) -> list[str]:
 
 def main(argv: list[str] | None = None) -> int:
     argv = argv or []
-    if argv not in ([], ["--crush-lab"], ["--mgr-fold-lab"], ["--operator-path"]):
+    if argv not in ([], ["--crush-lab"], ["--mgr-fold-lab"], ["--operator-path"],
+                    ["--lint-path"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5422,6 +5537,11 @@ def main(argv: list[str] | None = None) -> int:
 
         _build.build(["mgr_analytics", "farm_fold"])
         emit(phase_mgr_fold_lab(Config(), torch.device("cuda")))
+        print(gpu_name_and_power_limit(), flush=True)
+        return 0
+    if argv == ["--lint-path"]:
+        # the lint alone: nothing launched, no kernel built, no result line
+        run_lint_path({})
         print(gpu_name_and_power_limit(), flush=True)
         return 0
     if not native.available():
@@ -5448,6 +5568,12 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     worst = phase_kernels(cfg, device)
+    # every kernel launched by a path below, for the lint phase: each path
+    # resets the counts at its start, so they are read at its end
+    launched: dict[str, int] = {}
+
+    def note() -> None:
+        _add(launched, {**kernel_launch_counts(), **lk.launch_counts()})
 
     rk.reset_launch_counts()
     hashing.reset_launch_counts()
@@ -5456,6 +5582,7 @@ def main(argv: list[str] | None = None) -> int:
     tp = phase_throughput(cfg, device)
     torch.cuda.synchronize()
     launches = {**rk.launch_counts(), **hashing.launch_counts(), **cm.launch_counts()}
+    note()
     emit({"phase": "main_path_launches", **launches})
     missing = [n for n, c in launches.items() if c <= 0 and n in REPLACES]
     if missing:
@@ -5467,6 +5594,7 @@ def main(argv: list[str] | None = None) -> int:
     run_plugin_path(cfg, device)
     torch.cuda.synchronize()
     plugin_launches = {**rk.launch_counts(), **clay_cuda.launch_counts()}
+    note()
     emit({"phase": "plugin_path_launches", **plugin_launches})
     if plugin_launches["clay_repair"] <= 0 or sum(rk.launch_counts().values()) <= 0:
         raise AssertionError(f"kernels not launched on the plugin path: {plugin_launches}")
@@ -5476,6 +5604,7 @@ def main(argv: list[str] | None = None) -> int:
     # kernels are first held against their plain versions (not counted)
     tool_worst = phase_kernel_tools(cfg, device)
     tools = run_tools_path(cfg, device)
+    note()
     emit({"phase": "tools_path_launches", **tools["launches"]})
     idle = [n for n, c in tools["launches"].items() if c <= 0]
     if idle:
@@ -5488,14 +5617,17 @@ def main(argv: list[str] | None = None) -> int:
     # versions (not counted)
     mgr_worst = phase_kernel_mgr(cfg, device)
     mgr = phase_mgr(cfg, device)
+    note()
     emit({"phase": "mgr_path_launches", **mgr["launches"]})
     fold_worst = phase_kernel_fold(cfg, device)
     farm = run_farm_path(cfg, device)
+    note()
     emit({"phase": "farm_path_launches", **farm["launches"]})
 
     # the store path: the card's shards persisted in BlockStores, counted alone
     t_store = time.perf_counter()
     store = run_store_path(cfg, device)
+    note()
     store_s = time.perf_counter() - t_store
     emit({"phase": "store_path_launches", **store["launches"],
           "by_step": store["store"]["launches_by_step"]})
@@ -5504,6 +5636,7 @@ def main(argv: list[str] | None = None) -> int:
     # counted alone
     t_subop = time.perf_counter()
     subop = run_subop_path(cfg, device)
+    note()
     subop_s = time.perf_counter() - t_subop
     emit({"phase": "subop_path_launches", **subop["launches"],
           "by_step": subop["subop"]["launches_by_step"]})
@@ -5512,6 +5645,7 @@ def main(argv: list[str] | None = None) -> int:
     # OSDDaemons to the kernels, counted alone
     t_cluster = time.perf_counter()
     cluster = run_cluster_path(cfg, device)
+    note()
     cluster_s = time.perf_counter() - t_cluster
     emit({"phase": "cluster_path_launches", **cluster["launches"],
           "by_step": cluster["cluster"]["launches_by_step"]})
@@ -5520,6 +5654,7 @@ def main(argv: list[str] | None = None) -> int:
     # kernels, and the mgr's digests, counted alone
     t_services = time.perf_counter()
     services = run_services_path(cfg, device)
+    note()
     services_s = time.perf_counter() - t_services
     emit({"phase": "services_path_launches", **services["launches"],
           "by_step": services["services"]["launches_by_step"]})
@@ -5528,6 +5663,7 @@ def main(argv: list[str] | None = None) -> int:
     # card, counted alone
     t_chaos = time.perf_counter()
     chaos = run_chaos_path(cfg, device)
+    note()
     chaos_s = time.perf_counter() - t_chaos
 
     # the operator path: the operator's command line, the dev cluster, the
@@ -5535,6 +5671,8 @@ def main(argv: list[str] | None = None) -> int:
     t_operator = time.perf_counter()
     operator = run_operator_path(cfg, device)
     operator_s = time.perf_counter() - t_operator
+    note()
+    _add(launched, operator["launches"])
 
     prof = phase_profile(cfg, device, tp)
     rows = kernel_rows(cfg, device, worst, launches, tp, prof["per_launch"])
@@ -5566,6 +5704,12 @@ def main(argv: list[str] | None = None) -> int:
     emit(phase_crc_sweep(cfg, device))
     emit(phase_mgr_staged(cfg, device))
     emit(phase_fold_sweep(cfg, device))
+
+    # the lint: the port's static analysis over the whole tree, and the
+    # prewarm registry held to every kernel launched above
+    t_lint = time.perf_counter()
+    run_lint_path(launched)
+    lint_s = time.perf_counter() - t_lint
     wall = time.perf_counter() - t0
     emit({"phase": "wall", "seconds": wall, "store_path_seconds": store_s,
           "store_path_share": store_s / wall, "subop_path_seconds": subop_s,
@@ -5573,7 +5717,8 @@ def main(argv: list[str] | None = None) -> int:
           "cluster_path_share": cluster_s / wall, "services_path_seconds": services_s,
           "services_path_share": services_s / wall, "chaos_path_seconds": chaos_s,
           "chaos_path_share": chaos_s / wall, "operator_path_seconds": operator_s,
-          "operator_path_share": operator_s / wall})
+          "operator_path_share": operator_s / wall, "lint_path_seconds": lint_s,
+          "lint_path_share": lint_s / wall})
     emit({"kernels": rows})
     print(gpu_name_and_power_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -185,6 +185,25 @@ def test_a_failed_warmup_does_not_arm_the_transfer_guard():
         tg.disarm()
 
 
+def test_warmup_arms_the_guard_primed_on_the_daemons_device(monkeypatch):
+    """The warmup that arms the transfer guard hands it the daemon's
+    device, so the op watch's one-time set-up is paid there and not by
+    the first steady-state launch (the osd_thrash seed-0 red on the card)."""
+    from ceph_tpu_torch.common import transfer_guard as tg
+
+    calls = []
+    monkeypatch.setattr(tg, "configure", lambda *a, **kw: calls.append((a, kw)))
+    d = _with_profiles(_daemon(), {"good": {"plugin": "cuda", "k": "2", "m": "1"}})
+
+    async def go():
+        d._warm_ec_profiles()
+        await asyncio.gather(*list(d._warm_tasks))
+
+    run(go())
+    assert len(calls) == 1
+    assert calls[0][1]["device"] == d.device == torch.device("cpu")
+
+
 # ---------------------------------------------------------------------------
 # scrub: an EC pool whose plugin does not build raises, never crc only
 # ---------------------------------------------------------------------------

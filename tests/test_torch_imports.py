@@ -99,7 +99,11 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
                  "tools.chaos_run", "tools.load_run", "fuzz", "fuzz.mutate",
                  "fuzz.coverage", "fuzz.corpus", "fuzz.minimize", "fuzz.runner",
                  "tools.chaos_fuzz", "tools.crushtool", "tools.osdmaptool", "tools.vstart",
-                 "tools.ceph", "tools.cephadm"):
+                 "tools.ceph", "tools.cephadm", "analysis", "analysis.core",
+                 "analysis.dataflow", "analysis.prewarm_registry", "analysis.rules",
+                 "analysis.rules.common", "analysis.rules.locks", "analysis.rules.wire",
+                 "analysis.rules.configrule", "analysis.rules.determinism",
+                 "analysis.rules.device", "analysis.rules.transfer", "tools.lint"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -117,6 +121,39 @@ def test_every_module_imports_with_jax_and_ceph_tpu_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_lint_imports_and_runs_with_torch_blocked(tmp_path):
+    """ctlint over the port (``ceph_tpu_torch/analysis/``, 12 modules, and
+    ``python -m ceph_tpu_torch.tools.lint``) is plain ``ast``: with torch,
+    JAX and the JAX package blocked, every module imports and the lint
+    runs (its catalog, and a finding over a one-module tree), so a lint
+    run costs no CUDA context."""
+    analysis = [m for m in _modules() if m.startswith("ceph_tpu_torch.analysis")]
+    assert len(analysis) == 12, analysis
+    sched = tmp_path / "ceph_tpu_torch" / "chaos" / "schedule.py"
+    sched.parent.mkdir(parents=True)
+    sched.write_text("import random\n\n\ndef pick():\n    return random.random()\n")
+    code = (
+        "import sys, importlib\n"
+        "for name in ('torch', 'jax', 'ceph_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {analysis!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from ceph_tpu_torch.tools import lint\n"
+        "assert lint.main(['--catalog']) == 0\n"
+        f"assert lint.main(['--root', {str(tmp_path)!r}, '--no-baseline']) == 1\n"
+        "assert not any(m == 'torch' or m.startswith(('torch.', 'jax', 'ceph_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "det-random" in res.stdout
     assert res.stdout.strip().endswith("ok")
 
 

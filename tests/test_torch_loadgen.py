@@ -90,20 +90,21 @@ class TestScheduleDeterminism:
 
 class TestSchedulePurity:
     def test_ctlint_determinism_rules_pass_over_loadgen(self):
-        """The det-* pass over the port's loadgen/schedule.py: the
-        JAX package's determinism rule (host code; the port has no lint
-        yet) finds the file in scope by its marker, and clean."""
+        """The det-* pass over the port's loadgen/schedule.py: the port's
+        determinism rule finds the file in scope (by its path and its
+        marker), and clean."""
         import os
 
-        from ceph_tpu.analysis.core import Project, SourceFile
-        from ceph_tpu.analysis.rules.determinism import DeterminismRule
+        from ceph_tpu_torch.analysis.core import Project, SourceFile
+        from ceph_tpu_torch.analysis.rules.determinism import DeterminismRule, _in_scope
 
         rel = "ceph_tpu_torch/loadgen/schedule.py"
         repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         with open(os.path.join(repo, rel)) as f:
             sf = SourceFile(rel, f.read())
         assert sf.pure_trace, "the # ctlint: pure-trace marker is gone"
-        findings = DeterminismRule().run(Project([sf]))
+        assert _in_scope(sf)
+        findings = DeterminismRule().run(Project(root=repo, files=[sf]))
         assert findings == [], [str(f) for f in findings]
 
 

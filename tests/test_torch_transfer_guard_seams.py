@@ -143,3 +143,33 @@ def test_a_disarmed_or_off_guard_judges_nothing(guard):
     tg.disarm()
     tg.configure("auto", 30.0)       # armed, but only after its window
     assert not tg.active()
+
+
+def test_configure_primes_the_op_watch_once(monkeypatch):
+    """Arming on a card first pays the op watch's one-time set-up (its
+    first window in a process took 6.9-9.4 s on the H100, and fell on a
+    steady-state launch): ``configure(..., device=)`` enters the watch
+    once per process, judges nothing while it does, and the CPU, where
+    windows install no watch, needs none."""
+    entered = []
+    real = tg._Watch
+
+    class Counting(real):
+        def __enter__(self):
+            entered.append(self.kind)
+            return super().__enter__()
+
+    monkeypatch.setattr(tg, "_Watch", Counting)
+    monkeypatch.setattr(tg, "_primed", False)
+    monkeypatch.setattr(tg, "_counters", BucketCounters("transfer_guard_test_prime"))
+    try:
+        tg.configure("on", 0.0, device="cpu")
+        assert entered == [] and not tg._primed
+        tg.configure("off", 0.0, device="meta")
+        assert entered == [] and not tg._primed
+        tg.configure("on", 0.0, device="meta")
+        tg.configure("auto", 0.0, device="meta")
+        assert entered == ["prime"] and tg._primed
+        assert tg.snapshot() == {"guard_windows": 0, "host_transfers": 0, "host_exits": 0}
+    finally:
+        tg.disarm()
