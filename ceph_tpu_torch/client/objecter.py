@@ -47,8 +47,6 @@ log = logging.getLogger("ceph_tpu_torch.client")
 
 #: per-attempt reply wait bound (the serial client's OP_TIMEOUT role)
 ATTEMPT_TIMEOUT = 30.0
-#: resend budget per op (the serial client's MAX_RETRIES)
-MAX_RETRIES = 25
 
 
 class Completion:
@@ -220,18 +218,18 @@ class Objecter:
         client = self.client
         loop = asyncio.get_running_loop()
         op = rec.op
-        last_err = errno.EIO
         try:
+            # no resend budget: like Ceph's Objecter, an op that bounces
+            # (EAGAIN, no primary, a lost connection) waits for a newer
+            # map or backs off and resends until its own deadline; a
+            # count of tries would fail it while a dead OSD is still up
+            # in the map, the window recovery needs
             while True:
                 if loop.time() >= rec.deadline:
                     raise RadosError(
                         errno.ETIMEDOUT,
                         f"op {op.oid!r} timed out after "
                         f"{client.op_timeout}s ({rec.attempt} sends)")
-                if rec.attempt >= MAX_RETRIES:
-                    raise RadosError(
-                        last_err,
-                        f"op {op.oid!r} failed after {MAX_RETRIES} tries")
                 om = client.osdmap
                 pool = om.get_pg_pool(rec.pool_id)
                 if pool is None:
@@ -252,7 +250,8 @@ class Objecter:
                 addr = om.osd_addrs.get(primary) if primary >= 0 else None
                 if primary < 0 or addr is None:
                     rec.attempt += 1
-                    await client._wait_new_map(om.epoch)
+                    await client._wait_new_map(
+                        om.epoch, timeout=self._map_wait(rec, loop))
                     continue
                 op.tid = next(client._tids)
                 op.epoch = om.epoch
@@ -269,19 +268,13 @@ class Objecter:
                     log.debug("objecter: op to osd.%d failed (%r), "
                               "waiting for map", primary, e)
                     rec.attempt += 1
-                    # never outwait the op deadline: a partitioned
-                    # client must fire ETIMEDOUT on time, not after a
-                    # full map-wait round on top of it
                     await client._wait_new_map(
-                        om.epoch,
-                        timeout=min(10.0, max(
-                            0.1, rec.deadline - loop.time())))
+                        om.epoch, timeout=self._map_wait(rec, loop))
                     if (client.osdmap is not None
                             and client.osdmap.epoch <= om.epoch):
                         # no newer map (e.g. primary dead, unreported):
                         # this op backs off on ITS OWN jittered timer
                         await client._backoff(rec.attempt)
-                    last_err = errno.EIO
                     continue
                 finally:
                     client._op_waiters.pop(op.tid, None)
@@ -293,11 +286,9 @@ class Objecter:
                     rec.attempt += 1
                     await client._wait_new_map(
                         min(om.epoch, reply.epoch - 1),
-                        timeout=min(10.0, max(
-                            0.1, rec.deadline - loop.time())))
+                        timeout=self._map_wait(rec, loop))
                     if client.osdmap.epoch <= om.epoch:
                         await client._backoff(rec.attempt)
-                    last_err = errno.EAGAIN
                     continue
                 rec.span.tag(result=reply.result)
                 client.tracer.finish_span(rec.span)
@@ -322,6 +313,13 @@ class Objecter:
         finally:
             self._release(rec)
 
+    @staticmethod
+    def _map_wait(rec: _OpRec, loop) -> float:
+        """A map wait's bound: never past the op's deadline, so a
+        partitioned client fires ETIMEDOUT on time, not after a full
+        map-wait round on top of it."""
+        return min(10.0, max(0.1, rec.deadline - loop.time()))
+
     # -- per-OSD coalescing writers ------------------------------------
 
     def _enqueue(self, osd: int, rec: _OpRec) -> None:
@@ -340,13 +338,14 @@ class Objecter:
         q = self._queues[osd]
         try:
             while q:
-                batch: list[_OpRec] = []
+                # each op with the attempt it was queued for
+                batch: list[tuple[_OpRec, asyncio.Future]] = []
                 while q and len(batch) < self.batch_max:
                     rec = q.popleft()
                     # an op whose attempt already failed/timed out is
                     # being re-driven; don't send a zombie frame
                     if rec.fut is not None and not rec.fut.done():
-                        batch.append(rec)
+                        batch.append((rec, rec.fut))
                 if not batch:
                     continue
                 try:
@@ -357,11 +356,21 @@ class Objecter:
                             f"osd.{osd} has no address in current map")
                     conn = await client.messenger.connect_to(
                         ("osd", osd), *addr)
-                    await conn.send_messages([r.op for r in batch])
+                    # the dial may outlast an attempt, whose driver then
+                    # gave up on it (and may have queued a new one)
+                    batch = [(r, f) for r, f in batch
+                             if r.fut is f and not f.done()]
+                    if not batch:
+                        continue
+                    for _, f in batch:
+                        # the session the reply must come back on: its
+                        # reset fails the attempt (RadosClient._on_reset)
+                        f.conn = conn
+                    await conn.send_messages([r.op for r, _ in batch])
                 except (ConnectionError, OSError) as e:
-                    for r in batch:
-                        if r.fut is not None and not r.fut.done():
-                            r.fut.set_exception(ConnectionError(str(e)))
+                    for _, f in batch:
+                        if not f.done():
+                            f.set_exception(ConnectionError(str(e)))
                     continue
                 self.perf.inc("wire_bursts")
                 self.perf.inc("ops_sent", len(batch))

@@ -61,10 +61,6 @@ from ceph_tpu_torch.osd.osdmap import OSDMap
 log = logging.getLogger("ceph_tpu_torch.client")
 
 OP_TIMEOUT = 30.0
-# the reference Objecter resends indefinitely as maps advance; bounded
-# here but generous — under heavy co-tenant CPU contention a recovering
-# cluster can legitimately answer EAGAIN for a while
-MAX_RETRIES = 25
 # resend backoff: exponential with full jitter, bounded (the
 # objecter_retry/backoff discipline — fixed sleeps synchronize every
 # blocked client into retry storms against a recovering primary)
@@ -174,9 +170,20 @@ class RadosClient:
         await self.messenger.shutdown()
 
     async def _on_reset(self, conn) -> None:
-        """Our monitor session died: hunt for a live quorum member and
-        re-subscribe so maps keep flowing (MonClient hunting)."""
-        if conn is not self._mon_conn or getattr(self, "_stopping", False):
+        """An OSD session died: fail the attempts in flight on it, so
+        each op's driver resends after a map wait (Objecter::
+        ms_handle_reset) instead of waiting out ``ATTEMPT_TIMEOUT`` for
+        a reply that cannot come.  Our monitor session died: hunt for a
+        live quorum member and re-subscribe so maps keep flowing
+        (MonClient hunting)."""
+        if getattr(self, "_stopping", False):
+            return
+        if conn.peer is not None and conn.peer[0] == "osd":
+            for fut in list(self._op_waiters.values()):
+                if getattr(fut, "conn", None) is conn and not fut.done():
+                    fut.set_exception(ConnectionError(f"{conn.peer} reset"))
+            return
+        if conn is not self._mon_conn:
             return
 
         async def hunt():

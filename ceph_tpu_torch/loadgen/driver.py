@@ -670,37 +670,12 @@ class _S3Mini:
 
     async def request(self, method: str, path: str,
                       body: bytes = b"") -> tuple[int, bytes]:
-        from ceph_tpu_torch.rgw.sigv4 import sign_request
+        from ceph_tpu_torch.rgw.frontend import s3_request
 
-        amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
-        headers = {"host": f"{self.host}:{self.port}"}
-        signed = sign_request(method, path, "", headers, body,
-                              self.access, self.secret,
-                              amz_date=amz_date)
-        reader, writer = await asyncio.open_connection(
-            self.host, self.port)
-        try:
-            req = [f"{method} {path} HTTP/1.1\r\n"]
-            signed["content-length"] = str(len(body))
-            req += [f"{k}: {v}\r\n" for k, v in signed.items()]
-            req.append("\r\n")
-            writer.write("".join(req).encode() + body)
-            await writer.drain()
-            status_line = await reader.readline()
-            status = int(status_line.split()[1])
-            resp_headers = {}
-            while True:
-                line = await reader.readline()
-                if line in (b"\r\n", b"\n", b""):
-                    break
-                name, _, val = line.decode().partition(":")
-                resp_headers[name.strip().lower()] = val.strip()
-            length = int(resp_headers.get("content-length", "0"))
-            resp_body = (await reader.readexactly(length)
-                         if length and method != "HEAD" else b"")
-            return status, resp_body
-        finally:
-            writer.close()
+        status, _, resp_body = await s3_request(
+            self.host, self.port, method, path, self.access, self.secret,
+            body)
+        return status, resp_body
 
 
 async def run_profile(profile: dict, seed: int, *,

@@ -383,6 +383,8 @@ class Messenger:
         self._live: set[Connection] = set()
         self._connect_locks: dict[tuple[str, int], asyncio.Lock] = {}
         self.addr: tuple[str, int] | None = None
+        #: set by shutdown(): no session may start after it
+        self._shut = False
         # fault injection (reference ms_inject_socket_failures,
         # src/common/options/global.yaml.in:1242): every Nth outgoing
         # message tears the connection down instead of sending
@@ -449,6 +451,12 @@ class Messenger:
             await asyncio.wait_for(_handshake(), self.handshake_timeout)
         except (ConnectionError, asyncio.IncompleteReadError, OSError,
                 PermissionError, asyncio.TimeoutError):
+            writer.close()
+            return
+        if self._shut:
+            # accepted before shutdown(), handshaken after it: a session
+            # kept now would feed a stopped daemon its peers' messages,
+            # and its answers come from a map frozen at the stop
             writer.close()
             return
         if not getattr(conn, "_needs_auth_proof", False):
@@ -571,6 +579,8 @@ class Messenger:
             picked = segs[0].decode()
             if picked:
                 conn.compressor = _comp.create(picked)
+        if self._shut:
+            raise ConnectionError(f"{self.entity} shut down during a dial")
         await self._register(conn)
         self._live.add(conn)
         conn._reader_task = asyncio.ensure_future(conn._run())
@@ -698,6 +708,7 @@ class Messenger:
         return self._conns.get(peer)
 
     async def shutdown(self) -> None:
+        self._shut = True
         if self._server is not None:
             self._server.close()
         # close connections FIRST: in py3.12 Server.wait_closed() also

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 import urllib.parse
 import xml.etree.ElementTree as ET
 
@@ -642,6 +643,41 @@ class S3Frontend:
             _xml("ETag", text=f"\"{meta['etag']}\""),
         )
         return 200, {"content-type": "application/xml"}, _render(out)
+
+
+async def http_request(host: str, port: int, method: str, target: str,
+                       headers: dict, body: bytes = b"") -> tuple[int, dict, bytes]:
+    """One HTTP/1.1 request on its own connection, as a client: (status,
+    lowercased headers, body).  The smoke's and the pace harness's S3
+    and ``/metrics`` requests."""
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        head = [f"{method} {target} HTTP/1.1\r\n", f"host: {host}:{port}\r\n",
+                f"content-length: {len(body)}\r\n"]
+        head += [f"{k}: {v}\r\n" for k, v in headers.items()
+                 if k not in ("host", "content-length")]
+        writer.write("".join(head).encode() + b"\r\n" + body)
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        got: dict[str, str] = {}
+        while (line := await reader.readline()) not in (b"\r\n", b"\n", b""):
+            name, _, val = line.decode().partition(":")
+            got[name.strip().lower()] = val.strip()
+        n = int(got.get("content-length", "0"))
+        return status, got, (await reader.readexactly(n) if n and method != "HEAD" else b"")
+    finally:
+        writer.close()
+        await writer.wait_closed()
+
+
+async def s3_request(host: str, port: int, method: str, path: str, access: str,
+                     secret: str, body: bytes = b"") -> tuple[int, dict, bytes]:
+    """An S3 request to the gateway at ``host:port``, signed with SigV4
+    (header auth) as the user ``access`` / ``secret``."""
+    headers = sigv4.sign_request(method, path, "", {"host": f"{host}:{port}"}, body,
+                                 access, secret,
+                                 amz_date=time.strftime("%Y%m%dT%H%M%SZ", time.gmtime()))
+    return await http_request(host, port, method, path, headers, body)
 
 
 def _strip_ns(tag: str) -> str:

@@ -75,13 +75,34 @@ def _alive(pid: int) -> bool:
         return True
 
 
+def _runs_daemon(pid: int, data: str, name: str) -> bool:
+    """Whether ``pid`` runs daemon ``name`` of the cluster at ``data``.  A
+    pid file outlives its daemon, and once the daemon is reaped the kernel
+    may give its pid to any other process: that one must not be listed,
+    stopped or restarted as the daemon."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            argv = f.read().decode(errors="replace").split("\0")
+    except OSError:
+        return False  # gone since
+    kind, _, ident = name.partition(".")
+    flag = "--osd-id" if kind == "osd" else "--rank"
+    try:
+        at = argv.index("_daemon")
+        return (argv[at + 1] == kind and argv[argv.index(flag) + 1] == ident
+                and os.path.realpath(argv[argv.index("--data") + 1])
+                == os.path.realpath(data))
+    except (ValueError, IndexError):
+        return False
+
+
 def _daemon_pid(data: str, name: str) -> int | None:
     try:
         with open(_pidfile(data, name)) as f:
             pid = int(f.read().strip())
     except (OSError, ValueError):
         return None
-    return pid if _alive(pid) else None
+    return pid if _alive(pid) and _runs_daemon(pid, data, name) else None
 
 
 def _spawn(data: str, name: str, argv: list[str]) -> int:

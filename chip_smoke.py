@@ -386,7 +386,7 @@ from ceph_tpu_torch.parallel.encode_service import EncodeService
 from ceph_tpu_torch.parallel.scrub_batcher import ScrubVerifier
 from ceph_tpu_torch.rbd import RBD
 from ceph_tpu_torch.rgw import RGWStore, S3Frontend
-from ceph_tpu_torch.rgw.sigv4 import sign_request
+from ceph_tpu_torch.rgw import frontend as rgw_frontend
 from ceph_tpu_torch.store import Transaction, coll_t, ghobject_t
 from ceph_tpu_torch.store.blockstore import BlobError, BlockStore
 from ceph_tpu_torch.tools import REPO_ROOT, child_env
@@ -2705,18 +2705,42 @@ def phase_encode_farm(cfg: Config, device) -> dict:
     return out
 
 
+def farm_dp_timing(cfg: Config, device) -> dict:
+    """``batch_encode_dp`` on a ``cfg.farm_mesh`` mesh of the one card,
+    its (ranks, k, S) batch already there: CUDA-event ms a call and device
+    µs a launch of the store kernel (a launch a rank), the kernel table's
+    ``batch_encode_dp`` row."""
+    ec, sinfo = make_pool(cfg, device)
+    k = ec.get_data_chunk_count()
+    s_obj = cfg.object_bytes // sinfo.stripe_width * sinfo.chunk_size
+    mesh = _one_device_mesh(cfg.farm_mesh, device)
+    bits = torch.as_tensor(gf_matrix_to_bitmatrix(np.asarray(ec.coding_matrix, np.uint8)),
+                           device=device)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 25)
+    batch = _rand((mesh.size, k, s_obj), gen, device)
+
+    def call(i):
+        return batch_encode_dp(mesh, bits, batch, axis=("pg", "shard"))
+
+    prof = per_launch(call, cfg.repeats, f"dp {tuple(batch.shape)} on {mesh.shape}")
+    return {"phase": "farm_dp_timing", "ms": time_ms(call, cfg.iters, cfg.repeats), **prof}
+
+
 def run_farm_path(cfg: Config, device) -> dict:
     """Phase 12 with the bit-matrix and fold launches counted alone:
     reset just before, read just after; on the card the fold and the
-    store kernel must have been launched."""
+    store kernel must have been launched.  Then, outside the count, the
+    dp call's time on the card."""
     rk.reset_launch_counts()
     farm = phase_encode_farm(cfg, device)
     _sync(device)
     launches = rk.launch_counts()
     store = sum(launches[n] for n in ("gf_bitmatmul", "gf_bitmatmul_pallas",
                                       "gf_bitmatmul_pallas_grouped"))
-    if torch.device(device).type == "cuda" and (launches["gf_fold"] <= 0 or store <= 0):
-        raise AssertionError(f"kernels not launched on the farm path: {launches}")
+    if torch.device(device).type == "cuda":
+        if launches["gf_fold"] <= 0 or store <= 0:
+            raise AssertionError(f"kernels not launched on the farm path: {launches}")
+        emit(farm_dp_timing(cfg, device))
     return {"farm": farm, "launches": launches}
 
 
@@ -4335,36 +4359,10 @@ def run_cluster_path(cfg: Config, device) -> dict:
     return run_path(cfg, device, line, cluster_run, check_cluster, CLUSTER_STEP_KERNELS)
 
 
-async def _http(host: str, port: int, method: str, target: str, headers: dict,
-                body: bytes = b"") -> tuple[int, dict, bytes]:
-    """One HTTP/1.1 request on its own connection: (status, lowercased
-    headers, body)."""
-    reader, writer = await asyncio.open_connection(host, port)
-    try:
-        head = [f"{method} {target} HTTP/1.1\r\n", f"host: {host}:{port}\r\n",
-                f"content-length: {len(body)}\r\n"]
-        head += [f"{k}: {v}\r\n" for k, v in headers.items()
-                 if k not in ("host", "content-length")]
-        writer.write("".join(head).encode() + b"\r\n" + body)
-        await writer.drain()
-        status = int((await reader.readline()).split()[1])
-        got: dict[str, str] = {}
-        while (line := await reader.readline()) not in (b"\r\n", b"\n", b""):
-            name, _, val = line.decode().partition(":")
-            got[name.strip().lower()] = val.strip()
-        n = int(got.get("content-length", "0"))
-        return status, got, (await reader.readexactly(n) if n and method != "HEAD" else b"")
-    finally:
-        writer.close()
-        await writer.wait_closed()
-
-
 async def s3_request(fe, method: str, path: str, body: bytes = b"") -> tuple[int, dict, bytes]:
     """An S3 request to the gateway ``fe``, signed with SigV4 (header auth)."""
-    headers = sign_request(method, path, "", {"host": f"{fe.host}:{fe.port}"}, body,
-                           S3_ACCESS, S3_SECRET,
-                           amz_date=time.strftime("%Y%m%dT%H%M%SZ", time.gmtime()))
-    return await _http(fe.host, fe.port, method, path, headers, body)
+    return await rgw_frontend.s3_request(fe.host, fe.port, method, path, S3_ACCESS, S3_SECRET,
+                                         body)
 
 
 def services_data(cfg: Config) -> dict:
@@ -4532,7 +4530,7 @@ async def services_steps(cfg: Config, device, rig: ClusterRig, out: dict):
     dash = Dashboard(rig.mon)
     host, port = await dash.start()
     try:
-        m_status, _, metrics = await _http(host, port, "GET", "/metrics", {})
+        m_status, _, metrics = await rgw_frontend.http_request(host, port, "GET", "/metrics", {})
     finally:
         await dash.stop()
     text = metrics.decode()
@@ -5260,17 +5258,18 @@ def _listening(addr: tuple, timeout: float) -> None:
 
 
 def _reap(pids: set) -> None:
-    """SIGKILL any of the cephadm daemons ``pids`` still running, and reap
-    them all."""
+    """SIGKILL the cephadm daemons ``pids`` that are still running children
+    of this process, and reap them all.  A pid that is no longer our
+    child (``subprocess`` reaps a dropped daemon once it exits) may
+    belong to any process since, so it is never signalled."""
     for pid in pids:
         try:
-            os.kill(pid, 9)
-        except ProcessLookupError:
-            pass
-        try:
-            os.waitpid(pid, 0)
+            running = os.waitpid(pid, os.WNOHANG) == (0, 0)
         except ChildProcessError:
-            pass
+            continue
+        if running:
+            os.kill(pid, 9)
+            os.waitpid(pid, 0)
 
 
 def operator_recovery(device) -> dict:

@@ -4,12 +4,23 @@ references in processes of their own), a one-mutant fuzz campaign, a
 ``vstart`` cluster of 6 OSDs with the CLI's flow and an EC(2,1) pool, the
 cephadm flow on BlockStores, and the recovery config at 8 OSDs; then
 ``check_operator`` refusing each kind of bad line.  On the CPU no kernel
-launches, so the launch checks apply on the card only."""
+launches, so the launch checks apply on the card only.
+
+The path runs in a child process with a temporary directory of its own:
+its clusters, daemons and workers come and go with that process, so a
+test process keeps none of its memory, and a child that dies fails the
+fixture with its exit code and output instead of taking the test process
+down.  The path must leave no process behind."""
 
 from __future__ import annotations
 
 import copy
 import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
 
 import pytest
 
@@ -24,13 +35,61 @@ SMALL = {"OPERATOR_CRUSH_OSDS": 64, "OPERATOR_CRUSH_MAX_X": 1023,
                                 "--settle-timeout", "45")}
 
 
+#: the child: phase 18 at ``SMALL`` on the CPU, its result to argv[1]
+CHILD = """
+import json, sys
+import chip_smoke
+from tests.test_torch_operator_smoke import SMALL
+for name, value in SMALL.items():
+    setattr(chip_smoke, name, value)
+with open(sys.argv[1], "w") as f:
+    json.dump(chip_smoke.run_operator_path(chip_smoke.Config(), "cpu"), f)
+"""
+
+
+def _processes_under(path: str) -> list[str]:
+    """The command lines of the processes that name ``path`` in their
+    arguments or run in it."""
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().decode(errors="replace").replace("\0", " ")
+            cwd = os.readlink(f"/proc/{pid}/cwd")
+        except OSError:
+            continue
+        if path in argv or cwd.startswith(path):
+            found.append(f"{pid}: {argv}")
+    return found
+
+
 @pytest.fixture(scope="module")
 def operator_run():
+    """Phase 18's result from a child process, with its temporary
+    directory and the processes found under it when the child ended;
+    ``SMALL`` applies here too, for ``check_operator``.  The directory is
+    made where the path would make its own (the daemons' admin sockets
+    live in it, and a socket's path has at most 107 bytes)."""
+    tmp = tempfile.mkdtemp(prefix="op-")
+    try:
+        out = os.path.join(tmp, "run.json")
+        res = subprocess.run([sys.executable, "-c", CHILD, out], cwd=chip_smoke.REPO_ROOT,
+                             env=chip_smoke.child_env(TMPDIR=tmp), capture_output=True,
+                             text=True, timeout=900)
+        left = _processes_under(tmp)
+        if res.returncode != 0:
+            pytest.fail(f"the operator path exited {res.returncode}:\n"
+                        f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}", pytrace=False)
+        with open(out) as f:
+            run = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    run["left_behind"] = left
     mp = pytest.MonkeyPatch()
     for name, value in SMALL.items():
         mp.setattr(chip_smoke, name, value)
     try:
-        yield chip_smoke.run_operator_path(chip_smoke.Config(), "cpu")
+        yield run
     finally:
         mp.undo()
 
@@ -89,6 +148,13 @@ def test_check_operator_refuses(operator_run, path, value, fault):
     node[path[-1]] = value
     with pytest.raises(AssertionError, match=fault):
         chip_smoke.check_operator(line, on_card=False)
+
+
+def test_operator_path_leaves_no_process_behind(operator_run):
+    """Every daemon, worker and reference process the path started had
+    ended when it returned (cephadm's daemons run in sessions of their
+    own and outlive a process that forgets them)."""
+    assert operator_run["left_behind"] == []
 
 
 def test_check_operator_wants_launches_on_the_card(operator_run):
